@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 `build/kernels/` at the root of the checkout (listed in `.gitignore`),
-under a file name keyed by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. The
+under a file name keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. The
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside the
 library as `<name>-<hash>.log`.
 
@@ -43,10 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for `csrc/<name>.cu` (hash-keyed)."""
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Path of the built library for `csrc/<name>.cu` (hash-keyed by the
+    source, the shared headers `csrc/*.cuh` and the flags)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(SRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    key = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{key}.so")
 
 

@@ -34,98 +34,31 @@
 //   layout / DMA artefacts).
 // - The ragged tail is masked: rows >= L get dt = 0 and x = B = C = 0
 //   (identity steps, the semantics of `_pad_ssd`), and are not written.
-// - T = 64 keeps shared memory at ~164 KB (bf16) / ~202 KB (fp32), one
-//   512-thread block per SM; operand rows are padded against bank conflicts.
+// - T = 64 rows per chunk in bf16 (~164 KB of shared memory), 32 in fp32
+//   (`Chunk<S>` in ssd_common.cuh: the backward's fp32 tiles would not fit
+//   at 64); one 512-thread block per SM; operand rows are padded against
+//   bank conflicts.
+// - With a `carries` buffer it also writes the state entering every chunk
+//   (scan order), rounded to the storage dtype, as (G, nc, H, N, P) indexed
+//   by array chunk: the residual of the backward kernel (ssd_fused_bwd.cu),
+//   the contract of the TPU kernel's `save_carries=True`. That adds
+//   N*P*2/T = 2 KB/row of writes in bf16 at the main geometry.
 //
 // Bound on the card: bytes. Per row it reads xBC (H*P + 2*NG*N) and dt (H)
 // and writes y (H*P) -- 2.6 KB/row in bf16 at the main geometry -- against
 // ~0.34 MFLOP/row of matmul work at T = 64; at 989 TF/s vs 3.35 TB/s the
-// bytes take about twice as long. Known costs of this first version:
+// bytes take about twice as long (with carries: 4.6 KB/row). Known costs of this first version:
 // - with ngroups = 1 every head recomputes the B/C conv and CB (8x
 //   redundant at H = 8);
 // - there are G*H blocks, so one 131k request (G = 2) fills 16 of 132 SMs;
 //   a chunk-parallel state-passing design is the later fix;
 // - one block per SM, WMMA from shared memory, no TMA / wgmma pipelining.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "ssd_common.cuh"
 
-#include <type_traits>
-
-using namespace nvcuda;
+using namespace ssd;
 
 namespace {
-
-constexpr int T = 64;           // chunk rows
-constexpr int RG = 8;           // conv rows per work item (divides T)
-constexpr int NTHREADS = 512;   // 16 warps
-constexpr int NWARPS = NTHREADS / 32;
-
-template <typename S> __device__ __forceinline__ float to_f(S v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename S> __device__ __forceinline__ S from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// C (M x Nn, fp32, row-major, ldc) = (load ? scale * C : 0) + A (M x K) @ B (K x Nn).
-// A(i, k) is A[i*lda + k], or A[k*lda + i] when A_COL; B(k, j) is B[k*ldb + j],
-// or B[j*ldb + k] when B_COL. Each output tile (bf16) or element (fp32) is
-// owned by one warp / thread, so C may be updated in place.
-template <typename S, bool A_COL, bool B_COL>
-struct BlockMM;
-
-template <bool A_COL, bool B_COL>
-struct BlockMM<__nv_bfloat16, A_COL, B_COL> {
-  static __device__ void run(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
-                             float* C, int ldc, int M, int Nn, int K, bool load, float scale) {
-    using LA = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-    const int nt = Nn / 16;
-    for (int tile = warp; tile < (M / 16) * nt; tile += NWARPS) {
-      const int i0 = (tile / nt) * 16, j0 = (tile % nt) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (load) {
-        wmma::load_matrix_sync(acc, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-        for (int e = 0; e < acc.num_elements; ++e) acc.x[e] *= scale;
-      } else {
-        wmma::fill_fragment(acc, 0.f);
-      }
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-        wmma::load_matrix_sync(a, A_COL ? A + k0 * lda + i0 : A + i0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, B_COL ? B + j0 * ldb + k0 : B + k0 * ldb + j0, ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + i0 * ldc + j0, acc, ldc, wmma::mem_row_major);
-    }
-  }
-};
-
-template <bool A_COL, bool B_COL>
-struct BlockMM<float, A_COL, B_COL> {
-  static __device__ void run(const float* A, int lda, const float* B, int ldb, float* C, int ldc,
-                             int M, int Nn, int K, bool load, float scale) {
-    for (int idx = threadIdx.x; idx < M * Nn; idx += NTHREADS) {
-      const int i = idx / Nn, j = idx % Nn;
-      float acc = load ? scale * C[i * ldc + j] : 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float a = A_COL ? A[k * lda + i] : A[i * lda + k];
-        const float b = B_COL ? B[j * ldb + k] : B[k * ldb + j];
-        acc = fmaf(a, b, acc);
-      }
-      C[i * ldc + j] = acc;
-    }
-  }
-};
 
 struct Params {
   const void* xBC;          // (G, L, Wc) storage dtype, unit column stride
@@ -140,6 +73,7 @@ struct Params {
   const float* h_init;      // (G, H, N, P) or null
   void* y;                  // (G, L, H, P) storage dtype, contiguous
   float* hN;                // (G, H, N, P)
+  void* carries;            // (G, nc, H, N, P) storage dtype, or null
   int L, H, P, NG, N, Wc;
   int dt_softplus, reverse;
 };
@@ -149,6 +83,7 @@ struct Params {
 // so the 16 rows of a tile do not fall on the same banks.
 template <typename S>
 struct Smem {
+  static constexpr int T = Chunk<S>::T;
   static constexpr int PAD_S = sizeof(S) == 2 ? 8 : 4;
   float* h; S* hS; S* Cs; S* Bs; float* xf; S* dxS; S* wdxS; S* MS;
   float* CBf; float* Yf; float* dtv; float* cum;
@@ -191,6 +126,7 @@ struct Smem {
 
 template <typename S, int K>
 __global__ void __launch_bounds__(NTHREADS) ssd_fused_fwd_kernel(const Params p) {
+  constexpr int T = Chunk<S>::T;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int P = p.P, N = p.N, H = p.H, L = p.L;
   Smem<S> sm(smem_raw, P, N);
@@ -214,7 +150,6 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_fwd_kernel(const Params p)
   __syncthreads();
 
   const int nc = (L + T - 1) / T;
-  const int ncol = P + 2 * N;
   const int xcol0 = hh * P;
   const int bcol0 = H * P + grp * N;
   const int ccol0 = H * P + p.NG * N + grp * N;
@@ -223,84 +158,25 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_fwd_kernel(const Params p)
     const int c = rev ? nc - 1 - ci : ci;
     const long long row0 = (long long)c * T;
 
-    // -- dt and its in-scan-order cumsum (warp 0): lane l holds scan steps
-    //    2l and 2l+1; inclusive warp scan of the pair sums
-    if (tid < 32) {
-      float d[2], a[2];
-      int t[2];
-      for (int e = 0; e < 2; ++e) {
-        const int q = 2 * tid + e;
-        t[e] = rev ? T - 1 - q : q;
-        const long long row = row0 + t[e];
-        float v = 0.f;
-        if (row < L) {
-          v = to_f<S>(dtp[row * p.dt_sl + hh]) + bias_h;
-          if (p.dt_softplus) v = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-        }
-        d[e] = v;
-        a[e] = v * A_h;
-      }
-      const float pair = a[0] + a[1];
-      float incl = pair;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += up;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      sm.dtv[t[0]] = d[0];
-      sm.dtv[t[1]] = d[1];
-      sm.cum[t[0]] = excl + a[0];
-      sm.cum[t[1]] = excl + pair;
-    }
-
-    // -- depthwise conv + SiLU + split. Work item = (column, RG-row group
-    //    in scan order); its RG + K - 1 raw rows are loaded before any is
-    //    used, so they are in flight together (a serial walk waits on one
-    //    global-load latency per row)
-    for (int item = tid; item < ncol * (T / RG); item += NTHREADS) {
-      const int j = item % ncol;
-      const int q0 = (item / ncol) * RG;
-      const int col = j < P ? xcol0 + j : (j < P + N ? bcol0 + (j - P) : ccol0 + (j - P - N));
-      float wk[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) wk[k] = p.conv_w[k * p.Wc + col];
-      const float bj = p.conv_b ? p.conv_b[col] : 0.f;
-      // raw[i] is the row at scan step q0 - (K-1) + i (negative steps are
-      // the K-1 rows before the chunk in scan order; zeros past the edges)
-      float raw[RG + K - 1];
-#pragma unroll
-      for (int i = 0; i < RG + K - 1; ++i) {
-        const int q = q0 - (K - 1) + i;
-        const long long r = row0 + (rev ? T - 1 - q : q);
-        // an unconditional load from a clamped row: guarded loads were
-        // issued one after another
-        const long long rc = r < 0 ? 0 : (r < L ? r : L - 1);
-        const float v = to_f<S>(xBC[rc * p.xbc_sl + col]);
-        raw[i] = (r >= 0 && r < L) ? v : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RG; ++i) {
-        const int t = rev ? T - 1 - (q0 + i) : q0 + i;
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) acc += wk[k] * raw[i + k];
-        acc += bj;
-        const float v = row0 + t < L ? acc * (1.f / (1.f + expf(-acc))) : 0.f;
-        if (j < P) {
-          sm.xf[t * P + j] = v;
-        } else if (j < P + N) {
-          sm.Bs[t * sm.ldN + (j - P)] = from_f<S>(v);
-        } else {
-          sm.Cs[t * sm.ldN + (j - P - N)] = from_f<S>(v);
-        }
-      }
-    }
+    if (tid < 32)
+      chunk_dt_cum<S, T>(dtp, p.dt_sl, hh, row0, L, bias_h, A_h, p.dt_softplus != 0, rev,
+                         sm.dtv, sm.cum);
+    conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, p.Wc, L, row0, rev, P, N,
+                             xcol0, bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    // the state entering this chunk: its rounded copy for C @ h, and the
+    // carry the backward reads (G, nc, H, N, P), indexed by array chunk c
+    S* car = p.carries ? static_cast<S*>(p.carries) + (((long long)g * nc + c) * H + hh) * N * P
+                       : nullptr;
     if constexpr (!std::is_same<S, float>::value) {
       for (int i = tid; i < N * P; i += NTHREADS) {
         const int n = i / P, pp = i % P;
-        sm.hS[n * sm.ldhS + pp] = from_f<S>(sm.h[n * sm.ldh + pp]);
+        const S v = from_f<S>(sm.h[n * sm.ldh + pp]);
+        sm.hS[n * sm.ldhS + pp] = v;
+        if (car) car[i] = v;
       }
+    } else {
+      if (car)
+        for (int i = tid; i < N * P; i += NTHREADS) car[i] = sm.h[(i / P) * sm.ldh + i % P];
     }
     __syncthreads();
 
@@ -381,14 +257,15 @@ cudaError_t dispatch_k(const Params& p, int G, int K, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. carries may be null (no backward to
+// feed). Returns the cudaError_t of the launch.
 extern "C" int ssd_fused_fwd(
     int dtype,
     const void* xBC, long long xbc_sg, long long xbc_sl,
     const void* dt, long long dt_sg, long long dt_sl,
     const void* A, const void* D, const void* dt_bias,
     const void* conv_w, const void* conv_b, const void* h_init,
-    void* y, void* hN,
+    void* y, void* hN, void* carries,
     int G, int L, int H, int P, int NG, int N, int K,
     int dt_softplus, int reverse, void* stream) {
   if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
@@ -402,7 +279,7 @@ extern "C" int ssd_fused_fwd(
   p.conv_w = static_cast<const float*>(conv_w);
   p.conv_b = static_cast<const float*>(conv_b);
   p.h_init = static_cast<const float*>(h_init);
-  p.y = y; p.hN = static_cast<float*>(hN);
+  p.y = y; p.hN = static_cast<float*>(hN); p.carries = carries;
   p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = H * P + 2 * NG * N;
   p.dt_softplus = dt_softplus; p.reverse = reverse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -15,7 +15,9 @@ The fused RCPS block frame is realized by ``fused_frame``: "conj"
 flips, zero data movement, one final `swap_rc` iff n_layer is odd) or
 "data" (`swap_rc` of x and residual at every block). Both compute the
 same function. Only the Mamba-2 mixer (``ssm_cfg.version == 2``) is
-ported; inference runs under ``torch.inference_mode()`` (no remat).
+ported. ``cfg.remat`` checkpoints spans of ``cfg.remat_span`` blocks when
+grad is enabled (training); inference runs under
+``torch.inference_mode()`` and keeps nothing for a backward.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from caduceus_tpu_torch import resolve_device
 from caduceus_tpu_torch.config import CaduceusConfig
@@ -101,6 +104,12 @@ class CaduceusBlock(nn.Module):
         return self.mixer(normed), residual
 
 
+def _run_blocks(blocks, h, residual):
+    for block in blocks:
+        h, residual = block(h, residual)
+    return h, residual
+
+
 class CaduceusBackbone(nn.Module):
     """Embeddings + n_layer blocks + final norm.
 
@@ -152,8 +161,18 @@ class CaduceusBackbone(nn.Module):
         S, B, L = ids.shape
         h = F.embedding(ids.reshape(S * B, L), self.embedding.to(dtype))
         residual = None
-        for block in self.layers:
-            h, residual = block(h, residual)
+        if c.remat and torch.is_grad_enabled():
+            # gradient checkpointing per span of remat_span blocks
+            # (`caduceus_tpu/models/caduceus.py:204-232`): only the span
+            # boundaries' (h, residual) are kept; the span's forward runs
+            # again in the backward
+            span = max(1, c.remat_span)
+            for i in range(0, len(self.layers), span):
+                h, residual = checkpoint(_run_blocks, self.layers[i:i + span],
+                                         h, residual, use_reentrant=False)
+        else:
+            for block in self.layers:
+                h, residual = block(h, residual)
         final = h if residual is None else residual + h.to(residual.dtype)
         if self.final_swap:
             # the conjugated frame leaves the physical state at F^n(y_n):

@@ -16,6 +16,9 @@ with ``dt = softplus(dt_raw + dt_bias)`` resolved inside (optional).
   follows the kernel's precision policy: cumsum and decays in fp32, matmul
   operands rounded to the storage dtype with fp32 accumulation (emulated
   as fp32 products of rounded operands), fp32 state.
+- `ssd_chunked_fused_bwd` is its adjoint from the saved chunk carries, the
+  plain version of the `ssd_fused_bwd` kernels: `ssd_adjoint_xc` (the SSD
+  part) then `conv_silu_bwd` (SiLU and conv adjoints), one per kernel.
 
 Per chunk of T rows, in array order (``reverse`` only transposes the masks
 and walks the chunks right to left — nothing is flipped in memory):
@@ -84,10 +87,27 @@ def ssd_ref(
     return y
 
 
+def carry_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Dtype of the saved chunk-entry states: bf16 for bf16 inputs, fp32
+    otherwise (the rule of the JAX package's `_carry_dtype`)."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _keep_mask(T: int, reverse: bool, dev) -> torch.Tensor:
+    """keep[t, s]: row t receives from row s (s <= t; s >= t if reverse)."""
+    keep = torch.ones(T, T, dtype=torch.bool, device=dev)
+    return keep.triu() if reverse else keep.tril()
+
+
 def _conv_silu_rows(xBC, w, b, r0, r1, reverse):
     """fp32 silu(depthwise conv) for rows [r0, r1) of the pre-conv xBC,
     reading the K-1 neighbour rows (before r0, or after r1 when
     ``reverse``) from xBC, zeros past the sequence edges."""
+    return F.silu(_conv_pre_rows(xBC, w, b, r0, r1, reverse))
+
+
+def _conv_pre_rows(xBC, w, b, r0, r1, reverse):
+    """The fp32 pre-activation of `_conv_silu_rows`."""
     G, L, Wc = xBC.shape
     K = w.shape[0]
     n = r1 - r0
@@ -104,7 +124,7 @@ def _conv_silu_rows(xBC, w, b, r0, r1, reverse):
         acc = term if acc is None else acc + term
     if b is not None:
         acc = acc + b
-    return F.silu(acc)
+    return acc
 
 
 def _q(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -126,13 +146,17 @@ def ssd_chunked_fused(
     chunk_size: int = 64,
     h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
     return_final_state: bool = False,
+    return_carries: bool = False,
 ):
     """Chunked dual form with the conv fused (see module docstring).
 
     Returns y (G, L, H, P) in xBC's dtype, and hN (G, H, N, P) fp32 when
     ``return_final_state``. Rows past L in the last chunk are identity
     steps (dt = 0, x = B = C = 0), the semantics of the JAX package's
-    `_pad_ssd`."""
+    `_pad_ssd`. ``return_carries`` returns (y, hN, carries): the state at
+    the entry (in scan order) of every chunk, (G, nc, H, N, P) indexed by
+    the chunk's position in the array, in `carry_dtype(xBC.dtype)` — the
+    residual `ssd_chunked_fused_bwd` reads."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
@@ -148,8 +172,9 @@ def ssd_chunked_fused(
     h = (torch.zeros(G, H, N, P, device=dev) if h_init is None
          else h_init.float().clone())
     y = torch.empty(G, L, H, P, dtype=mm, device=dev)
-    keep = torch.ones(T, T, dtype=torch.bool, device=dev)
-    keep = keep.triu() if reverse else keep.tril()   # keep[t, s]
+    carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(mm), device=dev)
+               if return_carries else None)
+    keep = _keep_mask(T, reverse, dev)
 
     seg = T * _SEG_CHUNKS
     starts = list(range(0, Lp, seg))
@@ -192,13 +217,226 @@ def ssd_chunked_fused(
             entries[c] = h_c
             h_c = e_end[:, c] * h_c + S_chunk[:, c]
         h = h_c.reshape(G, H, N, P)
-        y_in = torch.einsum("gctkn,gckrnp->gctkrp", Cq,
-                            _q(torch.stack(entries, 1), mm))
+        entries = torch.stack(entries, 1)
+        if carries is not None:
+            carries[:, s0 // T:s1 // T] = entries.reshape(
+                G, nci, H, N, P).to(carries.dtype)
+        y_in = torch.einsum("gctkn,gckrnp->gctkrp", Cq, _q(entries, mm))
         ecum = torch.exp(cum).reshape(G, nci, T, NG, rep, 1)
         ys = (y_diag + ecum * y_in).reshape(G, s1 - s0, H, P)
         if D is not None:
             ys = ys + xs.reshape(G, s1 - s0, H, P) * D.float()[:, None]
         y[:, s0:r1] = ys[:, :r1 - s0].to(mm)
+    if return_carries:
+        return y, h, carries
     if return_final_state:
         return y, h
     return y
+
+
+def ssd_adjoint_xc(
+    xBC: torch.Tensor,                      # (G, L, Wc) pre-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    conv_w: torch.Tensor,                   # (K, Wc)
+    conv_b: Optional[torch.Tensor],         # (Wc,)
+    D: Optional[torch.Tensor],              # (H,)
+    dt_bias: Optional[torch.Tensor],        # (H,)
+    g_y: torch.Tensor,                      # (G, L, H, P), xBC's dtype
+    carries: torch.Tensor,                  # (G, nc, H, N, P) chunk entries
+    g_hN: Optional[torch.Tensor],           # (G, H, N, P) fp32
+    dims: Tuple[int, int, int, int],        # (H, P, NG, N)
+    dt_softplus: bool = False,
+    reverse: bool = False,
+    chunk_size: int = 64,
+):
+    """The SSD part of the adjoint of `ssd_chunked_fused`, from its saved
+    chunk carries: the plain version of `ssd_fused_bwd_kernel`. Returns
+    ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``: g_xc = d loss / d
+    silu(pre) (G, L, Wc) fp32, the input of `conv_silu_bwd`; g_dt in dt's
+    dtype; the rest fp32.
+
+    It walks the adjoint of `_bwd_kernel` (`caduceus_tpu/ops/
+    ssd_pallas_batched.py:554-749`) chunk by chunk against the scan order,
+    with λ = the gradient of the chunk's exit state (g_hN at the scan's
+    end), per head h of group k, G_ts = g_y_t · dx_s and LG = Lm ⊙ G:
+
+        g_dx  = (CB ⊙ Lm)ᵀ @ g_y + w ⊙ (B @ λ)
+        g_C   = Σ_h LG_h @ B + (exp(cum) ⊙ g_y) @ h_inᵀ
+        g_B   = Σ_h LG_hᵀ @ C + (w ⊙ dx) @ λᵀ
+        g_cum = rowsum(LG⊙CB) − colsum(LG⊙CB) + exp(cum)·Σ_p g_y·(C @ h_in)
+                − w·Σ_p dx·(B @ λ) + 1[t = last]·Σ λ·h_out
+        g_a   = suffix sum of g_cum in scan order (fp32)
+        λ     ← exp(Σa)·λ + Cᵀ @ (exp(cum) ⊙ g_y)
+
+    then the softplus chain on g_dt. Precision policy as the
+    forward: matmul operands rounded to xBC's dtype (each head's LG on its
+    own, as the kernel sums the heads' products), fp32 accumulation, fp32
+    cumsums and λ; h_in is the carry as saved."""
+    H, P, NG, N = dims
+    G, L, Wc = xBC.shape
+    assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
+    rep = H // NG
+    T = chunk_size
+    mm = xBC.dtype
+    dev = xBC.device
+    Af = A.float()
+    w = conv_w.float()
+    b = None if conv_b is None else conv_b.float()
+    Df = (torch.zeros(H, device=dev) if D is None else D.float())
+    nc = -(-L // T)
+    Lp = nc * T
+    assert carries.shape == (G, nc, H, N, P), (carries.shape, (G, nc, H, N, P))
+    lam = (torch.zeros(G, NG, rep, N, P, device=dev) if g_hN is None
+           else g_hN.float().reshape(G, NG, rep, N, P).clone())
+    g_xc = torch.zeros(G, L, Wc, device=dev)      # d loss / d silu(pre)
+    g_dt = torch.zeros(G, L, H, device=dev)
+    g_A = torch.zeros(H, device=dev)
+    g_bias = torch.zeros(H, device=dev)
+    g_D = torch.zeros(H, device=dev)
+    keep = _keep_mask(T, reverse, dev)
+    last = torch.zeros(T, device=dev)
+    last[0 if reverse else T - 1] = 1.0
+
+    seg = T * _SEG_CHUNKS
+    starts = list(range(0, Lp, seg))
+    for s0 in (starts if reverse else reversed(starts)):
+        s1 = min(s0 + seg, Lp)
+        r1 = min(s1, L)
+        nci = (s1 - s0) // T
+        pad = s1 - r1
+        xc = F.pad(_conv_silu_rows(xBC, w, b, s0, r1, reverse),
+                   (0, 0, 0, pad))
+        dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus),
+                    (0, 0, 0, pad)).reshape(G, nci, T, H)
+        xs = xc[..., :H * P].reshape(G, nci, T, NG, rep, P)
+        Bq = _q(xc[..., H * P:H * P + NG * N], mm).reshape(G, nci, T, NG, N)
+        Cq = _q(xc[..., H * P + NG * N:], mm).reshape(G, nci, T, NG, N)
+        gy = F.pad(g_y[:, s0:r1].float(), (0, 0, 0, 0, 0, pad)).reshape(
+            G, nci, T, NG, rep, P)
+        h_in = carries[:, s0 // T:s1 // T].float().reshape(
+            G, nci, NG, rep, N, P)
+
+        a = dtf * Af
+        cum = a.flip(2).cumsum(2).flip(2) if reverse else a.cumsum(2)
+        total = a.sum(2)                                      # (G, c, H)
+        ecum = torch.exp(cum).reshape(G, nci, T, NG, rep, 1)
+        wv = torch.exp(total[:, :, None] - cum).reshape(G, nci, T, NG, rep, 1)
+        e_end = torch.exp(total).reshape(G, nci, NG, rep, 1, 1)
+        segm = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (G,c,T,T,H)
+        Lm = torch.exp(torch.where(keep[:, :, None], segm,
+                                   torch.full_like(segm, -float("inf"))))
+        Lm = Lm.reshape(G, nci, T, T, NG, rep)
+        dx = dtf.reshape(G, nci, T, NG, rep, 1) * xs
+        wdx = wv * dx
+        gy_e = ecum * gy
+
+        CB = torch.einsum("gctkn,gcskn->gctsk", Cq, Bq)[..., None]
+        G_ts = torch.einsum("gctkrp,gcskrp->gctskr", _q(gy, mm), _q(dx, mm))
+        LG = Lm * G_ts
+        lgcb = LG * CB
+        rowcol = (lgcb.sum(3) - lgcb.sum(2)).reshape(G, nci, T, H)
+        gdx = torch.einsum("gctskr,gctkrp->gcskrp", _q(CB * Lm, mm),
+                           _q(gy, mm))
+        Ch = torch.einsum("gctkn,gckrnp->gctkrp", Cq, _q(h_in, mm))
+        S = torch.einsum("gcskn,gcskrp->gckrnp", Bq, _q(wdx, mm))
+        h_out = e_end * h_in + S
+        cterm = torch.einsum("gctkn,gctkrp->gckrnp", Cq, _q(gy_e, mm))
+
+        lams = [None] * nci
+        gend = [None] * nci
+        for c in (range(nci) if reverse else range(nci - 1, -1, -1)):
+            lams[c] = lam
+            gend[c] = (lam * h_out[:, c]).sum((-2, -1)).reshape(G, H)
+            lam = e_end[:, c] * lam + cterm[:, c]
+        lams = torch.stack(lams, 1)                           # (G,c,k,r,N,P)
+        gend = torch.stack(gend, 1)                           # (G, c, H)
+
+        Blam = torch.einsum("gcskn,gckrnp->gcskrp", Bq, _q(lams, mm))
+        g_dxv = gdx + wv * Blam
+        qs = (ecum * (gy * Ch).sum(-1, keepdim=True)).reshape(G, nci, T, H)
+        us = (wv * (dx * Blam).sum(-1, keepdim=True)).reshape(G, nci, T, H)
+        r3 = (xs * g_dxv).sum(-1).reshape(G, nci, T, H)
+        g_cum = rowcol + qs - us + last[:, None] * gend[:, :, None]
+        g_a = g_cum.cumsum(2) if reverse else g_cum.flip(2).cumsum(2).flip(2)
+        g_dts = Af * g_a + r3
+        if dt_softplus:
+            g_dts = g_dts * (1.0 - torch.exp(-dtf))
+        valid = (torch.arange(s0, s1, device=dev) < L).reshape(1, nci, T, 1)
+        g_dts = torch.where(valid, g_dts, torch.zeros_like(g_dts))
+        g_A += (dtf * g_a).sum((0, 1, 2))
+        g_bias += g_dts.sum((0, 1, 2))
+        g_D += (gy * xs).sum((0, 1, 2, 5)).reshape(H)
+
+        g_x = (dtf.reshape(G, nci, T, NG, rep, 1) * g_dxv
+               + Df.reshape(NG, rep, 1) * gy)
+        g_C = (torch.einsum("gctskr,gcskn->gctkn", _q(LG, mm), Bq)
+               + torch.einsum("gctkrp,gckrnp->gctkn", _q(gy_e, mm),
+                              _q(h_in, mm)))
+        g_B = (torch.einsum("gctskr,gctkn->gcskn", _q(LG, mm), Cq)
+               + torch.einsum("gcskrp,gckrnp->gcskn", _q(wdx, mm),
+                              _q(lams, mm)))
+        n = r1 - s0
+        g_xc[:, s0:r1, :H * P] = g_x.reshape(G, s1 - s0, H * P)[:, :n]
+        g_xc[:, s0:r1, H * P:H * P + NG * N] = g_B.reshape(
+            G, s1 - s0, NG * N)[:, :n]
+        g_xc[:, s0:r1, H * P + NG * N:] = g_C.reshape(
+            G, s1 - s0, NG * N)[:, :n]
+        g_dt[:, s0:r1] = g_dts.reshape(G, s1 - s0, H)[:, :n]
+
+    return (g_xc, g_dt.to(dt.dtype), g_A, g_D, g_bias,
+            lam.reshape(G, H, N, P))
+
+
+def conv_silu_bwd(
+    g_xc: torch.Tensor,                     # (G, L, Wc) fp32
+    xBC: torch.Tensor,                      # (G, L, Wc) pre-conv
+    conv_w: torch.Tensor,                   # (K, Wc)
+    conv_b: Optional[torch.Tensor],         # (Wc,)
+    reverse: bool = False,
+):
+    """SiLU and depthwise-conv adjoints over the whole array, from
+    g_xc = d loss / d silu(pre): the plain version of `ssd_conv_bwd_kernel`.
+    Returns (g_xBC in xBC's dtype, g_conv_w, g_conv_b) (fp32). Over every
+    row at once the conv transpose needs no chunk-to-chunk spillover."""
+    G, L, Wc = xBC.shape
+    K = conv_w.shape[0]
+    dev = xBC.device
+    w = conv_w.float()
+    b = None if conv_b is None else conv_b.float()
+    pre = _conv_pre_rows(xBC, w, b, 0, L, reverse)
+    sig = torch.sigmoid(pre)
+    g_pre = g_xc * sig * (1.0 + pre * (1.0 - sig))
+    del pre, sig
+    xf = xBC.float()
+    # forward: pre[i] = Σ_k w[k]·x[i-(K-1)+k]; reverse: Σ_k w[k]·x[i+K-1-k]
+    front = (0, 0, K - 1, 0)
+    back = (0, 0, 0, K - 1)
+    gp = F.pad(g_pre, front if reverse else back)
+    xp = F.pad(xf, back if reverse else front)
+    g_raw = torch.zeros_like(g_pre)
+    g_w = torch.empty(K, Wc, device=dev)
+    for k in range(K):
+        o_g = k if reverse else K - 1 - k     # g_pre row read for row j
+        o_x = K - 1 - k if reverse else k     # x row tap k read for row i
+        g_raw += w[k] * gp[:, o_g:o_g + L]
+        g_w[k] = (xp[:, o_x:o_x + L] * g_pre).sum((0, 1))
+    return g_raw.to(xBC.dtype), g_w, g_pre.sum((0, 1))
+
+
+def ssd_chunked_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                          carries, g_hN, dims, dt_softplus=False,
+                          reverse=False, chunk_size=64):
+    """Adjoint of `ssd_chunked_fused` from its saved chunk carries, the
+    plain version of the `ssd_fused_bwd` CUDA kernels: `ssd_adjoint_xc` then
+    `conv_silu_bwd` (see their docstrings; same arguments).
+
+    Returns ``(g_xBC, g_dt, g_A, g_conv_w, g_conv_b, g_D, g_dt_bias,
+    g_h0)``, the tuple of the JAX package's
+    `ssd_pallas_batched_fused_bwd_impl` (without its context-parallel edge
+    gradient): g_xBC / g_dt in the dtypes of xBC / dt, the rest fp32."""
+    g_xc, g_dt, g_A, g_D, g_bias, g_h0 = ssd_adjoint_xc(
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries, g_hN, dims,
+        dt_softplus, reverse, chunk_size)
+    g_xBC, g_w, g_b = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
+    return g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0

@@ -1,18 +1,25 @@
-"""Fused-conv SSD forward: the Python wrapper of the `ssd_fused_fwd` kernel.
+"""Fused-conv SSD: the Python wrappers of the `ssd_fused_fwd` and
+`ssd_fused_bwd` kernels, and the `torch.autograd.Function` around them.
 
 Port of `caduceus_tpu/ops/ssd_pallas_batched.py` `ssd_pallas_batched_fused`
-(forward only; the backward kernel comes with training). Same signature
+(`ssd_pallas_batched_fused_chained` and its `custom_vjp`). Same signature
 and layouts: ``xBC`` is the PRE-conv (G, L, H·P + 2·NG·N) tensor, the
-depthwise conv + SiLU + x/B/C split run inside the kernel, so the post-conv
-tensor never exists in device memory.
+depthwise conv + SiLU + x/B/C split run inside the kernels, so the
+post-conv tensor never exists in device memory.
 
-- On a CPU tensor it runs the plain version, `ops/ssd.py
-  ssd_chunked_fused`.
-- On a CUDA tensor it launches the hand-written CUDA kernel
-  (`csrc/ssd_fused_fwd.cu`, built by `_build.py` at first use) or raises.
-  It never falls back to the plain version.
+- On a CPU tensor `ssd_batched_fused` runs the plain version, `ops/ssd.py
+  ssd_chunked_fused`, which autograd differentiates.
+- On a CUDA tensor it launches the hand-written CUDA kernels
+  (`csrc/ssd_fused_fwd.cu`, `csrc/ssd_fused_bwd.cu`, built by `_build.py`
+  at first use) or raises; it never falls back to the plain version. With
+  grad enabled and an input that requires grad it goes through
+  `_SSDFusedFn`: forward = `ssd_fused_fwd` saving the chunk carries,
+  backward = `ssd_fused_bwd`. Differentiable in xBC, dt, A, conv_w,
+  conv_b, D, dt_bias and h_init, with a cotangent for hN.
 
-``launches`` counts the kernel launches (one per call on a CUDA tensor).
+Launch counters (one per kernel launch on a CUDA tensor): ``launches``
+(`ssd_fused_fwd`), ``bwd_launches`` (`ssd_fused_bwd_kernel`) and
+``conv_bwd_launches`` (`ssd_conv_bwd_kernel`).
 """
 
 from __future__ import annotations
@@ -23,31 +30,53 @@ from typing import Optional, Tuple
 import torch
 
 from caduceus_tpu_torch import _build
+from caduceus_tpu_torch.ops.ssd import carry_dtype
+from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain_conv_silu_bwd
+from caduceus_tpu_torch.ops.ssd import ssd_adjoint_xc as plain_adjoint_xc
 from caduceus_tpu_torch.ops.ssd import ssd_chunked_fused
 
-# chunk rows of the CUDA kernel (`T` in csrc/ssd_fused_fwd.cu); the plain
-# version takes the same T on the CPU so both sides chunk alike
-KERNEL_CHUNK = 64
+# chunk rows of the CUDA kernels (`Chunk<S>::T` in csrc/ssd_common.cuh):
+# fp32 tiles take twice the shared memory, so fp32 chunks are half as long.
+# The plain version takes the same T on the CPU so both sides chunk alike.
+KERNEL_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 MAX_CONV_WIDTH = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
+conv_bwd_launches = 0
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "ssd_fused_fwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_fused_bwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_conv_bwd": [_I, _P, _LL, _LL, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _P],
+}
+_LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fused_bwd": "ssd_fused_bwd",
+            "ssd_conv_bwd": "ssd_fused_bwd"}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_fused_fwd")
-    if lib.ssd_fused_fwd.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ssd_fused_fwd.argtypes = [
-            i, p, ll, ll, p, ll, ll, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, i, i, i, p]
-        lib.ssd_fused_fwd.restype = i
-    return lib
+def _fn(name: str):
+    """The C entry point ``name``, loaded (and built) on first use."""
+    fn = getattr(_build.load(_LIBRARY[name]), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+    return fn
 
 
-def build() -> Tuple[str, float]:
-    """Build the kernel now (returns (library path, compile seconds))."""
-    return _build.build("ssd_fused_fwd")
+def build() -> dict:
+    """Build both kernel libraries now, one nvcc each, side by side:
+    {library: (path, compile seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("ssd_fused_fwd", "ssd_fused_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(_build.build, names)))
 
 
 def _small(t: Optional[torch.Tensor], shape, name: str, dev):
@@ -62,6 +91,230 @@ def _small(t: Optional[torch.Tensor], shape, name: str, dev):
     return t.detach().float().contiguous()
 
 
+def _conv_width(conv_w: torch.Tensor) -> int:
+    """K of a (K, Wc) conv weight the kernels take (K <= MAX_CONV_WIDTH)."""
+    K = conv_w.shape[0] if conv_w.dim() == 2 else -1
+    if not 1 <= K <= MAX_CONV_WIDTH:
+        raise ValueError(f"conv_w shape {tuple(conv_w.shape)}: the kernel "
+                         f"takes (K, Wc) with K <= {MAX_CONV_WIDTH}")
+    return K
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(err: int, what: str, G, L, dims, dtype):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err} "
+                           f"(G={G}, L={L}, dims={dims}, dtype={dtype})")
+
+
+def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
+    """Check what the CUDA kernels take; returns (K, fp32 copies of the
+    parameters (A, D, dt_bias, conv_w, conv_b))."""
+    H, P, NG, N = dims
+    G, L, Wc = xBC.shape
+    dev = xBC.device
+    if xBC.dtype not in _DTYPES:
+        raise TypeError(f"xBC dtype {xBC.dtype}: the kernel takes float32 "
+                        "or bfloat16")
+    if chunk_size != KERNEL_CHUNK[xBC.dtype]:
+        raise ValueError(f"the CUDA kernel chunks {xBC.dtype} by "
+                         f"{KERNEL_CHUNK[xBC.dtype]} rows, got "
+                         f"chunk_size={chunk_size}")
+    if dt.dtype != xBC.dtype or dt.device != dev:
+        raise TypeError(f"dt is {dt.dtype} on {dt.device}; the kernel takes "
+                        f"xBC's {xBC.dtype} on {dev}")
+    if xBC.stride(2) != 1 or dt.stride(2) != 1:
+        raise ValueError("xBC and dt need a unit column stride")
+    if P % 16 or N % 16:
+        raise ValueError(f"headdim {P} and d_state {N} must be multiples of "
+                         "16 (the tensor-core tile)")
+    K = _conv_width(conv_w)
+    return K, (_small(A, (H,), "A", dev), _small(D, (H,), "D", dev),
+               _small(dt_bias, (H,), "dt_bias", dev),
+               _small(conv_w, (K, Wc), "conv_w", dev),
+               _small(conv_b, (Wc,), "conv_b", dev))
+
+
+def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
+                  reverse, chunk_size, h_init, save_carries: bool):
+    """One launch of the forward kernel on CUDA tensors: (y, hN, carries),
+    carries = the state entering every chunk, (G, nc, H, N, P) in
+    `carry_dtype`, when ``save_carries`` (else None)."""
+    H, P, NG, N = dims
+    G, L, Wc = xBC.shape
+    dev = xBC.device
+    K, (A_, D_, bias_, w_, b_) = _kernel_args(
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size)
+    h0 = _small(h_init, (G, H, N, P), "h_init", dev)
+    y = torch.empty(G, L, H, P, dtype=xBC.dtype, device=dev)
+    hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
+    nc = -(-L // chunk_size)
+    carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(xBC.dtype),
+                           device=dev) if save_carries else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("ssd_fused_fwd")(
+            _DTYPES[xBC.dtype],
+            xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
+            dt.data_ptr(), dt.stride(0), dt.stride(1),
+            _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_), _ptr(h0),
+            y.data_ptr(), hN.data_ptr(), _ptr(carries),
+            G, L, H, P, NG, N, K, int(dt_softplus), int(reverse), stream)
+    _check(err, "ssd_fused_fwd", G, L, dims, xBC.dtype)
+    global launches
+    launches += 1
+    return y, hN, carries
+
+
+def ssd_adjoint_xc(
+    xBC: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+    conv_w: torch.Tensor, conv_b: Optional[torch.Tensor],
+    D: Optional[torch.Tensor], dt_bias: Optional[torch.Tensor],
+    g_y: torch.Tensor, carries: torch.Tensor, g_hN: Optional[torch.Tensor],
+    dims: Tuple[int, int, int, int], dt_softplus: bool = False,
+    reverse: bool = False, chunk_size: Optional[int] = None,
+):
+    """The SSD part of the backward, `ops/ssd.py ssd_adjoint_xc` semantics:
+    ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``. On a CPU tensor that plain
+    version; on a CUDA tensor one launch of `ssd_fused_bwd_kernel`, or
+    raises. ``g_y`` is cast to xBC's dtype, as the JAX package's
+    `_fused_chained_bwd` does."""
+    H, P, NG, N = (int(v) for v in dims)
+    dims = (H, P, NG, N)
+    G, L, Wc = xBC.shape
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(xBC.dtype, 64)
+    if tuple(g_y.shape) != (G, L, H, P):
+        raise ValueError(f"g_y shape {tuple(g_y.shape)}, expected "
+                         f"{(G, L, H, P)}")
+    g_y = g_y.to(xBC.dtype)
+    if xBC.device.type == "cpu":
+        return plain_adjoint_xc(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                                carries, g_hN, dims, dt_softplus, reverse,
+                                chunk_size)
+    if xBC.device.type != "cuda":
+        raise ValueError(f"ssd_adjoint_xc: unsupported device {xBC.device}")
+    dev = xBC.device
+    K, (A_, D_, bias_, w_, b_) = _kernel_args(
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size)
+    want = (G, -(-L // chunk_size), H, N, P)
+    if (tuple(carries.shape) != want or carries.device != dev
+            or carries.dtype != carry_dtype(xBC.dtype)):
+        raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
+                         f"{carries.device}; expected {want} "
+                         f"{carry_dtype(xBC.dtype)} on {dev}")
+    g_y = g_y.contiguous()
+    carries = carries.contiguous()
+    ghN = _small(g_hN, (G, H, N, P), "g_hN", dev)
+    g_xc = torch.empty(G, L, Wc, dtype=torch.float32, device=dev)
+    g_dt = torch.empty(G, L, H, dtype=xBC.dtype, device=dev)
+    g_h0 = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
+    g_heads = torch.empty(3, H, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn("ssd_fused_bwd")(
+            _DTYPES[xBC.dtype],
+            xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
+            dt.data_ptr(), dt.stride(0), dt.stride(1),
+            _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_),
+            g_y.data_ptr(), carries.data_ptr(), _ptr(ghN),
+            g_xc.data_ptr(), g_dt.data_ptr(), g_h0.data_ptr(),
+            g_heads.data_ptr(),
+            G, L, H, P, NG, N, K, int(dt_softplus), int(reverse),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, "ssd_fused_bwd", G, L, dims, xBC.dtype)
+    global bwd_launches
+    bwd_launches += 1
+    return g_xc, g_dt, g_heads[0], g_heads[2], g_heads[1], g_h0
+
+
+def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
+                  conv_w: torch.Tensor, conv_b: Optional[torch.Tensor],
+                  reverse: bool = False):
+    """SiLU and depthwise-conv adjoints, `ops/ssd.py conv_silu_bwd`
+    semantics: ``(g_xBC, g_conv_w, g_conv_b)``. On a CPU tensor that plain
+    version; on a CUDA tensor one launch of `ssd_conv_bwd_kernel`, or
+    raises."""
+    if xBC.device.type == "cpu":
+        return plain_conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
+    if xBC.device.type != "cuda":
+        raise ValueError(f"conv_silu_bwd: unsupported device {xBC.device}")
+    G, L, Wc = xBC.shape
+    dev = xBC.device
+    if xBC.dtype not in _DTYPES or xBC.stride(2) != 1:
+        raise TypeError(f"xBC {xBC.dtype} with strides {xBC.stride()}: the "
+                        "kernel takes float32 or bfloat16, unit column stride")
+    if (g_xc.shape != xBC.shape or g_xc.dtype != torch.float32
+            or not g_xc.is_contiguous() or g_xc.device != dev):
+        raise ValueError(f"g_xc {tuple(g_xc.shape)} {g_xc.dtype}: expected a "
+                         f"contiguous float32 {tuple(xBC.shape)} on {dev}")
+    K = _conv_width(conv_w)
+    w_ = _small(conv_w, (K, Wc), "conv_w", dev)
+    b_ = _small(conv_b, (Wc,), "conv_b", dev)
+    g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=dev)
+    g_conv = torch.empty(K + 1, Wc, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn("ssd_conv_bwd")(
+            _DTYPES[xBC.dtype], xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
+            w_.data_ptr(), _ptr(b_), g_xc.data_ptr(), g_xBC.data_ptr(),
+            g_conv.data_ptr(), G, L, Wc, K, int(reverse),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, "ssd_conv_bwd", G, L, (Wc, K), xBC.dtype)
+    global conv_bwd_launches
+    conv_bwd_launches += 1
+    return g_xBC, g_conv[:K], g_conv[K]
+
+
+def ssd_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
+                  g_hN, dims, dt_softplus=False, reverse=False,
+                  chunk_size=None):
+    """Adjoint of the fused forward from its carries: `ssd_adjoint_xc` then
+    `conv_silu_bwd` (the two kernels on a CUDA tensor, their plain versions
+    on a CPU tensor). Returns the tuple of `ops/ssd.py
+    ssd_chunked_fused_bwd`: ``(g_xBC, g_dt, g_A, g_conv_w, g_conv_b, g_D,
+    g_dt_bias, g_h0)``."""
+    g_xc, g_dt, g_A, g_D, g_bias, g_h0 = ssd_adjoint_xc(
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries, g_hN, dims,
+        dt_softplus, reverse, chunk_size)
+    g_xBC, g_w, g_b = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
+    return g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0
+
+
+class _SSDFusedFn(torch.autograd.Function):
+    """The counterpart of `ssd_pallas_batched_fused_chained`'s custom_vjp:
+    forward = `ssd_fused_fwd` with carries, backward = `ssd_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, xBC, dt, A, conv_w, conv_b, D, dt_bias, h_init, dims,
+                dt_softplus, reverse, chunk_size):
+        y, hN, carries = ssd_fused_fwd(
+            xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
+            reverse, chunk_size, h_init, save_carries=True)
+        ctx.save_for_backward(xBC, dt, A, conv_w, conv_b, D, dt_bias, carries)
+        ctx.cfg = (dims, dt_softplus, reverse, chunk_size, h_init is not None)
+        return y, hN
+
+    @staticmethod
+    def backward(ctx, g_y, g_hN):
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, carries = ctx.saved_tensors
+        dims, dt_softplus, reverse, chunk_size, has_h0 = ctx.cfg
+        # autograd materializes a missing cotangent as zeros (the default
+        # of `ctx.set_materialize_grads`), so g_y and g_hN are tensors
+        g = ssd_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                          carries, g_hN, dims, dt_softplus, reverse,
+                          chunk_size)
+        g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0 = g
+
+        def like(grad, p):
+            return None if p is None else grad.to(p.dtype).reshape(p.shape)
+
+        return (g_xBC, g_dt.to(dt.dtype), like(g_A, A), like(g_w, conv_w),
+                like(g_b, conv_b), like(g_D, D), like(g_bias, dt_bias),
+                g_h0 if has_h0 else None, None, None, None, None)
+
+
 def ssd_batched_fused(
     xBC: torch.Tensor,                      # (G, L, H·P + 2·NG·N) pre-conv
     dt: torch.Tensor,                       # (G, L, H) raw
@@ -73,19 +326,21 @@ def ssd_batched_fused(
     dims: Tuple[int, int, int, int] = None,  # (H, P, NG, N)
     dt_softplus: bool = False,
     reverse: bool = False,
-    chunk_size: int = KERNEL_CHUNK,
+    chunk_size: Optional[int] = None,
     h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
     return_final_state: bool = False,
 ):
     """`ssd_chunked(conv_w=..., dims=...)` semantics: returns y (G, L, H, P)
     in xBC's dtype, and hN (G, H, N, P) fp32 when ``return_final_state``.
+    ``chunk_size`` defaults to the kernel's (`KERNEL_CHUNK`).
 
     xBC and dt may be column slices of a wider tensor (e.g. of the mixer's
-    in_proj output): the kernel takes their batch and row strides and
-    needs only a unit column stride."""
+    in_proj output): the kernels take their batch and row strides and
+    need only a unit column stride."""
     if dims is None:
         raise ValueError("dims=(H, P, NG, N) is required")
     H, P, NG, N = (int(v) for v in dims)
+    dims = (H, P, NG, N)
     if xBC.dim() != 3 or xBC.shape[2] != H * P + 2 * NG * N:
         raise ValueError(f"xBC shape {tuple(xBC.shape)} does not match "
                          f"dims {dims}")
@@ -94,61 +349,22 @@ def ssd_batched_fused(
         raise ValueError(f"dt shape {tuple(dt.shape)}, expected {(G, L, H)}")
     if H % NG != 0:
         raise ValueError(f"nheads {H} not divisible by ngroups {NG}")
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(xBC.dtype, 64)
     if xBC.device.type == "cpu":
         return ssd_chunked_fused(
-            xBC, dt, A, conv_w, conv_b, D, dt_bias, dims=(H, P, NG, N),
+            xBC, dt, A, conv_w, conv_b, D, dt_bias, dims=dims,
             dt_softplus=dt_softplus, reverse=reverse, chunk_size=chunk_size,
             h_init=h_init, return_final_state=return_final_state)
     if xBC.device.type != "cuda":
         raise ValueError(f"ssd_batched_fused: unsupported device {xBC.device}")
-
-    dev = xBC.device
-    if chunk_size != KERNEL_CHUNK:
-        raise ValueError(f"the CUDA kernel chunks by {KERNEL_CHUNK} rows, "
-                         f"got chunk_size={chunk_size}")
-    if xBC.dtype not in _DTYPES:
-        raise TypeError(f"xBC dtype {xBC.dtype}: the kernel takes float32 "
-                        "or bfloat16")
-    if dt.dtype != xBC.dtype or dt.device != dev:
-        raise TypeError(f"dt is {dt.dtype} on {dt.device}; the kernel takes "
-                        f"xBC's {xBC.dtype} on {dev}")
-    if xBC.stride(2) != 1 or dt.stride(2) != 1:
-        raise ValueError("xBC and dt need a unit column stride")
-    if P % 16 or N % 16:
-        raise ValueError(f"headdim {P} and d_state {N} must be multiples of "
-                         "16 (the tensor-core tile)")
-    K = conv_w.shape[0] if conv_w.dim() == 2 else -1
-    if not 1 <= K <= MAX_CONV_WIDTH:
-        raise ValueError(f"conv_w shape {tuple(conv_w.shape)}: the kernel "
-                         f"takes (K, Wc) with K <= {MAX_CONV_WIDTH}")
-    grads = [t for t in (xBC, dt, A, conv_w, conv_b, D, dt_bias, h_init)
-             if t is not None and t.requires_grad]
-    if grads and torch.is_grad_enabled():
-        raise RuntimeError("ssd_batched_fused has no backward kernel yet: "
-                           "call it under torch.no_grad()/inference_mode()")
-    A_ = _small(A, (H,), "A", dev)
-    D_ = _small(D, (H,), "D", dev)
-    bias_ = _small(dt_bias, (H,), "dt_bias", dev)
-    w_ = _small(conv_w, (K, Wc), "conv_w", dev)
-    b_ = _small(conv_b, (Wc,), "conv_b", dev)
-    h0 = _small(h_init, (G, H, N, P), "h_init", dev)
-
-    y = torch.empty(G, L, H, P, dtype=xBC.dtype, device=dev)
-    hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ssd_fused_fwd(
-            _DTYPES[xBC.dtype],
-            xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
-            dt.data_ptr(), dt.stride(0), dt.stride(1),
-            ptr(A_), ptr(D_), ptr(bias_), ptr(w_), ptr(b_), ptr(h0),
-            y.data_ptr(), hN.data_ptr(),
-            G, L, H, P, NG, N, K, int(dt_softplus), int(reverse), stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_fused_fwd launch failed with CUDA error "
-                           f"{err} (G={G}, L={L}, dims={dims}, "
-                           f"dtype={xBC.dtype})")
-    global launches
-    launches += 1
+    inputs = (xBC, dt, A, conv_w, conv_b, D, dt_bias, h_init)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        y, hN = _SSDFusedFn.apply(*inputs, dims, dt_softplus, reverse,
+                                  chunk_size)
+    else:
+        y, hN, _ = ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias,
+                                 dims, dt_softplus, reverse, chunk_size,
+                                 h_init, save_carries=False)
     return (y, hN) if return_final_state else y

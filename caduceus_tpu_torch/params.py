@@ -14,7 +14,8 @@ sep="/"))``. The port's modules carry the flax names, so the mapping is:
   conv_b, dt_bias, A_log, D) keeps its name and layout.
 
 `from_jax_params` consumes every key exactly once and raises on missing
-keys, leftover keys and shape mismatches.
+keys, leftover keys and shape mismatches; `to_jax_params` goes the other
+way (`flax_path` inverts `torch_key`).
 """
 
 from __future__ import annotations
@@ -38,6 +39,35 @@ def torch_key(flax_path: str) -> str:
         else:
             out.append("weight" if part == "kernel" else part)
     return ".".join(out)
+
+
+def flax_path(key: str) -> str:
+    """The flax parameter path for a state_dict key (inverse of
+    `torch_key`)."""
+    parts = key.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append("kernel" if parts[i] == "weight" else parts[i])
+            i += 1
+    return "/".join(out)
+
+
+def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `from_jax_params`: a state_dict (or any {key:
+    tensor} over its keys, e.g. gradients) as flat flax params, fp32 numpy,
+    Dense weights transposed back to (in, out) kernels."""
+    out = {}
+    for key, t in tensors.items():
+        path = flax_path(key)
+        a = t.detach().float().cpu().numpy()
+        out[path] = np.ascontiguousarray(a.T if path.endswith("/kernel")
+                                         else a)
+    return out
 
 
 def _expected_state_dict(cfg: CaduceusConfig, backbone_only: bool = False,

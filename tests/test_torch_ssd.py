@@ -3,12 +3,16 @@
 `ssd_chunked_fused` is the plain version of the `ssd_fused_fwd` CUDA kernel;
 it is held against the JAX TPU kernel run in interpret mode
 (`ssd_pallas_batched_fused(..., interpret=True)`) and against the XLA
-chunked form (`ssd_chunked(conv_w=..., dims=...)`). The same numpy inputs
-go to both sides, in fp32; tolerance 1e-4, as in
-tests/test_ssd_pallas_batched.py. The kernel itself runs only on the card
+chunked form (`ssd_chunked(conv_w=..., dims=...)`); tolerance 1e-4, as in
+tests/test_ssd_pallas_batched.py. `ssd_chunked_fused_bwd`, the plain
+version of the `ssd_fused_bwd` kernels, is held against `jax.grad` through
+the same interpret-mode TPU kernels (2e-5 scale-normalized, the JAX
+package's own gradient tolerance). The same numpy inputs go to both sides,
+in fp32. The kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +26,11 @@ from caduceus_tpu.ops.ssd_pallas_batched import ssd_pallas_batched_fused
 from caduceus_tpu_torch.ops import ssd_batched
 from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm
-from caduceus_tpu_torch.ops.ssd import ssd_chunked_fused, ssd_ref
+from caduceus_tpu_torch.ops.ssd import (
+    ssd_chunked_fused,
+    ssd_chunked_fused_bwd,
+    ssd_ref,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -143,8 +151,8 @@ def test_wrapper_runs_plain_version_on_cpu():
               dt_bias=_t(inp["dt_bias"]), dims=inp["dims"], dt_softplus=True,
               h_init=_t(inp["h_init"]), return_final_state=True)
     y, h = ssd_batched.ssd_batched_fused(*args, **kw)
-    y_p, h_p = ssd_chunked_fused(*args, chunk_size=ssd_batched.KERNEL_CHUNK,
-                                 **kw)
+    y_p, h_p = ssd_chunked_fused(
+        *args, chunk_size=ssd_batched.KERNEL_CHUNK[torch.float32], **kw)
     assert torch.equal(y, y_p) and torch.equal(h, h_p)
     assert ssd_batched.launches == before  # no kernel on a CPU tensor
 
@@ -159,3 +167,76 @@ def test_wrapper_rejects_bad_shapes():
                                       dims=inp["dims"])
     with pytest.raises(ValueError):
         ssd_batched.ssd_batched_fused(*args)
+
+
+GRAD_NAMES = ("xBC", "dt", "A", "conv_w", "conv_b", "D", "dt_bias", "h_init")
+
+
+@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (False, 1)])
+def test_fused_bwd_plain_matches_jax_kernel_and_autograd(reverse, NG):
+    """`ssd_chunked_fused_bwd` (the plain version of the backward kernel)
+    against jax.grad through the TPU kernels in interpret mode, and against
+    autograd through `ssd_chunked_fused`: all eight gradients, loss on both
+    y and hN, nonzero h_init; 2e-5 scale-normalized, as
+    tests/test_ssd_pallas_batched.py holds the JAX kernels."""
+    inp = fused_inputs(NG=NG)
+    dims = inp["dims"]
+    G, L = inp["xBC"].shape[:2]
+    H, P, _, N = dims
+    rng = np.random.default_rng(7)
+    gy = rng.standard_normal((G, L, H, P)).astype(np.float32)
+    ghN = rng.standard_normal((G, H, N, P)).astype(np.float32)
+    vals = [inp[n] for n in GRAD_NAMES]
+
+    def f_pal(*a):
+        y, h = ssd_pallas_batched_fused(
+            a[0], a[1], a[2], a[3], conv_b=a[4], D=a[5], dt_bias=a[6],
+            dims=dims, dt_softplus=True, reverse=reverse, chunk_size=16,
+            interpret=True, h_init=a[7], return_final_state=True,
+            seg_chunks=2)
+        return jnp.sum(y * gy) + jnp.sum(h * ghN)
+
+    want = jax.grad(f_pal, argnums=tuple(range(8)))(
+        *(jnp.asarray(v) for v in vals))
+
+    t = [_t(v) for v in vals]
+    _, _, car = ssd_chunked_fused(
+        *t[:7], dims=dims, dt_softplus=True, reverse=reverse, chunk_size=16,
+        h_init=t[7], return_carries=True)
+    got = ssd_chunked_fused_bwd(*t[:7], _t(gy), car, _t(ghN), dims,
+                                dt_softplus=True, reverse=reverse,
+                                chunk_size=16)
+
+    leaves = [v.clone().requires_grad_() for v in t]
+    y, h = ssd_chunked_fused(
+        *leaves[:7], dims=dims, dt_softplus=True, reverse=reverse,
+        chunk_size=16, h_init=leaves[7], return_final_state=True)
+    ((y * _t(gy)).sum() + (h * _t(ghN)).sum()).backward()
+
+    for name, g, w, leaf in zip(GRAD_NAMES, got, want, leaves):
+        w = np.asarray(w)
+        s = float(np.abs(w).max()) + 1e-9
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy() / s, w / s, atol=2e-5,
+                                   err_msg=f"vs JAX: {name}")
+        np.testing.assert_allclose(g.numpy() / s, leaf.grad.numpy() / s,
+                                   atol=2e-5, err_msg=f"vs autograd: {name}")
+
+
+def test_fused_bwd_wrapper_runs_plain_version_on_cpu():
+    inp = fused_inputs(L=70)
+    t = {k: (_t(v) if k != "dims" else v) for k, v in inp.items()}
+    args = (t["xBC"], t["dt"], t["A"], t["conv_w"], t["conv_b"], t["D"],
+            t["dt_bias"])
+    T = ssd_batched.KERNEL_CHUNK[torch.float32]
+    _, _, car = ssd_chunked_fused(*args, dims=inp["dims"], dt_softplus=True,
+                                  chunk_size=T, h_init=t["h_init"],
+                                  return_carries=True)
+    gy = torch.randn(*t["xBC"].shape[:2], *inp["dims"][:2],
+                     generator=torch.Generator().manual_seed(0))
+    before = (ssd_batched.bwd_launches, ssd_batched.conv_bwd_launches)
+    got = ssd_batched.ssd_fused_bwd(*args, gy, car, None, inp["dims"], True)
+    want = ssd_chunked_fused_bwd(*args, gy, car, None, inp["dims"], True,
+                                 chunk_size=T)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (ssd_batched.bwd_launches, ssd_batched.conv_bwd_launches) == before
