@@ -1,9 +1,10 @@
-"""Caduceus: bidirectional, RC-equivariant Mamba-2 backbone + MLM head.
+"""Caduceus: bidirectional, RC-equivariant Mamba backbone + MLM head.
 
 Port of `caduceus_tpu/models/caduceus.py` with **canonical-strand
 batching** for RCPS: both strands are carried in their own canonical
 orientation on a leading axis folded into the batch (G = 2B), so every
-layer is the plain shared-weight BiMamba2 applied to a 2B batch. Flips
+layer is the plain shared-weight mixer applied to a 2B batch: `BiMamba`
+(Mamba-1, ``ssm_cfg.version == 1``) or `BiMamba2` (Mamba-2, version 2). Flips
 appear only at the boundaries:
 
 - embedding: strand 1 embeds rc(input_ids);
@@ -14,8 +15,7 @@ The fused RCPS block frame is realized by ``fused_frame``: "conj"
 (default — every other block runs F-conjugated through static weight
 flips, zero data movement, one final `swap_rc` iff n_layer is odd) or
 "data" (`swap_rc` of x and residual at every block). Both compute the
-same function. Only the Mamba-2 mixer (``ssm_cfg.version == 2``) is
-ported. ``cfg.remat`` checkpoints spans of ``cfg.remat_span`` blocks when
+same function. ``cfg.remat`` checkpoints spans of ``cfg.remat_span`` blocks when
 grad is enabled (training); inference runs under
 ``torch.inference_mode()`` and keeps nothing for a backward.
 """
@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from caduceus_tpu_torch import resolve_device
 from caduceus_tpu_torch.config import CaduceusConfig
+from caduceus_tpu_torch.models.mamba import BiMamba
 from caduceus_tpu_torch.models.mamba2 import BiMamba2
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 
@@ -72,7 +73,7 @@ def _complement(c: CaduceusConfig) -> torch.Tensor:
 
 
 class CaduceusBlock(nn.Module):
-    """Prenorm residual block: (add → norm) → BiMamba2; returns
+    """Prenorm residual block: (add → norm) → BiMamba / BiMamba2; returns
     (mixer_out, residual). ``frame`` is "none", "conj" or "data" (see the
     module docstring)."""
 
@@ -86,7 +87,8 @@ class CaduceusBlock(nn.Module):
         self.norm_w = nn.Parameter(torch.ones(cfg.d_model))
         self.norm_b = (None if cfg.rms_norm
                        else nn.Parameter(torch.zeros(cfg.d_model)))
-        self.mixer = BiMamba2(cfg, frame == "conj", generator)
+        mixer = BiMamba if cfg.ssm_cfg.version == 1 else BiMamba2
+        self.mixer = mixer(cfg, frame == "conj", generator)
 
     def forward(self, x, residual=None):
         c = self.cfg
@@ -120,9 +122,6 @@ class CaduceusBackbone(nn.Module):
     def __init__(self, cfg: CaduceusConfig, generator: torch.Generator,
                  fused_frame: str = "conj"):
         super().__init__()
-        if cfg.ssm_cfg.version != 2:
-            raise NotImplementedError(
-                "the port runs the Mamba-2 mixer (ssm_cfg.version=2) only")
         if fused_frame not in ("conj", "data"):
             raise ValueError(f"fused_frame={fused_frame!r}")
         self.cfg = cfg

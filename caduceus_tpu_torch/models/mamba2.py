@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from caduceus_tpu_torch.config import CaduceusConfig
 from caduceus_tpu_torch.models.mamba import (
     FrameDense,
+    _param_dtype,
     _residual_rescale,
     dt_proj_bias_init,
     torch_linear_init,
@@ -41,10 +42,6 @@ def rms_norm_gated(y, z, weight, ngroups: int, eps: float):
     g = yf.reshape(*yf.shape[:-1], ngroups, yf.shape[-1] // ngroups)
     g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + eps)
     return (g.reshape(yf.shape) * weight.float()).to(y.dtype)
-
-
-def _param_dtype(c: CaduceusConfig) -> torch.dtype:
-    return getattr(torch, c.param_dtype)
 
 
 class _DirectionParamsV2(nn.Module):

@@ -4,8 +4,9 @@ Port of `caduceus_tpu/ops/conv.py`, written as explicit shifted sums: a
 cuDNN convolution would run fp32 in TF32 by default
 (`torch.backends.cudnn.allow_tf32`), and at width 4 the sum is K
 multiply-adds anyway. This is the conv stage of the plain SSD version
-(`ops/ssd.py ssd_chunked_fused`); on the card the conv runs inside the
-`ssd_fused_fwd` kernel.
+(`ops/ssd.py ssd_chunked_fused`; on the card the v2 conv runs inside the
+`ssd_fused_fwd` kernel) and the v1 mixer's conv on both devices
+(`models/mamba.py`), where JAX too runs it outside the scan kernel.
 
 Layout: (..., L, d) with channels last.
 """

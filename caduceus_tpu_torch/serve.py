@@ -1,7 +1,7 @@
 """Batch inference server: /embed and /logits over HTTP.
 
 Port of `caduceus_tpu/serve.py` (`InferenceService`, `InferenceServer` and
-its handler) for the Mamba-2 Caduceus models:
+its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
 
   POST /embed    {"sequences": [...]}   -> pooled embeddings
   POST /logits   {"sequences": [...]}   -> per-position logits
@@ -20,10 +20,10 @@ its handler) for the Mamba-2 Caduceus models:
   RCPS hidden states collapse to the strand mean. The pads do take part in
   the bidirectional scan, as in the JAX server.
 
-Not ported yet: /generate (it needs the unfused SSD forward kernel for the
-prefill) and /classify (finetuned exports); both answer 501. `from_run_dir`
-reads ``model_config.json`` + ``params.npz`` (`params.py`); Orbax
-checkpoints are not read yet.
+Not ported yet: /generate (it needs the v2 unfused SSD forward kernel and
+the v1 prefill) and /classify (finetuned exports); both answer 501.
+`from_run_dir` reads ``model_config.json`` + ``params.npz`` (`params.py`);
+Orbax checkpoints are not read yet.
 """
 
 from __future__ import annotations
@@ -91,8 +91,12 @@ class InferenceService:
         self.model.load_state_dict(params)
         self.model.eval()
         if self.device.type == "cuda":
-            # build the kernel now so no request pays the nvcc compile
-            from caduceus_tpu_torch.ops.ssd_batched import build
+            # build the kernels of the config's family now, so that no
+            # request pays the nvcc compile
+            if cfg.ssm_cfg.version == 1:
+                from caduceus_tpu_torch.ops.scan import build
+            else:
+                from caduceus_tpu_torch.ops.ssd_batched import build
             build()
         self.tok = CaduceusTokenizer(model_max_length=max_length)
         self.max_batch = max_batch

@@ -47,7 +47,34 @@ order (any failure exits non-zero; nothing is caught and passed over):
 8. time the kernels at the training shape (G=4, L=131072, bf16) and the
    forward also at G=16 (`bench.py`'s batch of 8 x 2 strands) beside
    their plain versions and bounds, and hold the timed outputs against
-   the plain versions'.
+   the plain versions';
+
+then the v1 (Mamba-1) model of `configs/hg38_mlm.yaml` and its selective
+scan kernels, `selective_scan_fwd.cu` (`selective_scan_fwd`, one
+direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
+
+9. the forward kernels against the plain forward (`ops/selective_scan.py
+   selective_scan`): small shapes (fp32 and bf16, both directions,
+   nonzero h_init, L not a multiple of the chunk, with and without D and
+   bias, both entry points) and the main geometry (d=512, N=16, G=4,
+   L=8192: y, hN, carries), then planted faults that must fail (D term
+   dropped, one 16-row x 16-channel y tile zeroed, the reverse set run
+   with the forward set's A);
+10. the backward kernel against `selective_scan_bwd`, all eight outputs,
+   nonzero g_hN, small and main geometry, and planted faults (g_A scaled
+   by 1+2^-4, one 16x16 tile of g_delta zeroed, the softplus chain
+   dropped from g_delta);
+11. the 2-layer full-width v1 model, card vs CPU (as 4);
+12. serve the full-width 16-layer v1 model: /embed and /logits at bucket
+   1024 and one 131,072-token /logits, 16 `bidir_scan_fwd` launches per
+   dispatch, served logits equal to a direct forward;
+13. the 2-layer v1 train step, card vs CPU (as 6);
+14. one accum-2 step of a 2-layer unidirectional v1 model (`MambaMixer`,
+   L=8192), which runs `selective_scan_fwd`;
+15. train the full-width v1 model as 7: 32 `bidir_scan_fwd` and 32
+   `selective_scan_bwd` launches per micro-batch;
+16. time the three scan kernels at the training shape beside their plain
+   versions, bounds and exp counts, holding the timed outputs.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -72,11 +99,14 @@ MODEL_TOL = 1e-3       # card vs CPU logits, fp32, 2 layers, normalized
 # card vs CPU training step, fp32, 2 layers (both sides sum in other
 # orders): loss and grad norm relative; each gradient against its largest
 # element; each updated parameter in units of (1 + |p|) where the gradient
-# is above `settled` x its largest (Adam's first step is lr·g/(|g| + eps):
-# at a gradient near 0 its sign decides, so there the bound is 2·lr), and
-# every updated parameter, in the same units, against AdamW's first step
-# computed in fp64 from the card's own gradient
-TRAIN_TOL = {"metric": 1e-5, "grad": 1e-4, "param": 1e-6, "settled": 1e-3}
+# is above `settled` x its largest and above `adam_floor` (Adam's first
+# step is lr·g/(|g| + eps), eps = 1e-8: at a gradient near 0 its sign
+# decides, and within 100 eps of 0 its size turns on the last digits of g,
+# so there the bound is 2·lr), and every updated parameter, in the same
+# units, against AdamW's first step computed in fp64 from the card's own
+# gradient
+TRAIN_TOL = {"metric": 1e-5, "grad": 1e-4, "param": 1e-6, "settled": 1e-3,
+             "adam_floor": 1e-6}
 # served bf16 logits vs the fp32 CPU model, 16 layers, normalized: a few
 # bf16 roundings (2^-8 each) per layer, compounded over 16 layers
 BF16_MODEL_TOL = 5e-2
@@ -141,31 +171,36 @@ def ssd_inputs(G, L, H, P, NG, N, K, dtype, seed, width_pad=0):
 
 
 def phase_build():
-    from caduceus_tpu_torch import _build
-    from caduceus_tpu_torch.ops import ssd_batched
+    from concurrent.futures import ThreadPoolExecutor
 
+    from caduceus_tpu_torch import _build
+
+    names = ("ssd_fused_fwd", "ssd_fused_bwd", "selective_scan_fwd",
+             "selective_scan_bwd")
     t0 = time.perf_counter()
-    built = ssd_batched.build()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(_build.build, names)))
     wall = time.perf_counter() - t0
     out = {"nvcc_flags": list(_build.NVCC_FLAGS), "wall_s": wall}
+    kernels = ("ssd_fused_fwd_kernel", "ssd_fused_bwd_kernel",
+               "ssd_conv_bwd_kernel", "selective_scan_fwd_kernel",
+               "selective_scan_bwd_kernel")
     for name, (path, secs) in built.items():
         log(f"[build] {name}: {secs:.1f} s -> {os.path.relpath(path)}")
         out[f"{name}_s"] = secs
         with open(path[:-3] + ".log") as f:
             report = f.read().split("Compiling entry function")
-        for entry in report[1:]:  # the K=4 (d_conv) instantiations
+        for entry in report[1:]:
             head = entry.split("\n", 1)[0]
-            if "Li4E" not in head:
-                continue
-            kernel = next(k for k in ("ssd_fused_fwd_kernel",
-                                      "ssd_fused_bwd_kernel",
-                                      "ssd_conv_bwd_kernel") if k in head)
+            kernel = next(k for k in kernels if k in head)
+            if kernel.startswith("ssd") and "Li4E" not in head:
+                continue    # the SSD kernels: only the K=4 (d_conv) ones
             kind = "bf16" if "bfloat16" in head else "fp32"
             kind += ", reverse" if "Lb1E" in head else ""
             for line in entry.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {kernel} ({kind}): {line.strip()}")
-    log(f"[build] both libraries in {wall:.1f} s wall")
+    log(f"[build] {len(names)} libraries in {wall:.1f} s wall")
     return out
 
 
@@ -379,10 +414,11 @@ def phase_bwd_checks():
     return results, faults
 
 
-def phase_model_vs_cpu():
+def phase_model_vs_cpu(config=None):
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
 
-    cfg = hg38_mlm_v2_config(n_layer=2, dtype="float32")
+    config = config or hg38_mlm_v2_config
+    cfg = config(n_layer=2, dtype="float32")
     gen = torch.Generator().manual_seed(1234)
     cpu = CaduceusForMaskedLM(cfg, device="cpu", generator=gen)
     card = CaduceusForMaskedLM(cfg, device="cuda")
@@ -403,7 +439,8 @@ def phase_model_vs_cpu():
     rel_l2 = ((got - ref).norm() / ref.norm()).item()
     check(err <= MODEL_TOL * scale,
           f"card vs CPU logits: {err:.3e} > {MODEL_TOL} x {scale:.3e}")
-    log(f"[model] card vs CPU, full width, 2 layers, L=2048, fp32: max err "
+    log(f"[model] {config.__name__[:-7]}: card vs CPU, full width, 2 layers, "
+        f"L=2048, fp32: max err "
         f"{err:.3e} (max|logit| {scale:.3e}, tol {MODEL_TOL} normalized), "
         f"rel_l2 {rel_l2:.2e}; CPU forward {t_cpu:.2f} s")
     return {"max_abs_err": err, "max_abs_ref": scale, "rel_l2": rel_l2}
@@ -534,28 +571,43 @@ def phase_serve():
 
 
 def _counts():
+    from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
     return {"ssd_fused_fwd": sb.launches, "ssd_fused_bwd_kernel":
-            sb.bwd_launches, "ssd_conv_bwd_kernel": sb.conv_bwd_launches}
+            sb.bwd_launches, "ssd_conv_bwd_kernel": sb.conv_bwd_launches,
+            "selective_scan_fwd": scan.fwd_launches,
+            "bidir_scan_fwd": scan.bidir_launches,
+            "selective_scan_bwd": scan.bwd_launches}
 
 
 def _zero_counts():
+    from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
     sb.launches = sb.bwd_launches = sb.conv_bwd_launches = 0
+    scan.fwd_launches = scan.bidir_launches = scan.bwd_launches = 0
 
 
-def _per_micro_batch(n_layer):
+def _per_micro_batch(cfg):
     """Launches of one micro-batch's forward + backward with remat span 1:
-    each layer's two directions run forward twice (the remat recompute)
-    and backward once."""
-    return {"ssd_fused_fwd": 2 * n_layer * 2,
-            "ssd_fused_bwd_kernel": 2 * n_layer,
-            "ssd_conv_bwd_kernel": 2 * n_layer}
+    each layer's forward runs twice (the remat recompute), its backward
+    once. v2: two SSD directions per layer; v1 bidirectional: one paired
+    forward and two backward launches per layer; v1 unidirectional: one
+    and one."""
+    n = cfg.n_layer
+    out = dict.fromkeys(_counts(), 0)
+    if cfg.ssm_cfg.version == 2:
+        out.update({"ssd_fused_fwd": 2 * n * 2, "ssd_fused_bwd_kernel": 2 * n,
+                    "ssd_conv_bwd_kernel": 2 * n})
+    elif cfg.bidirectional:
+        out.update({"bidir_scan_fwd": n * 2, "selective_scan_bwd": 2 * n})
+    else:
+        out.update({"selective_scan_fwd": n * 2, "selective_scan_bwd": n})
+    return out
 
 
-def phase_train_vs_cpu():
+def phase_train_vs_cpu(config=None):
     """One step (accum 2) of the full-width model at 2 layers, L=2048, fp32,
     on the card and on the CPU from the same weights and batch."""
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
@@ -563,7 +615,8 @@ def phase_train_vs_cpu():
                                                 weight_decay_mask)
     from caduceus_tpu_torch.train.trainer import TrainState, make_train_step
 
-    cfg = hg38_mlm_v2_config(n_layer=2, dtype="float32")
+    config = config or hg38_mlm_v2_config
+    cfg = config(n_layer=2, dtype="float32")
     L, accum = 2048, 2
     cpu = CaduceusForMaskedLM(cfg, device="cpu",
                               generator=torch.Generator().manual_seed(4321))
@@ -595,7 +648,7 @@ def phase_train_vs_cpu():
                       model.named_parameters()}, secs, _counts())
     (m_c, g_c, p_c, s_c, _), (m_k, g_k, p_k, s_k, counts) = (out["cpu"],
                                                              out["card"])
-    want = {k: v * accum for k, v in _per_micro_batch(cfg.n_layer).items()}
+    want = {k: v * accum for k, v in _per_micro_batch(cfg).items()}
     check(counts == want, f"train step launches {counts} != {want}")
     for k in ("loss", "grad_norm"):
         check(math.isfinite(m_k[k]), f"card {k} not finite")
@@ -625,7 +678,8 @@ def phase_train_vs_cpu():
         adam_err = max(adam_err, a)
         # card vs CPU: strict where the gradient is well above 0; near 0
         # the sign of g decides Adam's first step, so there 2·lr
-        settled = gc.abs() > TRAIN_TOL["settled"] * s
+        settled = ((gc.abs() > TRAIN_TOL["settled"] * s)
+                   & (gc.abs() > TRAIN_TOL["adam_floor"]))
         unsettled[n] = (int((~settled).sum()), settled.numel())
         d = (p_k[n] - p_c[n]).abs()
         lim = torch.where(settled, TRAIN_TOL["param"] * scale.float(),
@@ -636,12 +690,14 @@ def phase_train_vs_cpu():
     check(g_err <= TRAIN_TOL["grad"], f"card vs CPU gradient {worst}: "
           f"{g_err:.2e} of its max > {TRAIN_TOL['grad']}")
     most = max(unsettled, key=lambda n: unsettled[n][0] / unsettled[n][1])
-    log(f"[train] card vs CPU, full width, 2 layers, L=2048, fp32, accum 2: "
+    log(f"[train] {config.__name__[:-7]}: card vs CPU, full width, 2 layers, "
+        f"L=2048, fp32, accum 2: "
         f"loss {m_k['loss']:.6f} vs {m_c['loss']:.6f}, grad_norm "
         f"{m_k['grad_norm']:.6f} vs {m_c['grad_norm']:.6f}; worst gradient "
         f"{worst} {g_err:.2e} of its max (tol {TRAIN_TOL['grad']}); worst "
         f"updated parameter {p_err:.2e}·(1+|p|) where |g| > "
-        f"{TRAIN_TOL['settled']}·max|g| (tol {TRAIN_TOL['param']}); held "
+        f"{TRAIN_TOL['settled']}·max|g| and {TRAIN_TOL['adam_floor']} (tol "
+        f"{TRAIN_TOL['param']}); held "
         f"only to 2·lr against the CPU: "
         f"{sum(u for u, _ in unsettled.values())} of "
         f"{sum(t for _, t in unsettled.values())} elements, at most "
@@ -656,15 +712,17 @@ def phase_train_vs_cpu():
             "card_s": s_k, "cpu_s": s_c}
 
 
-def phase_train_full():
-    """The main path of this slice: `make_train_step` + `make_optimizer` on
-    the full-width hg38_mlm_v2 model at L=131072, micro-batches of 2
-    sequences (G=4 per SSD call), accum 2; one warm-up and 2 timed steps."""
+def phase_train_full(config=None, n_layer=16):
+    """`make_train_step` + `make_optimizer` on a full-width model (default
+    hg38_mlm_v2; hg38_mlm for v1) at L=131072, micro-batches of 2
+    sequences (G=4 per scan call), accum 2; one warm-up and 2 timed
+    steps."""
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
     from caduceus_tpu_torch.train.optim import make_optimizer
     from caduceus_tpu_torch.train.trainer import TrainState, make_train_step
 
-    cfg = hg38_mlm_v2_config()
+    config = config or hg38_mlm_v2_config
+    cfg = config(n_layer=n_layer)
     L, micro, accum, n_steps = 131072, 2, 2, 3
     model = CaduceusForMaskedLM(cfg, device="cuda",
                                 generator=torch.Generator().manual_seed(2222))
@@ -689,7 +747,8 @@ def phase_train_full():
         secs = time.perf_counter() - t0
         m = {k: float(v) for k, v in m.items()}
         steps.append({"step_s": secs, **m})
-        log(f"[train] full width, 16 layers, L={L}, {micro} x {accum} "
+        log(f"[train] {config.__name__[:-7]} full width, {n_layer} layers, "
+            f"L={L}, {micro} x {accum} "
             f"sequences: step {i} ({'warm-up' if i == 0 else 'timed'}) "
             f"{secs:.2f} s, loss {m['loss']:.5f}, grad_norm "
             f"{m['grad_norm']:.4f}, acc {m['acc']:.4f}")
@@ -698,7 +757,7 @@ def phase_train_full():
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     n_mb = n_steps * accum
-    want = {k: v * n_mb for k, v in _per_micro_batch(cfg.n_layer).items()}
+    want = {k: v * n_mb for k, v in _per_micro_batch(cfg).items()}
     check(counts == want, f"training launches {counts} != {want} "
           f"({n_mb} micro-batches)")
     timed = [s["step_s"] for s in steps[1:]]
@@ -707,8 +766,11 @@ def phase_train_full():
     log(f"[train] timed steps {', '.join(f'{t:.2f}' for t in timed)} s: "
         f"{step_s:.2f} s/step, {tokens / step_s:,.0f} tokens/s; peak device "
         f"memory {peak / 2**30:.2f} GiB; launches {counts} over {n_mb} "
-        f"micro-batches (= {_per_micro_batch(cfg.n_layer)} each)")
-    return {"steps": steps, "step_s": step_s, "tokens_per_step": tokens,
+        f"micro-batches (= {_per_micro_batch(cfg)} each)")
+    del model, state, opt, batches
+    torch.cuda.empty_cache()
+    return {"n_layer": n_layer, "steps": steps, "step_s": step_s,
+            "tokens_per_step": tokens,
             "tokens_per_s": tokens / step_s, "peak_mem_bytes": peak,
             "launches": counts, "micro_batches": n_mb, "accum": accum}
 
@@ -887,6 +949,425 @@ def phase_timing():
     return res
 
 
+# --- the v1 (Mamba-1) model: the selective scan kernels #7, #8, #9 -------
+
+SCAN_FWD_NAMES = ("y", "hN", "carries")
+SCAN_BWD_NAMES = ("g_u", "g_delta", "g_A", "g_B", "g_C", "g_D", "g_bias",
+                  "g_h0")
+
+
+def hg38_mlm_config(n_layer: int = 16, dtype: str = "bfloat16",
+                    bidirectional: bool = True):
+    """`configs/hg38_mlm.yaml`'s model (the v1 Caduceus-PS: d_model 256,
+    d_inner 512, d_state 16, dt_rank 16), written out (no YAML)."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    return CaduceusConfig(
+        d_model=256, n_layer=n_layer, vocab_size=tok.vocab_size,
+        rcps=bidirectional, complement_map=tok.complement_map
+        if bidirectional else None, bidirectional=bidirectional,
+        bidirectional_strategy="add", bidirectional_weight_tie=True,
+        rms_norm=True, residual_in_fp32=False, fused_add_norm=True,
+        dtype=dtype, param_dtype="float32", remat=True, remat_span=1,
+        ssm_cfg=SSMConfig(version=1, d_state=16, d_conv=4, expand=2))
+
+
+def scan_inputs(G, L, d, N, dtype, seed, model_like=False, D=True,
+                bias=True):
+    """Seeded scan operands on the card, with h_init and the cotangents.
+    B and C are column slices of one (G, L, 16 + 2N) tensor, as the x_proj
+    output gives them. ``model_like``: A = -(1..N) x exp(0.3 noise) and a
+    dt bias of softplus^-1 of a log-uniform dt in [1e-3, 0.1], the model's
+    init, so the states carry over thousands of rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    dbc = rnd(G, L, 16 + 2 * N).to(dtype)
+    if model_like:
+        A = -torch.arange(1, N + 1, device="cuda").float() * torch.exp(
+            rnd(d, N, scale=0.3))
+        dt = torch.exp(torch.rand(d, generator=g, device="cuda")
+                       * math.log(100.0) + math.log(1e-3))
+        b = dt + torch.log(-torch.expm1(-dt))
+    else:
+        A, b = -torch.exp(rnd(d, N, scale=0.5)), rnd(d, scale=0.1)
+    return dict(u=rnd(G, L, d).to(dtype), delta=(rnd(G, L, d) * 0.5).to(dtype),
+                A=A, B=dbc[..., 16:16 + N], C=dbc[..., 16 + N:],
+                D=rnd(d) if D else None, bias=b if bias else None,
+                h0=rnd(G, d, N), g_y=rnd(G, L, d).to(dtype),
+                g_hN=rnd(G, d, N))
+
+
+def _scan_args(inp, **over):
+    k = {**inp, **over}
+    return [k[n] for n in ("u", "delta", "A", "B", "C", "D", "bias")]
+
+
+def scan_pair(inp, reverse, **over):
+    """`selective_scan_fwd` (with h_init and carries) and its plain version
+    on the same card tensors; ``over`` replaces the kernel's inputs."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    T = scan.KERNEL_CHUNK
+    kernel = scan.selective_scan_fwd(*_scan_args(inp, **over), True, reverse,
+                                     T, inp["h0"], save_carries=True)
+    torch.cuda.synchronize()
+    plain = selective_scan(*_scan_args(inp), True, reverse, T, inp["h0"],
+                           True, True)
+    return kernel, plain
+
+
+def bidir_pair(f, r, **over):
+    """`bidir_scan_fwd` (set f left to right, set r right to left, with
+    carries) and the two plain scans; ``over`` replaces the kernel's
+    inputs of set r."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    T = scan.KERNEL_CHUNK
+    a, b = _scan_args(f), _scan_args(r, **over)
+    yf, yr, cf, cr = scan.bidir_scan_fwd(*a[:2], *a[3:5], *b[:2], *b[3:5],
+                                         a[2], b[2], a[5], b[5], a[6], b[6],
+                                         save_carries=True)
+    torch.cuda.synchronize()
+    pf = selective_scan(*_scan_args(f), True, False, T, return_carries=True)
+    pr = selective_scan(*_scan_args(r), True, True, T, return_carries=True)
+    return (yf, cf, yr, cr), pf + pr
+
+
+def phase_scan_checks():
+    """The forward kernels against the plain forward: small shapes and the
+    main geometry (d=512, N=16, G=4, L=8192), then planted faults."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    res, seed = [], 200
+    bidir_names = ("yf", "carf", "yr", "carr")
+    for dtype in (torch.float32, torch.bfloat16):
+        for reverse in (False, True):
+            for with_dd in (True, False):
+                seed += 1
+                inp = scan_inputs(2, 200, 48, 16, dtype, seed, D=with_dd,
+                                  bias=with_dd)
+                label = (f"scan fwd small G=2 L=200 d=48 N=16 "
+                         f"{str(dtype)[6:]} rev={reverse} D,bias={with_dd}")
+                res.append({"case": label, **hold(
+                    label, TOL[dtype], *scan_pair(inp, reverse),
+                    SCAN_FWD_NAMES, tag="scan")})
+        seed += 1
+        f = scan_inputs(2, 200, 48, 8, dtype, seed)
+        r = scan_inputs(2, 200, 48, 8, dtype, seed + 50, D=False)
+        label = f"bidir small G=2 L=200 d=48 N=8 {str(dtype)[6:]}"
+        res.append({"case": label, **hold(label, TOL[dtype], *bidir_pair(f, r),
+                                          bidir_names, tag="scan")})
+    faults = {}
+    for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, False)):
+        seed += 1
+        inp = scan_inputs(4, 8192, 512, 16, dtype, seed, model_like=True)
+        label = (f"scan fwd main G=4 L=8192 d=512 N=16 {str(dtype)[6:]} "
+                 f"rev={reverse}")
+        kernel, plain = scan_pair(inp, reverse)
+        res.append({"case": label, **hold(label, TOL[dtype], kernel, plain,
+                                          SCAN_FWD_NAMES, tag="scan")})
+        if faults:
+            continue
+        bf16 = TOL[torch.bfloat16]
+        no_d, _ = scan_pair(inp, reverse, D=None)
+        faults["D term dropped"] = hold(
+            "planted fault: D term dropped", bf16, no_d, plain,
+            SCAN_FWD_NAMES, expect_ok=False, tag="scan")
+        y = kernel[0].clone()
+        y[1, 37 * 64 + 16:37 * 64 + 32, 80:96] = 0
+        faults["one 16x16 y tile zeroed"] = hold(
+            "planted fault: one 16-row x 16-channel y tile zeroed", bf16,
+            (y,) + kernel[1:], plain, SCAN_FWD_NAMES, expect_ok=False,
+            tag="scan")
+        del no_d, y
+        r = scan_inputs(4, 8192, 512, 16, dtype, seed + 50, model_like=True)
+        label = "bidir main G=4 L=8192 d=512 N=16 bf16"
+        k2, p2 = bidir_pair(inp, r)
+        res.append({"case": label, **hold(label, bf16, k2, p2, bidir_names,
+                                          tag="scan")})
+        k2, _ = bidir_pair(inp, r, A=inp["A"])
+        faults["reverse set run with the forward set's A"] = hold(
+            "planted fault: the reverse set run with the forward set's A",
+            bf16, k2, p2, bidir_names, expect_ok=False, tag="scan")
+        del r, k2, p2
+        del inp, kernel, plain
+    return res, faults
+
+
+def scan_bwd_pair(inp, reverse):
+    """`selective_scan_bwd` and its plain version from the same carries
+    (the forward kernel's), nonzero h_init and g_hN."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan_bwd
+
+    T = scan.KERNEL_CHUNK
+    a = _scan_args(inp)
+    _, _, car = scan.selective_scan_fwd(*a, True, reverse, T, inp["h0"],
+                                        save_carries=True)
+    kernel = scan.selective_scan_bwd_cuda(*a, inp["g_y"], car, inp["g_hN"],
+                                          True, reverse, T)
+    torch.cuda.synchronize()
+    plain = selective_scan_bwd(*a, inp["g_y"], car, inp["g_hN"], True,
+                               reverse, T)
+    return kernel, plain
+
+
+def phase_scan_bwd_checks():
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops.selective_scan import resolve_delta
+
+    res, seed = [], 300
+    for dtype in (torch.float32, torch.bfloat16):
+        for reverse in (False, True):
+            seed += 1
+            inp = scan_inputs(2, 200, 48, 16, dtype, seed)
+            label = (f"scan bwd small G=2 L=200 d=48 N=16 {str(dtype)[6:]} "
+                     f"rev={reverse}")
+            res.append({"case": label, **hold(
+                label, TOL[dtype], *scan_bwd_pair(inp, reverse),
+                SCAN_BWD_NAMES, tag="scan-bwd")})
+    faults = {}
+    for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, False)):
+        seed += 1
+        inp = scan_inputs(4, 8192, 512, 16, dtype, seed, model_like=True)
+        label = (f"scan bwd main G=4 L=8192 d=512 N=16 {str(dtype)[6:]} "
+                 f"rev={reverse}")
+        kernel, plain = scan_bwd_pair(inp, reverse)
+        res.append({"case": label, **hold(label, TOL[dtype], kernel, plain,
+                                          SCAN_BWD_NAMES, tag="scan-bwd")})
+        if faults:
+            continue
+        bf16 = TOL[torch.bfloat16]
+        planted = {"g_A scaled by 1+2^-4": kernel[:2] + (
+            kernel[2] * (1 + 2 ** -4),) + kernel[3:]}
+        g_d = kernel[1].clone()
+        g_d[1, 37 * 64 + 16:37 * 64 + 32, 80:96] = 0
+        planted["one 16-row x 16-channel tile of g_delta zeroed"] = (
+            kernel[:1] + (g_d,) + kernel[2:])
+        sig = 1 - torch.exp(-resolve_delta(inp["delta"], inp["bias"], True))
+        planted["the softplus chain dropped from g_delta"] = (
+            kernel[:1] + ((kernel[1].float() / sig).to(dtype),) + kernel[2:])
+        for name, out in planted.items():
+            faults[name] = hold(f"planted fault: {name}", bf16, out, plain,
+                                SCAN_BWD_NAMES, expect_ok=False,
+                                tag="scan-bwd")
+        del planted, g_d, sig
+        del inp, kernel, plain
+    return res, faults
+
+
+def phase_v1_serve():
+    """Serve the full-width hg38_mlm model (16 layers, random weights):
+    /embed and /logits at bucket 1024 and one 131,072-token /logits; 16
+    `bidir_scan_fwd` launches per dispatch; the served bf16 logits equal
+    a direct forward."""
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    cfg = hg38_mlm_config()
+    model = CaduceusForMaskedLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(3333))
+    svc = InferenceService(cfg, model.state_dict(), device="cuda",
+                           max_batch=4, min_bucket=1024, max_length=131072)
+    del model
+    server = InferenceServer(svc, port=0).start()
+    rng = np.random.default_rng(8)
+
+    def seqs(*lengths):
+        return ["".join(rng.choice(list("ACGT"), n)) for n in lengths]
+
+    plan = [("/embed", seqs(1000)), ("/logits", seqs(900, 1024)),
+            ("/logits", seqs(131072))]
+    requests = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        d0 = svc.n_dispatches
+        _zero_counts()
+        for path, batch in plan:
+            t0 = time.perf_counter()
+            out = _post(server.port, path, {"sequences": batch})[path[1:]]
+            dt = time.perf_counter() - t0
+            ntok = sum(map(len, batch))
+            for s_, o in zip(batch, out):
+                a = np.asarray(o, np.float32)
+                want = ((cfg.d_model,) if path == "/embed"
+                        else (len(s_), cfg.padded_vocab_size))
+                check(a.shape == want, f"{path}: shape {a.shape} != {want}")
+                check(bool(np.isfinite(a).all()), f"{path}: non-finite")
+            requests.append({"path": path, "n_seq": len(batch),
+                             "tokens": ntok, "latency_s": dt,
+                             "tokens_per_s": ntok / dt})
+            log(f"[serve-v1] {path} {len(batch)} seq, {ntok} tokens: "
+                f"{dt * 1e3:.1f} ms, {ntok / dt:,.0f} tokens/s")
+            if path == "/logits" and len(batch) == 2:
+                small = (batch, out)
+        counts = _counts()
+        dispatches = svc.n_dispatches - d0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+    launches = counts["bidir_scan_fwd"]
+    log(f"[serve-v1] bidir_scan_fwd launches {launches} over {dispatches} "
+        f"dispatches (expect {cfg.n_layer} each); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(dispatches == len(plan), f"{dispatches} dispatches for "
+          f"{len(plan)} requests")
+    want = dict.fromkeys(counts, 0)
+    want["bidir_scan_fwd"] = cfg.n_layer * dispatches
+    check(counts == want, f"serve launches {counts} != {want}")
+    batch, out = small
+    ids = torch.full((2, 1024), svc.tok.pad_token_id, dtype=torch.long)
+    for i, s_ in enumerate(batch):
+        ids[i, :len(s_)] = torch.from_numpy(
+            svc.tok.encode(s_).astype(np.int64))
+    with torch.inference_mode():
+        direct = svc.model(ids.cuda()).cpu().numpy()
+    for i, s_ in enumerate(batch):
+        err = np.abs(np.asarray(out[i], np.float32)
+                     - direct[i, :len(s_)]).max()
+        check(err <= 1e-6, f"served v1 /logits differ from the model by {err}")
+    long_ids = torch.from_numpy(
+        svc.tok.encode(plan[-1][1][0]).astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        svc.model(long_ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.model(long_ids)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    log(f"[serve-v1] served bf16 logits equal a direct forward; direct "
+        f"forward, 1 x 131072 tokens (no HTTP/JSON): {fwd_s * 1e3:.1f} ms")
+    del svc
+    torch.cuda.empty_cache()
+    return {"requests": requests, "launches": launches,
+            "dispatches": dispatches, "peak_mem_bytes": peak,
+            "forward_131k_s": fwd_s}
+
+
+def phase_mamba_mixer_step():
+    """The unidirectional v1 mixer (`MambaMixer`, `bidirectional=False`,
+    the mixer of configs/hg38_mamba_ntp.yaml) through `make_train_step`:
+    full width, 2 layers, L=8192, bf16, accum 2; it runs
+    `selective_scan_fwd` (#7) and `selective_scan_bwd`."""
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.train.optim import make_optimizer
+    from caduceus_tpu_torch.train.trainer import TrainState, make_train_step
+
+    cfg = hg38_mlm_config(n_layer=2, bidirectional=False)
+    model = CaduceusForMaskedLM(cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(5))
+    opt, _ = make_optimizer(model.named_parameters(), lr=8e-3, warmup_t=100,
+                            t_initial=50_000)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"input_ids": torch.randint(7, 11, (4, 8192), generator=gen,
+                                        device="cuda"),
+             "targets": torch.randint(0, 12, (4, 8192), generator=gen,
+                                      device="cuda")}
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, m = make_train_step(accum_steps=2)(TrainState(model, opt), batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    want = {k: v * 2 for k, v in _per_micro_batch(cfg).items()}
+    m = {k: float(v) for k, v in m.items()}
+    log(f"[train] MambaMixer (unidirectional v1), 2 layers, L=8192, accum 2: "
+        f"loss {m['loss']:.5f}, grad_norm {m['grad_norm']:.4f}, "
+        f"{secs:.2f} s (first call); launches {counts}")
+    check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+          f"MambaMixer step: {m}")
+    check(counts == want, f"MambaMixer launches {counts} != {want}")
+    return {"launches": counts, "step_s": secs, **m}
+
+
+def phase_scan_timing():
+    """The three kernels at the training shape (G=4, L=131072, bf16, d=512,
+    N=16) beside their plain versions and bounds; the timed outputs held
+    against the plain ones."""
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops import selective_scan as plain
+
+    G, L, d, N = 4, 131072, 512, 16
+    T = scan.KERNEL_CHUNK
+    rows, nc = G * L, -(-L // T)
+    bf16 = TOL[torch.bfloat16]
+    car_bytes = G * nc * d * N * 4
+    # per row and direction: u, delta read, B, C read (bf16), y written
+    io_fwd = rows * (2 * d * 2 + 2 * N * 2 + d * 2)
+    res = {}
+    f = scan_inputs(G, L, d, N, torch.bfloat16, 401, model_like=True)
+    r = scan_inputs(G, L, d, N, torch.bfloat16, 402, model_like=True)
+    a, b = _scan_args(f), _scan_args(r)
+    outs = {}
+
+    t = _timed(lambda: outs.__setitem__("k", scan.selective_scan_fwd(
+                   *a, True, False, T, None, save_carries=True)),
+               lambda: outs.__setitem__("p", plain.selective_scan(
+                   *a, True, False, T, None, True, True)))
+    t["check"] = hold(f"timed selective_scan_fwd + carries G=4 L={L} bf16",
+                      bf16, outs.pop("k"), outs.pop("p"), SCAN_FWD_NAMES,
+                      tag="scan")
+    # fp32 FLOP on the non-tensor-core units; the exps (MUFU, 16 per clock
+    # per SM) stand beside the bound, not in it
+    t.update(_bound(io_fwd + car_bytes, 5 * rows * d * N, FP32_FLOP_PER_S))
+    t["exps"] = rows * d * N
+    res["fwd"] = t
+
+    t = _timed(lambda: outs.__setitem__("k", scan.bidir_scan_fwd(
+                   *a[:2], *a[3:5], *b[:2], *b[3:5], a[2], b[2], a[5], b[5],
+                   a[6], b[6], save_carries=True)),
+               lambda: outs.__setitem__("p", plain.selective_scan(
+                   *a, True, False, T, return_carries=True)
+                   + plain.selective_scan(*b, True, True, T,
+                                          return_carries=True)))
+    k = outs.pop("k")
+    t["check"] = hold(f"timed bidir_scan_fwd + carries G=4 L={L} bf16", bf16,
+                      (k[0], k[2], k[1], k[3]), outs.pop("p"),
+                      ("yf", "carf", "yr", "carr"), tag="scan")
+    car = k[2]
+    del k
+    t.update(_bound(2 * (io_fwd + car_bytes), 2 * 5 * rows * d * N,
+                    FP32_FLOP_PER_S))
+    t["exps"] = 2 * rows * d * N
+    res["bidir"] = t
+
+    bwd_args = a + [f["g_y"], car, None, True, False, T]
+    t = _timed(lambda: outs.__setitem__("k", scan.selective_scan_bwd_cuda(
+                   *bwd_args)),
+               lambda: outs.__setitem__("p", plain.selective_scan_bwd(
+                   *bwd_args)))
+    t["check"] = hold(f"timed selective_scan_bwd G=4 L={L} bf16", bf16,
+                      outs.pop("k"), outs.pop("p"), SCAN_BWD_NAMES,
+                      tag="scan-bwd")
+    # reads u, delta, g_y, B, C and the carries; writes g_u, g_delta, g_B,
+    # g_C; the fp32 (2, G, L, N) workspace of g_B / g_C stands beside it
+    t.update(_bound(rows * (3 * d * 2 + 2 * N * 2 + 2 * d * 2 + 2 * N * 2)
+                    + car_bytes, 20 * rows * d * N, FP32_FLOP_PER_S))
+    t["exps"] = 2 * rows * d * N + rows * d
+    t["extra_bytes"] = 2 * rows * N * 4 * 2
+    res["bwd"] = t
+    for name, t in res.items():
+        # MUFU exp2: 16 per clock per SM, 132 SMs at 1.98 GHz
+        t["exp_ms"] = t["exps"] / (16 * 132 * 1.98e9) * 1e3
+        log(f"[time] scan {name} G=4 L={L} bf16: kernel {t['ms']:.3f} ms "
+            f"(runs {', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), "
+            f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}: {t['bytes'] / 1e9:.2f} GB, "
+            f"{t['flops'] / 1e9:.1f} GFLOP); {t['exps'] / 1e9:.2f}e9 exps "
+            f"= {t['exp_ms']:.3f} ms at the MUFU rate")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -913,6 +1394,17 @@ def main() -> int:
     report["train_vs_cpu"] = phase_train_vs_cpu()
     report["train"] = phase_train_full()
     report["timing"] = phase_timing()
+    t_v1 = time.perf_counter()
+    report["scan_checks"], report["scan_planted_faults"] = phase_scan_checks()
+    (report["scan_bwd_checks"],
+     report["scan_bwd_planted_faults"]) = phase_scan_bwd_checks()
+    report["v1_model_vs_cpu"] = phase_model_vs_cpu(hg38_mlm_config)
+    report["v1_serve"] = phase_v1_serve()
+    report["v1_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config)
+    report["mamba_mixer_step"] = phase_mamba_mixer_step()
+    report["v1_train"] = phase_train_full(hg38_mlm_config)
+    report["scan_timing"] = phase_scan_timing()
+    report["v1_phase_s"] = time.perf_counter() - t_v1
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
     # share of the training step inside the kernels (derived: per-launch
@@ -927,10 +1419,29 @@ def main() -> int:
     log(f"[train] derived: kernels take {tr['kernel_share']:.1%} of the step "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in tr['kernel_s_per_step'].items())})")
 
+    st, t1 = report["scan_timing"], report["v1_train"]
+    v1_ms = {"bidir_scan_fwd": st["bidir"]["ms"],
+             "selective_scan_bwd": st["bwd"]["ms"]}
+    t1["kernel_s_per_step"] = {
+        k: t1["launches"][k] // t1["micro_batches"] * t1["accum"] * v / 1e3
+        for k, v in v1_ms.items()}
+    t1["kernel_share"] = sum(t1["kernel_s_per_step"].values()) / t1["step_s"]
+    shares = ", ".join(f"{k} {v:.2f} s"
+                       for k, v in t1["kernel_s_per_step"].items())
+    log(f"[train] derived, v1: kernels take {t1['kernel_share']:.1%} of the "
+        f"step ({shares})")
+
+    replaces = {
+        "ssd_fused_fwd": "caduceus_tpu/ops/ssd_pallas_batched.py:173",
+        "ssd_fused_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
+        "ssd_conv_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
+        "selective_scan_fwd": "caduceus_tpu/ops/scan_pallas.py:153",
+        "bidir_scan_fwd": "caduceus_tpu/ops/scan_pallas_bidir.py:37",
+        "selective_scan_bwd": "caduceus_tpu/ops/scan_pallas.py:462"}
+
     def entry(name, source, t, launches, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": "caduceus_tpu/ops/ssd_pallas_batched.py:"
-                            + ("173" if name == "ssd_fused_fwd" else "486"),
+                "replaces": replaces[name],
                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None,
@@ -958,6 +1469,27 @@ def main() -> int:
               tm["bwd_conv"]["check"]["g_xBC"]["max_abs_err"],
               shape="G=4 L=131072 bf16",
               extra_bytes=tm["bwd_conv"]["extra_bytes"], **pair),
+        entry("selective_scan_fwd",
+              "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["fwd"],
+              report["mamba_mixer_step"]["launches"]["selective_scan_fwd"],
+              st["fwd"]["check"]["y"]["max_abs_err"],
+              shape="G=4 L=131072 bf16, one direction, carries saved",
+              launches_path="MambaMixer train step (2 layers, accum 2)",
+              exps=st["fwd"]["exps"], exp_ms=st["fwd"]["exp_ms"]),
+        entry("bidir_scan_fwd",
+              "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["bidir"],
+              t1["launches"]["bidir_scan_fwd"],
+              st["bidir"]["check"]["yf"]["max_abs_err"],
+              shape="G=4 L=131072 bf16, two directions, carries saved",
+              launches_serve=report["v1_serve"]["launches"],
+              exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"]),
+        entry("selective_scan_bwd",
+              "caduceus_tpu_torch/csrc/selective_scan_bwd.cu", st["bwd"],
+              t1["launches"]["selective_scan_bwd"],
+              st["bwd"]["check"]["g_u"]["max_abs_err"],
+              shape="G=4 L=131072 bf16, one direction",
+              extra_bytes=st["bwd"]["extra_bytes"],
+              exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"]),
     ]}
     report.update(kernels)
     report["card"] = card

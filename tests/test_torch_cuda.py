@@ -1,14 +1,17 @@
 """The port's CUDA kernels on the card: `ssd_fused_fwd` (with its carries)
-and `ssd_fused_bwd` against their plain versions, the autograd Function
-against finite differences, and the wrapper's refusals. Imports no JAX, so
+and `ssd_fused_bwd`, and the selective scan's `selective_scan_fwd`,
+`bidir_scan_fwd` and `selective_scan_bwd`, against their plain versions;
+the autograd Functions against finite differences; a v1 model backward
+through the scan kernels; and the wrappers' refusals. Imports no JAX, so
 it runs on the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Every test needs a CUDA card and skips without one (the kernels have no CPU
 mode; their arithmetic is held against JAX through the plain versions in
-tests/test_torch_ssd.py). The rule and its tolerances are those of
-chip_smoke.py, in `caduceus_tpu_torch/kernel_check.py`.
+tests/test_torch_ssd.py and tests/test_torch_scan.py). The rule and its
+tolerances are those of chip_smoke.py, in
+`caduceus_tpu_torch/kernel_check.py`.
 """
 
 import pytest
@@ -151,3 +154,180 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         ssd_batched.ssd_batched_fused(*args, **{**kw, "dims": (4, 24, 2, 32),
                                                 "h_init": None})
+
+
+# --- the Mamba-1 selective scan: selective_scan_fwd / bidir_scan_fwd (TPU
+# kernels #7, #9) and selective_scan_bwd (#8), against ops/selective_scan.py
+
+SCAN_GRADS = ("g_u", "g_delta", "g_A", "g_B", "g_C", "g_D", "g_bias", "g_h0")
+
+
+def _scan_inputs(dtype, G=2, L=150, d=40, N=16, seed=0, bias=True):
+    """u, delta, A, B, C, D, bias on the card, with h_init and the
+    cotangents; B and C are column slices of one (G, L, R + 2N) tensor, as
+    the x_proj output gives them. d = 40 leaves a partial channel tile and
+    L = 150 a partial chunk."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    dbc = rnd(G, L, 8 + 2 * N).to(dtype)
+    args = [rnd(G, L, d).to(dtype), (rnd(G, L, d) * 0.5).to(dtype),
+            -torch.exp(rnd(d, N, sc=0.5)), dbc[..., 8:8 + N],
+            dbc[..., 8 + N:], rnd(d), rnd(d, sc=0.1) if bias else None]
+    return args, rnd(G, d, N), rnd(G, L, d).to(dtype), rnd(G, d, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse,N", [(False, 16), (True, 16), (True, 8)])
+def test_scan_fwd_kernel_matches_plain(card, dtype, reverse, N):
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    args, h0, _, _ = _scan_inputs(dtype, N=N, seed=10)
+    before = scan.fwd_launches
+    got = scan.selective_scan_fwd(*args, True, reverse, scan.KERNEL_CHUNK, h0,
+                                  save_carries=True)
+    torch.cuda.synchronize()
+    assert scan.fwd_launches == before + 1
+    want = selective_scan(*args, True, reverse, scan.KERNEL_CHUNK, h0, True,
+                          True)
+    for name, k, p in zip(("y", "hN", "carries"), got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bidir_kernel_matches_plain(card, dtype):
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    f, _, _, _ = _scan_inputs(dtype, seed=11)
+    r, _, _, _ = _scan_inputs(dtype, seed=12, bias=False)
+    before = scan.bidir_launches
+    yf, yr, cf, cr = scan.bidir_scan_fwd(*f[:2], *f[3:5], *r[:2], *r[3:5],
+                                         f[2], r[2], f[5], None, f[6], r[6],
+                                         save_carries=True)
+    torch.cuda.synchronize()
+    assert scan.bidir_launches == before + 1
+    T = scan.KERNEL_CHUNK
+    pf = selective_scan(*f, True, False, T, return_carries=True)
+    pr = selective_scan(*r[:5], None, r[6], True, True, T,
+                        return_carries=True)
+    for name, k, p in (("yf", yf, pf[0]), ("carf", cf, pf[1]),
+                       ("yr", yr, pr[0]), ("carr", cr, pr[1])):
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse,N", [(False, 16), (True, 16), (False, 8)])
+def test_scan_bwd_kernel_matches_plain(card, dtype, reverse, N):
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan_bwd
+
+    args, h0, gy, ghN = _scan_inputs(dtype, N=N, seed=13)
+    T = scan.KERNEL_CHUNK
+    _, _, car = scan.selective_scan_fwd(*args, True, reverse, T, h0,
+                                        save_carries=True)
+    before = scan.bwd_launches
+    got = scan.selective_scan_bwd_cuda(*args, gy, car, ghN, True, reverse, T)
+    torch.cuda.synchronize()
+    assert scan.bwd_launches == before + 1
+    want = selective_scan_bwd(*args, gy, car, ghN, True, reverse, T)
+    for name, k, p in zip(SCAN_GRADS, got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+def _fd_check(loss, inputs, seed):
+    """Central differences along one seeded direction per input against
+    the analytic directional derivative (fp32, the kernels both ways)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dirs = [None if t is None else torch.randn(t.shape, generator=gen,
+                                               device="cuda") for t in inputs]
+    leaves = [None if t is None else t.clone().requires_grad_()
+              for t in inputs]
+    loss(leaves).backward()
+    analytic = sum((t.grad.double() * v).sum()
+                   for t, v in zip(leaves, dirs) if t is not None)
+    eps = 2e-3
+
+    def moved(s):
+        return [None if t is None else t + s * eps * v
+                for t, v in zip(inputs, dirs)]
+
+    with torch.no_grad():
+        fd = (loss(moved(1)) - loss(moved(-1))) / (2 * eps)
+    assert abs(fd - analytic) <= 5e-3 * abs(analytic), (fd.item(),
+                                                       analytic.item())
+
+
+@pytest.mark.cuda
+def test_scan_functions_match_finite_differences(card):
+    """`_SelectiveScanFn` (h_init in, hN out, both directions) and
+    `_BidirScanFn`: every differentiable input at once."""
+    from caduceus_tpu_torch.ops import scan
+
+    args, h0, gy, ghN = _scan_inputs(torch.float32, G=1, L=100, d=16, seed=14)
+    args = [t.contiguous() for t in args]
+    for reverse in (False, True):
+        def loss(ts):
+            y, h = scan.selective_scan_chained(*ts, reverse=reverse)
+            return (y.double() * gy).sum() + (h.double() * ghN).sum()
+
+        _fd_check(loss, args + [h0], 15 + reverse)
+    r, _, gr, _ = _scan_inputs(torch.float32, G=1, L=100, d=16, seed=17)
+    r = [t.contiguous() for t in r]
+
+    def bloss(ts):
+        f, q = ts[:7], ts[7:]
+        yf, yr = scan.bidir_selective_scan(*f[:2], *f[3:5], *q[:2], *q[3:5],
+                                           f[2], q[2], f[5], q[5], f[6], q[6])
+        return (yf.double() * gy).sum() + (yr.double() * gr).sum()
+
+    _fd_check(bloss, args + r, 18)
+
+
+@pytest.mark.cuda
+def test_v1_model_backward_runs_the_scan_kernels(card):
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    cfg = CaduceusConfig(d_model=64, n_layer=2, vocab_size=tok.vocab_size,
+                         rcps=True, complement_map=tok.complement_map,
+                         residual_in_fp32=False, dtype="bfloat16",
+                         ssm_cfg=SSMConfig(version=1, d_state=16))
+    model = CaduceusForMaskedLM(cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(7, 11, (2, 300), device="cuda")
+    counts = (scan.bidir_launches, scan.bwd_launches)
+    model(ids).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (scan.bidir_launches, scan.bwd_launches) == (counts[0] + 2,
+                                                        counts[1] + 4)
+    for n, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from caduceus_tpu_torch.ops import scan
+
+    args, h0, _, _ = _scan_inputs(torch.float32)
+    with pytest.raises(ValueError, match="chunk"):
+        scan.selective_scan_fwd(*args, True, False, 32, h0)
+    with pytest.raises(TypeError):
+        scan.selective_scan_fwd(args[0].half(), *args[1:], True, False)
+    with pytest.raises(TypeError):
+        scan.selective_scan_fwd(args[0], args[1].bfloat16(), *args[2:], True,
+                                False)
+    with pytest.raises(ValueError, match="d_state"):
+        a4, *_ = _scan_inputs(torch.float32, N=4)
+        scan.selective_scan_fwd(*a4, True, False)

@@ -28,7 +28,7 @@ from caduceus_tpu.tokenization import CaduceusTokenizer
 from caduceus_tpu_torch.config import CaduceusConfig
 from caduceus_tpu_torch.models.caduceus import Caduceus, CaduceusForMaskedLM
 from caduceus_tpu_torch.models.mamba2 import rms_norm_gated
-from caduceus_tpu_torch.params import from_jax_params
+from caduceus_tpu_torch.params import from_jax_params, to_jax_params
 
 ATOL = 1e-5
 
@@ -132,3 +132,77 @@ def test_rms_norm_gated_matches_jax(ngroups):
                               ngroups, 1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+# --- the v1 (Mamba-1) model: BiMamba / MambaMixer over the selective scan
+
+
+@functools.lru_cache(maxsize=None)
+def make_v1_case(n_layer=2, tie=True, strategy="add", bidirectional=True,
+                 fused=True, kernel="xla", seed=0):
+    """A v1 config, ids, flat flax params and the JAX logits. The weights
+    come from the port's seeded init through `to_jax_params` (a JAX init
+    costs a compile per case; the bridge from a JAX-made tree is held in
+    tests/test_torch_train.py), with non-trivial norm weights and D."""
+    tok = CaduceusTokenizer()
+    cfg = JaxConfig(
+        d_model=32, n_layer=n_layer, vocab_size=tok.vocab_size, rcps=True,
+        complement_map=tok.complement_map, fused_add_norm=fused,
+        bidirectional=bidirectional, bidirectional_weight_tie=tie,
+        bidirectional_strategy=strategy, residual_in_fp32=False,
+        dtype="float32", param_dtype="float32",
+        ssm_cfg=JaxSSM(version=1, d_state=8, use_kernel=kernel))
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(7, 12, size=(2, 50)).astype(np.int32)
+    model = CaduceusForMaskedLM(port_config(cfg), device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+    flat = to_jax_params(model.state_dict())
+    for k, v in flat.items():
+        if "norm" in k or k.endswith("/D"):
+            flat[k] = (v + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+    want = np.asarray(jax.jit(JaxLM(cfg).apply)(
+        {"params": tu.unflatten_dict(flat, sep="/")}, jnp.asarray(ids)))
+    return cfg, ids, flat, want
+
+
+V1_CASES = [
+    dict(),                                              # hg38_mlm's mixer
+    dict(frame="data"),
+    dict(fused=False),
+    dict(strategy="ew_multiply"),
+    dict(tie=False, n_layer=3),                          # odd: final swap_rc
+    dict(bidirectional=False),
+    dict(kernel="pallas_interpret"),                     # JAX runs TPU #9
+]
+
+
+@pytest.mark.parametrize("case", V1_CASES, ids=lambda c: "-".join(
+    f"{k}={v}" for k, v in c.items()) or "default")
+def test_v1_masked_lm_logits_match_jax(case):
+    """The v1 `CaduceusForMaskedLM` against JAX's (SSMConfig(version=1)),
+    fp32, 1e-5 on logits; the port runs the plain scan on the CPU. The
+    "data" case realizes the RCPS frame by data swaps (JAX has only the
+    function, which both frames compute)."""
+    case = dict(case)
+    frame = case.pop("frame", "conj")
+    cfg, ids, flat, want = make_v1_case(**case)
+    pc = port_config(cfg)
+    model = CaduceusForMaskedLM(pc, device="cpu", fused_frame=frame)
+    model.load_state_dict(from_jax_params(flat, pc))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_v1_backbone_hidden_states_match_jax():
+    cfg, ids, flat, _ = make_v1_case()
+    bflat = {k: v for k, v in flat.items() if k.startswith("backbone/")}
+    want = np.asarray(jax.jit(JaxCaduceus(cfg).apply)(
+        {"params": tu.unflatten_dict(bflat, sep="/")}, jnp.asarray(ids)))
+    pc = port_config(cfg)
+    model = Caduceus(pc, device="cpu")
+    model.load_state_dict(from_jax_params(bflat, pc, backbone_only=True))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)

@@ -166,3 +166,43 @@ def test_cpu_is_explicit():
             resolve_device("cuda")
     with pytest.raises(SystemExit):
         cli_main([])
+
+
+def test_v1_run_dir_serves_the_model_on_cpu(tmp_path):
+    """A v1 (Mamba-1) run dir: `from_run_dir` builds `BiMamba` layers and
+    /logits returns the model's own logits for a padded dispatch (two
+    sequences in the 32 bucket), and /embed its pooled hidden states."""
+    tok = CaduceusTokenizer()
+    cfg = JaxConfig(
+        d_model=32, n_layer=2, vocab_size=tok.vocab_size, rcps=True,
+        complement_map=tok.complement_map, residual_in_fp32=False,
+        dtype="float32", param_dtype="float32",
+        ssm_cfg=JaxSSM(version=1, d_state=8, use_kernel="xla"))
+    params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(1),
+                                      jnp.full((1, 16), 7, jnp.int32))
+    cfg.save(str(tmp_path / "model_config.json"))
+    flat = tu.flatten_dict(params["params"], sep="/")
+    np.savez(tmp_path / "params.npz", **{k: np.asarray(v)
+                                         for k, v in flat.items()})
+    svc = InferenceService.from_run_dir(str(tmp_path), device="cpu",
+                                        max_batch=4, min_bucket=16,
+                                        max_length=64, linger_ms=30.0)
+    assert type(svc.model.backbone.layers[0].mixer).__name__ == "BiMamba"
+    server = InferenceServer(svc, port=0).start()
+    try:
+        seqs = ["GATTACAGATTACAGATTACA", "ACGTACGTACGTACGTAC"]
+        got = _post(server.port, "/logits", {"sequences": seqs})["logits"]
+        emb = _post(server.port, "/embed", {"sequences": seqs[:1]})["embed"]
+    finally:
+        server.stop()
+    ids = torch.full((2, 32), tok.pad_token_id, dtype=torch.long)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = torch.from_numpy(tok.encode(s).astype(np.int64))
+    with torch.inference_mode():
+        want = svc.model(ids).numpy()
+        h = svc._embed(ids[:1, :32], ids[:1, :32] != tok.pad_token_id)
+    for i, s in enumerate(seqs):
+        np.testing.assert_allclose(np.asarray(got[i], np.float32),
+                                   want[i, :len(s)], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(emb[0], np.float32), h[0].numpy(),
+                               rtol=0, atol=1e-6)
