@@ -1,6 +1,8 @@
-"""Command line of the port: ``python -m caduceus_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m caduceus_tpu_torch.cli
+{serve,generate}``.
 
-Port of the ``serve`` subcommand of `caduceus_tpu/cli.py`; the other
+Port of the ``serve`` and ``generate`` subcommands of `caduceus_tpu/cli.py`
+over a run dir holding ``model_config.json`` + ``params.npz``; the other
 subcommands are not ported yet.
 """
 
@@ -11,8 +13,51 @@ import json
 import sys
 
 
+def cmd_generate(argv):
+    """Autoregressive generation through the recurrent (O(1)/token) path
+    (`inference.py generate`), for a causal model (bidirectional=False,
+    rcps=False). Prints {"prompt", "generated"} as one JSON line."""
+    p = argparse.ArgumentParser(prog="generate")
+    p.add_argument("--run-dir", required=True,
+                   help="run dir with model_config.json + params.npz")
+    p.add_argument("--prompt", default="ACGT", help="DNA prompt string")
+    p.add_argument("--max-new-tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch path")
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from caduceus_tpu_torch import resolve_device
+    from caduceus_tpu_torch.inference import generate
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.params import load_run_dir
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    dev = resolve_device(args.device)
+    cfg, params = load_run_dir(args.run_dir)
+    model = CaduceusForMaskedLM(cfg, device=dev,
+                                tie_word_embeddings="lm_head" not in params)
+    model.load_state_dict(params)
+    model.eval()
+    tok = CaduceusTokenizer()
+    prompt_ids = torch.from_numpy(
+        tok.encode(args.prompt).astype(np.int64))[None].to(dev)
+    out = generate(model, prompt_ids, args.max_new_tokens,
+                   generator=torch.Generator(device=dev).manual_seed(args.seed),
+                   temperature=args.temperature, top_k=args.top_k)
+    print(json.dumps({
+        "prompt": args.prompt,
+        "generated": tok.decode(out[0, prompt_ids.shape[1]:].cpu().numpy()),
+    }))
+
+
 def cmd_serve(argv):
-    """HTTP server for /embed and /logits over a run dir holding
+    """HTTP server for /embed, /logits and /generate over a run dir holding
     ``model_config.json`` + ``params.npz`` (`serve.py`)."""
     p = argparse.ArgumentParser(prog="serve")
     p.add_argument("--run-dir", required=True,
@@ -34,14 +79,15 @@ def cmd_serve(argv):
     server = InferenceServer(svc, args.host, args.port)
     print(json.dumps({"serving": f"http://{args.host}:{server.port}",
                       "device": str(svc.device),
-                      "endpoints": ["/embed", "/logits", "/healthz"]}),
+                      "endpoints": ["/embed", "/logits", "/generate",
+                                    "/healthz"]}),
           flush=True)
     server.serve_forever()
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    cmds = {"serve": cmd_serve}
+    cmds = {"serve": cmd_serve, "generate": cmd_generate}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m caduceus_tpu_torch.cli {{{','.join(cmds)}}} ...")
         sys.exit(2)

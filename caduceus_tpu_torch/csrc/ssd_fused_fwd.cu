@@ -1,17 +1,24 @@
-// ssd_fused_fwd: fused-conv SSD (Mamba-2) chunked forward for Hopper (sm_90a).
+// ssd_fused_fwd / ssd_fwd: chunked SSD (Mamba-2) forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_fwd_kernel(fused=True)` of
-// caduceus_tpu/ops/ssd_pallas_batched.py (launched by
-// `ssd_pallas_batched_fused_fwd_impl`): depthwise conv + SiLU + x/B/C split
-// of the pre-conv xBC rows, then the chunked SSD forward chained
-// h_init -> hN, for either scan direction. Plain version:
-// caduceus_tpu_torch/ops/ssd.py `ssd_chunked_fused`; Python wrapper:
-// caduceus_tpu_torch/ops/ssd_batched.py `ssd_batched_fused`.
+// Replaces the TPU kernel `_fwd_kernel` of caduceus_tpu/ops/ssd_pallas_batched.py
+// in both of its forms, as one __global__ templated on the conv width K:
+// - K >= 1, entry `ssd_fused_fwd`: `_fwd_kernel(fused=True)` (launched by
+//   `ssd_pallas_batched_fused_fwd_impl`, TPU kernel #1): depthwise conv +
+//   SiLU + x/B/C split of the pre-conv xBC rows inside the kernel. Plain
+//   version: caduceus_tpu_torch/ops/ssd.py `ssd_chunked_fused`.
+// - K = 0, entry `ssd_fwd`: `_fwd_kernel(fused=False)` (launched by
+//   `ssd_pallas_batched_fwd_impl`, TPU kernel #2): post-conv x, B and C read
+//   straight from their (G, L, .) tensors through their own batch and row
+//   strides (the prefill passes column views of one conv output). Plain
+//   version: ops/ssd.py `ssd_chunked`.
+// Both chain h_init -> hN, for either scan direction. Python wrappers:
+// caduceus_tpu_torch/ops/ssd_batched.py `ssd_fused_fwd` / `ssd_fwd`.
 //
 // Per block (g, h) and per chunk of T rows, in scan order (right to left
 // when `reverse`):
 //   xc   = silu(sum_k w[k] * xBC[row - dir*(K-1-k)] + b)       fp32, zeros
-//          past the sequence edges (reverse: the conv reads later rows)
+//          past the sequence edges (reverse: the conv reads later rows);
+//          K = 0: x, B, C as given
 //   dt   = softplus(dt_raw + dt_bias), a = dt * A
 //   cum  = inclusive in-scan-order cumsum of a (fp32 warp scan)
 //   CB   = C @ B^T,  M = mask(CB * exp(cum_t - cum_s))
@@ -47,12 +54,15 @@
 // Bound on the card: bytes. Per row it reads xBC (H*P + 2*NG*N) and dt (H)
 // and writes y (H*P) -- 2.6 KB/row in bf16 at the main geometry -- against
 // ~0.34 MFLOP/row of matmul work at T = 64; at 989 TF/s vs 3.35 TB/s the
-// bytes take about twice as long (with carries: 4.6 KB/row). Known costs of this first version:
+// bytes take about twice as long (with carries: 4.6 KB/row). The unfused
+// form (K = 0) moves the same bytes at the main geometry: x (H*P), B and C
+// (2*NG*N) and dt (H) read, y (H*P) written. Known costs of this first version:
 // - with ngroups = 1 every head recomputes the B/C conv and CB (8x
 //   redundant at H = 8);
 // - there are G*H blocks, so one 131k request (G = 2) fills 16 of 132 SMs;
 //   a chunk-parallel state-passing design is the later fix;
-// - one block per SM, WMMA from shared memory, no TMA / wgmma pipelining.
+// - one block per SM, WMMA from shared memory, no TMA / wgmma pipelining;
+// - at batch 1 (a prefill) there are H = 8 blocks for 132 SMs.
 
 #include "ssd_common.cuh"
 
@@ -61,14 +71,20 @@ using namespace ssd;
 namespace {
 
 struct Params {
-  const void* xBC;          // (G, L, Wc) storage dtype, unit column stride
+  const void* xBC;          // K >= 1: (G, L, Wc) storage dtype, unit column stride
   long long xbc_sg, xbc_sl;  // batch / row strides in elements
+  const void* x;            // K = 0: (G, L, H*P), unit column stride
+  long long x_sg, x_sl;
+  const void* B;            // K = 0: (G, L, NG*N), unit column stride
+  long long b_sg, b_sl;
+  const void* C;            // K = 0: (G, L, NG*N), unit column stride
+  long long c_sg, c_sl;
   const void* dt;           // (G, L, H) storage dtype, unit column stride
   long long dt_sg, dt_sl;
   const float* A;           // (H,)
   const float* D;           // (H,) or null
   const float* dt_bias;     // (H,) or null
-  const float* conv_w;      // (K, Wc)
+  const float* conv_w;      // (K, Wc); null when K = 0
   const float* conv_b;      // (Wc,) or null
   const float* h_init;      // (G, H, N, P) or null
   void* y;                  // (G, L, H, P) storage dtype, contiguous
@@ -124,8 +140,39 @@ struct Smem {
   }
 };
 
+// K = 0: post-conv x (head hh's P columns), B and C (group grp's N columns)
+// of the T rows of one chunk, read through their strides: xf (T x P fp32),
+// Bs / Cs (T x N storage type, ld ldN). Rows >= L give 0 (identity steps,
+// with dt = 0 there). Each load reads a clamped row unconditionally and the
+// row mask selects after, so a thread's loads are all in flight together.
+template <typename S, int T>
+__device__ __forceinline__ void load_chunk(const Params& p, int g, int hh, int grp,
+                                           long long row0, float* xf, S* Bs, S* Cs,
+                                           int ldN) {
+  const int P = p.P, N = p.N, L = p.L;
+  const S* x = static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * P;
+  const S* B = static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N;
+  const S* C = static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N;
+  const int ncol = P + 2 * N;
+  for (int i = threadIdx.x; i < T * ncol; i += NTHREADS) {
+    const int t = i / ncol, j = i % ncol;
+    const long long r = row0 + t;
+    const long long rc = r < L ? r : L - 1;
+    if (j < P) {
+      const float v = to_f<S>(x[rc * p.x_sl + j]);
+      xf[t * P + j] = r < L ? v : 0.f;
+    } else if (j < P + N) {
+      const S v = B[rc * p.b_sl + (j - P)];
+      Bs[t * ldN + (j - P)] = r < L ? v : from_f<S>(0.f);
+    } else {
+      const S v = C[rc * p.c_sl + (j - P - N)];
+      Cs[t * ldN + (j - P - N)] = r < L ? v : from_f<S>(0.f);
+    }
+  }
+}
+
 template <typename S, int K>
-__global__ void __launch_bounds__(NTHREADS) ssd_fused_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) ssd_fwd_kernel(const Params p) {
   constexpr int T = Chunk<S>::T;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int P = p.P, N = p.N, H = p.H, L = p.L;
@@ -161,8 +208,12 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_fwd_kernel(const Params p)
     if (tid < 32)
       chunk_dt_cum<S, T>(dtp, p.dt_sl, hh, row0, L, bias_h, A_h, p.dt_softplus != 0, rev,
                          sm.dtv, sm.cum);
-    conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, p.Wc, L, row0, rev, P, N,
-                             xcol0, bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    if constexpr (K == 0) {
+      load_chunk<S, T>(p, g, hh, grp, row0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    } else {
+      conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, p.Wc, L, row0, rev, P, N,
+                               xcol0, bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    }
     // the state entering this chunk: its rounded copy for C @ h, and the
     // carry the backward reads (G, nc, H, N, P), indexed by array chunk c
     S* car = p.carries ? static_cast<S*>(p.carries) + (((long long)g * nc + c) * H + hh) * N * P
@@ -237,16 +288,17 @@ cudaError_t launch(const Params& p, int G, cudaStream_t stream) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(ssd_fused_fwd_kernel<S, K>,
+  err = cudaFuncSetAttribute(ssd_fwd_kernel<S, K>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_fused_fwd_kernel<S, K><<<G * p.H, NTHREADS, smem, stream>>>(p);
+  ssd_fwd_kernel<S, K><<<G * p.H, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename S>
 cudaError_t dispatch_k(const Params& p, int G, int K, cudaStream_t stream) {
   switch (K) {
+    case 0: return launch<S, 0>(p, G, stream);
     case 1: return launch<S, 1>(p, G, stream);
     case 2: return launch<S, 2>(p, G, stream);
     case 3: return launch<S, 3>(p, G, stream);
@@ -270,7 +322,8 @@ extern "C" int ssd_fused_fwd(
     int dt_softplus, int reverse, void* stream) {
   if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  Params p = {};
   p.xBC = xBC; p.xbc_sg = xbc_sg; p.xbc_sl = xbc_sl;
   p.dt = dt; p.dt_sg = dt_sg; p.dt_sl = dt_sl;
   p.A = static_cast<const float*>(A);
@@ -285,6 +338,40 @@ extern "C" int ssd_fused_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1 ? dispatch_k<__nv_bfloat16>(p, G, K, s)
                   : dtype == 0 ? dispatch_k<float>(p, G, K, s)
+                               : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The unfused forward (K = 0): x (G, L, H*P), B and C (G, L, NG*N) and dt
+// (G, L, H), each through its own batch and row strides (unit column
+// stride). dtype, carries and the return value as `ssd_fused_fwd`.
+extern "C" int ssd_fwd(
+    int dtype,
+    const void* x, long long x_sg, long long x_sl,
+    const void* B, long long b_sg, long long b_sl,
+    const void* C, long long c_sg, long long c_sl,
+    const void* dt, long long dt_sg, long long dt_sl,
+    const void* A, const void* D, const void* dt_bias, const void* h_init,
+    void* y, void* hN, void* carries,
+    int G, int L, int H, int P, int NG, int N,
+    int dt_softplus, int reverse, void* stream) {
+  if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.x = x; p.x_sg = x_sg; p.x_sl = x_sl;
+  p.B = B; p.b_sg = b_sg; p.b_sl = b_sl;
+  p.C = C; p.c_sg = c_sg; p.c_sl = c_sl;
+  p.dt = dt; p.dt_sg = dt_sg; p.dt_sl = dt_sl;
+  p.A = static_cast<const float*>(A);
+  p.D = static_cast<const float*>(D);
+  p.dt_bias = static_cast<const float*>(dt_bias);
+  p.h_init = static_cast<const float*>(h_init);
+  p.y = y; p.hN = static_cast<float*>(hN); p.carries = carries;
+  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = 0;
+  p.dt_softplus = dt_softplus; p.reverse = reverse;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 1 ? launch<__nv_bfloat16, 0>(p, G, s)
+                  : dtype == 0 ? launch<float, 0>(p, G, s)
                                : cudaErrorInvalidValue;
   return (int)err;
 }

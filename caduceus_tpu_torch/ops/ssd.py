@@ -16,6 +16,9 @@ with ``dt = softplus(dt_raw + dt_bias)`` resolved inside (optional).
   follows the kernel's precision policy: cumsum and decays in fp32, matmul
   operands rounded to the storage dtype with fp32 accumulation (emulated
   as fp32 products of rounded operands), fp32 state.
+- `ssd_chunked` is the same chunk body on post-conv x, B, C: the plain
+  version of the unfused `ssd_fwd` CUDA kernel (the prefill's SSD).
+- `ssd_step` is the one-token recurrence of the decode step.
 - `ssd_chunked_fused_bwd` is its adjoint from the saved chunk carries, the
   plain version of the `ssd_fused_bwd` kernels: `ssd_adjoint_xc` (the SSD
   part) then `conv_silu_bwd` (SiLU and conv adjoints), one per kernel.
@@ -132,41 +135,20 @@ def _q(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def ssd_chunked_fused(
-    xBC: torch.Tensor,                      # (G, L, H·P + 2·NG·N) pre-conv
-    dt: torch.Tensor,                       # (G, L, H) raw
-    A: torch.Tensor,                        # (H,)
-    conv_w: torch.Tensor,                   # (K, Wc)
-    conv_b: Optional[torch.Tensor] = None,  # (Wc,)
-    D: Optional[torch.Tensor] = None,
-    dt_bias: Optional[torch.Tensor] = None,
-    dims: Tuple[int, int, int, int] = None,  # (H, P, NG, N)
-    dt_softplus: bool = False,
-    reverse: bool = False,
-    chunk_size: int = 64,
-    h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
-    return_final_state: bool = False,
-    return_carries: bool = False,
-):
-    """Chunked dual form with the conv fused (see module docstring).
+def _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse, T, h_init,
+             return_final_state, return_carries, mm):
+    """The chunk body shared by `ssd_chunked_fused` and `ssd_chunked`.
 
-    Returns y (G, L, H, P) in xBC's dtype, and hN (G, H, N, P) fp32 when
-    ``return_final_state``. Rows past L in the last chunk are identity
-    steps (dt = 0, x = B = C = 0), the semantics of the JAX package's
-    `_pad_ssd`. ``return_carries`` returns (y, hN, carries): the state at
-    the entry (in scan order) of every chunk, (G, nc, H, N, P) indexed by
-    the chunk's position in the array, in `carry_dtype(xBC.dtype)` — the
-    residual `ssd_chunked_fused_bwd` reads."""
+    ``load(s0, r1)`` gives the fp32 x (G, r1 - s0, H·P) and the B, C (G,
+    r1 - s0, NG·N) of rows [s0, r1), B and C rounded to ``mm``, the storage
+    dtype of the matmul operands and of y. Rows past L in the last chunk
+    are identity steps (dt = 0, x = B = C = 0), the semantics of the JAX
+    package's `_pad_ssd`."""
     H, P, NG, N = dims
-    G, L, Wc = xBC.shape
-    assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
+    G, L = dt.shape[:2]
     rep = H // NG
-    T = chunk_size
-    mm = xBC.dtype
-    dev = xBC.device
+    dev = dt.device
     Af = A.float()
-    w = conv_w.float()
-    b = None if conv_b is None else conv_b.float()
     nc = -(-L // T)
     Lp = nc * T
     h = (torch.zeros(G, H, N, P, device=dev) if h_init is None
@@ -183,13 +165,12 @@ def ssd_chunked_fused(
         r1 = min(s1, L)
         nci = (s1 - s0) // T
         pad = s1 - r1
-        xc = F.pad(_conv_silu_rows(xBC, w, b, s0, r1, reverse),
-                   (0, 0, 0, pad))
+        xs, Bq, Cq = (F.pad(t, (0, 0, 0, pad)) for t in load(s0, r1))
         dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus),
                     (0, 0, 0, pad))
-        xs = xc[..., :H * P].reshape(G, nci, T, H, P)
-        Bq = _q(xc[..., H * P:H * P + NG * N], mm).reshape(G, nci, T, NG, N)
-        Cq = _q(xc[..., H * P + NG * N:], mm).reshape(G, nci, T, NG, N)
+        xs = xs.reshape(G, nci, T, H, P)
+        Bq = Bq.reshape(G, nci, T, NG, N)
+        Cq = Cq.reshape(G, nci, T, NG, N)
         dtf = dtf.reshape(G, nci, T, H)
 
         a = dtf * Af
@@ -232,6 +213,110 @@ def ssd_chunked_fused(
     if return_final_state:
         return y, h
     return y
+
+
+def ssd_chunked_fused(
+    xBC: torch.Tensor,                      # (G, L, H·P + 2·NG·N) pre-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    conv_w: torch.Tensor,                   # (K, Wc)
+    conv_b: Optional[torch.Tensor] = None,  # (Wc,)
+    D: Optional[torch.Tensor] = None,
+    dt_bias: Optional[torch.Tensor] = None,
+    dims: Tuple[int, int, int, int] = None,  # (H, P, NG, N)
+    dt_softplus: bool = False,
+    reverse: bool = False,
+    chunk_size: int = 64,
+    h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
+    return_final_state: bool = False,
+    return_carries: bool = False,
+):
+    """Chunked dual form with the conv fused (see module docstring).
+
+    Returns y (G, L, H, P) in xBC's dtype, and hN (G, H, N, P) fp32 when
+    ``return_final_state``. ``return_carries`` returns (y, hN, carries):
+    the state at the entry (in scan order) of every chunk, (G, nc, H, N, P)
+    indexed by the chunk's position in the array, in
+    `carry_dtype(xBC.dtype)` — the residual `ssd_chunked_fused_bwd`
+    reads."""
+    H, P, NG, N = dims
+    Wc = xBC.shape[2]
+    assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
+    mm = xBC.dtype
+    w = conv_w.float()
+    b = None if conv_b is None else conv_b.float()
+
+    def load(s0, r1):
+        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse)
+        return (xc[..., :H * P], _q(xc[..., H * P:H * P + NG * N], mm),
+                _q(xc[..., H * P + NG * N:], mm))
+
+    return _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse,
+                    chunk_size, h_init, return_final_state, return_carries, mm)
+
+
+def ssd_chunked(
+    x: torch.Tensor,                        # (G, L, H, P) post-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    B_mat: torch.Tensor,                    # (G, L, NG, N)
+    C: torch.Tensor,                        # (G, L, NG, N)
+    D: Optional[torch.Tensor] = None,       # (H,)
+    dt_bias: Optional[torch.Tensor] = None,  # (H,)
+    dt_softplus: bool = False,
+    reverse: bool = False,
+    chunk_size: int = 64,
+    h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
+    return_final_state: bool = False,
+    return_carries: bool = False,
+):
+    """The unfused chunked dual form on post-conv x, B and C: the plain
+    version of the `ssd_fwd` CUDA kernel (`ops/ssd_batched.py`), and the
+    port of `caduceus_tpu/ops/ssd.py ssd_chunked` without its fused-conv
+    mode. The chunk body and the precision policy are those of
+    `ssd_chunked_fused` (matmul operands rounded to x's dtype, fp32 cumsum,
+    decays and state); outputs as there."""
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    mm = x.dtype
+
+    def load(s0, r1):
+        n = r1 - s0
+        return (x[:, s0:r1].float().reshape(G, n, H * P),
+                _q(B_mat[:, s0:r1].reshape(G, n, NG * N), mm),
+                _q(C[:, s0:r1].reshape(G, n, NG * N), mm))
+
+    return _chunked(load, dt, A, D, dt_bias, (H, P, NG, N), dt_softplus,
+                    reverse, chunk_size, h_init, return_final_state,
+                    return_carries, mm)
+
+
+def ssd_step(
+    h: torch.Tensor,                        # (G, H, N, P) fp32 state
+    x_t: torch.Tensor,                      # (G, H, P)
+    dt_t: torch.Tensor,                     # (G, H) raw
+    A: torch.Tensor,                        # (H,)
+    B_t: torch.Tensor,                      # (G, NG, N)
+    C_t: torch.Tensor,                      # (G, NG, N)
+    D: Optional[torch.Tensor] = None,       # (H,)
+    dt_bias: Optional[torch.Tensor] = None,
+    dt_softplus: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrence step (O(1) per token), the port of
+    `caduceus_tpu/ops/ssd.py ssd_step`: returns (h, y_t), y_t in x_t's
+    dtype."""
+    G, H, N, P = h.shape
+    NG = B_t.shape[-2]
+    rep = H // NG
+    dtf = _resolve_dt(dt_t, dt_bias, dt_softplus)
+    da = torch.exp(dtf * A.float()).reshape(G, NG, rep)
+    dx = (dtf[..., None] * x_t.float()).reshape(G, NG, rep, P)
+    h_r = (da[..., None, None] * h.reshape(G, NG, rep, N, P)
+           + B_t.float()[:, :, None, :, None] * dx[:, :, :, None, :])
+    y = torch.einsum("bgrnp,bgn->bgrp", h_r, C_t.float()).reshape(G, H, P)
+    if D is not None:
+        y = y + x_t.float() * D.float()[:, None]
+    return h_r.reshape(G, H, N, P), y.to(x_t.dtype)
 
 
 def ssd_adjoint_xc(

@@ -1,11 +1,18 @@
-"""Fused-conv SSD: the Python wrappers of the `ssd_fused_fwd` and
-`ssd_fused_bwd` kernels, and the `torch.autograd.Function` around them.
+"""Head-batched SSD: the Python wrappers of the `ssd_fused_fwd`, `ssd_fwd`
+and `ssd_fused_bwd` kernels, and the `torch.autograd.Function` around the
+fused pair.
 
 Port of `caduceus_tpu/ops/ssd_pallas_batched.py` `ssd_pallas_batched_fused`
 (`ssd_pallas_batched_fused_chained` and its `custom_vjp`). Same signature
 and layouts: ``xBC`` is the PRE-conv (G, L, H·P + 2·NG·N) tensor, the
 depthwise conv + SiLU + x/B/C split run inside the kernels, so the
 post-conv tensor never exists in device memory.
+
+Also the unfused forward, `ssd_batched_chained` (the port of
+`ssd_pallas_batched_chained`, TPU kernel #2): post-conv x (G, L, H, P), B
+and C (G, L, NG, N), h_init -> (y, hN). The prefill runs it; on the CPU it
+is `ops/ssd.py ssd_chunked`. It is forward only: its adjoint (TPU kernel
+#4) is not ported, and under grad it raises.
 
 - On a CPU tensor `ssd_batched_fused` runs the plain version, `ops/ssd.py
   ssd_chunked_fused`, which autograd differentiates.
@@ -18,8 +25,9 @@ post-conv tensor never exists in device memory.
   conv_b, D, dt_bias and h_init, with a cotangent for hN.
 
 Launch counters (one per kernel launch on a CUDA tensor): ``launches``
-(`ssd_fused_fwd`), ``bwd_launches`` (`ssd_fused_bwd_kernel`) and
-``conv_bwd_launches`` (`ssd_conv_bwd_kernel`).
+(`ssd_fused_fwd`), ``unfused_launches`` (`ssd_fwd`), ``bwd_launches``
+(`ssd_fused_bwd_kernel`) and ``conv_bwd_launches``
+(`ssd_conv_bwd_kernel`).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from caduceus_tpu_torch import _build
 from caduceus_tpu_torch.ops.ssd import carry_dtype
 from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain_conv_silu_bwd
 from caduceus_tpu_torch.ops.ssd import ssd_adjoint_xc as plain_adjoint_xc
-from caduceus_tpu_torch.ops.ssd import ssd_chunked_fused
+from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_fused
 
 # chunk rows of the CUDA kernels (`Chunk<S>::T` in csrc/ssd_common.cuh):
 # fp32 tiles take twice the shared memory, so fp32 chunks are half as long.
@@ -43,6 +51,7 @@ MAX_CONV_WIDTH = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+unfused_launches = 0
 bwd_launches = 0
 conv_bwd_launches = 0
 
@@ -50,14 +59,15 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "ssd_fused_fwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_fwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 7 + [_I] * 8 + [_P],
     "ssd_fused_bwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ssd_conv_bwd": [_I, _P, _LL, _LL, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _P],
 }
-_LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fused_bwd": "ssd_fused_bwd",
-            "ssd_conv_bwd": "ssd_fused_bwd"}
+_LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fwd": "ssd_fused_fwd",
+            "ssd_fused_bwd": "ssd_fused_bwd", "ssd_conv_bwd": "ssd_fused_bwd"}
 
 
 def _fn(name: str):
@@ -71,7 +81,8 @@ def _fn(name: str):
 
 def build() -> dict:
     """Build both kernel libraries now, one nvcc each, side by side:
-    {library: (path, compile seconds)}."""
+    {library: (path, compile seconds)}. `ssd_fused_fwd.cu` holds both
+    forward entry points, `ssd_fused_fwd` and `ssd_fwd`."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("ssd_fused_fwd", "ssd_fused_bwd")
@@ -110,32 +121,41 @@ def _check(err: int, what: str, G, L, dims, dtype):
                            f"(G={G}, L={L}, dims={dims}, dtype={dtype})")
 
 
-def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
-    """Check what the CUDA kernels take; returns (K, fp32 copies of the
-    parameters (A, D, dt_bias, conv_w, conv_b))."""
+def _head_args(first, dt, A, D, dt_bias, dims, chunk_size, name):
+    """Check what every forward and backward kernel takes of the tensor
+    ``first`` (xBC or x), dt and the per-head parameters; returns the fp32
+    copies of (A, D, dt_bias)."""
     H, P, NG, N = dims
-    G, L, Wc = xBC.shape
-    dev = xBC.device
-    if xBC.dtype not in _DTYPES:
-        raise TypeError(f"xBC dtype {xBC.dtype}: the kernel takes float32 "
-                        "or bfloat16")
-    if chunk_size != KERNEL_CHUNK[xBC.dtype]:
-        raise ValueError(f"the CUDA kernel chunks {xBC.dtype} by "
-                         f"{KERNEL_CHUNK[xBC.dtype]} rows, got "
+    dev = first.device
+    if first.dtype not in _DTYPES:
+        raise TypeError(f"{name} dtype {first.dtype}: the kernel takes "
+                        "float32 or bfloat16")
+    if chunk_size != KERNEL_CHUNK[first.dtype]:
+        raise ValueError(f"the CUDA kernel chunks {first.dtype} by "
+                         f"{KERNEL_CHUNK[first.dtype]} rows, got "
                          f"chunk_size={chunk_size}")
-    if dt.dtype != xBC.dtype or dt.device != dev:
+    if dt.dtype != first.dtype or dt.device != dev:
         raise TypeError(f"dt is {dt.dtype} on {dt.device}; the kernel takes "
-                        f"xBC's {xBC.dtype} on {dev}")
-    if xBC.stride(2) != 1 or dt.stride(2) != 1:
-        raise ValueError("xBC and dt need a unit column stride")
+                        f"{name}'s {first.dtype} on {dev}")
+    if dt.stride(2) != 1:
+        raise ValueError("dt needs a unit column stride")
     if P % 16 or N % 16:
         raise ValueError(f"headdim {P} and d_state {N} must be multiples of "
                          "16 (the tensor-core tile)")
+    return (_small(A, (H,), "A", dev), _small(D, (H,), "D", dev),
+            _small(dt_bias, (H,), "dt_bias", dev))
+
+
+def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
+    """Check what the fused kernels take; returns (K, fp32 copies of the
+    parameters (A, D, dt_bias, conv_w, conv_b))."""
+    Wc = xBC.shape[2]
+    heads = _head_args(xBC, dt, A, D, dt_bias, dims, chunk_size, "xBC")
+    if xBC.stride(2) != 1:
+        raise ValueError("xBC needs a unit column stride")
     K = _conv_width(conv_w)
-    return K, (_small(A, (H,), "A", dev), _small(D, (H,), "D", dev),
-               _small(dt_bias, (H,), "dt_bias", dev),
-               _small(conv_w, (K, Wc), "conv_w", dev),
-               _small(conv_b, (Wc,), "conv_b", dev))
+    return K, heads + (_small(conv_w, (K, Wc), "conv_w", xBC.device),
+                       _small(conv_b, (Wc,), "conv_b", xBC.device))
 
 
 def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
@@ -167,6 +187,98 @@ def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
     global launches
     launches += 1
     return y, hN, carries
+
+
+def ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse, chunk_size,
+            h_init, save_carries: bool):
+    """One launch of the unfused forward kernel on CUDA tensors: (y, hN,
+    carries), carries as `ssd_fused_fwd`'s. x (G, L, H, P), B_mat and C
+    (G, L, NG, N) and dt (G, L, H) may be views into wider tensors (the
+    prefill's conv output and in_proj output): the kernel takes each one's
+    batch and row strides and needs each row's columns contiguous."""
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    dims = (H, P, NG, N)
+    dev = x.device
+    A_, D_, bias_ = _head_args(x, dt, A, D, dt_bias, dims, chunk_size, "x")
+    for name, t, row in (("x", x, (H, P)), ("B", B_mat, (NG, N)),
+                         ("C", C, (NG, N))):
+        if t.dtype != x.dtype or t.device != dev:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel "
+                            f"takes x's {x.dtype} on {dev}")
+        if t.stride(3) != 1 or t.stride(2) != row[1]:
+            raise ValueError(f"{name} {tuple(t.shape)} with strides "
+                             f"{t.stride()}: each row's {row[0]}x{row[1]} "
+                             "values must be contiguous")
+    h0 = _small(h_init, (G, H, N, P), "h_init", dev)
+    y = torch.empty(G, L, H, P, dtype=x.dtype, device=dev)
+    hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
+    nc = -(-L // chunk_size)
+    carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(x.dtype),
+                           device=dev) if save_carries else None)
+    with torch.cuda.device(dev):
+        err = _fn("ssd_fwd")(
+            _DTYPES[x.dtype],
+            x.data_ptr(), x.stride(0), x.stride(1),
+            B_mat.data_ptr(), B_mat.stride(0), B_mat.stride(1),
+            C.data_ptr(), C.stride(0), C.stride(1),
+            dt.data_ptr(), dt.stride(0), dt.stride(1),
+            _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(h0),
+            y.data_ptr(), hN.data_ptr(), _ptr(carries),
+            G, L, H, P, NG, N, int(dt_softplus), int(reverse),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, "ssd_fwd", G, L, dims, x.dtype)
+    global unfused_launches
+    unfused_launches += 1
+    return y, hN, carries
+
+
+def ssd_batched_chained(
+    x: torch.Tensor,                        # (G, L, H, P) post-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    B_mat: torch.Tensor,                    # (G, L, NG, N)
+    C: torch.Tensor,                        # (G, L, NG, N)
+    D: Optional[torch.Tensor] = None,       # (H,)
+    dt_bias: Optional[torch.Tensor] = None,  # (H,)
+    h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
+    dt_softplus: bool = True,
+    reverse: bool = False,
+    chunk_size: Optional[int] = None,
+):
+    """The counterpart of `ssd_pallas_batched_chained`: returns (y (G, L, H,
+    P) in x's dtype, hN (G, H, N, P) fp32). ``chunk_size`` defaults to the
+    kernel's (`KERNEL_CHUNK`). On a CPU tensor it runs `ops/ssd.py
+    ssd_chunked`; on a CUDA tensor one launch of `ssd_fwd`, or it raises."""
+    if x.dim() != 4 or B_mat.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and B {tuple(B_mat.shape)}: "
+                         "expected (G, L, H, P) and (G, L, NG, N)")
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    for name, t, want in (("dt", dt, (G, L, H)), ("B", B_mat, (G, L, NG, N)),
+                          ("C", C, (G, L, NG, N))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {want}")
+    if H % NG != 0:
+        raise ValueError(f"nheads {H} not divisible by ngroups {NG}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B_mat, C, D, dt_bias, h_init)):
+        raise NotImplementedError(
+            "ssd_batched_chained is forward only: its adjoint, TPU kernel #4 "
+            "(ssd_pallas_batched_bwd_impl), is not ported yet; call it under "
+            "torch.inference_mode() or torch.no_grad()")
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(x.dtype, 64)
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, B_mat, C, D, dt_bias, dt_softplus,
+                           reverse, chunk_size, h_init,
+                           return_final_state=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_batched_chained: unsupported device {x.device}")
+    y, hN, _ = ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
+                       chunk_size, h_init, save_carries=False)
+    return y, hN
 
 
 def ssd_adjoint_xc(

@@ -20,8 +20,9 @@ way (`flax_path` inverts `torch_key`).
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -121,3 +122,19 @@ def load_npz_params(path: str) -> Dict[str, np.ndarray]:
     """Read a flat ``params.npz`` (see the module docstring)."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def load_run_dir(run_dir: str) -> Tuple[CaduceusConfig, Dict[str, torch.Tensor]]:
+    """(config, state_dict) of a run dir holding ``model_config.json`` and
+    ``params.npz``; the LM head is untied when the export has ``lm_head``
+    (pass ``tie_word_embeddings="lm_head" not in state_dict`` to the
+    model)."""
+    cfg = CaduceusConfig.load(os.path.join(run_dir, "model_config.json"))
+    npz = os.path.join(run_dir, "params.npz")
+    if not os.path.exists(npz):
+        raise FileNotFoundError(
+            f"{npz} not found: the port reads params.npz exports; reading "
+            "Orbax checkpoints is not ported yet")
+    flat = load_npz_params(npz)
+    untied = "lm_head" in flat or "params/lm_head" in flat
+    return cfg, from_jax_params(flat, cfg, tie_word_embeddings=not untied)

@@ -1,10 +1,12 @@
-"""Batch inference server: /embed and /logits over HTTP.
+"""Batch inference server: /embed, /logits and /generate over HTTP.
 
 Port of `caduceus_tpu/serve.py` (`InferenceService`, `InferenceServer` and
 its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
 
   POST /embed    {"sequences": [...]}   -> pooled embeddings
   POST /logits   {"sequences": [...]}   -> per-position logits
+  POST /generate {"prompt": "ACGT", "max_new_tokens": 64, "temperature":
+                  0.0, "top_k": null, "seed": 0}  -> {"prompt", "generated"}
   GET  /healthz                         -> liveness + stats
 
 - **Length buckets.** Each request is padded to the next power-of-two
@@ -19,9 +21,13 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
 - **Pad-masked pooling.** /embed mean-pools (in fp32) only real positions;
   RCPS hidden states collapse to the strand mean. The pads do take part in
   the bidirectional scan, as in the JAX server.
+- **Generation.** A /generate request is its own dispatch: the prompt is
+  prefilled at its exact length (no bucket), then decoded token by token
+  (`inference.py generate`), sampling from a `torch.Generator` seeded by
+  the request's ``seed``. Causal models only; the others answer 500 with
+  the `NotImplementedError`, as the JAX server does.
 
-Not ported yet: /generate (it needs the v2 unfused SSD forward kernel and
-the v1 prefill) and /classify (finetuned exports); both answer 501.
+Not ported yet: /classify (finetuned exports), which answers 501.
 `from_run_dir` reads ``model_config.json`` + ``params.npz`` (`params.py`);
 Orbax checkpoints are not read yet.
 """
@@ -50,7 +56,7 @@ from caduceus_tpu_torch.models.caduceus import (
 )
 from caduceus_tpu_torch.tokenization import CaduceusTokenizer
 
-NOT_PORTED = ("/generate", "/classify")
+NOT_PORTED = ("/classify",)
 
 
 def _next_bucket(n: int, min_bucket: int, max_len: int) -> int:
@@ -62,7 +68,7 @@ def _next_bucket(n: int, min_bucket: int, max_len: int) -> int:
 
 @dataclass
 class _Request:
-    kind: str                 # "embed" | "logits"
+    kind: str                 # "embed" | "logits" | "generate"
     payload: Any
     bucket: int
     event: threading.Event = field(default_factory=threading.Event)
@@ -91,8 +97,9 @@ class InferenceService:
         self.model.load_state_dict(params)
         self.model.eval()
         if self.device.type == "cuda":
-            # build the kernels of the config's family now, so that no
-            # request pays the nvcc compile
+            # build the kernels of the config's family now (for v2 both
+            # forward entry points, the prefill's `ssd_fwd` among them), so
+            # that no request pays the nvcc compile
             if cfg.ssm_cfg.version == 1:
                 from caduceus_tpu_torch.ops.scan import build
             else:
@@ -110,18 +117,9 @@ class InferenceService:
     def from_run_dir(cls, run_dir: str, **kw) -> "InferenceService":
         """Serve a run dir holding ``model_config.json`` and ``params.npz``
         (flat flax paths, see `params.py`)."""
-        from caduceus_tpu_torch.params import from_jax_params, load_npz_params
+        from caduceus_tpu_torch.params import load_run_dir
 
-        cfg = CaduceusConfig.load(os.path.join(run_dir, "model_config.json"))
-        npz = os.path.join(run_dir, "params.npz")
-        if not os.path.exists(npz):
-            raise FileNotFoundError(
-                f"{npz} not found: the port serves params.npz exports; "
-                "reading Orbax checkpoints is not ported yet")
-        flat = load_npz_params(npz)
-        untied = "lm_head" in flat or "params/lm_head" in flat
-        return cls(cfg, from_jax_params(flat, cfg,
-                                        tie_word_embeddings=not untied), **kw)
+        return cls(*load_run_dir(run_dir), **kw)
 
     # --- one padded dispatch ---
 
@@ -161,6 +159,27 @@ class InferenceService:
             for r in batch:
                 r.finish(error=f"{type(e).__name__}: {e}")
 
+    def _run_generate(self, r: _Request):
+        from caduceus_tpu_torch.inference import generate
+
+        try:
+            p = r.payload
+            prompt = torch.from_numpy(
+                np.asarray(p["ids"], np.int64))[None].to(self.device)
+            gen = torch.Generator(device=self.device).manual_seed(
+                p.get("seed", 0))
+            out = generate(self.model, prompt, p["max_new_tokens"],
+                           generator=gen,
+                           temperature=p.get("temperature", 0.0),
+                           top_k=p.get("top_k"))
+            new = out[0, prompt.shape[1]:].cpu().numpy()
+            self.n_dispatches += 1
+            self.n_served += 1
+            r.finish(result=self.tok.decode(new))
+        except Exception as e:  # surface to the waiter
+            traceback.print_exc()
+            r.finish(error=f"{type(e).__name__}: {e}")
+
 
 class InferenceServer:
     """HTTP front + batching worker around an `InferenceService`."""
@@ -186,6 +205,9 @@ class InferenceServer:
                 except queue.Empty:
                     continue
             first = pending.pop(0)
+            if first.kind == "generate":
+                svc._run_generate(first)
+                continue
             batch = [first]
             deadline = time.monotonic() + svc.linger_s
             # same (kind, bucket) joins the dispatch; anything else waits
@@ -228,6 +250,10 @@ class InferenceServer:
                 raise RuntimeError(r.error)
             out.append(r.result)
         return out
+
+    def submit(self, kind: str, payload, bucket: int,
+               timeout: float = 600.0):
+        return self.submit_many(kind, [(payload, bucket)], timeout)[0]
 
     def start(self):
         self._worker.start()
@@ -307,6 +333,22 @@ def _make_handler(server: InferenceServer):
                     outs = server.submit_many(kind, items)
                     return self._reply(
                         200, {kind: [o.tolist() for o in outs]})
+                if self.path == "/generate":
+                    prompt = req.get("prompt", "")
+                    ids = svc.tok.encode(prompt)
+                    if len(ids) > svc.max_length:
+                        return self._reply(
+                            400, {"error": f"prompt length {len(ids)} > "
+                                  f"max_length {svc.max_length}"})
+                    out = server.submit("generate", {
+                        "ids": ids,
+                        "max_new_tokens": int(req.get("max_new_tokens", 64)),
+                        "temperature": float(req.get("temperature", 0.0)),
+                        "top_k": req.get("top_k"),
+                        "seed": int(req.get("seed", 0)),
+                    }, bucket=0)
+                    return self._reply(
+                        200, {"prompt": prompt, "generated": out})
                 return self._reply(404, {"error": "not found"})
             except Exception as e:
                 return self._reply(500, {"error": str(e)})

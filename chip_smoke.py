@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA H100: kernels, server, training.
+"""Drive the PyTorch port on one NVIDIA H100: kernels, server, training,
+generation.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,9 @@ toolkit (nvcc). It imports nothing of JAX or of `caduceus_tpu`. Phases, in
 order (any failure exits non-zero; nothing is caught and passed over):
 
 1. build the kernels from `caduceus_tpu_torch/csrc` (nvcc, sm_90a; one
-   nvcc per source, side by side): `ssd_fused_fwd.cu` and
-   `ssd_fused_bwd.cu` (two __global__ kernels); print build times and
+   nvcc per source, side by side): `ssd_fused_fwd.cu` (entry points
+   `ssd_fused_fwd` and `ssd_fwd`) and `ssd_fused_bwd.cu` (two
+   __global__ kernels), and the two scan sources; print build times and
    the ptxas reports;
 2. hold the forward kernel (y, hN and the chunk carries) against its
    plain PyTorch version (`ops/ssd.py ssd_chunked_fused`) on the card:
@@ -39,7 +41,7 @@ order (any failure exits non-zero; nothing is caught and passed over):
    batch: loss, grad norm, every gradient and every updated parameter
    must agree, and the card's update must equal AdamW's first step from
    the card's own gradient;
-7. train the full-width `hg38_mlm_v2` model (16 layers, remat span 1,
+7. train the full-width `hg38_mlm_v2` model (8 layers, remat span 1,
    bf16 over fp32 params) at L=131072: micro-batches of 2 sequences
    (G=4 per SSD call), accum 2, AdamW as `bench.py`; one warm-up step
    and 2 timed steps, finite loss and grad norm, and the launch counts
@@ -74,7 +76,32 @@ direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
 15. train the full-width v1 model as 7: 32 `bidir_scan_fwd` and 32
    `selective_scan_bwd` launches per micro-batch;
 16. time the three scan kernels at the training shape beside their plain
-   versions, bounds and exp counts, holding the timed outputs.
+   versions, bounds and exp counts, holding the timed outputs;
+
+and generation, for the causal models of `cli.py pretrain --model mamba`
+(v2: after phase 8, through the unfused SSD forward `ssd_fwd`, TPU kernel
+#2, the K = 0 instantiation of `ssd_fused_fwd.cu`; v1: after phase 16,
+through `selective_scan_fwd`, #7, chained from the cache):
+
+17. `ssd_fwd` against its plain version (`ops/ssd.py ssd_chunked`): small
+   shapes (fp32 and bf16, both directions, nonzero h_init, L not a
+   multiple of the chunk, ngroups 1 and 2, x/B/C and dt as strided column
+   views) and the main geometry (H=8, P=64, N=128, G=4, L=8192: y, hN,
+   carries); planted faults that must fail (D dropped, one 16x16 y tile
+   zeroed, h_init ignored);
+18. (v2, then v1 after 16) the full-width causal model at 2 layers, fp32:
+   `prefill` on the card against the CPU (logits and every cache entry),
+   two chained prefills (split inside a chunk and before d_conv rows)
+   against one, greedy `generate` of 32 tokens against the CPU's tokens
+   and the argmax of the card's full forward;
+19. the full-width 16-layer causal model over HTTP: /generate with prompts
+   of 1,000 and 131,072 tokens and 64 new tokens; the prefill launches
+   its scan kernel 16 times per request and decoding none; a bf16
+   prefill's last logits against the full forward's last position
+   (BF16_MODEL_TOL); prefill tokens/s at 131,072, decode ms per token at
+   batch 1 and 8, /generate latency, each beside its bound;
+20. `ssd_fwd` per launch at G=1 and G=4, L=131072, bf16, beside its plain
+   version and bound.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -182,7 +209,7 @@ def phase_build():
         built = dict(zip(names, pool.map(_build.build, names)))
     wall = time.perf_counter() - t0
     out = {"nvcc_flags": list(_build.NVCC_FLAGS), "wall_s": wall}
-    kernels = ("ssd_fused_fwd_kernel", "ssd_fused_bwd_kernel",
+    kernels = ("ssd_fwd_kernel", "ssd_fused_bwd_kernel",
                "ssd_conv_bwd_kernel", "selective_scan_fwd_kernel",
                "selective_scan_bwd_kernel")
     for name, (path, secs) in built.items():
@@ -193,10 +220,12 @@ def phase_build():
         for entry in report[1:]:
             head = entry.split("\n", 1)[0]
             kernel = next(k for k in kernels if k in head)
-            if kernel.startswith("ssd") and "Li4E" not in head:
-                continue    # the SSD kernels: only the K=4 (d_conv) ones
+            unfused = kernel == "ssd_fwd_kernel" and "Li0E" in head
+            if kernel.startswith("ssd") and "Li4E" not in head and not unfused:
+                continue    # the SSD kernels: the K=4 (d_conv) and K=0 ones
             kind = "bf16" if "bfloat16" in head else "fp32"
             kind += ", reverse" if "Lb1E" in head else ""
+            kind += ", unfused (ssd_fwd)" if unfused else ""
             for line in entry.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {kernel} ({kind}): {line.strip()}")
@@ -574,7 +603,8 @@ def _counts():
     from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
-    return {"ssd_fused_fwd": sb.launches, "ssd_fused_bwd_kernel":
+    return {"ssd_fused_fwd": sb.launches, "ssd_fwd": sb.unfused_launches,
+            "ssd_fused_bwd_kernel":
             sb.bwd_launches, "ssd_conv_bwd_kernel": sb.conv_bwd_launches,
             "selective_scan_fwd": scan.fwd_launches,
             "bidir_scan_fwd": scan.bidir_launches,
@@ -585,7 +615,8 @@ def _zero_counts():
     from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
-    sb.launches = sb.bwd_launches = sb.conv_bwd_launches = 0
+    sb.launches = sb.unfused_launches = 0
+    sb.bwd_launches = sb.conv_bwd_launches = 0
     scan.fwd_launches = scan.bidir_launches = scan.bwd_launches = 0
 
 
@@ -1368,6 +1399,370 @@ def phase_scan_timing():
     return res
 
 
+# --- generation: the prefill (unfused SSD #2 for v2, #7 for v1), the decode
+# step and /generate, for both causal families ---------------------------
+
+
+def mamba_ntp_config(version: int, n_layer: int = 16,
+                     dtype: str = "bfloat16"):
+    """The causal models of `cli.py pretrain --model mamba --ntp` (rcps and
+    bidirectional off, the `CaduceusConfig` defaults otherwise), written
+    out (no YAML). v1: `configs/hg38_mamba_ntp.yaml` (d_model 256, 16
+    layers, d_inner 512, d_state 16, dt_rank 16, d_conv 4). v2: the same
+    with `--preset configs/hg38_mlm_v2.yaml`'s mixer (d_state 128, headdim
+    64, ngroups 1, 8 heads)."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    ssm = (SSMConfig(version=2, d_state=128, headdim=64, ngroups=1, d_conv=4,
+                     expand=2, ssd_chunk_size=128, ssd_seg_chunks=8)
+           if version == 2 else SSMConfig(version=1, d_state=16, d_conv=4,
+                                          expand=2))
+    return CaduceusConfig(
+        d_model=256, n_layer=n_layer, vocab_size=tok.vocab_size, rcps=False,
+        complement_map=tok.complement_map, bidirectional=False,
+        dtype=dtype, param_dtype="float32", remat=True, ssm_cfg=ssm)
+
+
+def unfused_inputs(G, L, H, P, NG, N, dtype, seed, pad=0):
+    """Seeded operands of the unfused SSD on the card: x, B and C are column
+    views of one (G, L, pad + H·P + 2·NG·N) tensor (the prefill's conv
+    output) and dt a column view of a wider one (the in_proj output)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    xc = rnd(G, L, pad + H * P + 2 * NG * N).to(dtype)
+    o = pad + H * P
+    return dict(
+        x=xc[..., pad:o].reshape(G, L, H, P),
+        B=xc[..., o:o + NG * N].reshape(G, L, NG, N),
+        C=xc[..., o + NG * N:].reshape(G, L, NG, N),
+        dt=(rnd(G, L, H + 8) * 0.5).to(dtype)[..., 8:],
+        A=-torch.exp(rnd(H, scale=0.5)), D=rnd(H), dt_bias=rnd(H, scale=0.1),
+        h_init=rnd(G, H, N, P))
+
+
+def _unfused_args(inp, **over):
+    k = {**inp, **over}
+    return [k[n] for n in ("x", "dt", "A", "B", "C", "D", "dt_bias")]
+
+
+def unfused_pair(inp, reverse, **over):
+    """`ssd_fwd` and its plain version `ssd_chunked` on the same card
+    tensors: (y, hN, carries) of each. ``over`` replaces inputs of the
+    kernel's run only."""
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked
+    from caduceus_tpu_torch.ops.ssd_batched import KERNEL_CHUNK, ssd_fwd
+
+    T = KERNEL_CHUNK[inp["x"].dtype]
+    k = {**inp, **over}
+    kernel = ssd_fwd(*_unfused_args(inp, **over), True, reverse, T,
+                     k["h_init"], save_carries=True)
+    torch.cuda.synchronize()
+    plain = ssd_chunked(*_unfused_args(inp), True, reverse, T, inp["h_init"],
+                        return_carries=True)
+    return kernel, plain
+
+
+def phase_unfused_checks():
+    """`ssd_fwd` (TPU kernel #2) against `ssd_chunked`: small shapes, the
+    main geometry, and planted faults that must fail."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    results, faults, seed = [], {}, 500
+    for dtype in (torch.float32, torch.bfloat16):
+        for NG in (1, 2):
+            for reverse in (False, True):
+                seed += 1
+                inp = unfused_inputs(2, 200, 4, 32, NG, 32, dtype, seed,
+                                     pad=16)
+                label = (f"unfused small G=2 L=200 H=4 P=32 NG={NG} N=32 "
+                         f"{str(dtype)[6:]} rev={reverse}")
+                results.append({"case": label, **hold(
+                    label, TOL[dtype], *unfused_pair(inp, reverse),
+                    tag="ssd-unfused")})
+    for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, False)):
+        seed += 1
+        inp = unfused_inputs(4, 8192, 8, 64, 1, 128, dtype, seed, pad=0)
+        label = (f"unfused main G=4 L=8192 H=8 P=64 N=128 {str(dtype)[6:]} "
+                 f"rev={reverse}")
+        kernel, plain = unfused_pair(inp, reverse)
+        results.append({"case": label, **hold(label, TOL[dtype], kernel,
+                                              plain, tag="ssd-unfused")})
+        if faults:
+            continue
+        bf16 = TOL[torch.bfloat16]
+        no_d, _ = unfused_pair(inp, reverse, D=torch.zeros_like(inp["D"]))
+        planted = {"D term dropped": no_d}
+        y = kernel[0].clone()
+        t0 = 37 * 64 + 16                 # rows 16..31 of chunk 37
+        y[1, t0:t0 + 16, 5, 48:64] = 0
+        planted["one y tile (g1, h5, p48-63) zeroed"] = (y,) + kernel[1:]
+        no_h0, _ = unfused_pair(inp, reverse, h_init=None)
+        planted["h_init ignored"] = no_h0
+        for name, out in planted.items():
+            faults[name] = hold(f"planted fault: {name}", bf16, out, plain,
+                                expect_ok=False, tag="ssd-unfused")
+        del planted, no_d, no_h0, y
+        del inp, kernel, plain
+    return results, faults
+
+
+def _close(label, got, want, tol):
+    """max |got - want| <= tol x max|want|, on the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+    check(err <= tol * scale, f"{label}: {err:.3e} > {tol} x {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def _cache_close(label, got, want, tol):
+    return max(_close(f"{label} {k} {n}", got[k]["fwd"][n], want[k]["fwd"][n],
+                      tol) for k in want for n in ("conv", "ssm"))
+
+
+def _scan_counter(cfg):
+    """The launch counter of the prefill's scan kernel."""
+    return "ssd_fwd" if cfg.ssm_cfg.version == 2 else "selective_scan_fwd"
+
+
+def phase_prefill_vs_cpu(version):
+    """The full-width causal model at 2 layers, fp32: `prefill` on the card
+    against the CPU from the same weights (logits and every cache entry), a
+    prompt split in two chained prefills against one call, and greedy
+    `generate` of 32 tokens against the CPU's tokens and the argmax of the
+    card's full forward."""
+    from caduceus_tpu_torch.inference import generate, prefill
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+
+    cfg = mamba_ntp_config(version, n_layer=2, dtype="float32")
+    gen = torch.Generator().manual_seed(40 + version)
+    cpu = CaduceusForMaskedLM(cfg, device="cpu", generator=gen)
+    card = CaduceusForMaskedLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    B, L, n_new = 2, 1500, 32
+    ids = torch.randint(7, 11, (B, L), generator=gen)
+    _zero_counts()
+    logits, caches = prefill(card, ids.cuda())
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = dict.fromkeys(counts, 0)
+    want[_scan_counter(cfg)] = cfg.n_layer
+    check(counts == want, f"prefill launches {counts} != {want}")
+    t0 = time.perf_counter()
+    ref_logits, ref_caches = prefill(cpu, ids)
+    t_cpu = time.perf_counter() - t0
+    res = {"logits": _close("card vs CPU prefill logits", logits, ref_logits,
+                            MODEL_TOL),
+           "caches": _cache_close("card vs CPU prefill cache", caches,
+                                  ref_caches, MODEL_TOL)}
+    # two chained prefills (split inside a chunk, and before d_conv rows)
+    chained = {}
+    for split in (700, 3):
+        _, c1 = prefill(card, ids[:, :split].cuda())
+        l2, c2 = prefill(card, ids[:, split:].cuda(), caches=c1)
+        chained[split] = max(
+            _close(f"chained prefill at {split}: logits", l2, logits, 1e-4),
+            _cache_close(f"chained prefill at {split}: cache", c2, caches,
+                         1e-4))
+    res["chained"] = chained
+    out = generate(card, ids.cuda(), n_new).cpu()
+    ref = generate(cpu, ids, n_new)
+    check(torch.equal(out, ref), f"greedy tokens card {out[:, L:].tolist()} "
+          f"vs CPU {ref[:, L:].tolist()}")
+    with torch.inference_mode():
+        full = card(out[:, :-1].cuda()).argmax(-1).cpu()
+    check(torch.equal(full[:, L - 1:], out[:, L:]),
+          "greedy tokens differ from the argmax of the card's full forward")
+    log(f"[prefill] v{version} causal, full width, 2 layers, fp32, B={B}, "
+        f"L={L}: card vs CPU logits {res['logits']:.2e}, caches "
+        f"{res['caches']:.2e} of max (tol {MODEL_TOL}); chained prefills "
+        f"(split 700, 3) vs one call {max(chained.values()):.2e} of max "
+        f"(tol 1e-4); greedy {n_new} tokens equal to the CPU's and to the "
+        f"argmax of the card's full forward; launches {counts}; CPU prefill "
+        f"{t_cpu:.2f} s")
+    return {**res, "launches": counts, "cpu_prefill_s": t_cpu}
+
+
+def _prefill_bound(cfg, L, B=1):
+    """The least time of a bf16 prefill of B x L tokens: every layer's
+    scan kernel's bytes (as its own bound) plus the layer's hidden state
+    in and out, and the projections' and the scan's operations at the bf16
+    tensor-core peak; the conv, norms and the rest add to it."""
+    c, s = cfg, cfg.ssm_cfg
+    rows = B * L
+    d, di = c.d_model, c.d_inner
+    if s.version == 2:
+        H, P, NG, N = c.nheads, s.headdim, s.ngroups, s.d_state
+        T = 64
+        proj = 2 * d * (2 * di + 2 * NG * N + H) + 2 * di * d
+        scan_bytes = rows * ((H * P + 2 * NG * N + H) * 2 + H * P * 2)
+        scan_ops = rows * (2 * T * N * NG + 2 * T * P * H + 4 * N * P * H)
+    else:
+        N, R = s.d_state, c.dt_rank
+        proj = 2 * d * 2 * di + 2 * di * (R + 2 * N) + 2 * R * di + 2 * di * d
+        scan_bytes = rows * (2 * di * 2 + 2 * N * 2 + di * 2)
+        scan_ops = 5 * rows * di * N
+    n = c.n_layer
+    return _bound(n * (scan_bytes + rows * d * 2 * 2),
+                  n * (scan_ops + rows * proj))
+
+
+def phase_generate_serve(version):
+    """The full-width 16-layer causal model served over HTTP: /generate
+    with prompts of 1,000 and 131,072 tokens, 64 new tokens each; the
+    prefill launches its scan kernel once per layer and decoding none; a
+    bf16 prefill's last logits against the full forward's last position;
+    prefill tokens/s, decode ms per token at batch 1 and 8, /generate
+    latency, each beside its bound."""
+    from caduceus_tpu_torch.inference import lm_step, prefill
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    cfg = mamba_ntp_config(version)
+    model = CaduceusForMaskedLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(60 + version))
+    svc = InferenceService(cfg, model.state_dict(), device="cuda",
+                           max_batch=4, min_bucket=1024, max_length=131072)
+    del model
+    server = InferenceServer(svc, port=0).start()
+    rng = np.random.default_rng(9 + version)
+    prompts = ["".join(rng.choice(list("ACGT"), n)) for n in (1000, 131072)]
+    n_new, requests = 64, []
+    counter = _scan_counter(cfg)
+    try:
+        _zero_counts()
+        for prompt in prompts:
+            t0 = time.perf_counter()
+            out = _post(server.port, "/generate",
+                        {"prompt": prompt, "max_new_tokens": n_new})
+            dt = time.perf_counter() - t0
+            check(out["prompt"] == prompt and len(out["generated"]) >= n_new,
+                  f"/generate: {str(out)[:200]}")
+            requests.append({"prompt_tokens": len(prompt), "new": n_new,
+                             "latency_s": dt})
+            log(f"[generate] v{version} /generate {len(prompt)} + {n_new} "
+                f"tokens: {dt * 1e3:.1f} ms over HTTP")
+        counts = _counts()
+    finally:
+        server.stop()
+    want = dict.fromkeys(counts, 0)
+    want[counter] = cfg.n_layer * len(prompts)
+    check(counts == want, f"/generate launches {counts} != {want} (the "
+          f"prefill: {cfg.n_layer} per request; decoding: none)")
+    res = {"requests": requests, "launches": counts[counter],
+           "bf16_prefill_vs_forward": {}}
+    model = svc.model
+    tok = svc.tok
+    with torch.inference_mode():
+        for prompt in prompts:
+            ids = torch.from_numpy(tok.encode(prompt).astype(np.int64))[
+                None].cuda()
+            last, _ = prefill(model, ids)
+            full = model(ids)[:, -1]
+            res["bf16_prefill_vs_forward"][len(prompt)] = _close(
+                f"bf16 prefill vs full forward, last position, L="
+                f"{len(prompt)}", last, full, BF16_MODEL_TOL)
+        # prefill rate at 131,072 tokens (warm: the requests above ran it)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, ids)
+        torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        check(_counts()[counter] == cfg.n_layer, "prefill launches")
+        res["prefill_tokens_per_s"] = ids.shape[1] / res["prefill_s"]
+        res["prefill_bound"] = _prefill_bound(cfg, ids.shape[1])
+        # decode: ms per token after a 1,000-token prompt, batch 1 and 8
+        n_params = sum(p.numel() for p in model.parameters())
+        for B in (1, 8):
+            short = ids[:, :1000].expand(B, -1).contiguous()
+            logits, caches = prefill(model, short)
+            tok_t = logits.argmax(-1)
+            lm_step(model, tok_t, caches)
+            _zero_counts()
+            steps = 32
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, caches = lm_step(model, tok_t, caches)
+                tok_t = logits.argmax(-1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            check(all(v == 0 for v in _counts().values()),
+                  "the decode step launched a scan kernel")
+            state = sum(t.numel() * t.element_size() for layer in
+                        caches.values() for t in layer["fwd"].values())
+            # weights read once (fp32), caches read and written once
+            bound = _bound(n_params * 4 + 2 * state,
+                           2 * n_params * B)
+            res[f"decode_B{B}"] = {"ms_per_token": ms, **bound}
+            log(f"[generate] v{version} decode, batch {B}: {ms:.3f} ms per "
+                f"token ({B * 1e3 / ms:,.0f} tokens/s), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    pb = res["prefill_bound"]
+    res["generate_bound_ms"] = pb["bound_ms"] + n_new * res["decode_B1"][
+        "bound_ms"]
+    log(f"[generate] v{version} prefill 1 x {ids.shape[1]}: "
+        f"{res['prefill_s'] * 1e3:.1f} ms, {res['prefill_tokens_per_s']:,.0f} "
+        f"tokens/s, bound {pb['bound_ms']:.3f} ms ({pb['bound_by']}); "
+        f"/generate {ids.shape[1]} + {n_new} over HTTP "
+        f"{requests[-1]['latency_s'] * 1e3:.1f} ms, bound "
+        f"{res['generate_bound_ms']:.3f} ms; launches {counts}; bf16 "
+        f"prefill vs full forward (last position) at L = "
+        + ", ".join(f"{n}: {e:.2e}" for n, e in
+                    res["bf16_prefill_vs_forward"].items())
+        + f" of max|logit| (tol {BF16_MODEL_TOL})")
+    del svc, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_unfused_timing():
+    """`ssd_fwd` per launch at the prefill's batch G=1 and at G=4, L=131072,
+    bf16, no carries (as the prefill runs it), beside its plain version and
+    bound; the timed outputs held against the plain version's."""
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked
+    from caduceus_tpu_torch.ops.ssd_batched import KERNEL_CHUNK, ssd_fwd
+
+    L, H, P, NG, N = 131072, 8, 64, 1, 128
+    T = KERNEL_CHUNK[torch.bfloat16]
+    res = {}
+    for G in (1, 4):
+        inp = unfused_inputs(G, L, H, P, NG, N, torch.bfloat16, 700 + G,
+                             pad=16)
+        a = _unfused_args(inp)
+        outs = {}
+        t = _timed(lambda: outs.__setitem__("k", ssd_fwd(
+                       *a, True, False, T, inp["h_init"], False)[:2]),
+                   lambda: outs.__setitem__("p", ssd_chunked(
+                       *a, True, False, T, inp["h_init"],
+                       return_final_state=True)))
+        t["check"] = hold(f"timed ssd_fwd G={G} L={L} bf16",
+                          TOL[torch.bfloat16], outs.pop("k"), outs.pop("p"),
+                          ("y", "hN"), tag="ssd-unfused")
+        rows = G * L
+        # x, B, C, dt read once, y written once (bf16); h_init and hN fp32
+        t.update(_bound(rows * (H * P + 2 * NG * N + H) * 2 + rows * H * P * 2
+                        + 2 * G * H * N * P * 4,
+                        rows * (2 * T * N * NG + 2 * T * P * H
+                                + 4 * N * P * H)))
+        res[f"G{G}"] = t
+        log(f"[time] ssd_fwd G={G} L={L} bf16: kernel {t['ms']:.3f} ms "
+            f"(runs {', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), "
+            f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}: {t['bytes'] / 1e9:.3f} GB)")
+        del inp, a, outs
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1392,8 +1787,17 @@ def main() -> int:
     report["model_vs_cpu"] = phase_model_vs_cpu()
     report["serve"] = phase_serve()
     report["train_vs_cpu"] = phase_train_vs_cpu()
-    report["train"] = phase_train_full()
+    # 8 of the 16 layers: the 16-layer step was measured in earlier runs
+    # (PERF.md), and the generation phases need the time
+    report["train"] = phase_train_full(n_layer=8)
     report["timing"] = phase_timing()
+    t_gen = time.perf_counter()
+    (report["unfused_checks"],
+     report["unfused_planted_faults"]) = phase_unfused_checks()
+    report["v2_prefill_vs_cpu"] = phase_prefill_vs_cpu(2)
+    report["v2_generate"] = phase_generate_serve(2)
+    report["unfused_timing"] = phase_unfused_timing()
+    report["v2_generate_phase_s"] = time.perf_counter() - t_gen
     t_v1 = time.perf_counter()
     report["scan_checks"], report["scan_planted_faults"] = phase_scan_checks()
     (report["scan_bwd_checks"],
@@ -1404,6 +1808,10 @@ def main() -> int:
     report["mamba_mixer_step"] = phase_mamba_mixer_step()
     report["v1_train"] = phase_train_full(hg38_mlm_config)
     report["scan_timing"] = phase_scan_timing()
+    t_gen = time.perf_counter()
+    report["v1_prefill_vs_cpu"] = phase_prefill_vs_cpu(1)
+    report["v1_generate"] = phase_generate_serve(1)
+    report["v1_generate_phase_s"] = time.perf_counter() - t_gen
     report["v1_phase_s"] = time.perf_counter() - t_v1
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
@@ -1433,6 +1841,7 @@ def main() -> int:
 
     replaces = {
         "ssd_fused_fwd": "caduceus_tpu/ops/ssd_pallas_batched.py:173",
+        "ssd_fwd": "caduceus_tpu/ops/ssd_pallas_batched.py:173",
         "ssd_fused_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
         "ssd_conv_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
         "selective_scan_fwd": "caduceus_tpu/ops/scan_pallas.py:153",
@@ -1448,6 +1857,7 @@ def main() -> int:
                 "check": "pass", **extra}
 
     f16 = tm["fwd_G16"]
+    ut = report["unfused_timing"]
     # the backward's two kernels split its bound; the workspace traffic of
     # the split stands beside it
     pair = {"function_bound_ms": tm["bwd_function_bound"]["bound_ms"]}
@@ -1459,6 +1869,14 @@ def main() -> int:
               launches_serve=report["serve"]["launches"],
               serve_G16={k: f16[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")}),
+        entry("ssd_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu", ut["G1"],
+              report["v2_generate"]["launches"],
+              ut["G1"]["check"]["y"]["max_abs_err"],
+              shape="G=1 L=131072 bf16 (one 131k prefill), no carries",
+              launches_path="/generate of the v2 causal model: prompts of "
+              "1,000 and 131,072 tokens, 16 layers each",
+              G4={k: ut["G4"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}),
         entry("ssd_fused_bwd_kernel", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               tm["bwd_main"], tr["launches"]["ssd_fused_bwd_kernel"],
               tm["bwd_main"]["check"]["g_xc"]["max_abs_err"],
@@ -1475,6 +1893,7 @@ def main() -> int:
               st["fwd"]["check"]["y"]["max_abs_err"],
               shape="G=4 L=131072 bf16, one direction, carries saved",
               launches_path="MambaMixer train step (2 layers, accum 2)",
+              launches_generate=report["v1_generate"]["launches"],
               exps=st["fwd"]["exps"], exp_ms=st["fwd"]["exp_ms"]),
         entry("bidir_scan_fwd",
               "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["bidir"],

@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: `ssd_fused_fwd` (with its carries)
-and `ssd_fused_bwd`, and the selective scan's `selective_scan_fwd`,
-`bidir_scan_fwd` and `selective_scan_bwd`, against their plain versions;
-the autograd Functions against finite differences; a v1 model backward
-through the scan kernels; and the wrappers' refusals. Imports no JAX, so
+"""The port's CUDA kernels on the card: `ssd_fused_fwd` (with its carries),
+the unfused `ssd_fwd` and `ssd_fused_bwd`, and the selective scan's
+`selective_scan_fwd`, `bidir_scan_fwd` and `selective_scan_bwd`, against
+their plain versions; the autograd Functions against finite differences; a
+v1 model backward through the scan kernels; the prefill of both causal
+families, card against CPU; and the wrappers' refusals. Imports no JAX, so
 it runs on the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -331,3 +332,94 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="d_state"):
         a4, *_ = _scan_inputs(torch.float32, N=4)
         scan.selective_scan_fwd(*a4, True, False)
+
+
+# --- the unfused SSD forward `ssd_fwd` (TPU kernel #2) against
+# ops/ssd.py ssd_chunked, and the prefill that runs it
+
+
+def _unfused_inputs(dtype, G=2, L=150, H=4, P=32, NG=2, N=32, seed=0):
+    """x, dt, A, B, C, D, dt_bias, h_init on the card; x, B and C are column
+    views of one (G, L, 16 + H·P + 2·NG·N) conv output and dt a column view
+    of a wider in_proj output, as the prefill gives them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    xc = rnd(G, L, 16 + H * P + 2 * NG * N).to(dtype)
+    x = xc[..., 16:16 + H * P].reshape(G, L, H, P)
+    B = xc[..., 16 + H * P:16 + H * P + NG * N].reshape(G, L, NG, N)
+    C = xc[..., 16 + H * P + NG * N:].reshape(G, L, NG, N)
+    dt = (rnd(G, L, H + 8) * 0.5).to(dtype)[..., 8:]
+    return (x, dt, -torch.exp(rnd(H, sc=0.5)), B, C, rnd(H), rnd(H, sc=0.1),
+            rnd(G, H, N, P))
+
+
+def _hold_unfused(dtype, reverse, **kw):
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked
+
+    x, dt, A, B, C, D, bias, h0 = _unfused_inputs(dtype, **kw)
+    T = ssd_batched.KERNEL_CHUNK[dtype]
+    before = ssd_batched.unfused_launches
+    got = ssd_batched.ssd_fwd(x, dt, A, B, C, D, bias, True, reverse, T, h0,
+                              save_carries=True)
+    torch.cuda.synchronize()
+    assert ssd_batched.unfused_launches == before + 1
+    want = ssd_chunked(x, dt, A, B, C, D, bias, True, reverse, T, h0,
+                       return_carries=True)
+    for name, k, p in zip(("y", "hN", "carries"), got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (False, 1)])
+def test_unfused_kernel_matches_plain(card, dtype, reverse, NG):
+    _hold_unfused(dtype, reverse, NG=NG, seed=10 + NG)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfused_kernel_main_geometry(card, dtype):
+    """H=8, P=64, N=128, ngroups 1 (the v2 mixer), a ragged L."""
+    _hold_unfused(dtype, False, G=2, L=4000, H=8, P=64, NG=1, N=128, seed=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+def test_prefill_card_matches_cpu(card, version):
+    """`inference.prefill` of a 2-layer full-width causal model (d_model
+    256), fp32: the card (kernel #7 or #2, one launch per layer) against
+    the CPU from the same weights, logits and every cache entry, 1e-4 of
+    each tensor's largest value."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.inference import prefill
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    ssm = (SSMConfig(version=2, d_state=128, headdim=64, ngroups=1)
+           if version == 2 else SSMConfig(version=1, d_state=16))
+    cfg = CaduceusConfig(d_model=256, n_layer=2, vocab_size=tok.vocab_size,
+                         rcps=False, bidirectional=False, dtype="float32",
+                         complement_map=tok.complement_map, ssm_cfg=ssm)
+    cpu = CaduceusForMaskedLM(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(1))
+    model = CaduceusForMaskedLM(cfg, device="cuda")
+    model.load_state_dict(cpu.state_dict())
+    ids = torch.randint(7, 11, (2, 1000),
+                        generator=torch.Generator().manual_seed(2))
+    counts = (ssd_batched.unfused_launches, scan.fwd_launches)
+    logits, caches = prefill(model, ids.cuda())
+    torch.cuda.synchronize()
+    want = (counts[0] + 2, counts[1]) if version == 2 else (counts[0],
+                                                             counts[1] + 2)
+    assert (ssd_batched.unfused_launches, scan.fwd_launches) == want
+    ref_logits, ref_caches = prefill(cpu, ids)
+    pairs = [(logits, ref_logits)] + [
+        (caches[k]["fwd"][n], ref_caches[k]["fwd"][n])
+        for k in ref_caches for n in ("conv", "ssm")]
+    for k, p in pairs:
+        err = (k.cpu() - p).abs().max().item()
+        assert err <= 1e-4 * p.abs().max().item(), err

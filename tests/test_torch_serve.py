@@ -2,12 +2,16 @@
 
 Both serve the same params (a JAX init written as ``params.npz`` +
 ``model_config.json``, read by the port through `params.py`); the same
-requests must give the same /embed and /logits (fp32, 1e-5). Also: the
-bridge consumes every flax key exactly once, and nothing under
-`caduceus_tpu_torch/` (nor `chip_smoke.py`) imports JAX or the JAX package.
+requests must give the same /embed and /logits (fp32, 1e-5) and, for a
+causal model of each family, the same greedy /generate text, which the
+port's ``cli.py generate`` prints too. Also: the bridge consumes every flax
+key exactly once, and nothing under `caduceus_tpu_torch/` (nor
+`chip_smoke.py`) imports JAX or the JAX package.
 """
 
 import ast
+import contextlib
+import io
 import json
 import os
 import urllib.error
@@ -109,7 +113,7 @@ def test_errors_are_json(servers):
     for path, body, code in [
             ("/logits", {"sequences": []}, 400),
             ("/logits", {"sequences": ["A" * 100]}, 400),   # > max_length
-            ("/generate", {"prompt": "ACGT"}, 501),         # not ported yet
+            ("/generate", {"prompt": "ACGT"}, 500),         # RCPS: not causal
             ("/classify", {"sequences": ["ACGT"]}, 501),
             ("/nope", {}, 404)]:
         with pytest.raises(urllib.error.HTTPError) as e:
@@ -118,8 +122,77 @@ def test_errors_are_json(servers):
         assert "error" in json.loads(e.value.read())
 
 
-def test_bridge_consumes_every_key_once(servers):
+def _write_run(run_dir, cfg, seed):
+    """A JAX init of ``cfg`` as ``model_config.json`` + ``params.npz``."""
+    params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(seed),
+                                      jnp.full((1, 16), 7, jnp.int32))
+    cfg.save(str(run_dir / "model_config.json"))
+    flat = tu.flatten_dict(params["params"], sep="/")
+    np.savez(run_dir / "params.npz", **{k: np.asarray(v)
+                                        for k, v in flat.items()})
+    return params
+
+
+@pytest.fixture(scope="module")
+def causal_runs(tmp_path_factory):
+    """Run dirs of a small causal model of each family (what `cli.py
+    pretrain --model mamba` builds): {family: (cfg, params, run dir)}."""
+    tok = CaduceusTokenizer()
+    out = {}
+    for name, ssm in (("v1", JaxSSM(version=1, d_state=8, use_kernel="xla")),
+                      ("v2", JaxSSM(version=2, d_state=16, headdim=16,
+                                    ngroups=1, ssd_chunk_size=16,
+                                    use_kernel="xla"))):
+        cfg = JaxConfig(d_model=32, n_layer=2, vocab_size=tok.vocab_size,
+                        rcps=False, bidirectional=False,
+                        complement_map=tok.complement_map, dtype="float32",
+                        param_dtype="float32", ssm_cfg=ssm)
+        run_dir = tmp_path_factory.mktemp(f"causal_{name}")
+        out[name] = (cfg, _write_run(run_dir, cfg, 4), str(run_dir))
+    return out
+
+
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_generate_matches_jax_server(causal_runs, name):
+    """Greedy /generate on the port's CPU server gives the JAX server's
+    text for the same params and prompt; ``cli.py generate --device cpu``
+    prints the same."""
+    cfg, params, run_dir = causal_runs[name]
+    kw = dict(max_batch=2, min_bucket=16, max_length=64)
+    body = {"prompt": "ACGTTGCAGGA", "max_new_tokens": 8}
+    jax_server = JaxServer(JaxService(cfg, params, **kw), port=0).start()
+    port_server = InferenceServer(InferenceService.from_run_dir(
+        run_dir, device="cpu", **kw), port=0).start()
+    try:
+        want = _post(jax_server.port, "/generate", body)
+        got = _post(port_server.port, "/generate", body)
+        seeded = [_post(port_server.port, "/generate", {
+            **body, "temperature": 1.0, "top_k": 4, "seed": 3})["generated"]
+            for _ in range(2)]
+    finally:
+        jax_server.stop()
+        port_server.stop()
+    assert got == want and got["generated"]
+    assert seeded[0] == seeded[1]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(["generate", "--run-dir", run_dir, "--prompt",
+                  body["prompt"], "--max-new-tokens", "8", "--device", "cpu"])
+    assert json.loads(out.getvalue()) == want
+
+
+def test_bridge_consumes_every_key_once(servers, causal_runs):
     _, _, run_dir = servers
+    for name, (_, _, causal_dir) in causal_runs.items():
+        # a causal model's tree (`layers_i/mixer/mamba_fwd/...`) crosses
+        flat = load_npz_params(os.path.join(causal_dir, "params.npz"))
+        cfg = CaduceusConfig.load(os.path.join(causal_dir,
+                                               "model_config.json"))
+        sd = from_jax_params(flat, cfg)
+        assert len(sd) == len(flat), name
+        w = flat["backbone/layers_1/mixer/mamba_fwd/in_proj/kernel"]
+        assert torch.equal(sd["backbone.layers.1.mixer.mamba_fwd.in_proj."
+                              "weight"], torch.from_numpy(w.T))
     flat = load_npz_params(os.path.join(run_dir, "params.npz"))
     cfg = CaduceusConfig.load(os.path.join(run_dir, "model_config.json"))
     sd = from_jax_params(flat, cfg)

@@ -8,8 +8,12 @@ tests/test_ssd_pallas_batched.py. `ssd_chunked_fused_bwd`, the plain
 version of the `ssd_fused_bwd` kernels, is held against `jax.grad` through
 the same interpret-mode TPU kernels (2e-5 scale-normalized, the JAX
 package's own gradient tolerance). The same numpy inputs go to both sides,
-in fp32. The kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+in fp32. `ssd_chunked`, the plain version of the unfused `ssd_fwd` kernel
+(the prefill's SSD), is held against the JAX TPU kernel #2 in interpret mode
+(`ssd_pallas_batched_chained(..., interpret=True)`) and against the XLA
+`ssd_chunked`, 1e-4 as the fused form; `ssd_step` against the JAX
+`ssd_step` and against `ssd_chunked`. The kernels themselves run only on
+the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax
@@ -22,14 +26,20 @@ from caduceus_tpu.ops.conv import causal_conv1d as jax_conv
 from caduceus_tpu.ops.norms import add_norm as jax_add_norm
 from caduceus_tpu.ops.norms import layer_norm as jax_layer_norm
 from caduceus_tpu.ops.ssd import ssd_chunked, ssd_ref as jax_ssd_ref
-from caduceus_tpu.ops.ssd_pallas_batched import ssd_pallas_batched_fused
+from caduceus_tpu.ops.ssd import ssd_step as jax_ssd_step
+from caduceus_tpu.ops.ssd_pallas_batched import (
+    ssd_pallas_batched_chained,
+    ssd_pallas_batched_fused,
+)
 from caduceus_tpu_torch.ops import ssd_batched
 from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm
+from caduceus_tpu_torch.ops.ssd import ssd_chunked as port_ssd_chunked
 from caduceus_tpu_torch.ops.ssd import (
     ssd_chunked_fused,
     ssd_chunked_fused_bwd,
     ssd_ref,
+    ssd_step,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -240,3 +250,95 @@ def test_fused_bwd_wrapper_runs_plain_version_on_cpu():
                                  chunk_size=T)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (ssd_batched.bwd_launches, ssd_batched.conv_bwd_launches) == before
+
+
+def unfused_inputs(G=2, L=100, H=4, P=8, NG=2, N=16, seed=1):
+    """Post-conv x (G, L, H, P), B and C (G, L, NG, N) as column views of
+    one (G, L, 8 + H·P + 2·NG·N) tensor, as the prefill gives them, with dt,
+    the per-head parameters and h_init."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    wide = _t(f(G, L, 8 + H * P + 2 * NG * N))
+    x = wide[..., 8:8 + H * P].reshape(G, L, H, P)
+    B = wide[..., 8 + H * P:8 + H * P + NG * N].reshape(G, L, NG, N)
+    C = wide[..., 8 + H * P + NG * N:].reshape(G, L, NG, N)
+    return (x, _t(f(G, L, H, sc=0.5)), _t(-np.exp(f(H, sc=0.5))), B, C,
+            _t(f(H)), _t(f(H, sc=0.1)), _t(f(G, H, N, P)))
+
+
+@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (True, 1)])
+def test_ssd_chunked_matches_jax_kernel_and_xla(reverse, NG):
+    """The plain version of `ssd_fwd` against the TPU kernel #2 in
+    interpret mode and the XLA chunked form, h_init -> hN; at T = 16 as the
+    JAX side, and at the kernel's T (one ragged chunk at L = 100)."""
+    x, dt, A, B, C, D, bias, h0 = unfused_inputs(NG=NG)
+    j = [jnp.asarray(t.numpy()) for t in (x, dt, A, B, C, D, bias, h0)]
+    y_pal, h_pal = ssd_pallas_batched_chained(
+        *j, dt_softplus=True, reverse=reverse, chunk_size=16, interpret=True,
+        seg_chunks=2)
+    y_xla, h_xla = ssd_chunked(*j[:5], D=j[5], dt_bias=j[6],
+                               dt_softplus=True, reverse=reverse,
+                               chunk_size=16, h_init=j[7],
+                               return_final_state=True)
+    for chunk in (16, ssd_batched.KERNEL_CHUNK[torch.float32], 64):
+        y, h = port_ssd_chunked(x, dt, A, B, C, D, bias, True, reverse,
+                                chunk, h0, return_final_state=True)
+        for got, want in ((y, y_pal), (h, h_pal), (y, y_xla), (h, h_xla)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ssd_chunked_equals_fused_form_on_the_conv_output():
+    inp = fused_inputs(L=70)
+    H, P, NG, N = inp["dims"]
+    xc = causal_conv1d(_t(inp["xBC"]), _t(inp["conv_w"]), _t(inp["conv_b"]))
+    G, L = xc.shape[:2]
+    args = (_t(inp["dt"]), _t(inp["A"]))
+    y, h = port_ssd_chunked(
+        xc[..., :H * P].reshape(G, L, H, P), *args,
+        xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N),
+        xc[..., H * P + NG * N:].reshape(G, L, NG, N), _t(inp["D"]),
+        _t(inp["dt_bias"]), True, False, 16, _t(inp["h_init"]),
+        return_final_state=True)
+    y_f, h_f = _port(inp, False, 16)
+    np.testing.assert_allclose(y.numpy(), y_f.numpy(), **TOL)
+    np.testing.assert_allclose(h.numpy(), h_f.numpy(), **TOL)
+
+
+def test_ssd_step_matches_jax_and_the_chunked_form():
+    """`ssd_step` against the JAX `ssd_step` (1e-6) and, stepped over
+    L = 20 rows, against `ssd_chunked` (1e-4)."""
+    x, dt, A, B, C, D, bias, h0 = unfused_inputs(L=20)
+    h_j, y_j = jax_ssd_step(*(jnp.asarray(t.numpy()) for t in (
+        h0, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D, bias)),
+        dt_softplus=True)
+    h, ys = h0, []
+    for t in range(20):
+        h, y_t = ssd_step(h, x[:, t], dt[:, t], A, B[:, t], C[:, t], D, bias,
+                          True)
+        ys.append(y_t)
+        if t == 0:
+            np.testing.assert_allclose(h.numpy(), np.asarray(h_j), 1e-6, 1e-6)
+            np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), 1e-6,
+                                       1e-6)
+    y_c, h_c = port_ssd_chunked(x, dt, A, B, C, D, bias, True, False, 16, h0,
+                                return_final_state=True)
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(), y_c.numpy(), **TOL)
+    np.testing.assert_allclose(h.numpy(), h_c.numpy(), **TOL)
+
+
+def test_chained_wrapper_runs_plain_version_on_cpu_and_refuses_grad():
+    x, dt, A, B, C, D, bias, h0 = unfused_inputs(L=70)
+    before = ssd_batched.unfused_launches
+    y, h = ssd_batched.ssd_batched_chained(x, dt, A, B, C, D, bias, h0)
+    y_p, h_p = port_ssd_chunked(x, dt, A, B, C, D, bias, True, False,
+                                ssd_batched.KERNEL_CHUNK[torch.float32], h0,
+                                return_final_state=True)
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
+    assert ssd_batched.unfused_launches == before  # no kernel on the CPU
+    with pytest.raises(NotImplementedError, match="#4"):
+        ssd_batched.ssd_batched_chained(x, dt, A.requires_grad_(), B, C, D,
+                                        bias, h0)
+    with torch.no_grad():
+        ssd_batched.ssd_batched_chained(x, dt, A, B, C, D, bias, h0)
+    with pytest.raises(ValueError):
+        ssd_batched.ssd_batched_chained(x, dt[:, :-1], A, B, C)
