@@ -1,11 +1,13 @@
 """Configuration dataclasses for caduceus_tpu_torch.
 
 An owned copy of `caduceus_tpu/config.py`: the same fields, derived
-quantities and JSON round trip, so `model_config.json` is one contract
-shared by both packages. Fields that only the JAX package reads
-(`use_kernel`, `remat`, the parallel axes) are kept so a config written by
-either package loads in the other; the port picks its SSD implementation
-from the tensor's device (`ops/ssd_batched.py`).
+quantities, validation and JSON round trip, so `model_config.json` is one
+contract shared by both packages. Fields that only the JAX package reads
+(the parallel axes) are kept so a config written by either package loads
+in the other. ``ssm_cfg.use_kernel`` selects the v2 SSD route on both
+devices, as in the JAX package (`models/mamba2.py`, `inference.py`); the
+tensor's device decides between a route's kernels (CUDA) and its plain
+version (CPU).
 
 Configs are read and written as JSON; `load_config` imports `yaml` only
 for a `.yaml` path.
@@ -39,10 +41,13 @@ class SSMConfig:
     dt_init_floor: float = 1e-4
     conv_bias: bool = True
     bias: bool = False
-    # The reference's `use_fast_path` selects the fused CUDA kernel; here the
-    # equivalent switch selects the Pallas kernel vs the XLA chunked scan.
-    # "auto" | "pallas" | "xla"; version=2 also takes "pallas_batched"
-    # (head-batched SSD kernels, `ops/ssd_pallas_batched.py`)
+    # The reference's `use_fast_path` selects the fused CUDA kernel; in the
+    # JAX package the equivalent switch selects the Pallas kernel vs the XLA
+    # chunked scan. "auto" | "pallas" | "xla"; version=2 also takes
+    # "pallas_batched" (head-batched SSD kernels), and each Pallas value has
+    # an "_interpret" form. The port maps them to its kernels
+    # (`models/mamba2.py`): "pallas*" to the per-head SSD entry, the rest
+    # to the fused-conv kernels.
     use_kernel: str = "auto"
 
     # --- Mamba-2 (SSD) — beyond the reference (it pins mamba-ssm 1.2.0,

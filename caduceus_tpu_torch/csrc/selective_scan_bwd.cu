@@ -1,11 +1,22 @@
 // selective_scan_bwd: adjoint of the Mamba-1 selective scan for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_bwd_kernel` of caduceus_tpu/ops/scan_pallas.py
-// (launched by `selective_scan_pallas_bwd_impl`), one direction, with the
-// chained contract of `selective_scan_pallas_chained` (`:784-834`): g_hN in,
-// g_h0 out. Plain version: caduceus_tpu_torch/ops/selective_scan.py
-// `selective_scan_bwd`; Python wrapper: caduceus_tpu_torch/ops/scan.py
-// `selective_scan_bwd_cuda`, behind `_SelectiveScanFn` and `_BidirScanFn`.
+// Replaces two TPU kernels of the JAX package, which compute one function:
+// - `_bwd_kernel` of caduceus_tpu/ops/scan_pallas.py (launched by
+//   `selective_scan_pallas_bwd_impl`, TPU kernel #8): one direction, with
+//   the chained contract of `selective_scan_pallas_chained` (`:784-834`):
+//   g_hN in, g_h0 out -- entry point `selective_scan_bwd`;
+// - `_bidir_bwd_kernel` of caduceus_tpu/ops/scan_pallas_bidir.py (launched
+//   by `bidir_scan_bwd_impl`, #10): both BiMamba directions' adjoints in one
+//   launch, set 1 left to right and set 2 right to left, from zero states
+//   -- entry point `bidir_scan_bwd`, the same kernel over a third grid
+//   dimension, as `bidir_scan_fwd` is `selective_scan_fwd`'s. Each set has
+//   its own outputs and its own g_BC / shares / tickets scratch, so the two
+//   directions' sums never meet.
+// Plain version: caduceus_tpu_torch/ops/selective_scan.py
+// `selective_scan_bwd` (twice for the pair); Python wrappers:
+// caduceus_tpu_torch/ops/scan.py `selective_scan_bwd_cuda` (behind
+// `_SelectiveScanFn`, and `_BidirScanFn` by default) and `bidir_scan_bwd`
+// (behind `_BidirScanFn` when CADUCEUS_BIDIR_BWD=1).
 //
 // Per chunk of T rows, walked against the scan order from the forward's
 // carries (`scan_pallas.py:26-36`):
@@ -21,7 +32,7 @@
 // Design:
 // - The forward's thread layout (scan_common.cuh): thread (c, n) of a
 //   256-thread block owns one (g, channel, n) of a 16-channel tile; grid
-//   (d / 16, G): 128 blocks at G = 4, d = 512.
+//   (d / 16, G, sets): 128 blocks a set at G = 4, d = 512.
 // - Recompute, then sweep: the recomputed h of the chunk stays in shared
 //   memory, one fp32 slot per thread and row (T x 256 x 4 B = 64 KB at
 //   T = 64); dA is recomputed in the sweep (exp2f, the forward's bits).
@@ -46,7 +57,7 @@
 // - Rows >= L are identity steps (zero delta, u, B, C, g_y): lam passes
 //   them unchanged and they are masked out of every store and sum.
 //
-// Bound on the card, per launch (one direction): it reads u, delta, g_y
+// Bound on the card, per launch and direction: it reads u, delta, g_y
 // (3 x 1024 B/row in bf16 at d = 512), B, C (64 B) and the carries, and
 // writes g_u, g_delta (2 x 1024 B) and g_B, g_C (64 B); the recompute and
 // the adjoint are ~20 FLOP per (row, channel, n), and two exps. The
@@ -63,19 +74,26 @@ namespace {
 
 constexpr int RB = 8;  // rows of a walk step (T % RB == 0)
 
-struct Params {
-  Dir q;                    // y / hN unused; carries read
+// One set's cotangents, outputs and scratch.
+struct Out {
   const void* g_y;          // (G, L, d) storage dtype, contiguous
   const float* g_hN;        // (G, d, N) or null
   void* g_u;                // (G, L, d) storage dtype
   void* g_delta;            // (G, L, d) storage dtype
   float* g_BC;              // (2, G, L, N), zeroed by the launcher
-  float* g_h0;              // (G, d, N)
+  float* g_h0;              // (G, d, N) or null
   float* shares;            // (G, d N + 2 d): per-row g shares of g_A, g_D, g_bias
   unsigned int* tickets;    // (d tiles,), zeroed by the launcher
   float* g_A;               // (d, N)
   float* g_D;               // (d,)
   float* g_bias;            // (d,)
+};
+constexpr int OUT_WORDS = sizeof(Out) / sizeof(long long);
+static_assert(sizeof(Out) == OUT_WORDS * sizeof(long long), "Out is a row of 64-bit words");
+
+struct Params {
+  Dir q[2];                 // y / hN unused; carries read
+  Out o[2];
   int G, L, d, N, dt_softplus;
 };
 
@@ -104,7 +122,8 @@ __global__ void __launch_bounds__(NTHREADS) selective_scan_bwd_kernel(const Para
   extern __shared__ __align__(16) float smem_raw[];
   const int N = p.N, d = p.d, L = p.L, G = p.G;
   Smem sm(smem_raw, N);
-  const Dir& q = p.q;
+  const Dir& q = p.q[blockIdx.z];
+  const Out& o = p.o[blockIdx.z];
   const int CW = NTHREADS / N;
   const int tid = threadIdx.x;
   const int c = tid / N, n = tid % N;
@@ -116,14 +135,14 @@ __global__ void __launch_bounds__(NTHREADS) selective_scan_bwd_kernel(const Para
   const long long sidx = ((long long)g * d + ch) * N + n;
   const float A_ = valid ? q.A[ch * N + n] : 0.f;
   const float A2 = A_ * LOG2E;
-  const S* gy_g = static_cast<const S*>(p.g_y) + (long long)g * L * d;
-  S* gu_g = static_cast<S*>(p.g_u) + (long long)g * L * d;
-  S* gd_g = static_cast<S*>(p.g_delta) + (long long)g * L * d;
-  float* gB_g = p.g_BC + (long long)g * L * N;
-  float* gC_g = p.g_BC + ((long long)G + g) * L * N;
+  const S* gy_g = static_cast<const S*>(o.g_y) + (long long)g * L * d;
+  S* gu_g = static_cast<S*>(o.g_u) + (long long)g * L * d;
+  S* gd_g = static_cast<S*>(o.g_delta) + (long long)g * L * d;
+  float* gB_g = o.g_BC + (long long)g * L * N;
+  float* gC_g = o.g_BC + ((long long)G + g) * L * N;
   const int nc = (L + T - 1) / T;
 
-  float lam = (valid && p.g_hN) ? p.g_hN[sidx] : 0.f;
+  float lam = (valid && o.g_hN) ? o.g_hN[sidx] : 0.f;
   float gA = 0.f, gDp = 0.f, gbp = 0.f;
   // the channel of every (row, channel) item this thread stages or sums
   const int cs = c0 + tid % CW;
@@ -267,9 +286,9 @@ __global__ void __launch_bounds__(NTHREADS) selective_scan_bwd_kernel(const Para
 
   // this row g's shares, then the tile's last block adds them in g order
   const long long W = (long long)d * N + 2 * d;
-  float* share = p.shares + g * W;
+  float* share = o.shares + g * W;
   if (valid) {
-    p.g_h0[sidx] = lam;
+    if (o.g_h0) o.g_h0[sidx] = lam;
     share[ch * N + n] = gA;
   }
   const int per = NTHREADS / CW;
@@ -286,23 +305,56 @@ __global__ void __launch_bounds__(NTHREADS) selective_scan_bwd_kernel(const Para
   __threadfence();  // every thread's shares are visible before the ticket
   __syncthreads();
   __shared__ bool last;
-  if (tid == 0) last = atomicAdd(&p.tickets[blockIdx.x], 1u) == (unsigned)(G - 1);
+  if (tid == 0) last = atomicAdd(&o.tickets[blockIdx.x], 1u) == (unsigned)(G - 1);
   __syncthreads();
   if (!last) return;
   __threadfence();
   if (valid) {
     float s = 0.f;
-    for (int gg = 0; gg < G; ++gg) s += __ldcg(p.shares + gg * W + ch * N + n);
-    p.g_A[ch * N + n] = s;
+    for (int gg = 0; gg < G; ++gg) s += __ldcg(o.shares + gg * W + ch * N + n);
+    o.g_A[ch * N + n] = s;
   }
   if (tid < 2 * CW) {
     const int j = tid / CW, cc = c0 + tid % CW;
     if (cc < d) {
       float s = 0.f;
-      for (int gg = 0; gg < G; ++gg) s += __ldcg(p.shares + gg * W + (long long)d * N + j * d + cc);
-      (j == 0 ? p.g_D : p.g_bias)[cc] = s;
+      for (int gg = 0; gg < G; ++gg) s += __ldcg(o.shares + gg * W + (long long)d * N + j * d + cc);
+      (j == 0 ? o.g_D : o.g_bias)[cc] = s;
     }
   }
+}
+
+// Zero each set's g_BC and tickets, then launch over `nsets` sets.
+cudaError_t launch(int dtype, Params& p, int nsets, cudaStream_t s) {
+  const int G = p.G, L = p.L, d = p.d, N = p.N;
+  if (!valid_n(N) || G <= 0 || L <= 0 || d <= 0 || nsets < 1 || nsets > 2)
+    return cudaErrorInvalidValue;
+  const int CW = NTHREADS / N;
+  const int tiles = (d + CW - 1) / CW;
+  cudaError_t err;
+  for (int k = 0; k < nsets; ++k) {
+    if (!p.q[k].carries) return cudaErrorInvalidValue;
+    err = cudaMemsetAsync(p.o[k].g_BC, 0, sizeof(float) * 2 * (size_t)G * L * N, s);
+    if (err != cudaSuccess) return err;
+    err = cudaMemsetAsync(p.o[k].tickets, 0, sizeof(unsigned int) * tiles, s);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = Smem::bytes(N);
+  dim3 grid(tiles, G, nsets);
+  if (dtype == 1) {
+    err = cudaFuncSetAttribute(selective_scan_bwd_kernel<__nv_bfloat16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    selective_scan_bwd_kernel<__nv_bfloat16><<<grid, NTHREADS, smem, s>>>(p);
+  } else if (dtype == 0) {
+    err = cudaFuncSetAttribute(selective_scan_bwd_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    selective_scan_bwd_kernel<float><<<grid, NTHREADS, smem, s>>>(p);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -317,43 +369,38 @@ extern "C" int selective_scan_bwd(int dtype, const long long* set, const void* g
                                   void* g_h0, void* shares, void* tickets, void* g_A, void* g_D,
                                   void* g_bias, int G, int L, int d, int N, int dt_softplus,
                                   void* stream) {
-  if (!valid_n(N) || G <= 0 || L <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   Params p;
-  std::memcpy(&p.q, set, sizeof(Dir));
-  if (!p.q.carries) return (int)cudaErrorInvalidValue;
-  p.g_y = g_y;
-  p.g_hN = static_cast<const float*>(g_hN);
-  p.g_u = g_u;
-  p.g_delta = g_delta;
-  p.g_BC = static_cast<float*>(g_BC);
-  p.g_h0 = static_cast<float*>(g_h0);
-  p.shares = static_cast<float*>(shares);
-  p.tickets = static_cast<unsigned int*>(tickets);
-  p.g_A = static_cast<float*>(g_A);
-  p.g_D = static_cast<float*>(g_D);
-  p.g_bias = static_cast<float*>(g_bias);
+  std::memset(&p, 0, sizeof(p));
+  std::memcpy(&p.q[0], set, sizeof(Dir));
+  Out& o = p.o[0];
+  o.g_y = g_y;
+  o.g_hN = static_cast<const float*>(g_hN);
+  o.g_u = g_u;
+  o.g_delta = g_delta;
+  o.g_BC = static_cast<float*>(g_BC);
+  o.g_h0 = static_cast<float*>(g_h0);
+  o.shares = static_cast<float*>(shares);
+  o.tickets = static_cast<unsigned int*>(tickets);
+  o.g_A = static_cast<float*>(g_A);
+  o.g_D = static_cast<float*>(g_D);
+  o.g_bias = static_cast<float*>(g_bias);
   p.G = G; p.L = L; p.d = d; p.N = N; p.dt_softplus = dt_softplus;
-  const int CW = NTHREADS / N;
-  const int tiles = (d + CW - 1) / CW;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(g_BC, 0, sizeof(float) * 2 * (size_t)G * L * N, s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(tickets, 0, sizeof(unsigned int) * tiles, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = Smem::bytes(N);
-  dim3 grid(tiles, G);
-  if (dtype == 1) {
-    err = cudaFuncSetAttribute(selective_scan_bwd_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    selective_scan_bwd_kernel<__nv_bfloat16><<<grid, NTHREADS, smem, s>>>(p);
-  } else if (dtype == 0) {
-    err = cudaFuncSetAttribute(selective_scan_bwd_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    selective_scan_bwd_kernel<float><<<grid, NTHREADS, smem, s>>>(p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)launch(dtype, p, 1, static_cast<cudaStream_t>(stream));
+}
+
+// Both directions' adjoints in one launch: `sets` is 2 x DIR_WORDS words
+// (set 1 walked as scanned left to right, set 2 right to left: their
+// `reverse` words are overwritten to say so), `outs` 2 x OUT_WORDS words,
+// each set's `Out` (g_hN and g_h0 null: the pair scans from zero states).
+// Scratch and return value as `selective_scan_bwd`.
+extern "C" int bidir_scan_bwd(int dtype, const long long* sets, const long long* outs, int G,
+                              int L, int d, int N, int dt_softplus, void* stream) {
+  Params p;
+  std::memset(&p, 0, sizeof(p));
+  std::memcpy(p.q, sets, 2 * sizeof(Dir));
+  std::memcpy(p.o, outs, 2 * sizeof(Out));
+  p.q[0].reverse = 0;
+  p.q[1].reverse = 1;
+  p.G = G; p.L = L; p.d = d; p.N = N; p.dt_softplus = dt_softplus;
+  return (int)launch(dtype, p, 2, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // Device code shared by ssd_fused_fwd.cu and ssd_fused_bwd.cu: storage-type
 // conversions, block matmuls on shared-memory tiles, the fp32 in-chunk dt
-// cumsum and the fused depthwise conv + SiLU of one chunk. The backward
-// recomputes the forward's per-chunk values with these same functions, so
-// the two kernels see the same bits.
+// cumsum, and the two ways a chunk's x, B and C are staged: the fused
+// depthwise conv + SiLU (K >= 1) or the post-conv tensors as given (K = 0).
+// The backward recomputes the forward's per-chunk values with these same
+// functions, so the two kernels see the same bits.
 
 #pragma once
 
@@ -239,6 +240,36 @@ __device__ __forceinline__ void conv_silu_chunk(const S* xBC, long long xbc_sl,
       } else {
         Cs[t * ldN + (j - P - N)] = from_f<S>(v);
       }
+    }
+  }
+}
+
+// K = 0: post-conv x (one head's P columns), B and C (one group's N
+// columns) of the T rows of one chunk, read through their row strides from
+// pointers already offset to the batch row and the columns: xf (T x P
+// fp32), Bs / Cs (T x N storage type, ld ldN). Rows >= L give 0 (identity
+// steps, with dt = 0 there). Each load reads a clamped row unconditionally
+// and the row mask selects after, so a thread's loads are all in flight
+// together.
+template <typename S, int T>
+__device__ __forceinline__ void load_chunk(const S* x, long long x_sl, const S* B,
+                                           long long b_sl, const S* C, long long c_sl, int L,
+                                           long long row0, int P, int N, float* xf, S* Bs,
+                                           S* Cs, int ldN) {
+  const int ncol = P + 2 * N;
+  for (int i = threadIdx.x; i < T * ncol; i += NTHREADS) {
+    const int t = i / ncol, j = i % ncol;
+    const long long r = row0 + t;
+    const long long rc = r < L ? r : L - 1;
+    if (j < P) {
+      const float v = to_f<S>(x[rc * x_sl + j]);
+      xf[t * P + j] = r < L ? v : 0.f;
+    } else if (j < P + N) {
+      const S v = B[rc * b_sl + (j - P)];
+      Bs[t * ldN + (j - P)] = r < L ? v : from_f<S>(0.f);
+    } else {
+      const S v = C[rc * c_sl + (j - P - N)];
+      Cs[t * ldN + (j - P - N)] = r < L ? v : from_f<S>(0.f);
     }
   }
 }

@@ -1,15 +1,30 @@
-// ssd_fused_bwd: adjoint of the fused-conv SSD (Mamba-2) forward for Hopper
-// (sm_90a). Two __global__ kernels:
+// ssd_fused_bwd: adjoint of the SSD (Mamba-2) forward for Hopper (sm_90a).
+// Two __global__ kernels:
 //
-//   ssd_fused_bwd_kernel  the chunked SSD adjoint, one block per (g, h)
+//   ssd_fused_bwd_kernel  the chunked SSD adjoint, one block per (g, h),
+//                         templated on the conv width K like the forward
 //   ssd_conv_bwd_kernel   the SiLU and depthwise-conv adjoints over all rows
 //
-// Together they replace the TPU kernel `_bwd_kernel(fused=True)` of
-// caduceus_tpu/ops/ssd_pallas_batched.py (launched by
-// `ssd_pallas_batched_fused_bwd_impl`), without its context-parallel
-// `emit_pend` output. Plain version: caduceus_tpu_torch/ops/ssd.py
-// `ssd_chunked_fused_bwd`; wrapper: caduceus_tpu_torch/ops/ssd_batched.py
-// `ssd_fused_bwd`.
+// - K >= 1, entry `ssd_fused_bwd`, then `ssd_conv_bwd`: together they
+//   replace the TPU kernel `_bwd_kernel(fused=True)` of
+//   caduceus_tpu/ops/ssd_pallas_batched.py (launched by
+//   `ssd_pallas_batched_fused_bwd_impl`, TPU kernel #3), without its
+//   context-parallel `emit_pend` output. Plain version:
+//   caduceus_tpu_torch/ops/ssd.py `ssd_chunked_fused_bwd`; wrapper:
+//   caduceus_tpu_torch/ops/ssd_batched.py `ssd_fused_bwd`.
+// - K = 0, entry `ssd_bwd`: the adjoint of the unfused forward `ssd_fwd` on
+//   post-conv x, B and C, read through their own batch and row strides
+//   (the per-head model path passes column views of one conv output). It
+//   replaces two TPU kernels that compute one function in two VMEM layouts:
+//   `_bwd_kernel` of caduceus_tpu/ops/ssd_pallas.py (launched by
+//   `ssd_pallas_bwd_impl`, TPU kernel #6, state (H*N, P)) and
+//   `_bwd_kernel(fused=False)` of ops/ssd_pallas_batched.py (launched by
+//   `ssd_pallas_batched_bwd_impl`, #4, state (N, H*P)). It writes g_x in x's
+//   dtype and g_B / g_C as fp32 sums over the heads of a group; no conv
+//   adjoint follows (on that path the conv is a PyTorch op outside the
+//   kernel, as it is an XLA op outside every Pallas kernel in JAX). Plain
+//   version: ops/ssd.py `ssd_chunked_bwd`; wrappers: ops/ssd_batched.py
+//   `ssd_bwd` (#4) and ops/ssd_head.py `ssd_head_bwd` (#6).
 //
 // ssd_fused_bwd_kernel walks the chunks of its head against the scan order
 // from the saved chunk-entry states (the forward kernel's carries), with
@@ -26,7 +41,8 @@
 //   g_x   = dt g_dx + D g_y
 //   lambda <- exp(sum a) lambda + C^T @ (exp(cum) * g_y)
 // It writes g_x and accumulates g_B / g_C into an fp32 (G, L, Wc) workspace
-// of d loss / d silu(pre), writes g_dt, g_h0 = the last lambda, and adds its
+// of d loss / d silu(pre) (K = 0: g_x in x's dtype and g_B / g_C into an fp32
+// (2, G, L, NG*N) output), writes g_dt, g_h0 = the last lambda, and adds its
 // g_A, g_dt_bias and g_D shares with atomics. ssd_conv_bwd_kernel then
 // recomputes pre = conv(xBC), takes g_pre = g_xc * silu'(pre) and the conv
 // transpose g_xBC[j] = sum_k w[k] g_pre[j + dir (K-1-k)] over the whole array
@@ -50,7 +66,9 @@
 // first kernel reads xBC (1536 B), dt (16), g_y (1024) and the carries
 // (2048) and writes the workspace (3072 B fp32) and g_dt (16); the second
 // reads xBC and the workspace and writes g_xBC (1536). Matmul work is
-// ~1 MFLOP/row, a third of the bytes' time at 989 TF/s vs 3.35 TB/s. Known
+// ~1 MFLOP/row, a third of the bytes' time at 989 TF/s vs 3.35 TB/s. The
+// unfused form (K = 0) reads x (1024 B), B and C (512), dt, g_y and the
+// carries and writes g_x (1024), g_dt and the fp32 g_B / g_C (1024). Known
 // costs of this first version: G*H blocks walk their chunks in sequence
 // (32 of 132 SMs at G = 4); every head recomputes the B/C conv and CB; the
 // g_B / g_C atomics (rep adds per element); the fp32 workspace round trip.
@@ -81,19 +99,27 @@ __device__ float block_sum(float v, float* red) {
 }
 
 struct Params {
-  const void* xBC;          // (G, L, Wc) storage dtype, unit column stride
+  const void* xBC;          // K >= 1: (G, L, Wc) storage dtype, unit column stride
   long long xbc_sg, xbc_sl;
+  const void* x;            // K = 0: (G, L, H*P), unit column stride
+  long long x_sg, x_sl;
+  const void* B;            // K = 0: (G, L, NG*N), unit column stride
+  long long b_sg, b_sl;
+  const void* C;            // K = 0: (G, L, NG*N), unit column stride
+  long long c_sg, c_sl;
   const void* dt;           // (G, L, H) storage dtype, unit column stride
   long long dt_sg, dt_sl;
   const float* A;           // (H,)
   const float* D;           // (H,) or null
   const float* dt_bias;     // (H,) or null
-  const float* conv_w;      // (K, Wc)
+  const float* conv_w;      // (K, Wc); null when K = 0
   const float* conv_b;      // (Wc,) or null
   const void* g_y;          // (G, L, H, P) storage dtype, contiguous
   const void* carries;      // (G, nc, H, N, P) storage dtype
   const float* g_hN;        // (G, H, N, P) or null
-  float* g_xc;              // (G, L, Wc) fp32 workspace (B/C columns zeroed)
+  float* g_xc;              // K >= 1: (G, L, Wc) fp32 workspace (B/C columns zeroed)
+  void* g_x;                // K = 0: (G, L, H*P) storage dtype, contiguous
+  float* g_BC;              // K = 0: (2, G, L, NG*N) fp32 [g_B, g_C], zeroed
   void* g_dt;               // (G, L, H) storage dtype, contiguous
   float* g_h0;              // (G, H, N, P)
   float* g_heads;           // [g_A (H), g_dt_bias (H), g_D (H)], zeroed
@@ -187,7 +213,17 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
   const long long y_sl = (long long)H * P;
   const S* gy = static_cast<const S*>(p.g_y) + (long long)g * L * y_sl + (long long)hh * P;
   const S* car = static_cast<const S*>(p.carries) + ((long long)g * nc * H + hh) * N * P;
-  float* gxc = p.g_xc + (long long)g * L * Wc;
+  // g_B / g_C: columns of the fp32 workspace (K >= 1), or of the fp32
+  // (2, G, L, NG*N) output (K = 0); g_x: the workspace's x columns (fp32),
+  // or (K = 0) the (G, L, H*P) output in the storage type
+  const long long gbc_sl = K == 0 ? (long long)p.NG * N : Wc;
+  float* gxc = K == 0 ? nullptr : p.g_xc + (long long)g * L * Wc;
+  float* gBp = K == 0 ? p.g_BC + (long long)g * L * gbc_sl + (long long)grp * N
+                      : gxc + H * P + grp * N;
+  float* gCp = K == 0 ? gBp + (long long)(gridDim.x / H) * L * gbc_sl  // + G rows
+                      : gxc + H * P + p.NG * N + grp * N;
+  S* gx = K == 0 ? static_cast<S*>(p.g_x) + (long long)g * L * H * P + (long long)hh * P
+                 : nullptr;
   S* gdt = static_cast<S*>(p.g_dt) + (long long)g * L * H;
   const float A_h = p.A[hh];
   const float D_h = p.D ? p.D[hh] : 0.f;
@@ -212,8 +248,17 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
     if (tid < 32)
       chunk_dt_cum<S, T>(dtp, p.dt_sl, hh, row0, L, bias_h, A_h, p.dt_softplus != 0, rev,
                          sm.dtv, sm.cum);
-    conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, Wc, L, row0, rev, P, N, xcol0,
-                             bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    if constexpr (K == 0) {
+      load_chunk<S, T>(static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * P,
+                       p.x_sl,
+                       static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N,
+                       p.b_sl,
+                       static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N,
+                       p.c_sl, L, row0, P, N, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    } else {
+      conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, Wc, L, row0, rev, P, N, xcol0,
+                               bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    }
     for (int i = tid; i < T * P; i += NTHREADS) {
       const int t = i / P, pp = i % P;
       const long long r = row0 + t;
@@ -299,18 +344,18 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
               Term<S, false, true>{sm.geS, sm.ldPS, hin, P, P}, sm.stage,
               [&](int t, int n, float v) {
                 const long long r = row0 + t;
-                if (r < L) atomicAdd(&gxc[r * Wc + ccol0 + n], v);
+                if (r < L) atomicAdd(&gCp[r * gbc_sl + n], v);
               });
     mm_epi<S>(T, N, Term<S, true, false>{sm.LGS, sm.ldTS, sm.Cs, sm.ldN, T},
               Term<S, false, true>{sm.wdxS, sm.ldPS, sm.lamS, sm.ldlS, P}, sm.stage,
               [&](int s, int n, float v) {
                 const long long r = row0 + s;
-                if (r < L) atomicAdd(&gxc[r * Wc + bcol0 + n], v);
+                if (r < L) atomicAdd(&gBp[r * gbc_sl + n], v);
               });
     gend = block_sum(gend, sm.red);  // its barriers also end phase D
 
     // -- E: lambda <- e_end lambda + C^T (exp(cum) g_y); per row (one warp):
-    //    g_dx, g_x -> workspace, sum_p x g_dx, g_cum
+    //    g_dx, g_x (-> workspace; K = 0: -> g_x), sum_p x g_dx, g_cum
     BlockMM<S, true, false>::run(sm.Cs, sm.ldN, sm.geS, sm.ldPS, sm.lam, sm.ldl, N, P, T, true,
                                  e_end);
     for (int t = warp; t < T; t += NWARPS) {
@@ -323,7 +368,12 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
         const float gyv = to_f<S>(sm.gyS[t * sm.ldPS + pp]);
         r3 += xv * gdx;
         if (r < L) {
-          gxc[r * Wc + xcol0 + pp] = sm.dtv[t] * gdx + D_h * gyv;
+          const float gxv = sm.dtv[t] * gdx + D_h * gyv;
+          if constexpr (K == 0) {
+            gx[r * (H * P) + pp] = from_f<S>(gxv);
+          } else {
+            gxc[r * Wc + xcol0 + pp] = gxv;
+          }
           acc_gD += gyv * xv;
         }
       }
@@ -508,7 +558,7 @@ extern "C" int ssd_fused_bwd(
     int dt_softplus, int reverse, void* stream) {
   if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p = {};
   p.xBC = xBC; p.xbc_sg = xbc_sg; p.xbc_sl = xbc_sl;
   p.dt = dt; p.dt_sg = dt_sg; p.dt_sl = dt_sl;
   p.A = static_cast<const float*>(A);
@@ -543,6 +593,52 @@ extern "C" int ssd_fused_bwd(
   } else {
     err = cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The unfused SSD adjoint (K = 0): x (G, L, H*P), B and C (G, L, NG*N) and
+// dt (G, L, H), each through its own batch and row strides (unit column
+// stride); g_x (G, L, H*P) in the storage dtype, g_BC = [g_B, g_C] (2, G, L,
+// NG*N) fp32. dtype and the other arguments as `ssd_fused_bwd`. Zeroes g_BC
+// and g_heads, then launches. Returns the cudaError_t.
+extern "C" int ssd_bwd(
+    int dtype,
+    const void* x, long long x_sg, long long x_sl,
+    const void* B, long long b_sg, long long b_sl,
+    const void* C, long long c_sg, long long c_sl,
+    const void* dt, long long dt_sg, long long dt_sl,
+    const void* A, const void* D, const void* dt_bias,
+    const void* g_y, const void* carries, const void* g_hN,
+    void* g_x, void* g_BC, void* g_dt, void* g_h0, void* g_heads,
+    int G, int L, int H, int P, int NG, int N,
+    int dt_softplus, int reverse, void* stream) {
+  if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.x = x; p.x_sg = x_sg; p.x_sl = x_sl;
+  p.B = B; p.b_sg = b_sg; p.b_sl = b_sl;
+  p.C = C; p.c_sg = c_sg; p.c_sl = c_sl;
+  p.dt = dt; p.dt_sg = dt_sg; p.dt_sl = dt_sl;
+  p.A = static_cast<const float*>(A);
+  p.D = static_cast<const float*>(D);
+  p.dt_bias = static_cast<const float*>(dt_bias);
+  p.g_y = g_y; p.carries = carries;
+  p.g_hN = static_cast<const float*>(g_hN);
+  p.g_x = g_x;
+  p.g_BC = static_cast<float*>(g_BC);
+  p.g_dt = g_dt;
+  p.g_h0 = static_cast<float*>(g_h0);
+  p.g_heads = static_cast<float*>(g_heads);
+  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = 0;
+  p.dt_softplus = dt_softplus; p.reverse = reverse;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(g_heads, 0, 3 * (size_t)H * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(g_BC, 0, 2 * (size_t)G * L * NG * N * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  err = dtype == 1 ? launch_main<__nv_bfloat16, 0>(p, G, s)
+      : dtype == 0 ? launch_main<float, 0>(p, G, s)
+                   : cudaErrorInvalidValue;
   return (int)err;
 }
 

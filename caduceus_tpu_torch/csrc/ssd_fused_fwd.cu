@@ -140,37 +140,6 @@ struct Smem {
   }
 };
 
-// K = 0: post-conv x (head hh's P columns), B and C (group grp's N columns)
-// of the T rows of one chunk, read through their strides: xf (T x P fp32),
-// Bs / Cs (T x N storage type, ld ldN). Rows >= L give 0 (identity steps,
-// with dt = 0 there). Each load reads a clamped row unconditionally and the
-// row mask selects after, so a thread's loads are all in flight together.
-template <typename S, int T>
-__device__ __forceinline__ void load_chunk(const Params& p, int g, int hh, int grp,
-                                           long long row0, float* xf, S* Bs, S* Cs,
-                                           int ldN) {
-  const int P = p.P, N = p.N, L = p.L;
-  const S* x = static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * P;
-  const S* B = static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N;
-  const S* C = static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N;
-  const int ncol = P + 2 * N;
-  for (int i = threadIdx.x; i < T * ncol; i += NTHREADS) {
-    const int t = i / ncol, j = i % ncol;
-    const long long r = row0 + t;
-    const long long rc = r < L ? r : L - 1;
-    if (j < P) {
-      const float v = to_f<S>(x[rc * p.x_sl + j]);
-      xf[t * P + j] = r < L ? v : 0.f;
-    } else if (j < P + N) {
-      const S v = B[rc * p.b_sl + (j - P)];
-      Bs[t * ldN + (j - P)] = r < L ? v : from_f<S>(0.f);
-    } else {
-      const S v = C[rc * p.c_sl + (j - P - N)];
-      Cs[t * ldN + (j - P - N)] = r < L ? v : from_f<S>(0.f);
-    }
-  }
-}
-
 template <typename S, int K>
 __global__ void __launch_bounds__(NTHREADS) ssd_fwd_kernel(const Params p) {
   constexpr int T = Chunk<S>::T;
@@ -209,7 +178,12 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fwd_kernel(const Params p) {
       chunk_dt_cum<S, T>(dtp, p.dt_sl, hh, row0, L, bias_h, A_h, p.dt_softplus != 0, rev,
                          sm.dtv, sm.cum);
     if constexpr (K == 0) {
-      load_chunk<S, T>(p, g, hh, grp, row0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+      load_chunk<S, T>(static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * P,
+                       p.x_sl,
+                       static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N,
+                       p.b_sl,
+                       static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N,
+                       p.c_sl, L, row0, P, N, sm.xf, sm.Bs, sm.Cs, sm.ldN);
     } else {
       conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, p.Wc, L, row0, rev, P, N,
                                xcol0, bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);

@@ -21,8 +21,11 @@ tensors in the JAX layouts, ``{"layers_<i>": {"fwd": {"conv", "ssm"}}}``:
 - The **prefill** runs the prompt through the parallel kernels, chained
   from the cache: the conv over the prompt with the ring buffer's K-1 rows
   in front (`_conv_with_history`), then one launch per layer of
-  `selective_scan_fwd` (v1, TPU kernel #7) or of `ssd_fwd` (v2, TPU kernel
-  #2, through `ops/ssd_batched.py ssd_batched_chained`) with h_init = the
+  `selective_scan_fwd` (v1, TPU kernel #7) or, for v2, of the unfused SSD
+  forward kernel through the chained function that ``use_kernel`` selects
+  (`_resolved_infer_kernel`, `ops/ssd_head.py resolve_ssd_kernel`: #2
+  through `ops/ssd_batched.py ssd_batched_chained`, or #5 through
+  `ops/ssd_head.py ssd_head_chained` for "pallas"), with h_init = the
   cached state; on the CPU their plain versions. The conv output stays in
   the compute dtype, as in the port's model forward; the JAX prefill adds
   the fp32 conv bias and so scans in fp32 when the model is bf16. In fp32
@@ -53,7 +56,7 @@ from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 from caduceus_tpu_torch.ops.scan import selective_scan_chained
 from caduceus_tpu_torch.ops.ssd import ssd_step
-from caduceus_tpu_torch.ops.ssd_batched import ssd_batched_chained
+from caduceus_tpu_torch.ops.ssd_head import resolve_ssd_kernel
 
 Cache = Dict[str, Any]
 
@@ -261,21 +264,37 @@ def mamba_direction_prefill(dparams, xi: torch.Tensor,
     return y, {"conv": new_conv.to(cache["conv"].dtype), "ssm": hN}
 
 
+def _resolved_infer_kernel(cfg: CaduceusConfig) -> str:
+    """The ``use_kernel`` route of the prefill, as the JAX
+    `_resolved_infer_kernel` resolves it off the CPU: "auto" is the
+    head-batched kernels for v2 and the base kernels for v1. The port has
+    no counterpart of "xla" (the JAX package's chunked XLA form) on the
+    card, so for v2 it takes the head-batched kernels too; on the CPU every
+    route runs its plain version."""
+    k = cfg.ssm_cfg.use_kernel
+    if k in ("auto", "xla"):
+        return "pallas_batched" if cfg.ssm_cfg.version == 2 else "pallas"
+    return k
+
+
 @torch.inference_mode()
 def mamba2_direction_prefill(dparams, xBC: torch.Tensor, dt: torch.Tensor,
                              cache: Cache) -> Tuple[torch.Tensor, Cache]:
     """The parallel prompt pass of the v2 (SSD) inner branch: the conv over
-    the prompt, then the chained unfused SSD (`ssd_batched_chained`: kernel
-    #2 on the card), which reads x, B and C as column views of the conv
-    output and dt as a column view of the in_proj output. ``xBC`` (B, Lp,
-    d_inner + 2·NG·N) pre-conv, ``dt`` (B, Lp, H) raw."""
+    the prompt, then the chained unfused SSD that `resolve_ssd_kernel`
+    returns for the config's ``use_kernel`` (on the card TPU kernel #2
+    through `ssd_batched_chained`, or #5 through `ssd_head_chained`), which
+    reads x, B and C as column views of the conv output and dt as a column
+    view of the in_proj output. ``xBC`` (B, Lp, d_inner + 2·NG·N) pre-conv,
+    ``dt`` (B, Lp, H) raw."""
     c = dparams.cfg
     s = c.ssm_cfg
     H, P, NG, N = c.nheads, s.headdim, s.ngroups, s.d_state
     Bsz, Lp = xBC.shape[:2]
     xBC_ext, new_conv = _conv_with_history(xBC, cache["conv"])
     xc = _conv_tail(dparams, xBC_ext)
-    y, hN = ssd_batched_chained(
+    _, chained_fn = resolve_ssd_kernel(_resolved_infer_kernel(c))
+    y, hN = chained_fn(
         xc[..., :H * P].reshape(Bsz, Lp, H, P), dt,
         -torch.exp(dparams.A_log.float()),
         xc[..., H * P:H * P + NG * N].reshape(Bsz, Lp, NG, N),

@@ -9,9 +9,18 @@ semantics, norm_before_gate=False):
     norm:     gated RMSNorm  y = rmsnorm_groups(y · silu(z)) · w
     out_proj: d_inner -> d_model
 
-The conv + split + scan of each direction is one call of
-`ops/ssd_batched.py ssd_batched_fused`: the `ssd_fused_fwd` CUDA kernel on
-the card, its plain version on the CPU. `BiMamba2` covers the four
+Each direction's conv + split + scan runs the route that
+``ssm_cfg.use_kernel`` selects, as the JAX mixer's `_resolved_kernel`
+does (`caduceus_tpu/models/mamba2.py:141-225`):
+
+- "auto", "xla", "pallas_batched", "pallas_batched_interpret": one call of
+  `ops/ssd_batched.py ssd_batched_fused`, the conv inside the
+  `ssd_fused_fwd` kernel (in fp32);
+- "pallas", "pallas_interpret": the conv + SiLU as a PyTorch op in the
+  storage dtype (`ops/conv.py`), then `ops/ssd_head.py ssd_head` on column
+  views of its output: the per-head kernels (TPU kernels #5 / #6).
+
+On the CPU every route runs its plain version. `BiMamba2` covers the four
 (weight-tie × combine) configurations plus ``bidirectional=False``.
 Parameter names follow the flax modules so `params.py` maps them 1:1.
 
@@ -32,7 +41,9 @@ from caduceus_tpu_torch.models.mamba import (
     dt_proj_bias_init,
     torch_linear_init,
 )
+from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.ssd_batched import ssd_batched_fused
+from caduceus_tpu_torch.ops.ssd_head import per_head, ssd_head
 
 
 def rms_norm_gated(y, z, weight, ngroups: int, eps: float):
@@ -78,10 +89,30 @@ class _DirectionParamsV2(nn.Module):
         lead = xBC_raw.shape[:-2]
         L = xBC_raw.shape[-2]
         x3 = xBC_raw.reshape(-1, L, xBC_raw.shape[-1])
+        G = x3.shape[0]
+        dt3 = dt_raw.reshape(G, L, H)
+        if per_head(s.use_kernel):
+            # the conv as a global op in the storage dtype (JAX: an XLA op
+            # outside the Pallas kernels), then the SSD on column views of
+            # its output
+            xc = causal_conv1d(
+                x3, self.conv_w.to(x3.dtype),
+                None if self.conv_b is None else self.conv_b.to(x3.dtype),
+                activation="silu", reverse=reverse)
+            y = ssd_head(
+                xc[..., :H * P].reshape(G, L, H, P), dt3,
+                -torch.exp(self.A_log),
+                xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N),
+                xc[..., H * P + NG * N:].reshape(G, L, NG, N), D=self.D,
+                dt_bias=self.dt_bias, dt_softplus=True, reverse=reverse)
+            return y.reshape(*lead, L, c.d_inner)
+        # "auto", "pallas_batched*" and "xla": the fused-conv kernels. "xla"
+        # (the JAX package's chunked XLA form) has no counterpart on the
+        # card without a kernel, so it takes the same route.
         y = ssd_batched_fused(
-            x3, dt_raw.reshape(x3.shape[0], L, H), -torch.exp(self.A_log),
-            self.conv_w, conv_b=self.conv_b, D=self.D, dt_bias=self.dt_bias,
-            dims=(H, P, NG, N), dt_softplus=True, reverse=reverse)
+            x3, dt3, -torch.exp(self.A_log), self.conv_w, conv_b=self.conv_b,
+            D=self.D, dt_bias=self.dt_bias, dims=(H, P, NG, N),
+            dt_softplus=True, reverse=reverse)
         return y.reshape(*lead, L, c.d_inner)
 
 

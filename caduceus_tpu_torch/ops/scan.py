@@ -1,11 +1,13 @@
 """Mamba-1 selective scan: the Python wrappers of the `selective_scan_fwd`,
-`bidir_scan_fwd` and `selective_scan_bwd` kernels, and the
-`torch.autograd.Function`s around them.
+`bidir_scan_fwd`, `selective_scan_bwd` and `bidir_scan_bwd` kernels, and
+the `torch.autograd.Function`s around them.
 
 Port of `caduceus_tpu/ops/scan_pallas.py` (`selective_scan_pallas_chained`
 and its custom_vjp) and `caduceus_tpu/ops/scan_pallas_bidir.py`
 (`bidir_selective_scan_pallas`, whose default backward runs the
-single-direction adjoint once per direction). Same operands and layouts:
+single-direction adjoint once per direction, and with
+``CADUCEUS_BIDIR_BWD=1`` the paired adjoint `bidir_scan_bwd_impl`). Same
+operands and layouts:
 u and delta (G, L, d), A (d, N), B and C (G, L, N); the states h_init, hN,
 g_hN, g_h0 are (G, d, N) fp32 (the JAX kernels' are (G, N, d)).
 
@@ -18,16 +20,21 @@ g_hN, g_h0 are (G, d, N) fp32 (the JAX kernels' are (G, N, d)).
 - With grad enabled and an input that requires grad, `selective_scan_chained`
   goes through `_SelectiveScanFn` (forward with carries, backward =
   `selective_scan_bwd`) and `bidir_selective_scan` through `_BidirScanFn`
-  (one paired forward, two backward launches), on either device.
+  (one paired forward; backward: two launches of `selective_scan_bwd`, or
+  with ``CADUCEUS_BIDIR_BWD=1`` in the environment when the backward runs,
+  one launch of `bidir_scan_bwd`, as the JAX `_bwd` reads the same
+  variable), on either device.
 
 Launch counters (one per kernel launch on a CUDA tensor): ``fwd_launches``
 (`selective_scan_fwd`, TPU kernel #7), ``bidir_launches``
-(`bidir_scan_fwd`, #9) and ``bwd_launches`` (`selective_scan_bwd`, #8).
+(`bidir_scan_fwd`, #9), ``bwd_launches`` (`selective_scan_bwd`, #8) and
+``bidir_bwd_launches`` (`bidir_scan_bwd`, #10).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -44,20 +51,24 @@ from caduceus_tpu_torch.ops.selective_scan import (
 KERNEL_CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIR_WORDS = 20     # `Dir` of csrc/scan_common.cuh in 64-bit words
+_OUT_WORDS = 11     # `Out` of csrc/selective_scan_bwd.cu in 64-bit words
 
 fwd_launches = 0
 bidir_launches = 0
 bwd_launches = 0
+bidir_bwd_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "selective_scan_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
     "bidir_scan_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
     "selective_scan_bwd": [_I, _P] + [_P] * 11 + [_I] * 5 + [_P],
+    "bidir_scan_bwd": [_I, _P, _P] + [_I] * 5 + [_P],
 }
 _LIBRARY = {"selective_scan_fwd": "selective_scan_fwd",
             "bidir_scan_fwd": "selective_scan_fwd",
-            "selective_scan_bwd": "selective_scan_bwd"}
+            "selective_scan_bwd": "selective_scan_bwd",
+            "bidir_scan_bwd": "selective_scan_bwd"}
 
 
 def _fn(name: str):
@@ -254,37 +265,124 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, g_y, carries,
                                   chunk_size)
     dev = u.device
     A_, D_, bias_, _ = _check(u, delta, A, B, C, D, delta_bias, chunk_size)
-    want = (G, -(-L // chunk_size), d, N)
-    if (tuple(carries.shape) != want or carries.dtype != torch.float32
-            or carries.device != dev):
-        raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
-                         f"{carries.device}; expected {want} float32 on {dev}")
+    _carries_ok(carries, G, L, d, N, chunk_size, dev)
     carries = carries.contiguous()
-    g_y = g_y.contiguous()
     ghN = _small(g_hN, (G, d, N), "g_hN", dev)
-    g_u = torch.empty(G, L, d, dtype=u.dtype, device=dev)
-    g_delta = torch.empty(G, L, d, dtype=u.dtype, device=dev)
-    g_BC = torch.empty(2, G, L, N, dtype=torch.float32, device=dev)
-    g_h0 = torch.empty(G, d, N, dtype=torch.float32, device=dev)
-    shares = torch.empty(G, d * N + 2 * d, dtype=torch.float32, device=dev)
-    tickets = torch.empty(-(-d // (256 // N)), dtype=torch.int32, device=dev)
-    g_A = torch.empty(d, N, dtype=torch.float32, device=dev)
-    g_Db = torch.empty(2, d, dtype=torch.float32, device=dev)
+    o = _Out(u, N, g_y, ghN, with_h0=True)
     words = _words(_dir(u, delta, B, C, A_, D_, bias_, None, None, None,
                         carries, reverse))
     with torch.cuda.device(dev):
         err = _fn("selective_scan_bwd")(
-            _DTYPES[u.dtype], ctypes.cast(words, _P), g_y.data_ptr(),
-            _ptr(ghN), g_u.data_ptr(), g_delta.data_ptr(), g_BC.data_ptr(),
-            g_h0.data_ptr(), shares.data_ptr(), tickets.data_ptr(),
-            g_A.data_ptr(), g_Db[0].data_ptr(), g_Db[1].data_ptr(),
+            _DTYPES[u.dtype], ctypes.cast(words, _P), *o.words(),
             G, L, d, N, int(delta_softplus),
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "selective_scan_bwd", u, N)
     global bwd_launches
     bwd_launches += 1
-    return (g_u, g_delta, g_A, g_BC[0].to(B.dtype), g_BC[1].to(C.dtype),
-            g_Db[0], g_Db[1], g_h0)
+    return o.grads(B, C)
+
+
+def bidir_scan_bwd(uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, biasf,
+                   biasr, gyf, gyr, carf, carr, delta_softplus=True,
+                   chunk_size=KERNEL_CHUNK):
+    """Both directions' adjoints from the paired forward's carries, the
+    counterpart of `bidir_scan_bwd_impl`: returns its 14 gradients, ``(g_uf,
+    g_df, g_Bf, g_Cf, g_ur, g_dr, g_Br, g_Cr, g_Af, g_Ar, g_Df, g_Dr,
+    g_biasf, g_biasr)``; set f was scanned left to right and set r right to
+    left, both from zero states. ``gyf`` / ``gyr`` are cast to u's dtype.
+    On a CUDA tensor one launch of `bidir_scan_bwd` (TPU kernel #10); on a
+    CPU tensor the plain adjoint `selective_scan_bwd` once per set."""
+    sets = ((uf, df, Af, Bf, Cf, Df, biasf, gyf, carf, False),
+            (ur, dr, Ar, Br, Cr, Dr, biasr, gyr, carr, True))
+    if _on_card(uf, "bidir_scan_bwd"):
+        gf, gr = _bidir_bwd_launch(sets, delta_softplus, chunk_size)
+    else:
+        gf, gr = (selective_scan_bwd(u, dl, A, B, C, D, b, g.to(u.dtype), car,
+                                     None, delta_softplus, rev, chunk_size)
+                  for u, dl, A, B, C, D, b, g, car, rev in sets)
+    # (g_u, g_delta, g_A, g_B, g_C, g_D, g_bias, g_h0) of each set, in the
+    # order of `bidir_scan_bwd_impl`
+    return (*gf[:2], *gf[3:5], *gr[:2], *gr[3:5], gf[2], gr[2], gf[5], gr[5],
+            gf[6], gr[6])
+
+
+def _bidir_bwd_launch(sets, delta_softplus, chunk_size):
+    uf, ur = sets[0][0], sets[1][0]
+    G, L, d = uf.shape
+    N = sets[0][2].shape[-1]
+    if ur.shape != uf.shape or ur.dtype != uf.dtype or ur.device != uf.device:
+        raise ValueError(f"the two sets differ: u {tuple(uf.shape)} "
+                         f"{uf.dtype} vs {tuple(ur.shape)} {ur.dtype}")
+    dirs, outs, keep = [], [], []
+    for u, dl, A, B, C, D, b, g_y, car, rev in sets:
+        if tuple(g_y.shape) != (G, L, d):
+            raise ValueError(f"g_y shape {tuple(g_y.shape)}, expected "
+                             f"{(G, L, d)}")
+        A_, D_, bias_, _ = _check(u, dl, A, B, C, D, b, chunk_size)
+        _carries_ok(car, G, L, d, N, chunk_size, u.device)
+        car = car.contiguous()
+        # the fp32 copies and the carries stay referenced until the launch
+        # is queued
+        keep.append((A_, D_, bias_, car))
+        outs.append(_Out(u, N, g_y.to(u.dtype), None, with_h0=False))
+        dirs.append(_dir(u, dl, B, C, A_, D_, bias_, None, None, None, car,
+                         rev))
+    words = _words(*dirs)
+    out_words = (ctypes.c_longlong * (2 * _OUT_WORDS))(
+        *outs[0].words(), *outs[1].words())
+    with torch.cuda.device(uf.device):
+        err = _fn("bidir_scan_bwd")(
+            _DTYPES[uf.dtype], ctypes.cast(words, _P),
+            ctypes.cast(out_words, _P), G, L, d, N, int(delta_softplus),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(err, "bidir_scan_bwd", uf, N)
+    global bidir_bwd_launches
+    bidir_bwd_launches += 1
+    return tuple(o.grads(s[3], s[4]) for o, s in zip(outs, sets))
+
+
+def _carries_ok(carries, G, L, d, N, chunk_size, dev):
+    want = (G, -(-L // chunk_size), d, N)
+    if (tuple(carries.shape) != want or carries.dtype != torch.float32
+            or carries.device != dev):
+        raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
+                         f"{carries.device}; expected {want} float32 on {dev}")
+
+
+class _Out:
+    """One direction's cotangents, outputs and scratch for the backward
+    kernel: its `Out` (csrc/selective_scan_bwd.cu) as 64-bit words."""
+
+    def __init__(self, u, N, g_y, g_hN, with_h0):
+        G, L, d = u.shape
+        dev = u.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.g_y = g_y.contiguous()
+        self.g_hN = g_hN
+        self.g_u = torch.empty(G, L, d, dtype=u.dtype, device=dev)
+        self.g_delta = torch.empty(G, L, d, dtype=u.dtype, device=dev)
+        self.g_BC = torch.empty(2, G, L, N, **f32)
+        self.g_h0 = torch.empty(G, d, N, **f32) if with_h0 else None
+        self.shares = torch.empty(G, d * N + 2 * d, **f32)
+        self.tickets = torch.empty(-(-d // (256 // N)), dtype=torch.int32,
+                                   device=dev)
+        self.g_A = torch.empty(d, N, **f32)
+        self.g_Db = torch.empty(2, d, **f32)
+
+    def words(self):
+        words = [_ptr(t) for t in (
+            self.g_y, self.g_hN, self.g_u, self.g_delta, self.g_BC,
+            self.g_h0, self.shares, self.tickets, self.g_A)]
+        words += [self.g_Db[0].data_ptr(), self.g_Db[1].data_ptr()]
+        assert len(words) == _OUT_WORDS
+        return words
+
+    def grads(self, B, C):
+        """(g_u, g_delta, g_A, g_B, g_C, g_D, g_bias, g_h0), g_B / g_C cast
+        to B's / C's dtype."""
+        return (self.g_u, self.g_delta, self.g_A, self.g_BC[0].to(B.dtype),
+                self.g_BC[1].to(C.dtype), self.g_Db[0], self.g_Db[1],
+                self.g_h0)
 
 
 def _like(grad, p):
@@ -327,7 +425,9 @@ class _BidirScanFn(torch.autograd.Function):
     """The counterpart of `bidir_selective_scan_pallas`'s custom_vjp:
     forward = one `bidir_scan_fwd` with carries, backward = two launches
     of `selective_scan_bwd` (forward, then reverse direction), as the JAX
-    default `_bwd` (`scan_pallas_bidir.py:496-506`)."""
+    default `_bwd` (`scan_pallas_bidir.py:496-506`), or, when
+    ``CADUCEUS_BIDIR_BWD`` is "1" in the environment as the backward runs,
+    one launch of `bidir_scan_bwd` (`:485-495`)."""
 
     @staticmethod
     def forward(ctx, uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, bf, br,
@@ -345,6 +445,13 @@ class _BidirScanFn(torch.autograd.Function):
         (uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, bf, br, carf,
          carr) = ctx.saved_tensors
         softplus, chunk_size = ctx.cfg
+        if os.environ.get("CADUCEUS_BIDIR_BWD") == "1":
+            g = bidir_scan_bwd(uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df,
+                               Dr, bf, br, gf, gr, carf, carr, softplus,
+                               chunk_size)
+            params = (uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, bf, br)
+            return tuple(_like(gv, p) for gv, p in zip(g, params)) + (
+                None, None)
         out = []
         for u, dl, B, C, A, D, b, g_y, car, rev in (
                 (uf, df, Bf, Cf, Af, Df, bf, gf, carf, False),

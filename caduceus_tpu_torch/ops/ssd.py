@@ -22,6 +22,9 @@ with ``dt = softplus(dt_raw + dt_bias)`` resolved inside (optional).
 - `ssd_chunked_fused_bwd` is its adjoint from the saved chunk carries, the
   plain version of the `ssd_fused_bwd` kernels: `ssd_adjoint_xc` (the SSD
   part) then `conv_silu_bwd` (SiLU and conv adjoints), one per kernel.
+- `ssd_chunked_bwd` is the adjoint of `ssd_chunked` on post-conv x, B, C,
+  the plain version of the unfused `ssd_bwd` kernel; it shares the chunk
+  body `_adjoint` with `ssd_adjoint_xc`.
 
 Per chunk of T rows, in array order (``reverse`` only transposes the masks
 and walks the chunks right to left — nothing is flipped in memory):
@@ -319,32 +322,22 @@ def ssd_step(
     return h_r.reshape(G, H, N, P), y.to(x_t.dtype)
 
 
-def ssd_adjoint_xc(
-    xBC: torch.Tensor,                      # (G, L, Wc) pre-conv
-    dt: torch.Tensor,                       # (G, L, H) raw
-    A: torch.Tensor,                        # (H,)
-    conv_w: torch.Tensor,                   # (K, Wc)
-    conv_b: Optional[torch.Tensor],         # (Wc,)
-    D: Optional[torch.Tensor],              # (H,)
-    dt_bias: Optional[torch.Tensor],        # (H,)
-    g_y: torch.Tensor,                      # (G, L, H, P), xBC's dtype
-    carries: torch.Tensor,                  # (G, nc, H, N, P) chunk entries
-    g_hN: Optional[torch.Tensor],           # (G, H, N, P) fp32
-    dims: Tuple[int, int, int, int],        # (H, P, NG, N)
-    dt_softplus: bool = False,
-    reverse: bool = False,
-    chunk_size: int = 64,
-):
-    """The SSD part of the adjoint of `ssd_chunked_fused`, from its saved
-    chunk carries: the plain version of `ssd_fused_bwd_kernel`. Returns
-    ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``: g_xc = d loss / d
-    silu(pre) (G, L, Wc) fp32, the input of `conv_silu_bwd`; g_dt in dt's
-    dtype; the rest fp32.
+def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
+             dt_softplus, reverse, T, mm):
+    """The chunk body of the SSD adjoint, shared by `ssd_adjoint_xc` and
+    `ssd_chunked_bwd` (the plain versions of the two forms of the backward
+    kernel `ssd_fused_bwd_kernel`).
+
+    ``load(s0, r1)`` gives the forward's fp32 x (G, r1 - s0, H·P) and the
+    B, C (G, r1 - s0, NG·N) of rows [s0, r1), B and C rounded to ``mm``, the
+    storage dtype; ``store(s0, r1, g_x, g_B, g_C)`` takes their fp32
+    gradients for the same rows. Returns ``(g_dt, g_A, g_D, g_dt_bias,
+    g_h0)``: g_dt in dt's dtype, the rest fp32.
 
     It walks the adjoint of `_bwd_kernel` (`caduceus_tpu/ops/
     ssd_pallas_batched.py:554-749`) chunk by chunk against the scan order,
-    with λ = the gradient of the chunk's exit state (g_hN at the scan's
-    end), per head h of group k, G_ts = g_y_t · dx_s and LG = Lm ⊙ G:
+    with λ = the gradient of the chunk's exit state (g_hN at the scan's end),
+    per head h of group k, G_ts = g_y_t · dx_s and LG = Lm ⊙ G:
 
         g_dx  = (CB ⊙ Lm)ᵀ @ g_y + w ⊙ (B @ λ)
         g_C   = Σ_h LG_h @ B + (exp(cum) ⊙ g_y) @ h_inᵀ
@@ -354,27 +347,21 @@ def ssd_adjoint_xc(
         g_a   = suffix sum of g_cum in scan order (fp32)
         λ     ← exp(Σa)·λ + Cᵀ @ (exp(cum) ⊙ g_y)
 
-    then the softplus chain on g_dt. Precision policy as the
-    forward: matmul operands rounded to xBC's dtype (each head's LG on its
-    own, as the kernel sums the heads' products), fp32 accumulation, fp32
-    cumsums and λ; h_in is the carry as saved."""
+    then the softplus chain on g_dt. Precision policy as the forward:
+    matmul operands rounded to ``mm`` (each head's LG on its own, as the
+    kernel sums the heads' products), fp32 accumulation, fp32 cumsums and
+    λ; h_in is the carry as saved."""
     H, P, NG, N = dims
-    G, L, Wc = xBC.shape
-    assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
+    G, L = dt.shape[:2]
     rep = H // NG
-    T = chunk_size
-    mm = xBC.dtype
-    dev = xBC.device
+    dev = dt.device
     Af = A.float()
-    w = conv_w.float()
-    b = None if conv_b is None else conv_b.float()
     Df = (torch.zeros(H, device=dev) if D is None else D.float())
     nc = -(-L // T)
     Lp = nc * T
     assert carries.shape == (G, nc, H, N, P), (carries.shape, (G, nc, H, N, P))
     lam = (torch.zeros(G, NG, rep, N, P, device=dev) if g_hN is None
            else g_hN.float().reshape(G, NG, rep, N, P).clone())
-    g_xc = torch.zeros(G, L, Wc, device=dev)      # d loss / d silu(pre)
     g_dt = torch.zeros(G, L, H, device=dev)
     g_A = torch.zeros(H, device=dev)
     g_bias = torch.zeros(H, device=dev)
@@ -390,13 +377,12 @@ def ssd_adjoint_xc(
         r1 = min(s1, L)
         nci = (s1 - s0) // T
         pad = s1 - r1
-        xc = F.pad(_conv_silu_rows(xBC, w, b, s0, r1, reverse),
-                   (0, 0, 0, pad))
+        xs, Bq, Cq = (F.pad(t, (0, 0, 0, pad)) for t in load(s0, r1))
         dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus),
                     (0, 0, 0, pad)).reshape(G, nci, T, H)
-        xs = xc[..., :H * P].reshape(G, nci, T, NG, rep, P)
-        Bq = _q(xc[..., H * P:H * P + NG * N], mm).reshape(G, nci, T, NG, N)
-        Cq = _q(xc[..., H * P + NG * N:], mm).reshape(G, nci, T, NG, N)
+        xs = xs.reshape(G, nci, T, NG, rep, P)
+        Bq = Bq.reshape(G, nci, T, NG, N)
+        Cq = Cq.reshape(G, nci, T, NG, N)
         gy = F.pad(g_y[:, s0:r1].float(), (0, 0, 0, 0, 0, pad)).reshape(
             G, nci, T, NG, rep, P)
         h_in = carries[:, s0 // T:s1 // T].float().reshape(
@@ -462,15 +448,106 @@ def ssd_adjoint_xc(
                + torch.einsum("gcskrp,gckrnp->gcskn", _q(wdx, mm),
                               _q(lams, mm)))
         n = r1 - s0
-        g_xc[:, s0:r1, :H * P] = g_x.reshape(G, s1 - s0, H * P)[:, :n]
-        g_xc[:, s0:r1, H * P:H * P + NG * N] = g_B.reshape(
-            G, s1 - s0, NG * N)[:, :n]
-        g_xc[:, s0:r1, H * P + NG * N:] = g_C.reshape(
-            G, s1 - s0, NG * N)[:, :n]
+        store(s0, r1, g_x.reshape(G, s1 - s0, H * P)[:, :n],
+              g_B.reshape(G, s1 - s0, NG * N)[:, :n],
+              g_C.reshape(G, s1 - s0, NG * N)[:, :n])
         g_dt[:, s0:r1] = g_dts.reshape(G, s1 - s0, H)[:, :n]
 
-    return (g_xc, g_dt.to(dt.dtype), g_A, g_D, g_bias,
-            lam.reshape(G, H, N, P))
+    return (g_dt.to(dt.dtype), g_A, g_D, g_bias, lam.reshape(G, H, N, P))
+
+
+def ssd_adjoint_xc(
+    xBC: torch.Tensor,                      # (G, L, Wc) pre-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    conv_w: torch.Tensor,                   # (K, Wc)
+    conv_b: Optional[torch.Tensor],         # (Wc,)
+    D: Optional[torch.Tensor],              # (H,)
+    dt_bias: Optional[torch.Tensor],        # (H,)
+    g_y: torch.Tensor,                      # (G, L, H, P), xBC's dtype
+    carries: torch.Tensor,                  # (G, nc, H, N, P) chunk entries
+    g_hN: Optional[torch.Tensor],           # (G, H, N, P) fp32
+    dims: Tuple[int, int, int, int],        # (H, P, NG, N)
+    dt_softplus: bool = False,
+    reverse: bool = False,
+    chunk_size: int = 64,
+):
+    """The SSD part of the adjoint of `ssd_chunked_fused`, from its saved
+    chunk carries: the plain version of `ssd_fused_bwd_kernel` (K >= 1).
+    Returns ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``: g_xc = d loss / d
+    silu(pre) (G, L, Wc) fp32, the input of `conv_silu_bwd`; g_dt in dt's
+    dtype; the rest fp32. The chunk body is `_adjoint`'s, on the x, B and C
+    that the forward recomputes from xBC."""
+    H, P, NG, N = dims
+    G, L, Wc = xBC.shape
+    assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
+    mm = xBC.dtype
+    w = conv_w.float()
+    b = None if conv_b is None else conv_b.float()
+    g_xc = torch.zeros(G, L, Wc, device=xBC.device)
+
+    def load(s0, r1):
+        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse)
+        return (xc[..., :H * P], _q(xc[..., H * P:H * P + NG * N], mm),
+                _q(xc[..., H * P + NG * N:], mm))
+
+    def store(s0, r1, g_x, g_B, g_C):
+        g_xc[:, s0:r1] = torch.cat([g_x, g_B, g_C], -1)
+
+    g_dt, g_A, g_D, g_bias, g_h0 = _adjoint(
+        load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims, dt_softplus,
+        reverse, chunk_size, mm)
+    return g_xc, g_dt, g_A, g_D, g_bias, g_h0
+
+
+def ssd_chunked_bwd(
+    x: torch.Tensor,                        # (G, L, H, P) post-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    B_mat: torch.Tensor,                    # (G, L, NG, N)
+    C: torch.Tensor,                        # (G, L, NG, N)
+    D: Optional[torch.Tensor],              # (H,)
+    dt_bias: Optional[torch.Tensor],        # (H,)
+    g_y: torch.Tensor,                      # (G, L, H, P), x's dtype
+    carries: torch.Tensor,                  # (G, nc, H, N, P) chunk entries
+    g_hN: Optional[torch.Tensor],           # (G, H, N, P) fp32
+    dt_softplus: bool = False,
+    reverse: bool = False,
+    chunk_size: int = 64,
+):
+    """Adjoint of `ssd_chunked` from its saved chunk carries: the plain
+    version of the unfused backward kernel `ssd_bwd` (the K = 0 form of
+    `ssd_fused_bwd_kernel`), the CPU path's backward, and the port of the
+    JAX package's `ssd_pallas_bwd_impl` / `ssd_pallas_batched_bwd_impl`
+    (TPU kernels #6 and #4, one function in two VMEM layouts).
+
+    Returns ``(g_x, g_dt, g_A, g_B, g_C, g_D, g_dt_bias, g_h0)``, their
+    order: g_x / g_dt in the dtypes of x / dt; g_B, g_C (G, L, NG, N) fp32,
+    the sums over the heads of each group; the rest fp32. The chunk body is
+    `_adjoint`'s, on the post-conv x, B and C as given."""
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    mm = x.dtype
+    dev = x.device
+    g_x = torch.empty(G, L, H * P, device=dev)
+    g_B = torch.empty(G, L, NG * N, device=dev)
+    g_C = torch.empty(G, L, NG * N, device=dev)
+
+    def load(s0, r1):
+        n = r1 - s0
+        return (x[:, s0:r1].float().reshape(G, n, H * P),
+                _q(B_mat[:, s0:r1].reshape(G, n, NG * N), mm),
+                _q(C[:, s0:r1].reshape(G, n, NG * N), mm))
+
+    def store(s0, r1, gx, gB, gC):
+        g_x[:, s0:r1], g_B[:, s0:r1], g_C[:, s0:r1] = gx, gB, gC
+
+    g_dt, g_A, g_D, g_bias, g_h0 = _adjoint(
+        load, store, dt, A, D, dt_bias, g_y, carries, g_hN, (H, P, NG, N),
+        dt_softplus, reverse, chunk_size, mm)
+    return (g_x.reshape(G, L, H, P).to(mm), g_dt, g_A,
+            g_B.reshape(G, L, NG, N), g_C.reshape(G, L, NG, N), g_D, g_bias,
+            g_h0)
 
 
 def conv_silu_bwd(

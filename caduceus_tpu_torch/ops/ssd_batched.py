@@ -1,6 +1,6 @@
-"""Head-batched SSD: the Python wrappers of the `ssd_fused_fwd`, `ssd_fwd`
-and `ssd_fused_bwd` kernels, and the `torch.autograd.Function` around the
-fused pair.
+"""Head-batched SSD: the Python wrappers of the `ssd_fused_fwd`, `ssd_fwd`,
+`ssd_fused_bwd` and `ssd_bwd` kernels, and the `torch.autograd.Function`s
+around the fused pair and the unfused pair.
 
 Port of `caduceus_tpu/ops/ssd_pallas_batched.py` `ssd_pallas_batched_fused`
 (`ssd_pallas_batched_fused_chained` and its `custom_vjp`). Same signature
@@ -8,11 +8,15 @@ and layouts: ``xBC`` is the PRE-conv (G, L, H·P + 2·NG·N) tensor, the
 depthwise conv + SiLU + x/B/C split run inside the kernels, so the
 post-conv tensor never exists in device memory.
 
-Also the unfused forward, `ssd_batched_chained` (the port of
-`ssd_pallas_batched_chained`, TPU kernel #2): post-conv x (G, L, H, P), B
-and C (G, L, NG, N), h_init -> (y, hN). The prefill runs it; on the CPU it
-is `ops/ssd.py ssd_chunked`. It is forward only: its adjoint (TPU kernel
-#4) is not ported, and under grad it raises.
+Also the unfused SSD, `ssd_batched_chained` (the port of
+`ssd_pallas_batched_chained`: forward TPU kernel #2, adjoint #4) and
+`ssd_batched` (of `ssd_pallas_batched`): post-conv x (G, L, H, P), B and C
+(G, L, NG, N), h_init -> (y, hN). The prefill runs it. On a CPU tensor it
+is `ops/ssd.py ssd_chunked`, which autograd differentiates; on a CUDA
+tensor `ssd_fwd`, and under grad `_SSDFn`: forward = `ssd_fwd` saving the
+chunk carries, backward = one launch of `ssd_bwd`, differentiable in x,
+dt, A, B, C, D, dt_bias and h_init, with a cotangent for hN. The per-head
+entry `ops/ssd_head.py` runs the same two kernels under its own counters.
 
 - On a CPU tensor `ssd_batched_fused` runs the plain version, `ops/ssd.py
   ssd_chunked_fused`, which autograd differentiates.
@@ -26,8 +30,8 @@ is `ops/ssd.py ssd_chunked`. It is forward only: its adjoint (TPU kernel
 
 Launch counters (one per kernel launch on a CUDA tensor): ``launches``
 (`ssd_fused_fwd`), ``unfused_launches`` (`ssd_fwd`), ``bwd_launches``
-(`ssd_fused_bwd_kernel`) and ``conv_bwd_launches``
-(`ssd_conv_bwd_kernel`).
+(`ssd_fused_bwd_kernel`), ``conv_bwd_launches`` (`ssd_conv_bwd_kernel`)
+and ``unfused_bwd_launches`` (`ssd_bwd`).
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ from caduceus_tpu_torch import _build
 from caduceus_tpu_torch.ops.ssd import carry_dtype
 from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain_conv_silu_bwd
 from caduceus_tpu_torch.ops.ssd import ssd_adjoint_xc as plain_adjoint_xc
-from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_fused
+from caduceus_tpu_torch.ops.ssd import ssd_chunked as plain_chunked
+from caduceus_tpu_torch.ops.ssd import ssd_chunked_bwd as plain_chunked_bwd
+from caduceus_tpu_torch.ops.ssd import ssd_chunked_fused
 
 # chunk rows of the CUDA kernels (`Chunk<S>::T` in csrc/ssd_common.cuh):
 # fp32 tiles take twice the shared memory, so fp32 chunks are half as long.
@@ -54,6 +60,7 @@ launches = 0
 unfused_launches = 0
 bwd_launches = 0
 conv_bwd_launches = 0
+unfused_bwd_launches = 0
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
@@ -65,9 +72,11 @@ _ARGTYPES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ssd_conv_bwd": [_I, _P, _LL, _LL, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _P],
+    "ssd_bwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 11 + [_I] * 8 + [_P],
 }
 _LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fwd": "ssd_fused_fwd",
-            "ssd_fused_bwd": "ssd_fused_bwd", "ssd_conv_bwd": "ssd_fused_bwd"}
+            "ssd_fused_bwd": "ssd_fused_bwd", "ssd_conv_bwd": "ssd_fused_bwd",
+            "ssd_bwd": "ssd_fused_bwd"}
 
 
 def _fn(name: str):
@@ -82,7 +91,8 @@ def _fn(name: str):
 def build() -> dict:
     """Build both kernel libraries now, one nvcc each, side by side:
     {library: (path, compile seconds)}. `ssd_fused_fwd.cu` holds both
-    forward entry points, `ssd_fused_fwd` and `ssd_fwd`."""
+    forward entry points, `ssd_fused_fwd` and `ssd_fwd`; `ssd_fused_bwd.cu`
+    the backward ones, `ssd_fused_bwd`, `ssd_conv_bwd` and `ssd_bwd`."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("ssd_fused_fwd", "ssd_fused_bwd")
@@ -189,18 +199,14 @@ def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
     return y, hN, carries
 
 
-def ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse, chunk_size,
-            h_init, save_carries: bool):
-    """One launch of the unfused forward kernel on CUDA tensors: (y, hN,
-    carries), carries as `ssd_fused_fwd`'s. x (G, L, H, P), B_mat and C
-    (G, L, NG, N) and dt (G, L, H) may be views into wider tensors (the
-    prefill's conv output and in_proj output): the kernel takes each one's
-    batch and row strides and needs each row's columns contiguous."""
+def _unfused_views(x, B_mat, C, dt, A, D, dt_bias, chunk_size):
+    """Check what both unfused kernels take of x, B, C (each row's values
+    contiguous: they may be views into wider tensors), dt and the per-head
+    parameters; returns the fp32 copies of (A, D, dt_bias)."""
     G, L, H, P = x.shape
     NG, N = B_mat.shape[-2:]
-    dims = (H, P, NG, N)
     dev = x.device
-    A_, D_, bias_ = _head_args(x, dt, A, D, dt_bias, dims, chunk_size, "x")
+    out = _head_args(x, dt, A, D, dt_bias, (H, P, NG, N), chunk_size, "x")
     for name, t, row in (("x", x, (H, P)), ("B", B_mat, (NG, N)),
                          ("C", C, (NG, N))):
         if t.dtype != x.dtype or t.device != dev:
@@ -210,6 +216,27 @@ def ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse, chunk_size,
             raise ValueError(f"{name} {tuple(t.shape)} with strides "
                              f"{t.stride()}: each row's {row[0]}x{row[1]} "
                              "values must be contiguous")
+    return out
+
+
+def _strided(*ts):
+    """Each tensor's (pointer, batch stride, row stride), flattened."""
+    return [v for t in ts for v in (t.data_ptr(), t.stride(0), t.stride(1))]
+
+
+def launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
+               chunk_size, h_init, save_carries: bool):
+    """One launch of the unfused forward kernel (`ssd_fwd`) on CUDA tensors,
+    counted by the caller: (y, hN, carries), carries as `ssd_fused_fwd`'s.
+    x (G, L, H, P), B_mat and C (G, L, NG, N) and dt (G, L, H) may be views
+    into wider tensors (a conv output and an in_proj output): the kernel
+    takes each one's batch and row strides and needs each row's columns
+    contiguous."""
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    dims = (H, P, NG, N)
+    dev = x.device
+    A_, D_, bias_ = _unfused_views(x, B_mat, C, dt, A, D, dt_bias, chunk_size)
     h0 = _small(h_init, (G, H, N, P), "h_init", dev)
     y = torch.empty(G, L, H, P, dtype=x.dtype, device=dev)
     hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
@@ -218,19 +245,160 @@ def ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse, chunk_size,
                            device=dev) if save_carries else None)
     with torch.cuda.device(dev):
         err = _fn("ssd_fwd")(
-            _DTYPES[x.dtype],
-            x.data_ptr(), x.stride(0), x.stride(1),
-            B_mat.data_ptr(), B_mat.stride(0), B_mat.stride(1),
-            C.data_ptr(), C.stride(0), C.stride(1),
-            dt.data_ptr(), dt.stride(0), dt.stride(1),
+            _DTYPES[x.dtype], *_strided(x, B_mat, C, dt),
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(h0),
             y.data_ptr(), hN.data_ptr(), _ptr(carries),
             G, L, H, P, NG, N, int(dt_softplus), int(reverse),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_fwd", G, L, dims, x.dtype)
+    return y, hN, carries
+
+
+def launch_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
+               dt_softplus, reverse, chunk_size):
+    """One launch of the unfused backward kernel (`ssd_bwd`) on CUDA
+    tensors, counted by the caller: `ops/ssd.py ssd_chunked_bwd`'s
+    ``(g_x, g_dt, g_A, g_B, g_C, g_D, g_dt_bias, g_h0)``, g_B and g_C the
+    kernel's fp32 sums over each group's heads. x, B, C and dt as
+    `launch_fwd` takes them; carries from `launch_fwd(save_carries=True)`."""
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    dims = (H, P, NG, N)
+    dev = x.device
+    A_, D_, bias_ = _unfused_views(x, B_mat, C, dt, A, D, dt_bias, chunk_size)
+    want = (G, -(-L // chunk_size), H, N, P)
+    if (tuple(carries.shape) != want or carries.device != dev
+            or carries.dtype != carry_dtype(x.dtype)):
+        raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
+                         f"{carries.device}; expected {want} "
+                         f"{carry_dtype(x.dtype)} on {dev}")
+    g_y = g_y.to(x.dtype).contiguous()
+    carries = carries.contiguous()
+    ghN = _small(g_hN, (G, H, N, P), "g_hN", dev)
+    g_x = torch.empty(G, L, H, P, dtype=x.dtype, device=dev)
+    g_BC = torch.empty(2, G, L, NG, N, dtype=torch.float32, device=dev)
+    g_dt = torch.empty(G, L, H, dtype=x.dtype, device=dev)
+    g_h0 = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
+    g_heads = torch.empty(3, H, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn("ssd_bwd")(
+            _DTYPES[x.dtype], *_strided(x, B_mat, C, dt),
+            _ptr(A_), _ptr(D_), _ptr(bias_), g_y.data_ptr(),
+            carries.data_ptr(), _ptr(ghN), g_x.data_ptr(), g_BC.data_ptr(),
+            g_dt.data_ptr(), g_h0.data_ptr(), g_heads.data_ptr(),
+            G, L, H, P, NG, N, int(dt_softplus), int(reverse),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, "ssd_bwd", G, L, dims, x.dtype)
+    return (g_x, g_dt, g_heads[0], g_BC[0], g_BC[1], g_heads[2], g_heads[1],
+            g_h0)
+
+
+def ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse, chunk_size,
+            h_init, save_carries: bool):
+    """One launch of the unfused forward kernel on CUDA tensors (TPU kernel
+    #2; `launch_fwd`), counted in ``unfused_launches``."""
+    out = launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
+                     chunk_size, h_init, save_carries)
     global unfused_launches
     unfused_launches += 1
-    return y, hN, carries
+    return out
+
+
+def ssd_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
+            dt_softplus=False, reverse=False, chunk_size=None):
+    """The unfused adjoint from the forward's carries, `ops/ssd.py
+    ssd_chunked_bwd` semantics and tuple. On a CPU tensor that plain
+    version; on a CUDA tensor one launch of `ssd_bwd` (TPU kernel #4;
+    `launch_bwd`), counted in ``unfused_bwd_launches``, or it raises.
+    ``g_y`` is cast to x's dtype, as the JAX package's `_chained_bwd`
+    does."""
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(x.dtype, 64)
+    if not on_card(x, "ssd_bwd"):
+        return plain_chunked_bwd(x, dt, A, B_mat, C, D, dt_bias,
+                                 g_y.to(x.dtype), carries, g_hN, dt_softplus,
+                                 reverse, chunk_size)
+    out = launch_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
+                     dt_softplus, reverse, chunk_size)
+    global unfused_bwd_launches
+    unfused_bwd_launches += 1
+    return out
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def _like(grad, p):
+    return None if p is None else grad.to(p.dtype).reshape(p.shape)
+
+
+class _SSDFn(torch.autograd.Function):
+    """The counterpart of `ssd_pallas_batched_chained`'s (and
+    `ssd_pallas_chained`'s) custom_vjp: forward = the unfused forward kernel
+    with carries, backward = one launch of the unfused backward kernel.
+    ``fwd`` / ``bwd`` are the counting wrappers of the entry that calls it
+    (`ssd_fwd` / `ssd_bwd` here, `ops/ssd_head.py`'s for the per-head
+    entry)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_mat, C, D, dt_bias, h_init, dt_softplus,
+                reverse, chunk_size, fwd, bwd):
+        y, hN, carries = fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus,
+                             reverse, chunk_size, h_init, save_carries=True)
+        ctx.save_for_backward(x, dt, A, B_mat, C, D, dt_bias, carries)
+        ctx.cfg = (dt_softplus, reverse, chunk_size, h_init is not None, bwd)
+        return y, hN
+
+    @staticmethod
+    def backward(ctx, g_y, g_hN):
+        x, dt, A, B_mat, C, D, dt_bias, carries = ctx.saved_tensors
+        dt_softplus, reverse, chunk_size, has_h0, bwd = ctx.cfg
+        # autograd materializes a missing cotangent as zeros
+        g = bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
+                dt_softplus, reverse, chunk_size)
+        g_x, g_dt, g_A, g_B, g_C, g_D, g_bias, g_h0 = g
+        return (g_x, g_dt.to(dt.dtype), _like(g_A, A), g_B.to(B_mat.dtype),
+                g_C.to(C.dtype), _like(g_D, D), _like(g_bias, dt_bias),
+                g_h0 if has_h0 else None, None, None, None, None, None)
+
+
+def chained(x, dt, A, B_mat, C, D, dt_bias, h_init, dt_softplus, reverse,
+            chunk_size, fwd, bwd, what):
+    """(y, hN) of the unfused SSD through the counting wrappers ``fwd`` /
+    ``bwd``: on a CPU tensor `ops/ssd.py ssd_chunked` (autograd
+    differentiates it); on a CUDA tensor ``fwd``, or `_SSDFn` when an input
+    requires grad; raises on anything else."""
+    if x.dim() != 4 or B_mat.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and B {tuple(B_mat.shape)}: "
+                         "expected (G, L, H, P) and (G, L, NG, N)")
+    G, L, H, P = x.shape
+    NG, N = B_mat.shape[-2:]
+    for name, t, want in (("dt", dt, (G, L, H)), ("B", B_mat, (G, L, NG, N)),
+                          ("C", C, (G, L, NG, N))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {want}")
+    if H % NG != 0:
+        raise ValueError(f"nheads {H} not divisible by ngroups {NG}")
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(x.dtype, 64)
+    if not on_card(x, what):
+        return plain_chunked(x, dt, A, B_mat, C, D, dt_bias, dt_softplus,
+                             reverse, chunk_size, h_init,
+                             return_final_state=True)
+    inputs = (x, dt, A, B_mat, C, D, dt_bias, h_init)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _SSDFn.apply(*inputs, dt_softplus, reverse, chunk_size, fwd,
+                            bwd)
+    y, hN, _ = fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
+                   chunk_size, h_init, save_carries=False)
+    return y, hN
 
 
 def ssd_batched_chained(
@@ -249,36 +417,25 @@ def ssd_batched_chained(
     """The counterpart of `ssd_pallas_batched_chained`: returns (y (G, L, H,
     P) in x's dtype, hN (G, H, N, P) fp32). ``chunk_size`` defaults to the
     kernel's (`KERNEL_CHUNK`). On a CPU tensor it runs `ops/ssd.py
-    ssd_chunked`; on a CUDA tensor one launch of `ssd_fwd`, or it raises."""
-    if x.dim() != 4 or B_mat.dim() != 4:
-        raise ValueError(f"x {tuple(x.shape)} and B {tuple(B_mat.shape)}: "
-                         "expected (G, L, H, P) and (G, L, NG, N)")
-    G, L, H, P = x.shape
-    NG, N = B_mat.shape[-2:]
-    for name, t, want in (("dt", dt, (G, L, H)), ("B", B_mat, (G, L, NG, N)),
-                          ("C", C, (G, L, NG, N))):
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {want}")
-    if H % NG != 0:
-        raise ValueError(f"nheads {H} not divisible by ngroups {NG}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A, B_mat, C, D, dt_bias, h_init)):
-        raise NotImplementedError(
-            "ssd_batched_chained is forward only: its adjoint, TPU kernel #4 "
-            "(ssd_pallas_batched_bwd_impl), is not ported yet; call it under "
-            "torch.inference_mode() or torch.no_grad()")
-    if chunk_size is None:
-        chunk_size = KERNEL_CHUNK.get(x.dtype, 64)
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, B_mat, C, D, dt_bias, dt_softplus,
-                           reverse, chunk_size, h_init,
-                           return_final_state=True)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_batched_chained: unsupported device {x.device}")
-    y, hN, _ = ssd_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
-                       chunk_size, h_init, save_carries=False)
-    return y, hN
+    ssd_chunked`; on a CUDA tensor one launch of `ssd_fwd` (TPU kernel #2)
+    and, under grad, one of `ssd_bwd` (#4) in the backward, or it
+    raises."""
+    return chained(x, dt, A, B_mat, C, D, dt_bias, h_init, dt_softplus,
+                   reverse, chunk_size, ssd_fwd, ssd_bwd,
+                   "ssd_batched_chained")
+
+
+def ssd_batched(x, dt, A, B_mat, C, D=None, dt_bias=None,
+                dt_softplus: bool = False, reverse: bool = False,
+                chunk_size: Optional[int] = None,
+                h_init: Optional[torch.Tensor] = None,
+                return_final_state: bool = False):
+    """The counterpart of `ssd_pallas_batched`, a drop-in for `ops/ssd.py
+    ssd_chunked` on post-conv x, B, C: `ssd_batched_chained` from h_init
+    (zeros when None); y, and hN when ``return_final_state``."""
+    y, hN = ssd_batched_chained(x, dt, A, B_mat, C, D, dt_bias, h_init,
+                                dt_softplus, reverse, chunk_size)
+    return (y, hN) if return_final_state else y
 
 
 def ssd_adjoint_xc(

@@ -97,9 +97,10 @@ class InferenceService:
         self.model.load_state_dict(params)
         self.model.eval()
         if self.device.type == "cuda":
-            # build the kernels of the config's family now (for v2 both
-            # forward entry points, the prefill's `ssd_fwd` among them), so
-            # that no request pays the nvcc compile
+            # build the kernels of the config's family now, so that no
+            # request pays the nvcc compile: for v2 the two SSD libraries,
+            # which hold every ``use_kernel`` route's kernels (the fused
+            # ones, and the unfused ones of the prefill and of "pallas")
             if cfg.ssm_cfg.version == 1:
                 from caduceus_tpu_torch.ops.scan import build
             else:

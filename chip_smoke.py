@@ -101,7 +101,38 @@ through `selective_scan_fwd`, #7, chained from the cache):
    (BF16_MODEL_TOL); prefill tokens/s at 131,072, decode ms per token at
    batch 1 and 8, /generate latency, each beside its bound;
 20. `ssd_fwd` per launch at G=1 and G=4, L=131072, bf16, beside its plain
-   version and bound.
+   version and bound;
+
+and, after 16, the last four TPU kernels: the unfused SSD adjoint `ssd_bwd`
+(the K = 0 instantiation of `ssd_fused_bwd.cu`'s SSD adjoint; #4 behind
+`ops/ssd_batched.py ssd_batched_chained`, #6 behind `ops/ssd_head.py`), the
+per-head route of ``use_kernel: pallas`` (#5 / #6), and the paired scan
+adjoint `bidir_scan_bwd` (#10):
+
+21. `ssd_bwd` against `ssd_chunked_bwd`, all eight gradients: small shapes
+   (fp32 and bf16, both directions, ngroups 1 and 2, strided column views,
+   nonzero h_init and g_hN, L not a multiple of the chunk) and the main
+   geometry; planted faults that must fail (g_h0 left at zero, g_A x
+   (1+2^-4), a 16-row tile of g_dt zeroed, a 16x16 tile of g_B zeroed);
+22. two chained `ssd_batched_chained` calls (split inside a chunk) against
+   one call under autograd: y, hN and every gradient, g_h0 among them;
+23. the 2-layer full-width `use_kernel: pallas` model, card vs CPU (as 4),
+   and its train step (as 6), 32 + 16 per-head launches per micro-batch;
+24. that model at 8 layers trained at L=131072 (as 7): 32 `ssd_head_fwd`
+   and 16 `ssd_head_bwd` launches per micro-batch, no fused kernel;
+25. the 16-layer `use_kernel: pallas` model served: a 131,072-token /logits,
+   32 `ssd_head_fwd` launches per dispatch, logits equal a direct forward;
+26. the 2-layer causal `use_kernel: pallas` model's prefill, card vs CPU
+   (as 18), through `ssd_head_fwd`;
+27. `bidir_scan_bwd` against the two-launch backward and the plain adjoints,
+   small shapes and d=512, N=16, G=4, L=8192; planted faults (the reverse
+   set given the forward set's g_y, a 16-channel tile of g_u zeroed);
+28. with CADUCEUS_BIDIR_BWD=1: the 2-layer v1 train step card vs CPU, and
+   the full-width 16-layer v1 model trained at L=131072 (as 15) with 16
+   `bidir_scan_bwd` and no `selective_scan_bwd` launches per micro-batch;
+29. `ssd_head_fwd`, `ssd_bwd` / `ssd_head_bwd` and `bidir_scan_bwd` at the
+   training shape (G=4, L=131072, bf16) beside their plain versions and
+   bounds, holding the timed outputs.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -118,6 +149,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import torch
@@ -155,7 +187,8 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def hg38_mlm_v2_config(n_layer: int = 16, dtype: str = "bfloat16"):
+def hg38_mlm_v2_config(n_layer: int = 16, dtype: str = "bfloat16",
+                       use_kernel: str = "auto"):
     """`configs/hg38_mlm_v2.yaml`'s model, written out (no YAML)."""
     from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
     from caduceus_tpu_torch.tokenization import CaduceusTokenizer
@@ -169,7 +202,14 @@ def hg38_mlm_v2_config(n_layer: int = 16, dtype: str = "bfloat16"):
         dtype=dtype, param_dtype="float32", remat=True, remat_span=1,
         ssm_cfg=SSMConfig(version=2, d_state=128, headdim=64, ngroups=1,
                           d_conv=4, expand=2, ssd_chunk_size=128,
-                          ssd_seg_chunks=8))
+                          ssd_seg_chunks=8, use_kernel=use_kernel))
+
+
+def hg38_mlm_v2_pallas_config(n_layer: int = 16, dtype: str = "bfloat16"):
+    """The same model with ``ssm_cfg.use_kernel = "pallas"``: the per-head
+    route (conv + SiLU as a PyTorch op, then `ops/ssd_head.py ssd_head`:
+    TPU kernels #5 / #6)."""
+    return hg38_mlm_v2_config(n_layer, dtype, use_kernel="pallas")
 
 
 def ssd_inputs(G, L, H, P, NG, N, K, dtype, seed, width_pad=0):
@@ -220,12 +260,13 @@ def phase_build():
         for entry in report[1:]:
             head = entry.split("\n", 1)[0]
             kernel = next(k for k in kernels if k in head)
-            unfused = kernel == "ssd_fwd_kernel" and "Li0E" in head
+            unfused = (kernel in ("ssd_fwd_kernel", "ssd_fused_bwd_kernel")
+                       and "Li0E" in head)
             if kernel.startswith("ssd") and "Li4E" not in head and not unfused:
                 continue    # the SSD kernels: the K=4 (d_conv) and K=0 ones
             kind = "bf16" if "bfloat16" in head else "fp32"
             kind += ", reverse" if "Lb1E" in head else ""
-            kind += ", unfused (ssd_fwd)" if unfused else ""
+            kind += ", unfused (K = 0)" if unfused else ""
             for line in entry.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {kernel} ({kind}): {line.strip()}")
@@ -600,37 +641,55 @@ def phase_serve():
 
 
 def _counts():
-    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops import scan, ssd_head
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
     return {"ssd_fused_fwd": sb.launches, "ssd_fwd": sb.unfused_launches,
             "ssd_fused_bwd_kernel":
             sb.bwd_launches, "ssd_conv_bwd_kernel": sb.conv_bwd_launches,
+            "ssd_bwd": sb.unfused_bwd_launches,
+            "ssd_head_fwd": ssd_head.head_fwd_launches,
+            "ssd_head_bwd": ssd_head.head_bwd_launches,
             "selective_scan_fwd": scan.fwd_launches,
             "bidir_scan_fwd": scan.bidir_launches,
-            "selective_scan_bwd": scan.bwd_launches}
+            "selective_scan_bwd": scan.bwd_launches,
+            "bidir_scan_bwd": scan.bidir_bwd_launches}
 
 
 def _zero_counts():
-    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops import scan, ssd_head
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
     sb.launches = sb.unfused_launches = 0
-    sb.bwd_launches = sb.conv_bwd_launches = 0
+    sb.bwd_launches = sb.conv_bwd_launches = sb.unfused_bwd_launches = 0
+    ssd_head.head_fwd_launches = ssd_head.head_bwd_launches = 0
     scan.fwd_launches = scan.bidir_launches = scan.bwd_launches = 0
+    scan.bidir_bwd_launches = 0
+
+
+def _per_head(cfg) -> bool:
+    """Whether the v2 config takes the per-head route (`models/mamba2.py`)."""
+    from caduceus_tpu_torch.ops.ssd_head import per_head
+
+    return per_head(cfg.ssm_cfg.use_kernel)
 
 
 def _per_micro_batch(cfg):
     """Launches of one micro-batch's forward + backward with remat span 1:
     each layer's forward runs twice (the remat recompute), its backward
-    once. v2: two SSD directions per layer; v1 bidirectional: one paired
-    forward and two backward launches per layer; v1 unidirectional: one
-    and one."""
+    once. v2: two SSD directions per layer (fused-conv kernels, or the
+    per-head pair for ``use_kernel="pallas"``); v1 bidirectional: one
+    paired forward and two backward launches per layer (one paired backward
+    with CADUCEUS_BIDIR_BWD=1); v1 unidirectional: one and one."""
     n = cfg.n_layer
     out = dict.fromkeys(_counts(), 0)
-    if cfg.ssm_cfg.version == 2:
+    if cfg.ssm_cfg.version == 2 and _per_head(cfg):
+        out.update({"ssd_head_fwd": 2 * n * 2, "ssd_head_bwd": 2 * n})
+    elif cfg.ssm_cfg.version == 2:
         out.update({"ssd_fused_fwd": 2 * n * 2, "ssd_fused_bwd_kernel": 2 * n,
                     "ssd_conv_bwd_kernel": 2 * n})
+    elif cfg.bidirectional and os.environ.get("CADUCEUS_BIDIR_BWD") == "1":
+        out.update({"bidir_scan_fwd": n * 2, "bidir_scan_bwd": n})
     elif cfg.bidirectional:
         out.update({"bidir_scan_fwd": n * 2, "selective_scan_bwd": 2 * n})
     else:
@@ -1404,7 +1463,7 @@ def phase_scan_timing():
 
 
 def mamba_ntp_config(version: int, n_layer: int = 16,
-                     dtype: str = "bfloat16"):
+                     dtype: str = "bfloat16", use_kernel: str = "auto"):
     """The causal models of `cli.py pretrain --model mamba --ntp` (rcps and
     bidirectional off, the `CaduceusConfig` defaults otherwise), written
     out (no YAML). v1: `configs/hg38_mamba_ntp.yaml` (d_model 256, 16
@@ -1416,7 +1475,8 @@ def mamba_ntp_config(version: int, n_layer: int = 16,
 
     tok = CaduceusTokenizer()
     ssm = (SSMConfig(version=2, d_state=128, headdim=64, ngroups=1, d_conv=4,
-                     expand=2, ssd_chunk_size=128, ssd_seg_chunks=8)
+                     expand=2, ssd_chunk_size=128, ssd_seg_chunks=8,
+                     use_kernel=use_kernel)
            if version == 2 else SSMConfig(version=1, d_state=16, d_conv=4,
                                           expand=2))
     return CaduceusConfig(
@@ -1428,7 +1488,8 @@ def mamba_ntp_config(version: int, n_layer: int = 16,
 def unfused_inputs(G, L, H, P, NG, N, dtype, seed, pad=0):
     """Seeded operands of the unfused SSD on the card: x, B and C are column
     views of one (G, L, pad + H·P + 2·NG·N) tensor (the prefill's conv
-    output) and dt a column view of a wider one (the in_proj output)."""
+    output) and dt a column view of a wider one (the in_proj output); with
+    the backward's cotangents g_y and g_hN."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -1442,7 +1503,8 @@ def unfused_inputs(G, L, H, P, NG, N, dtype, seed, pad=0):
         C=xc[..., o + NG * N:].reshape(G, L, NG, N),
         dt=(rnd(G, L, H + 8) * 0.5).to(dtype)[..., 8:],
         A=-torch.exp(rnd(H, scale=0.5)), D=rnd(H), dt_bias=rnd(H, scale=0.1),
-        h_init=rnd(G, H, N, P))
+        h_init=rnd(G, H, N, P), g_y=rnd(G, L, H, P).to(dtype),
+        g_hN=rnd(G, H, N, P))
 
 
 def _unfused_args(inp, **over):
@@ -1529,10 +1591,12 @@ def _cache_close(label, got, want, tol):
 
 def _scan_counter(cfg):
     """The launch counter of the prefill's scan kernel."""
-    return "ssd_fwd" if cfg.ssm_cfg.version == 2 else "selective_scan_fwd"
+    if cfg.ssm_cfg.version == 1:
+        return "selective_scan_fwd"
+    return "ssd_head_fwd" if _per_head(cfg) else "ssd_fwd"
 
 
-def phase_prefill_vs_cpu(version):
+def phase_prefill_vs_cpu(version, use_kernel="auto"):
     """The full-width causal model at 2 layers, fp32: `prefill` on the card
     against the CPU from the same weights (logits and every cache entry), a
     prompt split in two chained prefills against one call, and greedy
@@ -1541,7 +1605,8 @@ def phase_prefill_vs_cpu(version):
     from caduceus_tpu_torch.inference import generate, prefill
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
 
-    cfg = mamba_ntp_config(version, n_layer=2, dtype="float32")
+    cfg = mamba_ntp_config(version, n_layer=2, dtype="float32",
+                           use_kernel=use_kernel)
     gen = torch.Generator().manual_seed(40 + version)
     cpu = CaduceusForMaskedLM(cfg, device="cpu", generator=gen)
     card = CaduceusForMaskedLM(cfg, device="cuda")
@@ -1580,7 +1645,8 @@ def phase_prefill_vs_cpu(version):
         full = card(out[:, :-1].cuda()).argmax(-1).cpu()
     check(torch.equal(full[:, L - 1:], out[:, L:]),
           "greedy tokens differ from the argmax of the card's full forward")
-    log(f"[prefill] v{version} causal, full width, 2 layers, fp32, B={B}, "
+    log(f"[prefill] v{version} causal (use_kernel {use_kernel}), full "
+        f"width, 2 layers, fp32, B={B}, "
         f"L={L}: card vs CPU logits {res['logits']:.2e}, caches "
         f"{res['caches']:.2e} of max (tol {MODEL_TOL}); chained prefills "
         f"(split 700, 3) vs one call {max(chained.values()):.2e} of max "
@@ -1762,6 +1828,385 @@ def phase_unfused_timing():
         del inp, a, outs
     return res
 
+# --- the unfused SSD adjoint (#4 / #6), the per-head route (#5 / #6) and the
+# paired v1 backward (#10) ----------------------------------------------
+
+UNFUSED_BWD_NAMES = ("g_x", "g_dt", "g_A", "g_B", "g_C", "g_D", "g_dt_bias",
+                     "g_h0")
+BIDIR_BWD_NAMES = ("g_uf", "g_df", "g_Bf", "g_Cf", "g_ur", "g_dr", "g_Br",
+                   "g_Cr", "g_Af", "g_Ar", "g_Df", "g_Dr", "g_biasf",
+                   "g_biasr")
+
+
+def unfused_bwd_pair(inp, reverse, **over):
+    """`ssd_bwd` and its plain version `ssd_chunked_bwd` from the same
+    carries (the forward kernel's), nonzero h_init and g_hN: the eight
+    gradients of each. ``over`` replaces inputs of the kernel's run only."""
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked_bwd
+    from caduceus_tpu_torch.ops.ssd_batched import (KERNEL_CHUNK, ssd_bwd,
+                                                    ssd_fwd)
+
+    T = KERNEL_CHUNK[inp["x"].dtype]
+    a = _unfused_args(inp)
+    _, _, car = ssd_fwd(*a, True, reverse, T, inp["h_init"], True)
+    k = {**inp, **over}
+    kernel = ssd_bwd(*_unfused_args(inp, **over), k["g_y"], car, k["g_hN"],
+                     True, reverse, T)
+    torch.cuda.synchronize()
+    plain = ssd_chunked_bwd(*a, inp["g_y"], car, inp["g_hN"], True, reverse,
+                            T)
+    return kernel, plain
+
+
+def phase_unfused_bwd_checks():
+    """`ssd_bwd` (TPU kernels #4 / #6) against `ssd_chunked_bwd`, all eight
+    gradients: small shapes (fp32 and bf16, both directions, ngroups 1 and
+    2, x/B/C and dt as strided column views, L not a multiple of the
+    chunk), the main geometry, and planted faults that must fail."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    results, faults, seed = [], {}, 800
+    for dtype in (torch.float32, torch.bfloat16):
+        for NG in (1, 2):
+            for reverse in (False, True):
+                seed += 1
+                inp = unfused_inputs(2, 200, 4, 32, NG, 32, dtype, seed,
+                                     pad=16)
+                label = (f"unfused bwd small G=2 L=200 H=4 P=32 NG={NG} N=32 "
+                         f"{str(dtype)[6:]} rev={reverse}")
+                results.append({"case": label, **hold(
+                    label, TOL[dtype], *unfused_bwd_pair(inp, reverse),
+                    UNFUSED_BWD_NAMES, tag="ssd-bwd")})
+    for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, False)):
+        seed += 1
+        inp = unfused_inputs(4, 8192, 8, 64, 1, 128, dtype, seed, pad=16)
+        label = (f"unfused bwd main G=4 L=8192 H=8 P=64 N=128 "
+                 f"{str(dtype)[6:]} rev={reverse}")
+        kernel, plain = unfused_bwd_pair(inp, reverse)
+        results.append({"case": label, **hold(
+            label, TOL[dtype], kernel, plain, UNFUSED_BWD_NAMES,
+            tag="ssd-bwd")})
+        if faults:
+            continue
+        t0 = 37 * 64 + 16                 # rows 16..31 of chunk 37
+        planted = {"g_h0 left at zero": kernel[:7] + (
+            torch.zeros_like(kernel[7]),)}
+        planted["g_A scaled by 1+2^-4"] = kernel[:2] + (
+            kernel[2] * (1 + 2 ** -4),) + kernel[3:]
+        g_dt = kernel[1].clone()
+        g_dt[1, t0:t0 + 16, 5] = 0
+        planted["one 16-row tile of g_dt (g1, h5) zeroed"] = (
+            kernel[:1] + (g_dt,) + kernel[2:])
+        g_B = kernel[3].clone()
+        g_B[1, t0:t0 + 16, 0, 16:32] = 0
+        planted["one 16x16 tile of g_B zeroed"] = (
+            kernel[:3] + (g_B,) + kernel[4:])
+        for name, out in planted.items():
+            faults[name] = hold(f"planted fault: {name}", TOL[dtype], out,
+                                plain, UNFUSED_BWD_NAMES, expect_ok=False,
+                                tag="ssd-bwd")
+        del planted, g_dt, g_B
+        del inp, kernel, plain
+    return results, faults
+
+
+def phase_chained_grad():
+    """Two chained `ssd_batched_chained` calls (the prompt split at row
+    1000, inside a chunk) against one call, through autograd on the card
+    (`_SSDFn`: `ssd_fwd` + `ssd_bwd`): y, hN and every gradient, g_h0
+    among them, by `kernel_check.py`'s fp32 rule. The launches of this
+    phase are #4's path: `ssd_batched_chained` under grad."""
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops.ssd_batched import ssd_batched_chained
+
+    inp = unfused_inputs(2, 4096, 8, 64, 1, 128, torch.float32, 900)
+    names = ("x", "dt", "A", "B", "C", "D", "dt_bias", "h_init")
+    cut = 1000
+
+    def run(split):
+        leaves = [inp[n].detach().clone().requires_grad_() for n in names]
+        x, dt, A, B, C, D, bias, h0 = leaves
+        if split:
+            y1, h1 = ssd_batched_chained(x[:, :cut], dt[:, :cut], A,
+                                         B[:, :cut], C[:, :cut], D, bias, h0)
+            y2, hN = ssd_batched_chained(x[:, cut:], dt[:, cut:], A,
+                                         B[:, cut:], C[:, cut:], D, bias, h1)
+            y = torch.cat([y1, y2], 1)
+        else:
+            y, hN = ssd_batched_chained(x, dt, A, B, C, D, bias, h0)
+        loss = (y * inp["g_y"]).sum() + (hN * inp["g_hN"]).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        return (y.detach(), hN.detach()) + grads
+
+    _zero_counts()
+    one = run(False)
+    two = run(True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({"ssd_fwd": 3, "ssd_bwd": 3})
+    check(counts == want, f"chained gradient launches {counts} != {want}")
+    res = hold(f"two chained ssd_batched_chained (split at {cut}) vs one "
+               "call, G=2 L=4096 H=8 P=64 N=128 fp32", TOL[torch.float32],
+               two, one, ("y", "hN") + tuple(f"g_{n}" for n in names),
+               tag="ssd-chain")
+    return {"checks": res, "launches": counts}
+
+
+def bidir_bwd_pair(f, r, **over):
+    """`bidir_scan_bwd` (one launch), the default two-launch backward
+    (`selective_scan_bwd` per set) and the plain adjoints, from the paired
+    forward kernel's carries: three 14-tuples in `bidir_scan_bwd_impl`'s
+    order. ``over`` replaces the paired kernel's inputs of set r."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan_bwd
+
+    T = scan.KERNEL_CHUNK
+    a, b = _scan_args(f), _scan_args(r)
+    _, _, carf, carr = scan.bidir_scan_fwd(*a[:2], *a[3:5], *b[:2], *b[3:5],
+                                           a[2], b[2], a[5], b[5], a[6], b[6],
+                                           save_carries=True)
+    rk = {**r, **over}
+    b_k = _scan_args(rk)
+    paired = scan.bidir_scan_bwd(*a[:2], *a[3:5], *b_k[:2], *b_k[3:5], a[2],
+                                 b_k[2], a[5], b_k[5], a[6], b_k[6], f["g_y"],
+                                 rk["g_y"], carf, carr)
+    order = lambda gf, gr: (*gf[:2], *gf[3:5], *gr[:2], *gr[3:5], gf[2],
+                            gr[2], gf[5], gr[5], gf[6], gr[6])
+    two = order(scan.selective_scan_bwd_cuda(*a, f["g_y"], carf, None, True,
+                                             False, T),
+                scan.selective_scan_bwd_cuda(*b, r["g_y"], carr, None, True,
+                                             True, T))
+    torch.cuda.synchronize()
+    plain = order(selective_scan_bwd(*a, f["g_y"], carf, None, True, False, T),
+                  selective_scan_bwd(*b, r["g_y"], carr, None, True, True, T))
+    return paired, two, plain
+
+
+def phase_bidir_bwd_checks():
+    """`bidir_scan_bwd` (TPU kernel #10) against the two-launch backward and
+    the plain adjoints: small shapes and the main geometry (d=512, N=16,
+    G=4, L=8192), then planted faults that must fail."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    res, faults, seed = [], {}, 600
+    for dtype in (torch.float32, torch.bfloat16):
+        seed += 1
+        f = scan_inputs(2, 200, 48, 16, dtype, seed)
+        r = scan_inputs(2, 200, 48, 16, dtype, seed + 50, D=False, bias=False)
+        paired, two, plain = bidir_bwd_pair(f, r)
+        for ref_name, ref in (("two launches", two), ("plain", plain)):
+            label = (f"bidir bwd small G=2 L=200 d=48 N=16 {str(dtype)[6:]} "
+                     f"vs {ref_name}")
+            res.append({"case": label, **hold(label, TOL[dtype], paired, ref,
+                                              BIDIR_BWD_NAMES,
+                                              tag="scan-bwd")})
+    dtype = torch.bfloat16
+    f = scan_inputs(4, 8192, 512, 16, dtype, 650, model_like=True)
+    r = scan_inputs(4, 8192, 512, 16, dtype, 651, model_like=True)
+    paired, two, plain = bidir_bwd_pair(f, r)
+    for ref_name, ref in (("two launches", two), ("plain", plain)):
+        label = f"bidir bwd main G=4 L=8192 d=512 N=16 bf16 vs {ref_name}"
+        res.append({"case": label, **hold(label, TOL[dtype], paired, ref,
+                                          BIDIR_BWD_NAMES, tag="scan-bwd")})
+    wrong, _, _ = bidir_bwd_pair(f, r, g_y=f["g_y"])
+    faults["the reverse set given the forward set's g_y"] = hold(
+        "planted fault: the reverse set given the forward set's g_y",
+        TOL[dtype], wrong, plain, BIDIR_BWD_NAMES, expect_ok=False,
+        tag="scan-bwd")
+    g_u = paired[0].clone()
+    g_u[1, 37 * 64 + 16:37 * 64 + 32, 80:96] = 0
+    faults["one 16-channel tile of g_u zeroed"] = hold(
+        "planted fault: one 16-row x 16-channel tile of g_uf zeroed",
+        TOL[dtype], (g_u,) + paired[1:], plain, BIDIR_BWD_NAMES,
+        expect_ok=False, tag="scan-bwd")
+    return res, faults
+
+
+def phase_head_serve():
+    """Serve the full-width 16-layer `use_kernel: pallas` model: /logits at
+    bucket 1024 and one 131,072-token /logits; 32 `ssd_head_fwd` launches
+    (TPU kernel #5) per dispatch and no other kernel; the served logits
+    equal a direct forward."""
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    cfg = hg38_mlm_v2_pallas_config()
+    model = CaduceusForMaskedLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(4444))
+    svc = InferenceService(cfg, model.state_dict(), device="cuda",
+                           max_batch=4, min_bucket=1024, max_length=131072)
+    del model
+    server = InferenceServer(svc, port=0).start()
+    rng = np.random.default_rng(10)
+    plan = [["".join(rng.choice(list("ACGT"), n)) for n in lengths]
+            for lengths in ((900, 1024), (131072,))]
+    requests = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        d0 = svc.n_dispatches
+        _zero_counts()
+        outs = []
+        for batch in plan:
+            t0 = time.perf_counter()
+            out = _post(server.port, "/logits", {"sequences": batch})["logits"]
+            dt = time.perf_counter() - t0
+            ntok = sum(map(len, batch))
+            for s_, o in zip(batch, out):
+                a = np.asarray(o, np.float32)
+                check(a.shape == (len(s_), cfg.padded_vocab_size),
+                      f"/logits: shape {a.shape}")
+                check(bool(np.isfinite(a).all()), "/logits: non-finite")
+            outs.append(out)
+            requests.append({"n_seq": len(batch), "tokens": ntok,
+                             "latency_s": dt, "tokens_per_s": ntok / dt})
+            log(f"[serve-head] /logits {len(batch)} seq, {ntok} tokens: "
+                f"{dt * 1e3:.1f} ms, {ntok / dt:,.0f} tokens/s")
+        counts = _counts()
+        dispatches = svc.n_dispatches - d0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+    check(dispatches == len(plan), f"{dispatches} dispatches for "
+          f"{len(plan)} requests")
+    want = dict.fromkeys(counts, 0)
+    want["ssd_head_fwd"] = 2 * cfg.n_layer * dispatches
+    check(counts == want, f"per-head serve launches {counts} != {want}")
+    batch, out = plan[0], outs[0]
+    ids = torch.full((2, 1024), svc.tok.pad_token_id, dtype=torch.long)
+    for i, s_ in enumerate(batch):
+        ids[i, :len(s_)] = torch.from_numpy(
+            svc.tok.encode(s_).astype(np.int64))
+    with torch.inference_mode():
+        direct = svc.model(ids.cuda()).cpu().numpy()
+    for i, s_ in enumerate(batch):
+        err = np.abs(np.asarray(out[i], np.float32)
+                     - direct[i, :len(s_)]).max()
+        check(err <= 1e-6, f"served per-head /logits differ from the model "
+              f"by {err}")
+    long_ids = torch.from_numpy(
+        svc.tok.encode(plan[-1][0]).astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        svc.model(long_ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.model(long_ids)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    log(f"[serve-head] ssd_head_fwd launches {counts['ssd_head_fwd']} over "
+        f"{dispatches} dispatches (= {2 * cfg.n_layer} each); served logits "
+        f"equal a direct forward; direct forward 1 x 131072 (no HTTP/JSON) "
+        f"{fwd_s * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB")
+    del svc
+    torch.cuda.empty_cache()
+    return {"requests": requests, "launches": counts["ssd_head_fwd"],
+            "dispatches": dispatches, "peak_mem_bytes": peak,
+            "forward_131k_s": fwd_s}
+
+
+def phase_new_timing():
+    """At the training shape (G=4, L=131072, bf16, forward direction): the
+    per-head forward `ssd_head_fwd` (#5, with carries), the unfused adjoint
+    through `ssd_bwd` (#4) and through `ssd_head_bwd` (#6, one kernel), and
+    the paired scan adjoint `bidir_scan_bwd` (#10), each beside its plain
+    version and bound; the timed outputs held against the plain ones."""
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops import scan, ssd_head
+    from caduceus_tpu_torch.ops import selective_scan as plain_scan
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_bwd
+    from caduceus_tpu_torch.ops.ssd_batched import KERNEL_CHUNK, ssd_bwd
+
+    bf16 = TOL[torch.bfloat16]
+    G, L, H, P, NG, N = 4, 131072, 8, 64, 1, 128
+    T = KERNEL_CHUNK[torch.bfloat16]
+    rows, nc = G * L, -(-L // T)
+    res = {}
+    inp = unfused_inputs(G, L, H, P, NG, N, torch.bfloat16, 990, pad=16)
+    a = _unfused_args(inp)
+    outs = {}
+    t = _timed(lambda: outs.__setitem__("k", ssd_head.ssd_head_fwd(
+                   *a, True, False, T, None, True)),
+               lambda: outs.__setitem__("p", ssd_chunked(
+                   *a, True, False, T, None, return_carries=True)))
+    k, p_ = outs.pop("k"), outs.pop("p")
+    t["check"] = hold(f"timed ssd_head_fwd + carries G=4 L={L} bf16", bf16,
+                      k, p_, tag="ssd-head")
+    car = k[2]
+    del k, p_
+    car_bytes = G * nc * H * N * P * 2
+    # x, B, C, dt read, y and the carries written (bf16); hN fp32
+    t.update(_bound(rows * (H * P + 2 * NG * N + H) * 2 + rows * H * P * 2
+                    + car_bytes + G * H * N * P * 4,
+                    rows * (2 * T * N * NG + 2 * T * P * H + 4 * N * P * H)))
+    res["head_fwd"] = t
+
+    bwd_args = a + [inp["g_y"], car, None, True, False, T]
+    t = _timed(lambda: outs.__setitem__("k", ssd_bwd(*bwd_args)),
+               lambda: outs.__setitem__("p", ssd_chunked_bwd(*bwd_args)))
+    t["check"] = hold(f"timed ssd_bwd G=4 L={L} bf16", bf16, outs.pop("k"),
+                      outs.pop("p"), UNFUSED_BWD_NAMES, tag="ssd-bwd")
+    # reads x, B, C, dt, g_y and the carries; writes g_x, g_dt (bf16) and
+    # the fp32 sums g_B, g_C and g_h0; the matmul work of the fused
+    # backward's SSD part
+    t.update(_bound(rows * ((H * P + 2 * NG * N + H) * 2 + H * P * 2)
+                    + car_bytes + rows * (H * P * 2 + H * 2 + 2 * NG * N * 4)
+                    + G * H * N * P * 4,
+                    rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P))))
+    res["unfused_bwd"] = t
+    res["head_bwd"] = {**t, "ms": _time_cuda(
+        lambda: ssd_head.ssd_head_bwd(*bwd_args), 3)}
+    res["head_bwd"]["kernel_ms_runs"] = [res["head_bwd"]["ms"]]
+    del inp, a, car, bwd_args
+
+    # the paired scan adjoint, v1 geometry
+    d, Ns = 512, 16
+    Ts = scan.KERNEL_CHUNK
+    ncs = -(-L // Ts)
+    f = scan_inputs(G, L, d, Ns, torch.bfloat16, 991, model_like=True)
+    r = scan_inputs(G, L, d, Ns, torch.bfloat16, 992, model_like=True)
+    fa, ra = _scan_args(f), _scan_args(r)
+    _, _, carf, carr = scan.bidir_scan_fwd(*fa[:2], *fa[3:5], *ra[:2],
+                                           *ra[3:5], fa[2], ra[2], fa[5],
+                                           ra[5], fa[6], ra[6],
+                                           save_carries=True)
+    pargs = (*fa[:2], *fa[3:5], *ra[:2], *ra[3:5], fa[2], ra[2], fa[5], ra[5],
+             fa[6], ra[6], f["g_y"], r["g_y"], carf, carr)
+
+    def plain_pair():
+        gf = plain_scan.selective_scan_bwd(*fa, f["g_y"], carf, None, True,
+                                           False, Ts)
+        gr = plain_scan.selective_scan_bwd(*ra, r["g_y"], carr, None, True,
+                                           True, Ts)
+        return (*gf[:2], *gf[3:5], *gr[:2], *gr[3:5], gf[2], gr[2], gf[5],
+                gr[5], gf[6], gr[6])
+
+    t = _timed(lambda: outs.__setitem__("k", scan.bidir_scan_bwd(*pargs)),
+               lambda: outs.__setitem__("p", plain_pair()))
+    t["check"] = hold(f"timed bidir_scan_bwd G=4 L={L} bf16", bf16,
+                      outs.pop("k"), outs.pop("p"), BIDIR_BWD_NAMES,
+                      tag="scan-bwd")
+    # twice #8's bytes and operations: per set u, delta, g_y, B, C and the
+    # carries read, g_u, g_delta, g_B, g_C written
+    t.update(_bound(2 * (rows * (3 * d * 2 + 2 * Ns * 2 + 2 * d * 2
+                                 + 2 * Ns * 2) + G * ncs * d * Ns * 4),
+                    2 * 20 * rows * d * Ns, FP32_FLOP_PER_S))
+    t["two_launch_ms"] = _time_cuda(lambda: (
+        scan.selective_scan_bwd_cuda(*fa, f["g_y"], carf, None, True, False,
+                                     Ts),
+        scan.selective_scan_bwd_cuda(*ra, r["g_y"], carr, None, True, True,
+                                     Ts)), 3)
+    res["bidir_bwd"] = t
+    for name, t in res.items():
+        log(f"[time] {name} G=4 L={L} bf16: kernel {t['ms']:.3f} ms (runs "
+            f"{', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), plain "
+            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}: {t['bytes'] / 1e9:.3f} GB, "
+            f"{t['flops'] / 1e12:.3f} TFLOP)"
+            + (f"; the default two launches of selective_scan_bwd "
+               f"{t['two_launch_ms']:.3f} ms" if "two_launch_ms" in t else ""))
+    return res
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1813,6 +2258,28 @@ def main() -> int:
     report["v1_generate"] = phase_generate_serve(1)
     report["v1_generate_phase_s"] = time.perf_counter() - t_gen
     report["v1_phase_s"] = time.perf_counter() - t_v1
+    # the unfused SSD adjoint and the per-head v2 route (#4, #5, #6)
+    t_new = time.perf_counter()
+    (report["unfused_bwd_checks"],
+     report["unfused_bwd_planted_faults"]) = phase_unfused_bwd_checks()
+    report["chained_grad"] = phase_chained_grad()
+    report["head_model_vs_cpu"] = phase_model_vs_cpu(
+        hg38_mlm_v2_pallas_config)
+    report["head_train_vs_cpu"] = phase_train_vs_cpu(
+        hg38_mlm_v2_pallas_config)
+    report["head_train"] = phase_train_full(hg38_mlm_v2_pallas_config,
+                                            n_layer=8)
+    report["head_serve"] = phase_head_serve()
+    report["head_prefill_vs_cpu"] = phase_prefill_vs_cpu(2, "pallas")
+    # the paired v1 backward (#10)
+    (report["bidir_bwd_checks"],
+     report["bidir_bwd_planted_faults"]) = phase_bidir_bwd_checks()
+    with mock.patch.dict(os.environ, {"CADUCEUS_BIDIR_BWD": "1"}):
+        log("[train] v1 with the paired backward (CADUCEUS_BIDIR_BWD=1):")
+        report["paired_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config)
+        report["paired_train"] = phase_train_full(hg38_mlm_config)
+    report["new_timing"] = phase_new_timing()
+    report["new_phase_s"] = time.perf_counter() - t_new
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
     # share of the training step inside the kernels (derived: per-launch
@@ -1838,15 +2305,30 @@ def main() -> int:
                        for k, v in t1["kernel_s_per_step"].items())
     log(f"[train] derived, v1: kernels take {t1['kernel_share']:.1%} of the "
         f"step ({shares})")
+    nt, ht = report["new_timing"], report["head_train"]
+    head_ms = {"ssd_head_fwd": nt["head_fwd"]["ms"],
+               "ssd_head_bwd": nt["head_bwd"]["ms"]}
+    ht["kernel_s_per_step"] = {
+        k: ht["launches"][k] // ht["micro_batches"] * ht["accum"] * v / 1e3
+        for k, v in head_ms.items()}
+    ht["kernel_share"] = sum(ht["kernel_s_per_step"].values()) / ht["step_s"]
+    shares = ", ".join(f"{k} {v:.2f} s"
+                       for k, v in ht["kernel_s_per_step"].items())
+    log(f"[train] derived, per-head v2: kernels take {ht['kernel_share']:.1%} "
+        f"of the step ({shares})")
 
     replaces = {
         "ssd_fused_fwd": "caduceus_tpu/ops/ssd_pallas_batched.py:173",
         "ssd_fwd": "caduceus_tpu/ops/ssd_pallas_batched.py:173",
         "ssd_fused_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
         "ssd_conv_bwd_kernel": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
+        "ssd_head_fwd": "caduceus_tpu/ops/ssd_pallas.py:114",
+        "ssd_head_bwd": "caduceus_tpu/ops/ssd_pallas.py:312",
+        "ssd_bwd": "caduceus_tpu/ops/ssd_pallas_batched.py:486",
         "selective_scan_fwd": "caduceus_tpu/ops/scan_pallas.py:153",
         "bidir_scan_fwd": "caduceus_tpu/ops/scan_pallas_bidir.py:37",
-        "selective_scan_bwd": "caduceus_tpu/ops/scan_pallas.py:462"}
+        "selective_scan_bwd": "caduceus_tpu/ops/scan_pallas.py:462",
+        "bidir_scan_bwd": "caduceus_tpu/ops/scan_pallas_bidir.py:210"}
 
     def entry(name, source, t, launches, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1909,6 +2391,32 @@ def main() -> int:
               shape="G=4 L=131072 bf16, one direction",
               extra_bytes=st["bwd"]["extra_bytes"],
               exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"]),
+        entry("ssd_head_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu",
+              nt["head_fwd"], ht["launches"]["ssd_head_fwd"],
+              nt["head_fwd"]["check"]["y"]["max_abs_err"],
+              shape="G=4 L=131072 bf16, carries saved (the K = 0 kernel of "
+              "ssd_fwd, per-head entry ops/ssd_head.py)",
+              launches_path="use_kernel=pallas train step, 8 layers",
+              launches_serve=report["head_serve"]["launches"]),
+        entry("ssd_head_bwd", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
+              nt["head_bwd"], ht["launches"]["ssd_head_bwd"],
+              nt["unfused_bwd"]["check"]["g_x"]["max_abs_err"],
+              shape="G=4 L=131072 bf16 (the K = 0 kernel of ssd_bwd, "
+              "per-head entry ops/ssd_head.py)",
+              launches_path="use_kernel=pallas train step, 8 layers"),
+        entry("ssd_bwd", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
+              nt["unfused_bwd"], report["chained_grad"]["launches"]["ssd_bwd"],
+              nt["unfused_bwd"]["check"]["g_x"]["max_abs_err"],
+              shape="G=4 L=131072 bf16",
+              launches_path="ssd_batched_chained under autograd: two "
+              "chained calls and one whole call"),
+        entry("bidir_scan_bwd",
+              "caduceus_tpu_torch/csrc/selective_scan_bwd.cu", nt["bidir_bwd"],
+              report["paired_train"]["launches"]["bidir_scan_bwd"],
+              nt["bidir_bwd"]["check"]["g_uf"]["max_abs_err"],
+              shape="G=4 L=131072 bf16, two directions",
+              launches_path="v1 train step with CADUCEUS_BIDIR_BWD=1, 16 "
+              "layers", two_launch_ms=nt["bidir_bwd"]["two_launch_ms"]),
     ]}
     report.update(kernels)
     report["card"] = card

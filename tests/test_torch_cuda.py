@@ -423,3 +423,173 @@ def test_prefill_card_matches_cpu(card, version):
     for k, p in pairs:
         err = (k.cpu() - p).abs().max().item()
         assert err <= 1e-4 * p.abs().max().item(), err
+
+
+# --- the unfused SSD adjoint `ssd_bwd` (TPU kernels #4 / #6), the per-head
+# route (#5 / #6) and the paired scan adjoint `bidir_scan_bwd` (#10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (True, 1)])
+def test_unfused_bwd_kernel_matches_plain(card, dtype, reverse, NG):
+    """`ssd_bwd` against `ops/ssd.py ssd_chunked_bwd` from the same carries,
+    all eight gradients, strided views, nonzero h_init and g_hN."""
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked_bwd
+
+    x, dt, A, B, C, D, bias, h0 = _unfused_inputs(dtype, NG=NG, seed=30 + NG)
+    T = ssd_batched.KERNEL_CHUNK[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    ghN = torch.randn(h0.shape, generator=gen, device="cuda")
+    _, _, car = ssd_batched.ssd_fwd(x, dt, A, B, C, D, bias, True, reverse, T,
+                                    h0, save_carries=True)
+    before = ssd_batched.unfused_bwd_launches
+    got = ssd_batched.ssd_bwd(x, dt, A, B, C, D, bias, gy, car, ghN, True,
+                              reverse, T)
+    torch.cuda.synchronize()
+    assert ssd_batched.unfused_bwd_launches == before + 1
+    want = ssd_chunked_bwd(x, dt, A, B, C, D, bias, gy, car, ghN, True,
+                           reverse, T)
+    names = ("g_x", "g_dt", "g_A", "g_B", "g_C", "g_D", "g_dt_bias", "g_h0")
+    for name, k, p in zip(names, got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["batched", "head"])
+def test_unfused_function_matches_finite_differences(card, entry):
+    """`_SSDFn` through `ssd_batched_chained` (#2 / #4) and through
+    `ssd_head_chained` (#5 / #6): every differentiable input at once, one
+    forward and one backward launch on the entry's own counters."""
+    from caduceus_tpu_torch.ops import ssd_head
+
+    fn = {"batched": ssd_batched.ssd_batched_chained,
+          "head": ssd_head.ssd_head_chained}[entry]
+    x, dt, A, B, C, D, bias, h0 = _unfused_inputs(torch.float32, G=1, L=90,
+                                                  seed=32)
+    inputs = [t.contiguous() for t in (x, dt, A, B, C, D, bias, h0)]
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").double()
+    ghN = torch.randn(h0.shape, generator=gen, device="cuda").double()
+
+    def loss(ts):
+        y, h = fn(*ts)
+        return (y.double() * gy).sum() + (h.double() * ghN).sum()
+
+    counts = (ssd_batched.unfused_launches, ssd_batched.unfused_bwd_launches,
+              ssd_head.head_fwd_launches, ssd_head.head_bwd_launches)
+    _fd_check(loss, inputs, 34)
+    torch.cuda.synchronize()
+    # one forward + backward, then two forwards for the differences
+    grown = (3, 1, 0, 0) if entry == "batched" else (0, 0, 3, 1)
+    now = (ssd_batched.unfused_launches, ssd_batched.unfused_bwd_launches,
+           ssd_head.head_fwd_launches, ssd_head.head_bwd_launches)
+    assert tuple(b - a for a, b in zip(counts, now)) == grown
+
+
+@pytest.mark.cuda
+def test_pallas_model_runs_the_per_head_kernels(card):
+    """A 2-layer ``use_kernel="pallas"`` v2 model: forward + backward on the
+    card launch only the per-head pair (2 directions x 2 layers each), and
+    its logits and gradients match the CPU's (fp32, 1e-4 of each tensor's
+    largest value)."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.ops import ssd_head
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    cfg = CaduceusConfig(d_model=64, n_layer=2, vocab_size=tok.vocab_size,
+                         rcps=True, complement_map=tok.complement_map,
+                         residual_in_fp32=False, dtype="float32",
+                         ssm_cfg=SSMConfig(version=2, d_state=32, headdim=32,
+                                           use_kernel="pallas"))
+    cpu = CaduceusForMaskedLM(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(3))
+    model = CaduceusForMaskedLM(cfg, device="cuda")
+    model.load_state_dict(cpu.state_dict())
+    ids = torch.randint(7, 11, (2, 300),
+                        generator=torch.Generator().manual_seed(4))
+    counts = (ssd_head.head_fwd_launches, ssd_head.head_bwd_launches,
+              ssd_batched.launches, ssd_batched.bwd_launches)
+    out = model(ids.cuda())
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (ssd_head.head_fwd_launches, ssd_head.head_bwd_launches,
+            ssd_batched.launches, ssd_batched.bwd_launches) == (
+        counts[0] + 4, counts[1] + 4, counts[2], counts[3])
+    ref = cpu(ids)
+    ref.square().mean().backward()
+    pairs = [(out, ref)] + [(p.grad, q.grad) for p, q in zip(
+        model.parameters(), cpu.parameters())]
+    for k, p in pairs:
+        err = (k.detach().cpu() - p).abs().max().item()
+        assert err <= 1e-4 * p.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bidir_bwd_kernel_matches_two_launches_and_plain(card, dtype):
+    """`bidir_scan_bwd` (one launch, both sets) against two launches of
+    `selective_scan_bwd` and against the plain adjoints."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan_bwd
+
+    f, _, gf, _ = _scan_inputs(dtype, seed=40)
+    r, _, gr, _ = _scan_inputs(dtype, seed=41, bias=False)
+    _, _, carf, carr = scan.bidir_scan_fwd(*f[:2], *f[3:5], *r[:2], *r[3:5],
+                                           f[2], r[2], f[5], r[5], f[6], r[6],
+                                           save_carries=True)
+    before = (scan.bidir_bwd_launches, scan.bwd_launches)
+    got = scan.bidir_scan_bwd(*f[:2], *f[3:5], *r[:2], *r[3:5], f[2], r[2],
+                              f[5], r[5], f[6], r[6], gf, gr, carf, carr)
+    torch.cuda.synchronize()
+    assert (scan.bidir_bwd_launches, scan.bwd_launches) == (before[0] + 1,
+                                                            before[1])
+
+    def order(a, b):
+        return (*a[:2], *a[3:5], *b[:2], *b[3:5], a[2], b[2], a[5], b[5],
+                a[6], b[6])
+
+    two = order(scan.selective_scan_bwd_cuda(*f, gf, carf, None, True, False),
+                scan.selective_scan_bwd_cuda(*r, gr, carr, None, True, True))
+    plain = order(selective_scan_bwd(*f, gf, carf, None, True, False),
+                  selective_scan_bwd(*r, gr, carr, None, True, True))
+    for i, (k, t, p) in enumerate(zip(got, two, plain)):
+        assert k.shape == p.shape and k.dtype == p.dtype, i
+        for ref in (t, p):
+            stats = compare(k, ref, TOL[dtype])
+            assert stats["ok"], (i, stats)
+
+
+@pytest.mark.cuda
+def test_paired_backward_is_taken_under_the_environment_flag(card,
+                                                             monkeypatch):
+    """`_BidirScanFn` launches `bidir_scan_bwd` once with
+    CADUCEUS_BIDIR_BWD=1 (two `selective_scan_bwd` otherwise), and both
+    backwards give the same gradients (fp32, `kernel_check.py`'s rule)."""
+    from caduceus_tpu_torch.ops import scan
+
+    f, _, gf, _ = _scan_inputs(torch.float32, seed=42)
+    r, _, gr, _ = _scan_inputs(torch.float32, seed=43)
+    grads = {}
+    for env in ("1", "0"):
+        monkeypatch.setenv("CADUCEUS_BIDIR_BWD", env)
+        lf = [t.clone().requires_grad_() for t in f]
+        lr = [t.clone().requires_grad_() for t in r]
+        before = (scan.bidir_bwd_launches, scan.bwd_launches)
+        yf, yr = scan.bidir_selective_scan(
+            *lf[:2], *lf[3:5], *lr[:2], *lr[3:5], lf[2], lr[2], lf[5], lr[5],
+            lf[6], lr[6])
+        ((yf * gf).sum() + (yr * gr).sum()).backward()
+        torch.cuda.synchronize()
+        grown = (scan.bidir_bwd_launches - before[0],
+                 scan.bwd_launches - before[1])
+        assert grown == ((1, 0) if env == "1" else (0, 2))
+        grads[env] = [t.grad for t in lf + lr]
+    for a, b in zip(grads["1"], grads["0"]):
+        stats = compare(a, b, TOL[torch.float32])
+        assert stats["ok"], stats

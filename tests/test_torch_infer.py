@@ -7,8 +7,9 @@ The same JAX init goes through `params.py` into the port's
 `CaduceusForMaskedLM`, and the same numpy-seeded ids and states go to both
 sides. The JAX v2 prefill runs the TPU kernel #2 itself in interpret mode
 (``use_kernel="pallas_batched_interpret"``, chunked by its
-``ssd_chunk_size`` of 16); the port's runs the plain version of its CUDA
-kernel, `ops/ssd.py ssd_chunked`, chunked as the kernel chunks
+``ssd_chunk_size`` of 16; with ``"pallas_interpret"`` the per-head #5);
+the port's runs the plain version of its CUDA kernel, `ops/ssd.py
+ssd_chunked`, chunked as the kernel chunks
 (`KERNEL_CHUNK`, 32 rows in fp32), which computes the same function. The
 v1 JAX side runs ``use_kernel="xla"``. Tolerances: 1e-5 absolute on the
 steps and on the decode logits (the same arithmetic in another order), 1e-4
@@ -40,8 +41,11 @@ STEP = dict(rtol=1e-5, atol=1e-5)
 PREFILL = dict(rtol=1e-4, atol=1e-4)
 SSM = {
     "v1": JaxSSM(version=1, d_state=8, use_kernel="xla"),
+    # one chunk per grid step of the interpret-mode kernels (their chunk
+    # loop is unrolled when traced)
     "v2": JaxSSM(version=2, d_state=16, headdim=16, ngroups=2,
-                 ssd_chunk_size=16, use_kernel="pallas_batched_interpret"),
+                 ssd_chunk_size=16, ssd_seg_chunks=1,
+                 use_kernel="pallas_batched_interpret"),
 }
 
 
@@ -55,7 +59,11 @@ def family(name):
         bidirectional=False, complement_map=tok.complement_map,
         dtype="float32", param_dtype="float32", ssm_cfg=SSM[name])
     rng = np.random.default_rng(11)
-    params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(3),
+    # the parameters do not depend on use_kernel: init through the XLA
+    # form, which traces faster than the interpret-mode kernels
+    xla = dataclasses.replace(cfg, ssm_cfg=dataclasses.replace(
+        cfg.ssm_cfg, use_kernel="xla"))
+    params = jax.jit(JaxLM(xla).init)(jax.random.PRNGKey(3),
                                       jnp.full((1, 16), 7, jnp.int32))
     flat = {k: np.asarray(v) for k, v in
             tu.flatten_dict(params["params"], sep="/").items()}
@@ -135,6 +143,28 @@ def test_prefill_and_lm_step_match_jax(name, mode):
     want_logits, want_caches = jax.jit(lambda t, c: jinf.lm_step(
         params, cfg, t, c))(tok, want_caches)
     got_logits, got_caches = inf.lm_step(model, _t(tok).long(), got_caches)
+    _close(got_logits, want_logits, PREFILL)
+    _close(got_caches, want_caches, PREFILL)
+
+
+def test_pallas_prefill_matches_jax():
+    """The v2 model of `family("v2")` with ``use_kernel`` "pallas_interpret":
+    JAX's prefill runs the per-head TPU kernel #5 in interpret mode, the
+    port's (`_resolved_infer_kernel`) `ops/ssd_head.py ssd_head_chained`,
+    the plain version on the CPU. Logits and caches at the prefill's 1e-4."""
+    cfg, params, _ = family("v2")
+    cfg = dataclasses.replace(cfg, ssm_cfg=dataclasses.replace(
+        cfg.ssm_cfg, use_kernel="pallas_interpret"))
+    pcfg = CaduceusConfig.from_dict(dataclasses.asdict(cfg))
+    assert inf._resolved_infer_kernel(pcfg) == "pallas_interpret"
+    model = CaduceusForMaskedLM(pcfg, device="cpu")
+    model.load_state_dict(from_jax_params(
+        {k: np.asarray(v) for k, v in tu.flatten_dict(
+            params["params"], sep="/").items()}, pcfg))
+    ids = _ids(2, 40, 1)
+    want_logits, want_caches = jax.jit(lambda i: jinf.prefill(
+        params, cfg, i))(ids)
+    got_logits, got_caches = inf.prefill(model, _t(ids).long())
     _close(got_logits, want_logits, PREFILL)
     _close(got_caches, want_caches, PREFILL)
 

@@ -21,8 +21,8 @@ import torch
 
 from caduceus_tpu.config import CaduceusConfig as JaxConfig
 from caduceus_tpu.config import SSMConfig as JaxSSM
-from caduceus_tpu.models.caduceus import Caduceus as JaxCaduceus
 from caduceus_tpu.models.caduceus import CaduceusForMaskedLM as JaxLM
+from caduceus_tpu.models.caduceus import canonical_to_reference
 from caduceus_tpu.models.mamba2 import rms_norm_gated as jax_rms_norm_gated
 from caduceus_tpu.tokenization import CaduceusTokenizer
 from caduceus_tpu_torch.config import CaduceusConfig
@@ -31,6 +31,25 @@ from caduceus_tpu_torch.models.mamba2 import rms_norm_gated
 from caduceus_tpu_torch.params import from_jax_params, to_jax_params
 
 ATOL = 1e-5
+
+
+_INITS = {}
+
+
+def _jax_init(cfg, ids, seed):
+    """The JAX init of one parameter tree. Its values depend only on the
+    modules' names and shapes (flax derives each parameter's key from its
+    path), so the configs that build the same tree share one init: those
+    that differ only in rcps, fused_add_norm, the bidirectional strategy or
+    use_kernel, which the key leaves out."""
+    key = (cfg.n_layer, cfg.bidirectional_weight_tie, cfg.bidirectional,
+           seed)
+    if key not in _INITS:
+        params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(seed),
+                                          jnp.asarray(ids))
+        _INITS[key] = {k: np.asarray(v) for k, v in
+                       tu.flatten_dict(params["params"], sep="/").items()}
+    return dict(_INITS[key])
 
 
 @functools.lru_cache(maxsize=None)  # cases shared by the tests below
@@ -43,14 +62,14 @@ def make_case(rcps=True, fused=True, n_layer=2, tie=True, strategy="add",
         fused_add_norm=fused, bidirectional=bidirectional,
         bidirectional_weight_tie=tie, bidirectional_strategy=strategy,
         residual_in_fp32=False, dtype="float32", param_dtype="float32",
+        # one chunk per grid step of the interpret-mode kernel (its chunk
+        # loop is unrolled when traced)
         ssm_cfg=JaxSSM(version=2, d_state=16, headdim=16, ngroups=1,
-                       ssd_chunk_size=16, use_kernel=kernel))
+                       ssd_chunk_size=16, use_kernel=kernel,
+                       ssd_seg_chunks=8 if kernel == "xla" else 1))
     rng = np.random.default_rng(seed)
     ids = rng.integers(7, 12, size=(2, 50)).astype(np.int32)
-    params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(seed),
-                                      jnp.asarray(ids))
-    flat = {k: np.asarray(v) for k, v in
-            tu.flatten_dict(params["params"], sep="/").items()}
+    flat = _jax_init(cfg, ids, seed)
     # non-trivial norm weights and D (they init to ones)
     for k, v in flat.items():
         if "norm" in k or k.endswith("/D"):
@@ -61,6 +80,27 @@ def make_case(rcps=True, fused=True, n_layer=2, tie=True, strategy="add",
 
 def port_config(jax_cfg):
     return CaduceusConfig.from_dict(dataclasses.asdict(jax_cfg))
+
+
+def _jax_logits_and_hidden(cfg, ids, flat):
+    """The JAX logits and backbone hidden states from one compile of the
+    LM: the backbone's output is captured and put in the reference
+    convention, as JAX's `Caduceus` returns it."""
+    def run(params, i):
+        logits, state = JaxLM(cfg).apply(
+            params, i, capture_intermediates=lambda m, _: m.name == "backbone")
+        h = state["intermediates"]["backbone"]["__call__"][0][0]
+        return logits, canonical_to_reference(h) if cfg.rcps else h
+
+    out = jax.jit(run)({"params": tu.unflatten_dict(flat, sep="/")},
+                       jnp.asarray(ids))
+    return tuple(np.asarray(o) for o in out)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_outputs(**case):
+    """`_jax_logits_and_hidden` of a v2 case, shared by the tests."""
+    return _jax_logits_and_hidden(*make_case(**case))
 
 
 CASES = [
@@ -79,8 +119,7 @@ CASES = [
     f"{k}={v}" for k, v in c.items()) or "default")
 def test_masked_lm_logits_match_jax(case):
     cfg, ids, flat = make_case(**case)
-    want = np.asarray(jax.jit(JaxLM(cfg).apply)(
-        {"params": tu.unflatten_dict(flat, sep="/")}, jnp.asarray(ids)))
+    want = jax_outputs(**case)[0]
     model = CaduceusForMaskedLM(port_config(cfg), device="cpu")
     model.load_state_dict(from_jax_params(flat, port_config(cfg)))
     with torch.inference_mode():
@@ -92,10 +131,11 @@ def test_masked_lm_logits_match_jax(case):
 @pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[5]],
                          ids=["default", "rcps=False", "untied-ew-n_layer=3"])
 def test_backbone_hidden_states_match_jax(case):
+    """The port's `Caduceus` against the JAX backbone's output (as JAX's
+    `Caduceus` gives it), taken from the logits test's compile."""
     cfg, ids, flat = make_case(**case)
     bflat = {k: v for k, v in flat.items() if k.startswith("backbone/")}
-    want = np.asarray(jax.jit(JaxCaduceus(cfg).apply)(
-        {"params": tu.unflatten_dict(bflat, sep="/")}, jnp.asarray(ids)))
+    want = jax_outputs(**case)[1]
     pc = port_config(cfg)
     model = Caduceus(pc, device="cpu")
     model.load_state_dict(from_jax_params(bflat, pc, backbone_only=True))
@@ -140,7 +180,8 @@ def test_rms_norm_gated_matches_jax(ngroups):
 @functools.lru_cache(maxsize=None)
 def make_v1_case(n_layer=2, tie=True, strategy="add", bidirectional=True,
                  fused=True, kernel="xla", seed=0):
-    """A v1 config, ids, flat flax params and the JAX logits. The weights
+    """A v1 config, ids, flat flax params, the JAX logits and backbone
+    hidden states (`_jax_logits_and_hidden`). The weights
     come from the port's seeded init through `to_jax_params` (a JAX init
     costs a compile per case; the bridge from a JAX-made tree is held in
     tests/test_torch_train.py), with non-trivial norm weights and D."""
@@ -161,9 +202,7 @@ def make_v1_case(n_layer=2, tie=True, strategy="add", bidirectional=True,
         if "norm" in k or k.endswith("/D"):
             flat[k] = (v + 0.1 * rng.standard_normal(v.shape)).astype(
                 np.float32)
-    want = np.asarray(jax.jit(JaxLM(cfg).apply)(
-        {"params": tu.unflatten_dict(flat, sep="/")}, jnp.asarray(ids)))
-    return cfg, ids, flat, want
+    return (cfg, ids, flat) + _jax_logits_and_hidden(cfg, ids, flat)
 
 
 V1_CASES = [
@@ -186,7 +225,7 @@ def test_v1_masked_lm_logits_match_jax(case):
     function, which both frames compute)."""
     case = dict(case)
     frame = case.pop("frame", "conj")
-    cfg, ids, flat, want = make_v1_case(**case)
+    cfg, ids, flat, want, _ = make_v1_case(**case)
     pc = port_config(cfg)
     model = CaduceusForMaskedLM(pc, device="cpu", fused_frame=frame)
     model.load_state_dict(from_jax_params(flat, pc))
@@ -196,10 +235,8 @@ def test_v1_masked_lm_logits_match_jax(case):
 
 
 def test_v1_backbone_hidden_states_match_jax():
-    cfg, ids, flat, _ = make_v1_case()
+    cfg, ids, flat, _, want = make_v1_case()
     bflat = {k: v for k, v in flat.items() if k.startswith("backbone/")}
-    want = np.asarray(jax.jit(JaxCaduceus(cfg).apply)(
-        {"params": tu.unflatten_dict(bflat, sep="/")}, jnp.asarray(ids)))
     pc = port_config(cfg)
     model = Caduceus(pc, device="cpu")
     model.load_state_dict(from_jax_params(bflat, pc, backbone_only=True))

@@ -32,8 +32,13 @@ from caduceus_tpu.serve import InferenceService as JaxService
 from caduceus_tpu.tokenization import CaduceusTokenizer
 from caduceus_tpu_torch import resolve_device
 from caduceus_tpu_torch.cli import main as cli_main
-from caduceus_tpu_torch.config import CaduceusConfig
-from caduceus_tpu_torch.params import from_jax_params, load_npz_params
+from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+from caduceus_tpu_torch.params import (
+    from_jax_params,
+    load_npz_params,
+    to_jax_params,
+)
 from caduceus_tpu_torch.serve import InferenceServer, InferenceService
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -244,19 +249,20 @@ def test_cpu_is_explicit():
 def test_v1_run_dir_serves_the_model_on_cpu(tmp_path):
     """A v1 (Mamba-1) run dir: `from_run_dir` builds `BiMamba` layers and
     /logits returns the model's own logits for a padded dispatch (two
-    sequences in the 32 bucket), and /embed its pooled hidden states."""
+    sequences in the 32 bucket), and /embed its pooled hidden states. The
+    weights are the port's seeded init written as flat flax paths
+    (`to_jax_params`; a JAX-made v1 tree crosses the bridge in
+    tests/test_torch_train.py)."""
     tok = CaduceusTokenizer()
-    cfg = JaxConfig(
+    cfg = CaduceusConfig(
         d_model=32, n_layer=2, vocab_size=tok.vocab_size, rcps=True,
         complement_map=tok.complement_map, residual_in_fp32=False,
         dtype="float32", param_dtype="float32",
-        ssm_cfg=JaxSSM(version=1, d_state=8, use_kernel="xla"))
-    params = jax.jit(JaxLM(cfg).init)(jax.random.PRNGKey(1),
-                                      jnp.full((1, 16), 7, jnp.int32))
+        ssm_cfg=SSMConfig(version=1, d_state=8))
     cfg.save(str(tmp_path / "model_config.json"))
-    flat = tu.flatten_dict(params["params"], sep="/")
-    np.savez(tmp_path / "params.npz", **{k: np.asarray(v)
-                                         for k, v in flat.items()})
+    model = CaduceusForMaskedLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(1))
+    np.savez(tmp_path / "params.npz", **to_jax_params(model.state_dict()))
     svc = InferenceService.from_run_dir(str(tmp_path), device="cpu",
                                         max_batch=4, min_bucket=16,
                                         max_length=64, linger_ms=30.0)

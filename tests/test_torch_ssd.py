@@ -5,16 +5,21 @@ it is held against the JAX TPU kernel run in interpret mode
 (`ssd_pallas_batched_fused(..., interpret=True)`) and against the XLA
 chunked form (`ssd_chunked(conv_w=..., dims=...)`); tolerance 1e-4, as in
 tests/test_ssd_pallas_batched.py. `ssd_chunked_fused_bwd`, the plain
-version of the `ssd_fused_bwd` kernels, is held against `jax.grad` through
-the same interpret-mode TPU kernels (2e-5 scale-normalized, the JAX
-package's own gradient tolerance). The same numpy inputs go to both sides,
+version of the `ssd_fused_bwd` kernels, is held against the VJP of the
+same interpret-mode TPU kernels (2e-5 scale-normalized, the JAX package's
+own gradient tolerance). The same numpy inputs go to both sides,
 in fp32. `ssd_chunked`, the plain version of the unfused `ssd_fwd` kernel
 (the prefill's SSD), is held against the JAX TPU kernel #2 in interpret mode
 (`ssd_pallas_batched_chained(..., interpret=True)`) and against the XLA
 `ssd_chunked`, 1e-4 as the fused form; `ssd_step` against the JAX
-`ssd_step` and against `ssd_chunked`. The kernels themselves run only on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+`ssd_step` and against `ssd_chunked`; under grad the CPU wrapper
+`ssd_batched_chained` gives the gradients of the explicit plain adjoint
+`ssd_chunked_bwd` (held against JAX in tests/test_torch_ssd_head.py). The
+kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm
 from caduceus_tpu_torch.ops.ssd import ssd_chunked as port_ssd_chunked
 from caduceus_tpu_torch.ops.ssd import (
+    ssd_chunked_bwd,
     ssd_chunked_fused,
     ssd_chunked_fused_bwd,
     ssd_ref,
@@ -67,20 +73,59 @@ def _port(inp, reverse, chunk):
         chunk_size=chunk, h_init=_t(inp["h_init"]), return_final_state=True)
 
 
-@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (True, 1)])
+GRAD_NAMES = ("xBC", "dt", "A", "conv_w", "conv_b", "D", "dt_bias", "h_init")
+
+
+def _cotangents(inp):
+    G, L = inp["xBC"].shape[:2]
+    H, P, _, N = inp["dims"]
+    rng = np.random.default_rng(7)
+    return (rng.standard_normal((G, L, H, P)).astype(np.float32),
+            rng.standard_normal((G, H, N, P)).astype(np.float32))
+
+
+FWD_CASES = [(False, 2), (True, 2), (True, 1)]    # (reverse, NG)
+BWD_CASES = [(False, 2), (True, 2), (False, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fused(reverse, NG):
+    """The JAX references of `fused_inputs(NG=NG)`, one jit shared by the
+    forward and the backward tests of a case: the TPU kernels in interpret
+    mode (y, hN, and for a backward case the VJP of <y, g_y> + <hN, g_hN>
+    in all eight inputs; one chunk per grid step, as the kernels' in-kernel
+    chunk loop is unrolled when traced) and, for a forward case, the XLA
+    chunked form (y, hN); None for what the case's tests do not read."""
+    inp = fused_inputs(NG=NG)
+    dims = inp["dims"]
+    fwd, bwd = (reverse, NG) in FWD_CASES, (reverse, NG) in BWD_CASES
+
+    @jax.jit
+    def run(*a):
+        def pal(*v):
+            return ssd_pallas_batched_fused(
+                v[0], v[1], v[2], v[3], conv_b=v[4], D=v[5], dt_bias=v[6],
+                dims=dims, dt_softplus=True, reverse=reverse, chunk_size=16,
+                interpret=True, h_init=v[7], return_final_state=True,
+                seg_chunks=1)
+
+        (y, h), pull = jax.vjp(pal, *a) if bwd else (pal(*a), None)
+        xla = ssd_chunked(
+            a[0], a[1], a[2], None, None, D=a[5], dt_bias=a[6],
+            dt_softplus=True, reverse=reverse, chunk_size=16, h_init=a[7],
+            return_final_state=True, conv_w=a[3], conv_b=a[4],
+            dims=dims) if fwd else None
+        cot = tuple(map(jnp.asarray, _cotangents(inp)))
+        grads = pull(cot) if bwd else None
+        return (y, h), xla, grads
+
+    return run(*(jnp.asarray(inp[n]) for n in GRAD_NAMES))
+
+
+@pytest.mark.parametrize("reverse,NG", FWD_CASES)
 def test_fused_plain_matches_jax_kernel_and_xla(reverse, NG):
     inp = fused_inputs(NG=NG)
-    j = {k: (jnp.asarray(v) if k != "dims" else v) for k, v in inp.items()}
-    y_pal, h_pal = ssd_pallas_batched_fused(
-        j["xBC"], j["dt"], j["A"], j["conv_w"], conv_b=j["conv_b"], D=j["D"],
-        dt_bias=j["dt_bias"], dims=inp["dims"], dt_softplus=True,
-        reverse=reverse, chunk_size=16, interpret=True, h_init=j["h_init"],
-        return_final_state=True)
-    y_xla, h_xla = ssd_chunked(
-        j["xBC"], j["dt"], j["A"], None, None, D=j["D"],
-        dt_bias=j["dt_bias"], dt_softplus=True, reverse=reverse,
-        chunk_size=16, h_init=j["h_init"], return_final_state=True,
-        conv_w=j["conv_w"], conv_b=j["conv_b"], dims=inp["dims"])
+    (y_pal, h_pal), (y_xla, h_xla), _ = jax_fused(reverse, NG)
     # T=16 as the JAX side; T=64 (the kernel's chunk: one ragged chunk at
     # L=100) must give the same function
     for chunk in (16, 64):
@@ -105,10 +150,10 @@ def test_ssd_ref_matches_jax_and_fused_form(reverse):
             _t(inp["dt_bias"])]
     y, h = ssd_ref(*args, dt_softplus=True, reverse=reverse,
                    h_init=_t(inp["h_init"]), return_final_state=True)
-    y_j, h_j = jax_ssd_ref(*(jnp.asarray(a.numpy()) for a in args),
-                           dt_softplus=True, reverse=reverse,
-                           h_init=jnp.asarray(inp["h_init"]),
-                           return_final_state=True)
+    y_j, h_j = jax.jit(lambda *a: jax_ssd_ref(
+        *a[:7], dt_softplus=True, reverse=reverse, h_init=a[7],
+        return_final_state=True))(*(jnp.asarray(a.numpy()) for a in args),
+                                  jnp.asarray(inp["h_init"]))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_j), **TOL)
     y_f, h_f = _port(inp, reverse, 16)
@@ -179,10 +224,7 @@ def test_wrapper_rejects_bad_shapes():
         ssd_batched.ssd_batched_fused(*args)
 
 
-GRAD_NAMES = ("xBC", "dt", "A", "conv_w", "conv_b", "D", "dt_bias", "h_init")
-
-
-@pytest.mark.parametrize("reverse,NG", [(False, 2), (True, 2), (False, 1)])
+@pytest.mark.parametrize("reverse,NG", BWD_CASES)
 def test_fused_bwd_plain_matches_jax_kernel_and_autograd(reverse, NG):
     """`ssd_chunked_fused_bwd` (the plain version of the backward kernel)
     against jax.grad through the TPU kernels in interpret mode, and against
@@ -191,23 +233,9 @@ def test_fused_bwd_plain_matches_jax_kernel_and_autograd(reverse, NG):
     tests/test_ssd_pallas_batched.py holds the JAX kernels."""
     inp = fused_inputs(NG=NG)
     dims = inp["dims"]
-    G, L = inp["xBC"].shape[:2]
-    H, P, _, N = dims
-    rng = np.random.default_rng(7)
-    gy = rng.standard_normal((G, L, H, P)).astype(np.float32)
-    ghN = rng.standard_normal((G, H, N, P)).astype(np.float32)
+    gy, ghN = _cotangents(inp)
     vals = [inp[n] for n in GRAD_NAMES]
-
-    def f_pal(*a):
-        y, h = ssd_pallas_batched_fused(
-            a[0], a[1], a[2], a[3], conv_b=a[4], D=a[5], dt_bias=a[6],
-            dims=dims, dt_softplus=True, reverse=reverse, chunk_size=16,
-            interpret=True, h_init=a[7], return_final_state=True,
-            seg_chunks=2)
-        return jnp.sum(y * gy) + jnp.sum(h * ghN)
-
-    want = jax.grad(f_pal, argnums=tuple(range(8)))(
-        *(jnp.asarray(v) for v in vals))
+    want = jax_fused(reverse, NG)[2]
 
     t = [_t(v) for v in vals]
     _, _, car = ssd_chunked_fused(
@@ -273,13 +301,17 @@ def test_ssd_chunked_matches_jax_kernel_and_xla(reverse, NG):
     JAX side, and at the kernel's T (one ragged chunk at L = 100)."""
     x, dt, A, B, C, D, bias, h0 = unfused_inputs(NG=NG)
     j = [jnp.asarray(t.numpy()) for t in (x, dt, A, B, C, D, bias, h0)]
-    y_pal, h_pal = ssd_pallas_batched_chained(
-        *j, dt_softplus=True, reverse=reverse, chunk_size=16, interpret=True,
-        seg_chunks=2)
-    y_xla, h_xla = ssd_chunked(*j[:5], D=j[5], dt_bias=j[6],
-                               dt_softplus=True, reverse=reverse,
-                               chunk_size=16, h_init=j[7],
-                               return_final_state=True)
+
+    @jax.jit
+    def run(*j):
+        return (ssd_pallas_batched_chained(
+                    *j, dt_softplus=True, reverse=reverse, chunk_size=16,
+                    interpret=True, seg_chunks=2),
+                ssd_chunked(*j[:5], D=j[5], dt_bias=j[6], dt_softplus=True,
+                            reverse=reverse, chunk_size=16, h_init=j[7],
+                            return_final_state=True))
+
+    (y_pal, h_pal), (y_xla, h_xla) = run(*j)
     for chunk in (16, ssd_batched.KERNEL_CHUNK[torch.float32], 64):
         y, h = port_ssd_chunked(x, dt, A, B, C, D, bias, True, reverse,
                                 chunk, h0, return_final_state=True)
@@ -327,18 +359,32 @@ def test_ssd_step_matches_jax_and_the_chunked_form():
 
 
 def test_chained_wrapper_runs_plain_version_on_cpu_and_refuses_grad():
+    """On CPU tensors `ssd_batched_chained` is the plain `ssd_chunked` and
+    launches nothing. Under grad (it no longer refuses it) autograd through
+    the plain version gives the explicit plain adjoint `ssd_chunked_bwd`'s
+    eight gradients, g_h0 among them, within 1e-5 of each one's largest
+    element (two fp32 sums in other orders). Bad shapes still raise."""
     x, dt, A, B, C, D, bias, h0 = unfused_inputs(L=70)
-    before = ssd_batched.unfused_launches
+    T = ssd_batched.KERNEL_CHUNK[torch.float32]
+    before = (ssd_batched.unfused_launches, ssd_batched.unfused_bwd_launches)
     y, h = ssd_batched.ssd_batched_chained(x, dt, A, B, C, D, bias, h0)
-    y_p, h_p = port_ssd_chunked(x, dt, A, B, C, D, bias, True, False,
-                                ssd_batched.KERNEL_CHUNK[torch.float32], h0,
-                                return_final_state=True)
+    y_p, h_p, car = port_ssd_chunked(x, dt, A, B, C, D, bias, True, False, T,
+                                     h0, return_carries=True)
     assert torch.equal(y, y_p) and torch.equal(h, h_p)
-    assert ssd_batched.unfused_launches == before  # no kernel on the CPU
-    with pytest.raises(NotImplementedError, match="#4"):
-        ssd_batched.ssd_batched_chained(x, dt, A.requires_grad_(), B, C, D,
-                                        bias, h0)
-    with torch.no_grad():
-        ssd_batched.ssd_batched_chained(x, dt, A, B, C, D, bias, h0)
+    gen = torch.Generator().manual_seed(1)
+    gy, ghN = torch.randn(y.shape, generator=gen), torch.randn(
+        h.shape, generator=gen)
+    want = ssd_chunked_bwd(x, dt, A, B, C, D, bias, gy, car, ghN, True,
+                           False, T)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D, bias,
+                                                    h0)]
+    y, h = ssd_batched.ssd_batched_chained(*leaves)
+    ((y * gy).sum() + (h * ghN).sum()).backward()
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.shape == w.shape
+        torch.testing.assert_close(leaf.grad / w.abs().max(),
+                                   w / w.abs().max(), rtol=0, atol=1e-5)
+    assert (ssd_batched.unfused_launches,
+            ssd_batched.unfused_bwd_launches) == before  # no kernel
     with pytest.raises(ValueError):
         ssd_batched.ssd_batched_chained(x, dt[:, :-1], A, B, C)

@@ -18,6 +18,7 @@ import flax.traverse_util as tu
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -78,25 +79,34 @@ def port_model(cfg, flat, **over):
     return model
 
 
+def _recording(tx):
+    """``tx`` that also keeps the gradient it is given in its state: the
+    step's mean gradient over the micro-batches, before clipping (the
+    clipping is part of ``tx``). One compile of the JAX step then gives
+    both the trajectory and its gradients."""
+    def init(params):
+        return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def update(g, state, params=None):
+        updates, inner = tx.update(g, state[0], params)
+        return updates, (inner, g)
+
+    return optax.GradientTransformation(init, update)
+
+
 def jax_trajectory(cfg, batches, flat):
     """Per step: (metrics, mean gradient before clipping, params after)."""
     model = JaxLM(cfg)
     tx, _ = jax_optim.make_optimizer(**OPT)
+    tx = _recording(tx)
     params = {"params": tu.unflatten_dict(flat, sep="/")}
     state = JaxState(params, tx.init(params), jnp.zeros((), jnp.int32))
     step = jax.jit(jax_make_step(model.apply, tx, accum_steps=ACCUM))
-
-    def loss_fn(p, ids, tgt):
-        return jax_ce(model.apply(p, ids), tgt)[0]
-
-    grad = jax.jit(jax.grad(loss_fn))
     out = []
     for ids, tgt in batches:
-        gs = [grad(state.params, jnp.asarray(ids[i * B:(i + 1) * B]),
-                   jnp.asarray(tgt[i * B:(i + 1) * B])) for i in range(ACCUM)]
-        g = jax.tree_util.tree_map(lambda *a: sum(a) / ACCUM, *gs)
         state, m = step(state, {"input_ids": jnp.asarray(ids),
                                 "targets": jnp.asarray(tgt)})
+        g = state.opt_state[1]
         flat_p = {k: np.asarray(v) for k, v in tu.flatten_dict(
             state.params["params"], sep="/").items()}
         flat_g = {k: np.asarray(v) for k, v in tu.flatten_dict(
@@ -200,9 +210,9 @@ def test_loss_and_accuracy_match_jax():
         got, aux = cross_entropy_loss(
             torch.from_numpy(logits), torch.from_numpy(tgt),
             loss_weights=None if lw is None else torch.from_numpy(lw))
-        want, aux_j = jax_ce(jnp.asarray(logits), jnp.asarray(tgt),
-                             loss_weights=None if lw is None
-                             else jnp.asarray(lw))
+        want, aux_j = jax.jit(lambda a, t, *v: jax_ce(
+            a, t, loss_weights=v[0] if v else None))(
+                logits, tgt, *(() if lw is None else (lw,)))
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
         np.testing.assert_allclose(float(aux["loss_sum"]),
                                    float(aux_j["loss_sum"]), rtol=1e-6)
@@ -211,7 +221,7 @@ def test_loss_and_accuracy_match_jax():
         np.testing.assert_allclose(
             float(accuracy(torch.from_numpy(logits), torch.from_numpy(tgt),
                            ii)),
-            float(jax_acc(jnp.asarray(logits), jnp.asarray(tgt), ii)),
+            float(jax.jit(lambda a, t: jax_acc(a, t, ii))(logits, tgt)),
             rtol=1e-6)
 
 
