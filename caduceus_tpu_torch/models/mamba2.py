@@ -43,7 +43,7 @@ from caduceus_tpu_torch.models.mamba import (
 )
 from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.ssd_batched import ssd_batched_fused
-from caduceus_tpu_torch.ops.ssd_head import per_head, ssd_head
+from caduceus_tpu_torch.ops.ssd_head import resolve_ssd_kernel
 
 
 def rms_norm_gated(y, z, weight, ngroups: int, eps: float):
@@ -91,15 +91,17 @@ class _DirectionParamsV2(nn.Module):
         x3 = xBC_raw.reshape(-1, L, xBC_raw.shape[-1])
         G = x3.shape[0]
         dt3 = dt_raw.reshape(G, L, H)
-        if per_head(s.use_kernel):
+        k = s.use_kernel
+        if k.startswith("pallas") and not k.startswith("pallas_batched"):
             # the conv as a global op in the storage dtype (JAX: an XLA op
             # outside the Pallas kernels), then the SSD on column views of
             # its output
+            ssd_fn, _ = resolve_ssd_kernel(k)
             xc = causal_conv1d(
                 x3, self.conv_w.to(x3.dtype),
                 None if self.conv_b is None else self.conv_b.to(x3.dtype),
                 activation="silu", reverse=reverse)
-            y = ssd_head(
+            y = ssd_fn(
                 xc[..., :H * P].reshape(G, L, H, P), dt3,
                 -torch.exp(self.A_log),
                 xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N),

@@ -101,15 +101,6 @@ def ssd_head(x, dt, A, B_mat, C, D=None, dt_bias=None,
     return (y, hN) if return_final_state else y
 
 
-def per_head(kernel: str) -> bool:
-    """Whether a ``use_kernel`` string selects this per-head route
-    ("pallas", "pallas_interpret") rather than the head-batched kernels
-    ("pallas_batched*") or the fused ones ("auto", "xla"), the dispatch of
-    the JAX mixer (`caduceus_tpu/models/mamba2.py:151-191`)."""
-    return kernel.startswith("pallas") and not kernel.startswith(
-        "pallas_batched")
-
-
 def resolve_ssd_kernel(kernel: str):
     """Map a ``use_kernel`` string to the port's ``(ssd_fn, chained_fn)``,
     as `caduceus_tpu/ops/ssd_pallas.py resolve_ssd_kernel` maps it to the

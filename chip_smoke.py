@@ -669,9 +669,8 @@ def _zero_counts():
 
 def _per_head(cfg) -> bool:
     """Whether the v2 config takes the per-head route (`models/mamba2.py`)."""
-    from caduceus_tpu_torch.ops.ssd_head import per_head
-
-    return per_head(cfg.ssm_cfg.use_kernel)
+    k = cfg.ssm_cfg.use_kernel
+    return k.startswith("pallas") and not k.startswith("pallas_batched")
 
 
 def _per_micro_batch(cfg):
@@ -2108,9 +2107,10 @@ def phase_head_serve():
 def phase_new_timing():
     """At the training shape (G=4, L=131072, bf16, forward direction): the
     per-head forward `ssd_head_fwd` (#5, with carries), the unfused adjoint
-    through `ssd_bwd` (#4) and through `ssd_head_bwd` (#6, one kernel), and
-    the paired scan adjoint `bidir_scan_bwd` (#10), each beside its plain
-    version and bound; the timed outputs held against the plain ones."""
+    through `ssd_bwd` (#4) and through `ssd_head_bwd` (#6; one kernel, each
+    entry timed and held on its own), and the paired scan adjoint
+    `bidir_scan_bwd` (#10), each beside its plain version and bound; the
+    timed outputs held against the plain ones."""
     from caduceus_tpu_torch.kernel_check import TOL
     from caduceus_tpu_torch.ops import scan, ssd_head
     from caduceus_tpu_torch.ops import selective_scan as plain_scan
@@ -2146,17 +2146,25 @@ def phase_new_timing():
                lambda: outs.__setitem__("p", ssd_chunked_bwd(*bwd_args)))
     t["check"] = hold(f"timed ssd_bwd G=4 L={L} bf16", bf16, outs.pop("k"),
                       outs.pop("p"), UNFUSED_BWD_NAMES, tag="ssd-bwd")
-    # reads x, B, C, dt, g_y and the carries; writes g_x, g_dt (bf16) and
-    # the fp32 sums g_B, g_C and g_h0; the matmul work of the fused
-    # backward's SSD part
-    t.update(_bound(rows * ((H * P + 2 * NG * N + H) * 2 + H * P * 2)
-                    + car_bytes + rows * (H * P * 2 + H * 2 + 2 * NG * N * 4)
-                    + G * H * N * P * 4,
-                    rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P))))
+    # reads x, B, C, dt, g_y and the carries; writes g_x, g_dt, g_B, g_C
+    # in their inputs' dtype (bf16: the TPU kernels' out_shape; the card's
+    # fp32 sums of g_B / g_C are its own design) and g_h0 (fp32); the
+    # matmul work of the fused backward's SSD part
+    bwd_bound = _bound(rows * ((H * P + 2 * NG * N + H) * 2 + H * P * 2)
+                       + car_bytes + rows * (H * P + H + 2 * NG * N) * 2
+                       + G * H * N * P * 4,
+                       rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P)))
+    t.update(bwd_bound)
     res["unfused_bwd"] = t
-    res["head_bwd"] = {**t, "ms": _time_cuda(
-        lambda: ssd_head.ssd_head_bwd(*bwd_args), 3)}
-    res["head_bwd"]["kernel_ms_runs"] = [res["head_bwd"]["ms"]]
+    # the per-head entry (#6) on the same inputs, timed and held on its own
+    t = _timed(lambda: outs.__setitem__("k", ssd_head.ssd_head_bwd(
+                   *bwd_args)),
+               lambda: outs.__setitem__("p", ssd_chunked_bwd(*bwd_args)))
+    t["check"] = hold(f"timed ssd_head_bwd G=4 L={L} bf16", bf16,
+                      outs.pop("k"), outs.pop("p"), UNFUSED_BWD_NAMES,
+                      tag="ssd-head")
+    t.update(bwd_bound)
+    res["head_bwd"] = t
     del inp, a, car, bwd_args
 
     # the paired scan adjoint, v1 geometry
@@ -2400,7 +2408,7 @@ def main() -> int:
               launches_serve=report["head_serve"]["launches"]),
         entry("ssd_head_bwd", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               nt["head_bwd"], ht["launches"]["ssd_head_bwd"],
-              nt["unfused_bwd"]["check"]["g_x"]["max_abs_err"],
+              nt["head_bwd"]["check"]["g_x"]["max_abs_err"],
               shape="G=4 L=131072 bf16 (the K = 0 kernel of ssd_bwd, "
               "per-head entry ops/ssd_head.py)",
               launches_path="use_kernel=pallas train step, 8 layers"),

@@ -32,7 +32,7 @@ from caduceus_tpu.serve import InferenceService as JaxService
 from caduceus_tpu.tokenization import CaduceusTokenizer
 from caduceus_tpu_torch import resolve_device
 from caduceus_tpu_torch.cli import main as cli_main
-from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+from caduceus_tpu_torch.config import CaduceusConfig
 from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
 from caduceus_tpu_torch.params import (
     from_jax_params,
@@ -250,16 +250,18 @@ def test_v1_run_dir_serves_the_model_on_cpu(tmp_path):
     """A v1 (Mamba-1) run dir: `from_run_dir` builds `BiMamba` layers and
     /logits returns the model's own logits for a padded dispatch (two
     sequences in the 32 bucket), and /embed its pooled hidden states. The
-    weights are the port's seeded init written as flat flax paths
-    (`to_jax_params`; a JAX-made v1 tree crosses the bridge in
-    tests/test_torch_train.py)."""
+    run dir is the JAX package's: ``model_config.json`` written by its
+    config, ``params.npz`` as flat flax paths (the port's seeded init
+    through `to_jax_params`, which saves a JAX compile; a JAX-made v1 tree
+    crosses the bridge in tests/test_torch_train.py)."""
     tok = CaduceusTokenizer()
-    cfg = CaduceusConfig(
+    JaxConfig(
         d_model=32, n_layer=2, vocab_size=tok.vocab_size, rcps=True,
         complement_map=tok.complement_map, residual_in_fp32=False,
         dtype="float32", param_dtype="float32",
-        ssm_cfg=SSMConfig(version=1, d_state=8))
-    cfg.save(str(tmp_path / "model_config.json"))
+        ssm_cfg=JaxSSM(version=1, d_state=8, use_kernel="xla")).save(
+            str(tmp_path / "model_config.json"))
+    cfg = CaduceusConfig.load(str(tmp_path / "model_config.json"))
     model = CaduceusForMaskedLM(cfg, device="cpu",
                                 generator=torch.Generator().manual_seed(1))
     np.savez(tmp_path / "params.npz", **to_jax_params(model.state_dict()))

@@ -39,6 +39,7 @@ from caduceus_tpu.ops.ssd_pallas import ssd_pallas_chained
 from caduceus_tpu.ops.ssd_pallas_batched import ssd_pallas_batched_chained
 from caduceus_tpu.tokenization import CaduceusTokenizer
 from caduceus_tpu_torch.config import CaduceusConfig
+from caduceus_tpu_torch.models import mamba2
 from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
 from caduceus_tpu_torch.ops import ssd_batched, ssd_head
 from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_bwd
@@ -111,17 +112,36 @@ def test_unfused_adjoint_and_chained_entry_match_jax_kernels(entry, reverse,
 
 def test_resolve_ssd_kernel_maps_the_jax_strings():
     """The JAX ``use_kernel`` strings: "pallas*" to the per-head entry
-    (and, in the mixer, the per-head route), "pallas_batched*" to the
-    head-batched one; "auto" and "xla" take neither in the mixer."""
+    (which the mixer's per-head route calls), "pallas_batched*" to the
+    head-batched one; a v2 mixer direction calls the per-head entry for
+    "pallas*" and the fused path for "auto", "xla" and "pallas_batched"."""
     for k in ("pallas", "pallas_interpret"):
-        assert ssd_head.per_head(k)
         assert ssd_head.resolve_ssd_kernel(k) == (ssd_head.ssd_head,
                                                   ssd_head.ssd_head_chained)
     for k in ("pallas_batched", "pallas_batched_interpret"):
-        assert not ssd_head.per_head(k)
         assert ssd_head.resolve_ssd_kernel(k) == (
             ssd_batched.ssd_batched, ssd_batched.ssd_batched_chained)
-    assert not ssd_head.per_head("auto") and not ssd_head.per_head("xla")
+    # the mixer: "pallas*" calls the per-head entry through
+    # `resolve_ssd_kernel`, every other string the fused path
+    cfg = pallas_model()[0]
+    x = torch.zeros(1, 8, cfg.d_inner + 2 * 16)
+    dt = torch.zeros(1, 8, cfg.d_inner // 16)
+    for k, want in (("pallas", 1), ("pallas_interpret", 1), ("auto", 0),
+                    ("xla", 0), ("pallas_batched", 0)):
+        pc = CaduceusConfig.from_dict(dataclasses.asdict(cfg))
+        pc.ssm_cfg.use_kernel = k
+        calls = []
+
+        def spy(*a, **kw):
+            calls.append(k)
+            return ssd_head.ssd_head(*a, **kw)
+
+        direction = mamba2._DirectionParamsV2(pc, torch.Generator())
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mamba2, "resolve_ssd_kernel",
+                       lambda kernel: (spy, None))
+            direction(x, dt, reverse=False)
+        assert len(calls) == want, k
 
 
 @functools.lru_cache(maxsize=None)
