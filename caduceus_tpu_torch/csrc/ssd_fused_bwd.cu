@@ -1,9 +1,4 @@
 // ssd_fused_bwd: adjoint of the SSD (Mamba-2) forward for Hopper (sm_90a).
-// Two __global__ kernels:
-//
-//   ssd_fused_bwd_kernel  the chunked SSD adjoint, one block per (g, h),
-//                         templated on the conv width K like the forward
-//   ssd_conv_bwd_kernel   the SiLU and depthwise-conv adjoints over all rows
 //
 // - K >= 1, entry `ssd_fused_bwd`, then `ssd_conv_bwd`: together they
 //   replace the TPU kernel `_bwd_kernel(fused=True)` of
@@ -26,52 +21,62 @@
 //   version: ops/ssd.py `ssd_chunked_bwd`; wrappers: ops/ssd_batched.py
 //   `ssd_bwd` (#4) and ops/ssd_head.py `ssd_head_bwd` (#6).
 //
-// ssd_fused_bwd_kernel walks the chunks of its head against the scan order
-// from the saved chunk-entry states (the forward kernel's carries), with
-// lambda = d loss / d (state leaving the chunk), g_hN at the scan's end.
-// Per chunk, recomputing dt, cum and silu(conv) with the forward's own code
+// The adjoint walks the chunks of a head against the scan order from the
+// saved chunk-entry states (the forward's carries), with lambda = d loss /
+// d (state leaving the chunk), g_hN at the scan's end. Per chunk,
+// recomputing dt, cum and silu(conv) with the forward's own code
 // (ssd_common.cuh), with G_ts = g_y_t . dx_s and LG = Lm * G:
 //   g_dx  = (CB * Lm)^T @ g_y + w * (B @ lambda)
-//   g_C  += LG @ B + (exp(cum) * g_y) @ h_in^T       (atomics over heads)
-//   g_B  += LG^T @ C + (w * dx) @ lambda^T           (atomics over heads)
+//   g_C  += LG @ B + (exp(cum) * g_y) @ h_in^T       (summed over heads)
+//   g_B  += LG^T @ C + (w * dx) @ lambda^T           (summed over heads)
 //   g_cum = rowsum(LG*CB) - colsum(LG*CB) + exp(cum) sum_p g_y (C @ h_in)
 //           - w sum_p dx (B @ lambda) + [t = last] sum lambda h_out
 //   g_a   = suffix sum of g_cum in scan order (fp32 warp scan)
 //   g_dt  = (A g_a + sum_p x g_dx) * (1 - exp(-dt))   (softplus chain)
 //   g_x   = dt g_dx + D g_y
 //   lambda <- exp(sum a) lambda + C^T @ (exp(cum) * g_y)
-// It writes g_x and accumulates g_B / g_C into an fp32 (G, L, Wc) workspace
-// of d loss / d silu(pre) (K = 0: g_x in x's dtype and g_B / g_C into an fp32
-// (2, G, L, NG*N) output), writes g_dt, g_h0 = the last lambda, and adds its
-// g_A, g_dt_bias and g_D shares with atomics. ssd_conv_bwd_kernel then
-// recomputes pre = conv(xBC), takes g_pre = g_xc * silu'(pre) and the conv
-// transpose g_xBC[j] = sum_k w[k] g_pre[j + dir (K-1-k)] over the whole array
-// (so the TPU kernel's chunk-to-chunk `pend` spillover is not needed), and
-// the g_conv_w / g_conv_b sums.
+//
+// What bounds it, and the design. The bound is bytes (6,176 B/row for the
+// whole function at the main geometry, bf16: xBC, dt, g_y and the carries
+// read, g_xBC and g_dt written; ~1 MFLOP/row of matmul work, a third of the
+// bytes' time). As in the forward, the only serial dependency is lambda,
+// carried against the scan, and one block per (g, h) walking every chunk
+// fills 32 of 132 SMs at G = 4. One `ssd_fused_bwd` / `ssd_bwd` call is:
+// 1. `ssd_prep_kernel` (ssd_common.cuh): the post-conv B and C rows and CB
+//    of every (g, group, chunk), once, read by every head of the group;
+// 2. `ssd_bwd_state_kernel`, the pre-pass: per (g, h, segment) but the one
+//    the scan enters first, the segment's lambda from a zero lambda at its
+//    scan end, and its sum of a (it needs only C, g_y and dt);
+// 3. `ssd_fused_bwd_kernel`, the main pass, per (g, h, segment): the
+//    combine -- lambda entering the segment from its scan end, from g_hN
+//    over the later segments in fp32 -- then the chunk walk above. It
+//    writes g_x (K >= 1: the x columns of an fp32 (G, L, Wc) workspace of
+//    d loss / d silu(pre)), g_dt, and (the segment the scan enters first)
+//    g_h0; each head's g_B / g_C share goes to an fp32 (G, L, H, 2N)
+//    workspace, not into a shared sum; its g_A / g_dt_bias / g_D partial
+//    sums go to a (H, G*S, 3) buffer, and the last block of each head (an
+//    atomic ticket) adds them in (g, segment) order;
+// 4. `ssd_share_sum_kernel`: g_B and g_C = the heads' shares added in head
+//    order (K >= 1: into the workspace's B/C columns; K = 0: into the fp32
+//    (2, G, L, NG*N) output).
+// So every output is summed in a fixed order and the bits do not change
+// from run to run (the atomics of the first version did). In the main pass
+// the next chunk's raw x rows, B, C, CB and g_y are staged by cp.async while
+// the current chunk computes, each issued right after the last read of its
+// buffer; warp 0 holds the next chunk's dt in registers.
+//
+// `ssd_conv_bwd_kernel` then recomputes pre = conv(xBC), takes g_pre = g_xc
+// * silu'(pre) and the conv transpose g_xBC[j] = sum_k w[k] g_pre[j + dir
+// (K-1-k)] over the whole array (so the TPU kernel's chunk-to-chunk `pend`
+// spillover is not needed); each block writes its g_conv_w / g_conv_b
+// partial sums, and `ssd_conv_wsum_kernel` adds them in block order.
 //
 // Precision: the forward's policy. Matmul operands are rounded to the storage
 // dtype (bf16 WMMA with fp32 accumulation; fp32 FMA loops, no TF32); cumsums,
-// decays, lambda, every reduction and the workspace are fp32. Each head
+// decays, lambda, every reduction and the workspaces are fp32. Each head
 // rounds its own LG (the TPU kernel rounds the group's sum of LG): the plain
 // version does the same. Rows >= L are identity steps (dt = 0, x = B = C = 0)
 // and contribute exactly 0 to every output.
-//
-// Why two kernels: g_B / g_C are shared by the rep = H / NG heads of a group
-// (all 8 at ngroups 1), and the (N, H*P) lambda of all heads (256 KB fp32)
-// does not fit one block's 227 KB, so the heads' shares meet in device
-// memory (atomicAdd), and the conv adjoint can only start once every head
-// has added its share.
-//
-// Bound on the card: bytes. Per row at the main geometry (bf16, T = 64) the
-// first kernel reads xBC (1536 B), dt (16), g_y (1024) and the carries
-// (2048) and writes the workspace (3072 B fp32) and g_dt (16); the second
-// reads xBC and the workspace and writes g_xBC (1536). Matmul work is
-// ~1 MFLOP/row, a third of the bytes' time at 989 TF/s vs 3.35 TB/s. The
-// unfused form (K = 0) reads x (1024 B), B and C (512), dt, g_y and the
-// carries and writes g_x (1024), g_dt and the fp32 g_B / g_C (1024). Known
-// costs of this first version: G*H blocks walk their chunks in sequence
-// (32 of 132 SMs at G = 4); every head recomputes the B/C conv and CB; the
-// g_B / g_C atomics (rep adds per element); the fp32 workspace round trip.
 
 #include "ssd_common.cuh"
 
@@ -82,30 +87,12 @@ namespace {
 constexpr int CONV_THREADS = 256;  // conv adjoint: one column per thread
 constexpr int CONV_ROWS = 256;     // rows per conv-adjoint block
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum of v over the block, returned to every thread. `red` holds NWARPS floats.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < NWARPS; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
 struct Params {
-  const void* xBC;          // K >= 1: (G, L, Wc) storage dtype, unit column stride
-  long long xbc_sg, xbc_sl;
-  const void* x;            // K = 0: (G, L, H*P), unit column stride
-  long long x_sg, x_sl;
-  const void* B;            // K = 0: (G, L, NG*N), unit column stride
+  const void* x;            // K >= 1: the pre-conv xBC; K = 0: post-conv x (G, L, H*P);
+  long long x_sg, x_sl;     // head h's x columns at h*P
+  const void* B;            // post-conv B: K >= 1 the prep's `bc`, K = 0 as given
   long long b_sg, b_sl;
-  const void* C;            // K = 0: (G, L, NG*N), unit column stride
+  const void* C;
   long long c_sg, c_sl;
   const void* dt;           // (G, L, H) storage dtype, unit column stride
   long long dt_sg, dt_sl;
@@ -117,28 +104,32 @@ struct Params {
   const void* g_y;          // (G, L, H, P) storage dtype, contiguous
   const void* carries;      // (G, nc, H, N, P) storage dtype
   const float* g_hN;        // (G, H, N, P) or null
-  float* g_xc;              // K >= 1: (G, L, Wc) fp32 workspace (B/C columns zeroed)
+  const float* cb;          // (G, NG, nc, T, T) from the prep
+  float* seg_l;             // (G, H, S, N, P): each segment's lambda from zero
+  float* seg_a;             // (G, H, S): each segment's sum of a
+  float* g_xc;              // K >= 1: (G, L, Wc) fp32 workspace (x columns written here)
   void* g_x;                // K = 0: (G, L, H*P) storage dtype, contiguous
-  float* g_BC;              // K = 0: (2, G, L, NG*N) fp32 [g_B, g_C], zeroed
+  float* shares;            // (G, L, H, 2N) fp32: each head's [g_B | g_C] share
   void* g_dt;               // (G, L, H) storage dtype, contiguous
   float* g_h0;              // (G, H, N, P)
-  float* g_heads;           // [g_A (H), g_dt_bias (H), g_D (H)], zeroed
-  int L, H, P, NG, N, Wc;
-  int dt_softplus, reverse;
+  float* partials;          // (H, G*S, 3): each block's g_A, g_dt_bias, g_D sums
+  unsigned int* tickets;    // (H,), zeroed by the launcher
+  float* g_heads;           // [g_A (H), g_dt_bias (H), g_D (H)]
+  int L, H, P, NG, N, Wc, S, sc;
+  int dt_softplus, reverse, async;
 };
 
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
-
-// Shared memory carve-up; the host computes the same total (~215 KB in bf16
-// at T=64, N=128, P=64; ~136 KB in fp32 at T=32). Lifetimes within a chunk
-// let three regions be reused: CBf/Gf (phases B-C) then MS/LGS (C-D);
-// Ch (B-C) then gdx (D-E); dxS (B) then the per-warp WMMA stage (D).
-template <typename S>
+// Shared memory of the main pass; the host computes the same total (~223 KB
+// in bf16 at T=64, N=128, P=64; ~145 KB in fp32 at T=32). Lifetimes within a
+// chunk let three regions be reused: CBf/Gf (phases B-C) then MS/LGS (C-D);
+// Ch (B-C) then gdx (D-E); dxS (B) then the per-warp WMMA stage (D). CB
+// lands in CBf by cp.async after phase D of the chunk before.
+template <typename S, int K>
 struct Smem {
   static constexpr int T = Chunk<S>::T;
   static constexpr int PAD_S = sizeof(S) == 2 ? 8 : 4;
   static constexpr bool F32 = std::is_same<S, float>::value;
-  float* lam; S* lamS; S* Bs; S* Cs; float* xf; S* gyS; S* wdxS; S* geS;
+  float* lam; S* lamS; S* Bs; S* Cs; S* xr; float* xf; S* gyS; S* wdxS; S* geS;
   float* CBf; float* Gf; S* MS; S* LGS; float* Blam; float* ChD; S* dxS; float* stage;
   float* dtv; float* cum; float* rowcol; float* qs; float* us; float* r3; float* gcum;
   float* red;
@@ -154,6 +145,7 @@ struct Smem {
     size_t b = align128((size_t)N * (P + 4) * 4);                          // lam
     if (!F32) b += align128((size_t)N * (P + PAD_S) * sizeof(S));          // lamS
     b += 2 * align128((size_t)T * (N + PAD_S) * sizeof(S));                // Bs, Cs
+    b += align128((size_t)XRaw<K, T>::ROWS * P * sizeof(S));               // xr
     b += align128((size_t)T * P * 4);                                      // xf
     b += 3 * align128((size_t)T * (P + PAD_S) * sizeof(S));                // gyS, wdxS, geS
     b += region_r1();                                                      // CBf|Gf, MS|LGS
@@ -173,6 +165,7 @@ struct Smem {
                : reinterpret_cast<S*>(take((size_t)N * ldlS * sizeof(S)));
     Bs = reinterpret_cast<S*>(take((size_t)T * ldN * sizeof(S)));
     Cs = reinterpret_cast<S*>(take((size_t)T * ldN * sizeof(S)));
+    xr = reinterpret_cast<S*>(take((size_t)XRaw<K, T>::ROWS * P * sizeof(S)));
     xf = reinterpret_cast<float*>(take((size_t)T * P * 4));
     gyS = reinterpret_cast<S*>(take((size_t)T * ldPS * sizeof(S)));
     wdxS = reinterpret_cast<S*>(take((size_t)T * ldPS * sizeof(S)));
@@ -193,88 +186,224 @@ struct Smem {
   }
 };
 
+// Shared memory of the pre-pass: lambda, two stages of C and g_y, and
+// exp(cum) g_y.
+template <typename S>
+struct StateSmem {
+  static constexpr int T = Chunk<S>::T;
+  static constexpr int PAD_S = sizeof(S) == 2 ? 8 : 4;
+  float* lam; S* Cs[2]; S* gyS[2]; S* geS; float* dtv; float* cum;
+  int ldl, ldN, ldPS;
+
+  static __host__ __device__ size_t bytes(int P, int N) {
+    return align128((size_t)N * (P + 4) * 4) + 2 * align128((size_t)T * (N + PAD_S) * sizeof(S)) +
+           3 * align128((size_t)T * (P + PAD_S) * sizeof(S)) + 2 * (size_t)T * 4;
+  }
+
+  __device__ StateSmem(unsigned char* base, int P, int N)
+      : ldl(P + 4), ldN(N + PAD_S), ldPS(P + PAD_S) {
+    unsigned char* p = base;
+    auto take = [&](size_t n) { unsigned char* r = p; p += align128(n); return r; };
+    lam = reinterpret_cast<float*>(take((size_t)N * ldl * 4));
+    for (int i = 0; i < 2; ++i) Cs[i] = reinterpret_cast<S*>(take((size_t)T * ldN * sizeof(S)));
+    for (int i = 0; i < 2; ++i) gyS[i] = reinterpret_cast<S*>(take((size_t)T * ldPS * sizeof(S)));
+    geS = reinterpret_cast<S*>(take((size_t)T * ldPS * sizeof(S)));
+    dtv = reinterpret_cast<float*>(p);
+    cum = dtv + T;
+  }
+};
+
+template <typename S>
+struct HeadPtrs {
+  const S* x; const S* B; const S* C; const S* dt; const S* gy;
+  __device__ HeadPtrs(const Params& p, int g, int hh, int grp)
+      : x(static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * p.P),
+        B(static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * p.N),
+        C(static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * p.N),
+        dt(static_cast<const S*>(p.dt) + (long long)g * p.dt_sg),
+        gy(static_cast<const S*>(p.g_y) + (long long)g * p.L * p.H * p.P + (long long)hh * p.P) {}
+};
+
+// The pre-pass: per (g, h, segment), every segment but the one the scan
+// enters first, walking its chunks against the scan order from lambda = 0:
+// lambda <- exp(sum a) lambda + C^T (exp(cum) g_y); and its sum of a.
+template <typename S>
+__global__ void __launch_bounds__(NTHREADS) ssd_bwd_state_kernel(const Params p) {
+  constexpr int T = Chunk<S>::T;
+  constexpr int E = T / 32;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int P = p.P, N = p.N, H = p.H, L = p.L, S_ = p.S;
+  StateSmem<S> sm(smem_raw, P, N);
+  const bool rev = p.reverse != 0;
+  const int nc = (L + T - 1) / T;
+  // blocks (g, scan position qq = 1 .. S-1, h)
+  const int hh = blockIdx.x % H;
+  const int qq = 1 + (blockIdx.x / H) % (S_ - 1);
+  const int g = blockIdx.x / (H * (S_ - 1));
+  const int s = Segment::at(qq, S_, rev);
+  const Segment seg(s, S_, p.sc, nc, rev);
+  const int grp = hh / (H / p.NG);
+  const int tid = threadIdx.x;
+  const HeadPtrs<S> ptr(p, g, hh, grp);
+  const long long y_sl = (long long)H * P;
+  const float A_h = p.A[hh];
+  const float bias_h = p.dt_bias ? p.dt_bias[hh] : 0.f;
+  const bool async = p.async != 0;
+  const int n = seg.hi - seg.lo;
+  // the i-th chunk of the walk: against the scan order
+  auto walk = [&](int i) { return seg.scan_chunk(n - 1 - i, rev); };
+
+  for (int i = tid; i < N * P; i += NTHREADS) sm.lam[(i / P) * sm.ldl + i % P] = 0.f;
+  auto issue = [&](int c, int stage) {
+    if (c >= 0) {
+      stage_rows<S>(sm.Cs[stage], sm.ldN, ptr.C, p.c_sl, (long long)c * T, T, N, L, async);
+      stage_rows<S>(sm.gyS[stage], sm.ldPS, ptr.gy, y_sl, (long long)c * T, T, P, L, true);
+    }
+    cp_async_commit();
+  };
+  float dtr[E];
+  issue(walk(0), 0);
+  if (tid < 32) dt_fetch<S, T>(ptr.dt, p.dt_sl, hh, (long long)walk(0) * T, L, rev, dtr);
+  float total_sum = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int c = walk(i), cur = i & 1;
+    const int cn = i + 1 < n ? walk(i + 1) : -1;
+    issue(cn, cur ^ 1);  // that stage was last read in chunk i-1
+    cp_async_wait<1>();
+    if (tid < 32) {
+      dt_cum<T>(dtr, (long long)c * T, L, bias_h, A_h, p.dt_softplus != 0, rev, sm.dtv, sm.cum);
+      if (cn >= 0) dt_fetch<S, T>(ptr.dt, p.dt_sl, hh, (long long)cn * T, L, rev, dtr);
+    }
+    __syncthreads();
+    const float total = rev ? sm.cum[0] : sm.cum[T - 1];
+    for_rc(T, P, [&](int, int t, int pp) {
+      sm.geS[t * sm.ldPS + pp] = from_f<S>(expf(sm.cum[t]) * to_f<S>(sm.gyS[cur][t * sm.ldPS + pp]));
+    });
+    __syncthreads();
+    BlockMM<S, true, false>::run(sm.Cs[cur], sm.ldN, sm.geS, sm.ldPS, sm.lam, sm.ldl, N, P, T,
+                                 true, expf(total));
+    total_sum += total;
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const long long off = ((long long)g * H + hh) * S_ + s;
+  for (int i = tid; i < N * P; i += NTHREADS)
+    p.seg_l[off * N * P + i] = sm.lam[(i / P) * sm.ldl + i % P];
+  if (tid == 0) p.seg_a[off] = total_sum;
+}
+
 template <typename S, int K>
 __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p) {
   constexpr int T = Chunk<S>::T;
+  constexpr int E = T / 32;
   constexpr int TT = T * T / NTHREADS;  // elements of a T x T tile per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int P = p.P, N = p.N, H = p.H, L = p.L, Wc = p.Wc;
-  Smem<S> sm(smem_raw, P, N);
-  const int g = blockIdx.x / H;
-  const int hh = blockIdx.x % H;
-  const int grp = hh / (H / p.NG);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int P = p.P, N = p.N, H = p.H, L = p.L, Wc = p.Wc, S_ = p.S;
+  Smem<S, K> sm(smem_raw, P, N);
   const bool rev = p.reverse != 0;
   const int nc = (L + T - 1) / T;
+  const int hh = blockIdx.x % H;
+  const int qq = (blockIdx.x / H) % S_;
+  const int g = blockIdx.x / (H * S_);
+  const int G = gridDim.x / (H * S_);
+  const int s = Segment::at(qq, S_, rev);
+  const Segment seg(s, S_, p.sc, nc, rev);
+  const int grp = hh / (H / p.NG);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int last = rev ? 0 : T - 1;  // a chunk's last row in scan order
-
-  const S* xBC = static_cast<const S*>(p.xBC) + (long long)g * p.xbc_sg;
-  const S* dtp = static_cast<const S*>(p.dt) + (long long)g * p.dt_sg;
+  const bool async = p.async != 0;
+  const HeadPtrs<S> ptr(p, g, hh, grp);
   const long long y_sl = (long long)H * P;
-  const S* gy = static_cast<const S*>(p.g_y) + (long long)g * L * y_sl + (long long)hh * P;
   const S* car = static_cast<const S*>(p.carries) + ((long long)g * nc * H + hh) * N * P;
-  // g_B / g_C: columns of the fp32 workspace (K >= 1), or of the fp32
-  // (2, G, L, NG*N) output (K = 0); g_x: the workspace's x columns (fp32),
-  // or (K = 0) the (G, L, H*P) output in the storage type
-  const long long gbc_sl = K == 0 ? (long long)p.NG * N : Wc;
+  const float* cb = p.cb + ((long long)g * p.NG + grp) * nc * T * T;
+  // g_x: the workspace's x columns (fp32), or (K = 0) the (G, L, H*P)
+  // output in the storage type; this head's [g_B | g_C] share rows
   float* gxc = K == 0 ? nullptr : p.g_xc + (long long)g * L * Wc;
-  float* gBp = K == 0 ? p.g_BC + (long long)g * L * gbc_sl + (long long)grp * N
-                      : gxc + H * P + grp * N;
-  float* gCp = K == 0 ? gBp + (long long)(gridDim.x / H) * L * gbc_sl  // + G rows
-                      : gxc + H * P + p.NG * N + grp * N;
   S* gx = K == 0 ? static_cast<S*>(p.g_x) + (long long)g * L * H * P + (long long)hh * P
                  : nullptr;
+  float* share = p.shares + (long long)g * L * H * 2 * N + (long long)hh * 2 * N;
+  const long long share_sl = (long long)H * 2 * N;
   S* gdt = static_cast<S*>(p.g_dt) + (long long)g * L * H;
   const float A_h = p.A[hh];
   const float D_h = p.D ? p.D[hh] : 0.f;
   const float bias_h = p.dt_bias ? p.dt_bias[hh] : 0.f;
   const long long state_off = ((long long)g * H + hh) * N * P;
   const int xcol0 = hh * P;
-  const int bcol0 = H * P + grp * N;
-  const int ccol0 = H * P + p.NG * N + grp * N;
+  const int n = seg.hi - seg.lo;
+  auto walk = [&](int i) { return seg.scan_chunk(n - 1 - i, rev); };
 
-  for (int i = tid; i < N * P; i += NTHREADS)
-    sm.lam[(i / P) * sm.ldl + i % P] = p.g_hN ? p.g_hN[state_off + i] : 0.f;
+  // the combine: lambda leaving this segment at its scan end, from g_hN
+  // over the later segments (fp32)
+  const long long seg_off = ((long long)g * H + hh) * S_;
+  for (int i = tid; i < N * P; i += NTHREADS) {
+    float v = p.g_hN ? p.g_hN[state_off + i] : 0.f;
+    for (int q = S_ - 1; q > seg.q; --q) {
+      const int j = Segment::at(q, S_, rev);
+      v = expf(p.seg_a[seg_off + j]) * v + p.seg_l[(seg_off + j) * N * P + i];
+    }
+    sm.lam[(i / P) * sm.ldl + i % P] = v;
+  }
   float acc_gA = 0.f, acc_gbias = 0.f, acc_gD = 0.f;
-  __syncthreads();
 
-  for (int ci = 0; ci < nc; ++ci) {
-    const int c = rev ? ci : nc - 1 - ci;  // against the scan order
+  // cp.async groups, committed in this order each chunk: x raw; B and CB;
+  // C and g_y
+  auto issue_x = [&](int c) {
+    if (c >= 0)
+      stage_rows<S>(sm.xr, P, ptr.x, p.x_sl, XRaw<K, T>::row0((long long)c * T, rev),
+                    XRaw<K, T>::ROWS, P, L, async);
+    cp_async_commit();
+  };
+  auto issue_bcb = [&](int c) {
+    if (c >= 0) {
+      stage_rows<S>(sm.Bs, sm.ldN, ptr.B, p.b_sl, (long long)c * T, T, N, L, async);
+      stage_rows<float>(sm.CBf, sm.ldTf, cb + (long long)c * T * T, T, 0, T, T, T, true);
+    }
+    cp_async_commit();
+  };
+  auto issue_cgy = [&](int c) {
+    if (c >= 0) {
+      stage_rows<S>(sm.Cs, sm.ldN, ptr.C, p.c_sl, (long long)c * T, T, N, L, async);
+      stage_rows<S>(sm.gyS, sm.ldPS, ptr.gy, y_sl, (long long)c * T, T, P, L, true);
+    }
+    cp_async_commit();
+  };
+
+  float dtr[E];
+  {
+    const int c0 = walk(0);
+    issue_x(c0); issue_bcb(c0); issue_cgy(c0);
+    if (tid < 32) dt_fetch<S, T>(ptr.dt, p.dt_sl, hh, (long long)c0 * T, L, rev, dtr);
+  }
+  for (int ci = 0; ci < n; ++ci) {
+    const int c = walk(ci);
+    const int cn = ci + 1 < n ? walk(ci + 1) : -1;
     const long long row0 = (long long)c * T;
     const S* hin = car + (long long)c * H * N * P;  // (N, P), ld P
 
-    // -- A: dt, cum and silu(conv) as the forward computed them; g_y; the
+    // -- A: dt, cum and silu(conv) as the forward computed them; the
     //    rounded copy of lambda
-    if (tid < 32)
-      chunk_dt_cum<S, T>(dtp, p.dt_sl, hh, row0, L, bias_h, A_h, p.dt_softplus != 0, rev,
-                         sm.dtv, sm.cum);
-    if constexpr (K == 0) {
-      load_chunk<S, T>(static_cast<const S*>(p.x) + (long long)g * p.x_sg + (long long)hh * P,
-                       p.x_sl,
-                       static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N,
-                       p.b_sl,
-                       static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N,
-                       p.c_sl, L, row0, P, N, sm.xf, sm.Bs, sm.Cs, sm.ldN);
-    } else {
-      conv_silu_chunk<S, K, T>(xBC, p.xbc_sl, p.conv_w, p.conv_b, Wc, L, row0, rev, P, N, xcol0,
-                               bcol0, ccol0, sm.xf, sm.Bs, sm.Cs, sm.ldN);
+    cp_async_wait<2>();  // x raw of c
+    __syncthreads();
+    if (tid < 32) {
+      dt_cum<T>(dtr, row0, L, bias_h, A_h, p.dt_softplus != 0, rev, sm.dtv, sm.cum);
+      if (cn >= 0) dt_fetch<S, T>(ptr.dt, p.dt_sl, hh, (long long)cn * T, L, rev, dtr);
     }
-    for (int i = tid; i < T * P; i += NTHREADS) {
-      const int t = i / P, pp = i % P;
-      const long long r = row0 + t;
-      sm.gyS[t * sm.ldPS + pp] = r < L ? gy[r * y_sl + pp] : from_f<S>(0.f);
-    }
-    if constexpr (!Smem<S>::F32) {
+    conv_x_staged<S, K, T>(sm.xr, P, p.conv_w, p.conv_b, Wc, xcol0, row0, L, rev, sm.xf);
+    if constexpr (!Smem<S, K>::F32) {
       for (int i = tid; i < N * P; i += NTHREADS) {
-        const int n = i / P, pp = i % P;
-        sm.lamS[n * sm.ldlS + pp] = from_f<S>(sm.lam[n * sm.ldl + pp]);
+        const int nn = i / P, pp = i % P;
+        sm.lamS[nn * sm.ldlS + pp] = from_f<S>(sm.lam[nn * sm.ldl + pp]);
       }
     }
+    cp_async_wait<0>();  // B, CB, C and g_y of c
     __syncthreads();
+    issue_x(cn);
 
-    // -- B: dx, w dx, exp(cum) g_y; CB = C B^T, G = g_y dx^T, B lambda, C h_in
+    // -- B: dx, w dx, exp(cum) g_y; G = g_y dx^T, B lambda, C h_in
     const float total = rev ? sm.cum[0] : sm.cum[T - 1];
     const float e_end = expf(total);
+    // (plain loops: the division-free `for_rc` costs this kernel more in
+    // register spills than it saves, measured on the card)
     for (int i = tid; i < T * P; i += NTHREADS) {
       const int t = i / P, pp = i % P;
       const float dx = sm.dtv[t] * sm.xf[i];
@@ -283,7 +412,6 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
       sm.geS[t * sm.ldPS + pp] = from_f<S>(expf(sm.cum[t]) * to_f<S>(sm.gyS[t * sm.ldPS + pp]));
     }
     __syncthreads();
-    BlockMM<S, false, true>::run(sm.Cs, sm.ldN, sm.Bs, sm.ldN, sm.CBf, sm.ldTf, T, T, N, false, 0.f);
     BlockMM<S, false, true>::run(sm.gyS, sm.ldPS, sm.dxS, sm.ldPS, sm.Gf, sm.ldTf, T, T, P, false,
                                  0.f);
     BlockMM<S, false, false>::run(sm.Bs, sm.ldN, sm.lamS, sm.ldlS, sm.Blam, sm.ldPf, T, P, N,
@@ -296,11 +424,11 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
     //    CBf/Gf (all reads finish before the barrier, then the writes)
     for (int t = warp; t < T; t += NWARPS) {
       float row = 0.f, col = 0.f, qv = 0.f, uv = 0.f;
-      for (int s = lane; s < T; s += 32) {
-        if (rev ? s >= t : s <= t)
-          row += expf(sm.cum[t] - sm.cum[s]) * sm.Gf[t * sm.ldTf + s] * sm.CBf[t * sm.ldTf + s];
-        if (rev ? t >= s : t <= s)
-          col += expf(sm.cum[s] - sm.cum[t]) * sm.Gf[s * sm.ldTf + t] * sm.CBf[s * sm.ldTf + t];
+      for (int s2 = lane; s2 < T; s2 += 32) {
+        if (rev ? s2 >= t : s2 <= t)
+          row += expf(sm.cum[t] - sm.cum[s2]) * sm.Gf[t * sm.ldTf + s2] * sm.CBf[t * sm.ldTf + s2];
+        if (rev ? t >= s2 : t <= s2)
+          col += expf(sm.cum[s2] - sm.cum[t]) * sm.Gf[s2 * sm.ldTf + t] * sm.CBf[s2 * sm.ldTf + t];
       }
       for (int pp = lane; pp < P; pp += 32) {
         qv += to_f<S>(sm.gyS[t * sm.ldPS + pp]) * sm.ChD[t * sm.ldPf + pp];
@@ -316,43 +444,44 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
     float mv[TT], lv[TT];
 #pragma unroll
     for (int e = 0; e < TT; ++e) {
-      const int idx = tid + e * NTHREADS, t = idx / T, s = idx % T;
-      const float lm = (rev ? s >= t : s <= t) ? expf(sm.cum[t] - sm.cum[s]) : 0.f;
-      mv[e] = sm.CBf[t * sm.ldTf + s] * lm;
-      lv[e] = sm.Gf[t * sm.ldTf + s] * lm;
+      const int idx = tid + e * NTHREADS, t = idx / T, s2 = idx % T;
+      const float lm = (rev ? s2 >= t : s2 <= t) ? expf(sm.cum[t] - sm.cum[s2]) : 0.f;
+      mv[e] = sm.CBf[t * sm.ldTf + s2] * lm;
+      lv[e] = sm.Gf[t * sm.ldTf + s2] * lm;
     }
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < TT; ++e) {
-      const int idx = tid + e * NTHREADS, t = idx / T, s = idx % T;
-      sm.MS[t * sm.ldTS + s] = from_f<S>(mv[e]);
-      sm.LGS[t * sm.ldTS + s] = from_f<S>(lv[e]);
+      const int idx = tid + e * NTHREADS, t = idx / T, s2 = idx % T;
+      sm.MS[t * sm.ldTS + s2] = from_f<S>(mv[e]);
+      sm.LGS[t * sm.ldTS + s2] = from_f<S>(lv[e]);
     }
     __syncthreads();
 
     // -- D: gdx = M^T g_y; sum lambda h_out (h_out = e_end h_in + B^T w dx);
-    //    this head's g_C and g_B shares into the workspace
+    //    this head's g_C and g_B shares
     BlockMM<S, true, false>::run(sm.MS, sm.ldTS, sm.gyS, sm.ldPS, sm.ChD, sm.ldPf, T, P, T, false,
                                  0.f);
     const Term<S, false, false> none{nullptr, 0, nullptr, 0, 0};
     float gend = 0.f;
     mm_epi<S>(N, P, Term<S, true, false>{sm.Bs, sm.ldN, sm.wdxS, sm.ldPS, T}, none, sm.stage,
-              [&](int n, int pp, float v) {
-                gend += sm.lam[n * sm.ldl + pp] * (e_end * to_f<S>(hin[n * P + pp]) + v);
+              [&](int nn, int pp, float v) {
+                gend += sm.lam[nn * sm.ldl + pp] * (e_end * to_f<S>(hin[nn * P + pp]) + v);
               });
     mm_epi<S>(T, N, Term<S, false, false>{sm.LGS, sm.ldTS, sm.Bs, sm.ldN, T},
               Term<S, false, true>{sm.geS, sm.ldPS, hin, P, P}, sm.stage,
-              [&](int t, int n, float v) {
+              [&](int t, int nn, float v) {
                 const long long r = row0 + t;
-                if (r < L) atomicAdd(&gCp[r * gbc_sl + n], v);
+                if (r < L) share[r * share_sl + N + nn] = v;
               });
     mm_epi<S>(T, N, Term<S, true, false>{sm.LGS, sm.ldTS, sm.Cs, sm.ldN, T},
               Term<S, false, true>{sm.wdxS, sm.ldPS, sm.lamS, sm.ldlS, P}, sm.stage,
-              [&](int s, int n, float v) {
-                const long long r = row0 + s;
-                if (r < L) atomicAdd(&gBp[r * gbc_sl + n], v);
+              [&](int s2, int nn, float v) {
+                const long long r = row0 + s2;
+                if (r < L) share[r * share_sl + nn] = v;
               });
     gend = block_sum(gend, sm.red);  // its barriers also end phase D
+    issue_bcb(cn);
 
     // -- E: lambda <- e_end lambda + C^T (exp(cum) g_y); per row (one warp):
     //    g_dx, g_x (-> workspace; K = 0: -> g_x), sum_p x g_dx, g_cum
@@ -384,11 +513,12 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
       }
     }
     __syncthreads();
+    issue_cgy(cn);
 
-    // -- g_a = suffix sum of g_cum in scan order (warp 0, fp32): lane l holds
-    //    scan steps E*l .. E*l+E-1; then g_dt and the g_A / g_dt_bias sums
+    // -- F: g_a = suffix sum of g_cum in scan order (warp 0, fp32): lane l
+    //    holds scan steps E*l .. E*l+E-1; then g_dt and the g_A / g_dt_bias
+    //    sums
     if (tid < 32) {
-      constexpr int E = T / 32;
       float part[E];
       int ts[E];
       float run = 0.f;
@@ -421,17 +551,48 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
       }
     }
   }
+  cp_async_wait<0>();
 
-  for (int i = tid; i < N * P; i += NTHREADS)
-    p.g_h0[state_off + i] = sm.lam[(i / P) * sm.ldl + i % P];
+  if (seg.q == 0)
+    for (int i = tid; i < N * P; i += NTHREADS)
+      p.g_h0[state_off + i] = sm.lam[(i / P) * sm.ldl + i % P];
   acc_gA = block_sum(acc_gA, sm.red);
   acc_gbias = block_sum(acc_gbias, sm.red);
   acc_gD = block_sum(acc_gD, sm.red);
+  // this block's sums, then the head's last block adds its G*S blocks' sums
+  // in (g, segment) order
   if (tid == 0) {
-    atomicAdd(&p.g_heads[hh], acc_gA);
-    atomicAdd(&p.g_heads[H + hh], acc_gbias);
-    atomicAdd(&p.g_heads[2 * H + hh], acc_gD);
+    const int nb = G * S_;
+    float* part = p.partials + ((long long)hh * nb + g * S_ + s) * 3;
+    part[0] = acc_gA; part[1] = acc_gbias; part[2] = acc_gD;
+    __threadfence();
+    if (atomicAdd(&p.tickets[hh], 1u) == (unsigned)(nb - 1)) {
+      __threadfence();
+      float sums[3] = {0.f, 0.f, 0.f};
+      for (int b = 0; b < nb; ++b)
+        for (int j = 0; j < 3; ++j) sums[j] += __ldcg(p.partials + ((long long)hh * nb + b) * 3 + j);
+      for (int j = 0; j < 3; ++j) p.g_heads[j * H + hh] = sums[j];
+    }
   }
+}
+
+// g_B / g_C of every row: the shares of a group's heads added in head order.
+// Thread per (row, column j of [B of every group | C of every group]).
+__global__ void ssd_share_sum_kernel(const float* shares, float* out_b, float* out_c,
+                                     long long o_sg, long long o_sl, int G, int L, int H,
+                                     int NG, int N) {
+  const long long W = 2LL * NG * N;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)G * L * W) return;
+  const long long row = idx / W;
+  const int j = (int)(idx % W);
+  const int part = j / (NG * N), k = (j % (NG * N)) / N, nn = j % N;
+  const int rep = H / NG;
+  const float* sh = shares + row * H * 2 * N + part * N + nn;
+  float s = 0.f;
+  for (int h = k * rep; h < (k + 1) * rep; ++h) s += sh[(long long)h * 2 * N];
+  const long long g = row / L, r = row % L;
+  (part ? out_c : out_b)[g * o_sg + r * o_sl + (long long)k * N + nn] = s;
 }
 
 struct ConvParams {
@@ -441,16 +602,18 @@ struct ConvParams {
   const float* conv_b;      // (Wc,) or null
   const float* g_xc;        // (G, L, Wc) fp32: d loss / d silu(pre)
   void* g_xBC;              // (G, L, Wc) storage dtype, contiguous
-  float* g_conv;            // [g_conv_w (K*Wc), g_conv_b (Wc)], zeroed
+  float* g_part;            // (G * row tiles, K + 1, Wc): each block's g_conv_w / g_conv_b sums
   int L, Wc, reverse;
 };
 
 // Block (column tile, row tile, g); a thread owns one column and walks its
-// row tile in groups of RG rows. For output rows j0..j0+RG-1 it needs g_pre
+// row tile in groups of RG rows. Three blocks per SM (at most 85 registers
+// a thread): at two the kernel took 4.0 ms against 2.8 at the main
+// geometry on the card. For output rows j0..j0+RG-1 it needs g_pre
 // of RG + K - 1 rows, and pre of those reads RG + 2(K-1) raw rows, all from
 // r0 - (K-1) on (forward: g_pre rows r0.., reverse: r0-(K-1)..).
 template <typename S, int K, bool REV>
-__global__ void __launch_bounds__(CONV_THREADS) ssd_conv_bwd_kernel(const ConvParams p) {
+__global__ void __launch_bounds__(CONV_THREADS, 3) ssd_conv_bwd_kernel(const ConvParams p) {
   const int col = blockIdx.x * CONV_THREADS + threadIdx.x;
   if (col >= p.Wc) return;
   const int g = blockIdx.z;
@@ -503,30 +666,95 @@ __global__ void __launch_bounds__(CONV_THREADS) ssd_conv_bwd_kernel(const ConvPa
       gb += gj;
     }
   }
+  float* part = p.g_part + ((long long)g * gridDim.y + blockIdx.y) * (K + 1) * Wc;
 #pragma unroll
-  for (int k = 0; k < K; ++k) atomicAdd(&p.g_conv[k * Wc + col], gw[k]);
-  atomicAdd(&p.g_conv[K * Wc + col], gb);
+  for (int k = 0; k < K; ++k) part[k * Wc + col] = gw[k];
+  part[K * Wc + col] = gb;
+}
+
+// g_conv_w / g_conv_b: the conv-adjoint blocks' partial sums added in block
+// order, one thread per (tap or bias, column). The loop is unrolled so that
+// 32 loads are in flight ahead of the adds, which stay in order.
+__global__ void ssd_conv_wsum_kernel(const float* part, float* out, int nblocks, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+#pragma unroll 32
+  for (int b = 0; b < nblocks; ++b) s += __ldg(part + (long long)b * n + i);
+  out[i] = s;
+}
+
+// Sub-launches of one `ssd_fused_bwd` / `ssd_bwd` call, selected by `parts`:
+// 1 the prep, 2 the pre-pass, 4 the main pass, 8 the g_B / g_C share sum
+// (15: the whole adjoint).
+constexpr int PART_PREP = 1, PART_STATE = 2, PART_MAIN = 4, PART_SUM = 8;
+
+template <typename S, int K>
+cudaError_t launch(const Params& p, const PrepParams& pp, int G, int parts, float* out_b,
+                   float* out_c, long long o_sg, long long o_sl, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (parts & PART_PREP) {
+    err = launch_prep<S, K>(pp, G, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if ((parts & PART_STATE) && p.S > 1) {
+    const size_t smem = StateSmem<S>::bytes(p.P, p.N);
+    err = set_smem(ssd_bwd_state_kernel<S>, smem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_state_kernel<S><<<G * p.H * (p.S - 1), NTHREADS, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & PART_MAIN) {
+    err = cudaMemsetAsync(p.tickets, 0, sizeof(unsigned int) * p.H, stream);
+    if (err != cudaSuccess) return err;
+    const size_t smem = Smem<S, K>::bytes(p.P, p.N);
+    err = set_smem(ssd_fused_bwd_kernel<S, K>, smem);
+    if (err != cudaSuccess) return err;
+    ssd_fused_bwd_kernel<S, K><<<G * p.H * p.S, NTHREADS, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & PART_SUM) {
+    const long long total = (long long)G * p.L * 2 * p.NG * p.N;
+    const int threads = 256;
+    ssd_share_sum_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
+        p.shares, out_b, out_c, o_sg, o_sl, G, p.L, p.H, p.NG, p.N);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+template <typename S>
+cudaError_t dispatch_k(const Params& p, const PrepParams& pp, int G, int K, int parts,
+                       float* out_b, float* out_c, long long o_sg, long long o_sl,
+                       cudaStream_t s) {
+  switch (K) {
+    case 0: return launch<S, 0>(p, pp, G, parts, out_b, out_c, o_sg, o_sl, s);
+    case 1: return launch<S, 1>(p, pp, G, parts, out_b, out_c, o_sg, o_sl, s);
+    case 2: return launch<S, 2>(p, pp, G, parts, out_b, out_c, o_sg, o_sl, s);
+    case 3: return launch<S, 3>(p, pp, G, parts, out_b, out_c, o_sg, o_sl, s);
+    case 4: return launch<S, 4>(p, pp, G, parts, out_b, out_c, o_sg, o_sl, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t run(int dtype, Params& p, PrepParams& pp, int G, int K, int parts, float* out_b,
+                float* out_c, long long o_sg, long long o_sl, cudaStream_t s) {
+  const int T = dtype == 1 ? Chunk<__nv_bfloat16>::T : Chunk<float>::T;
+  const int nc = (p.L + T - 1) / T;
+  p.sc = (nc + p.S - 1) / p.S;
+  const size_t es = dtype == 1 ? 2 : 4;
+  p.async = aligned16(p.x, p.x_sg, p.x_sl, es) && aligned16(p.B, p.b_sg, p.b_sl, es) &&
+            aligned16(p.C, p.c_sg, p.c_sl, es);
+  return dtype == 1 ? dispatch_k<__nv_bfloat16>(p, pp, G, K, parts, out_b, out_c, o_sg, o_sl, s)
+       : dtype == 0 ? dispatch_k<float>(p, pp, G, K, parts, out_b, out_c, o_sg, o_sl, s)
+                    : cudaErrorInvalidValue;
 }
 
 template <typename S, int K>
-cudaError_t launch_main(const Params& p, int G, cudaStream_t stream) {
-  const size_t smem = Smem<S>::bytes(p.P, p.N);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(ssd_fused_bwd_kernel<S, K>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ssd_fused_bwd_kernel<S, K><<<G * p.H, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename S, int K>
-cudaError_t launch_conv(const ConvParams& p, int G, cudaStream_t stream) {
-  const dim3 grid((p.Wc + CONV_THREADS - 1) / CONV_THREADS, (p.L + CONV_ROWS - 1) / CONV_ROWS, G);
+cudaError_t launch_conv(const ConvParams& p, int G, int ny, cudaStream_t stream) {
+  const dim3 grid((p.Wc + CONV_THREADS - 1) / CONV_THREADS, ny, G);
   if (p.reverse)
     ssd_conv_bwd_kernel<S, K, true><<<grid, CONV_THREADS, 0, stream>>>(p);
   else
@@ -534,18 +762,15 @@ cudaError_t launch_conv(const ConvParams& p, int G, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// table[K - 1] is the launcher instantiated for conv width K (1..4).
-template <typename Prm>
-cudaError_t dispatch_k(cudaError_t (*const* table)(const Prm&, int, cudaStream_t), const Prm& p,
-                       int G, int K, cudaStream_t stream) {
-  return K >= 1 && K <= 4 ? table[K - 1](p, G, stream) : cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// The SSD adjoint (first kernel). dtype: 0 = float32, 1 = bfloat16. g_hN, D,
-// dt_bias and conv_b may be null. Zeroes the B/C columns of the g_xc
-// workspace and g_heads, then launches. Returns the cudaError_t.
+// The SSD adjoint of the fused forward. dtype: 0 = float32, 1 = bfloat16.
+// g_hN, D, dt_bias and conv_b may be null. Writes g_xc (G, L, Wc) fp32 (x
+// columns by the main pass, B/C columns by the share sum), g_dt, g_h0 and
+// g_heads = [g_A, g_dt_bias, g_D]. Workspaces: bc (G, L, 2*NG*N) storage
+// dtype, cb (G, NG, nc, T, T), seg_l (G, H, S, N, P), seg_a (G, H, S),
+// shares (G, L, H, 2*N), partials (H, G*S, 3) fp32, tickets (H,) uint32.
+// parts: which sub-launches run (15: all). Returns the cudaError_t.
 extern "C" int ssd_fused_bwd(
     int dtype,
     const void* xBC, long long xbc_sg, long long xbc_sl,
@@ -554,12 +779,18 @@ extern "C" int ssd_fused_bwd(
     const void* conv_w, const void* conv_b,
     const void* g_y, const void* carries, const void* g_hN,
     void* g_xc, void* g_dt, void* g_h0, void* g_heads,
-    int G, int L, int H, int P, int NG, int N, int K,
-    int dt_softplus, int reverse, void* stream) {
-  if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
-    return (int)cudaErrorInvalidValue;
+    void* bc, void* cb, void* seg_l, void* seg_a, void* shares, void* partials, void* tickets,
+    int G, int L, int H, int P, int NG, int N, int K, int S,
+    int dt_softplus, int reverse, int parts, void* stream) {
+  const int T = dtype == 1 ? Chunk<__nv_bfloat16>::T : Chunk<float>::T;
+  if (!valid_shape(G, L, H, P, NG, N, S, T) || K < 1) return (int)cudaErrorInvalidValue;
+  const int Wc = H * P + 2 * NG * N;
+  const size_t es = dtype == 1 ? 2 : 4;
   Params p = {};
-  p.xBC = xBC; p.xbc_sg = xbc_sg; p.xbc_sl = xbc_sl;
+  p.x = xBC; p.x_sg = xbc_sg; p.x_sl = xbc_sl;
+  p.B = bc; p.b_sg = (long long)L * 2 * NG * N; p.b_sl = 2 * NG * N;
+  p.C = static_cast<const char*>(bc) + (size_t)NG * N * es;
+  p.c_sg = p.b_sg; p.c_sl = p.b_sl;
   p.dt = dt; p.dt_sg = dt_sg; p.dt_sl = dt_sl;
   p.A = static_cast<const float*>(A);
   p.D = static_cast<const float*>(D);
@@ -568,39 +799,31 @@ extern "C" int ssd_fused_bwd(
   p.conv_b = static_cast<const float*>(conv_b);
   p.g_y = g_y; p.carries = carries;
   p.g_hN = static_cast<const float*>(g_hN);
+  p.cb = static_cast<const float*>(cb);
+  p.seg_l = static_cast<float*>(seg_l); p.seg_a = static_cast<float*>(seg_a);
   p.g_xc = static_cast<float*>(g_xc);
+  p.shares = static_cast<float*>(shares);
   p.g_dt = g_dt;
   p.g_h0 = static_cast<float*>(g_h0);
+  p.partials = static_cast<float*>(partials);
+  p.tickets = static_cast<unsigned int*>(tickets);
   p.g_heads = static_cast<float*>(g_heads);
-  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = H * P + 2 * NG * N;
+  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = Wc; p.S = S;
   p.dt_softplus = dt_softplus; p.reverse = reverse;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(g_heads, 0, 3 * (size_t)H * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemset2DAsync(p.g_xc + H * P, (size_t)p.Wc * sizeof(float), 0,
-                          2 * (size_t)NG * N * sizeof(float), (size_t)G * L, s);
-  if (err != cudaSuccess) return (int)err;
-  if (dtype == 1) {
-    static cudaError_t (*const t[4])(const Params&, int, cudaStream_t) = {
-        launch_main<__nv_bfloat16, 1>, launch_main<__nv_bfloat16, 2>,
-        launch_main<__nv_bfloat16, 3>, launch_main<__nv_bfloat16, 4>};
-    err = dispatch_k(t, p, G, K, s);
-  } else if (dtype == 0) {
-    static cudaError_t (*const t[4])(const Params&, int, cudaStream_t) = {
-        launch_main<float, 1>, launch_main<float, 2>, launch_main<float, 3>,
-        launch_main<float, 4>};
-    err = dispatch_k(t, p, G, K, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  PrepParams pp = {};
+  pp.xBC = xBC; pp.xbc_sg = xbc_sg; pp.xbc_sl = xbc_sl;
+  pp.conv_w = p.conv_w; pp.conv_b = p.conv_b; pp.bc = bc; pp.cb = static_cast<float*>(cb);
+  pp.L = L; pp.H = H; pp.P = P; pp.NG = NG; pp.N = N; pp.Wc = Wc; pp.reverse = reverse;
+  float* gxc = static_cast<float*>(g_xc);
+  return (int)run(dtype, p, pp, G, K, parts, gxc + H * P, gxc + H * P + NG * N,
+                  (long long)L * Wc, Wc, static_cast<cudaStream_t>(stream));
 }
 
 // The unfused SSD adjoint (K = 0): x (G, L, H*P), B and C (G, L, NG*N) and
 // dt (G, L, H), each through its own batch and row strides (unit column
 // stride); g_x (G, L, H*P) in the storage dtype, g_BC = [g_B, g_C] (2, G, L,
-// NG*N) fp32. dtype and the other arguments as `ssd_fused_bwd`. Zeroes g_BC
-// and g_heads, then launches. Returns the cudaError_t.
+// NG*N) fp32; all four sub-launches. Workspaces (no bc) and the other
+// arguments as `ssd_fused_bwd`. Returns the cudaError_t.
 extern "C" int ssd_bwd(
     int dtype,
     const void* x, long long x_sg, long long x_sl,
@@ -610,10 +833,11 @@ extern "C" int ssd_bwd(
     const void* A, const void* D, const void* dt_bias,
     const void* g_y, const void* carries, const void* g_hN,
     void* g_x, void* g_BC, void* g_dt, void* g_h0, void* g_heads,
-    int G, int L, int H, int P, int NG, int N,
+    void* cb, void* seg_l, void* seg_a, void* shares, void* partials, void* tickets,
+    int G, int L, int H, int P, int NG, int N, int S,
     int dt_softplus, int reverse, void* stream) {
-  if (P % 16 != 0 || N % 16 != 0 || NG <= 0 || H % NG != 0 || L <= 0 || G <= 0)
-    return (int)cudaErrorInvalidValue;
+  const int T = dtype == 1 ? Chunk<__nv_bfloat16>::T : Chunk<float>::T;
+  if (!valid_shape(G, L, H, P, NG, N, S, T)) return (int)cudaErrorInvalidValue;
   Params p = {};
   p.x = x; p.x_sg = x_sg; p.x_sl = x_sl;
   p.B = B; p.b_sg = b_sg; p.b_sl = b_sl;
@@ -624,56 +848,80 @@ extern "C" int ssd_bwd(
   p.dt_bias = static_cast<const float*>(dt_bias);
   p.g_y = g_y; p.carries = carries;
   p.g_hN = static_cast<const float*>(g_hN);
+  p.cb = static_cast<const float*>(cb);
+  p.seg_l = static_cast<float*>(seg_l); p.seg_a = static_cast<float*>(seg_a);
   p.g_x = g_x;
-  p.g_BC = static_cast<float*>(g_BC);
+  p.shares = static_cast<float*>(shares);
   p.g_dt = g_dt;
   p.g_h0 = static_cast<float*>(g_h0);
+  p.partials = static_cast<float*>(partials);
+  p.tickets = static_cast<unsigned int*>(tickets);
   p.g_heads = static_cast<float*>(g_heads);
-  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = 0;
+  p.L = L; p.H = H; p.P = P; p.NG = NG; p.N = N; p.Wc = 0; p.S = S;
   p.dt_softplus = dt_softplus; p.reverse = reverse;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(g_heads, 0, 3 * (size_t)H * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(g_BC, 0, 2 * (size_t)G * L * NG * N * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  err = dtype == 1 ? launch_main<__nv_bfloat16, 0>(p, G, s)
-      : dtype == 0 ? launch_main<float, 0>(p, G, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  PrepParams pp = {};
+  pp.B = B; pp.b_sg = b_sg; pp.b_sl = b_sl;
+  pp.C = C; pp.c_sg = c_sg; pp.c_sl = c_sl;
+  pp.cb = static_cast<float*>(cb);
+  pp.L = L; pp.H = H; pp.P = P; pp.NG = NG; pp.N = N; pp.reverse = reverse;
+  float* gbc = static_cast<float*>(g_BC);
+  return (int)run(dtype, p, pp, G, 0, PART_PREP | PART_STATE | PART_MAIN | PART_SUM, gbc,
+                  gbc + (long long)G * L * NG * N,
+                  (long long)L * NG * N, (long long)NG * N, static_cast<cudaStream_t>(stream));
 }
 
-// The SiLU + depthwise-conv adjoint (second kernel), after ssd_fused_bwd has
-// filled g_xc. Zeroes g_conv ((K + 1) * Wc floats), then launches.
+// The SiLU + depthwise-conv adjoint, after ssd_fused_bwd has filled g_xc:
+// the conv-adjoint blocks, then their g_conv_w / g_conv_b sums in block
+// order into g_conv ((K + 1) * Wc floats). g_part: (G * ceil(L / 256),
+// K + 1, Wc) fp32 scratch.
 extern "C" int ssd_conv_bwd(
     int dtype,
     const void* xBC, long long xbc_sg, long long xbc_sl,
     const void* conv_w, const void* conv_b, const void* g_xc,
-    void* g_xBC, void* g_conv,
+    void* g_xBC, void* g_conv, void* g_part,
     int G, int L, int Wc, int K, int reverse, void* stream) {
-  if (L <= 0 || G <= 0 || Wc <= 0) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || G <= 0 || Wc <= 0 || K < 1 || K > 4) return (int)cudaErrorInvalidValue;
   ConvParams p;
   p.xBC = xBC; p.xbc_sg = xbc_sg; p.xbc_sl = xbc_sl;
   p.conv_w = static_cast<const float*>(conv_w);
   p.conv_b = static_cast<const float*>(conv_b);
   p.g_xc = static_cast<const float*>(g_xc);
   p.g_xBC = g_xBC;
-  p.g_conv = static_cast<float*>(g_conv);
+  p.g_part = static_cast<float*>(g_part);
   p.L = L; p.Wc = Wc; p.reverse = reverse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(g_conv, 0, (size_t)(K + 1) * Wc * sizeof(float), s);
+  const int ny = (L + CONV_ROWS - 1) / CONV_ROWS;
+  static cudaError_t (*const bf[4])(const ConvParams&, int, int, cudaStream_t) = {
+      launch_conv<__nv_bfloat16, 1>, launch_conv<__nv_bfloat16, 2>,
+      launch_conv<__nv_bfloat16, 3>, launch_conv<__nv_bfloat16, 4>};
+  static cudaError_t (*const f32[4])(const ConvParams&, int, int, cudaStream_t) = {
+      launch_conv<float, 1>, launch_conv<float, 2>, launch_conv<float, 3>,
+      launch_conv<float, 4>};
+  cudaError_t err = dtype == 1 ? bf[K - 1](p, G, ny, s)
+                  : dtype == 0 ? f32[K - 1](p, G, ny, s)
+                               : cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 1) {
-    static cudaError_t (*const t[4])(const ConvParams&, int, cudaStream_t) = {
-        launch_conv<__nv_bfloat16, 1>, launch_conv<__nv_bfloat16, 2>,
-        launch_conv<__nv_bfloat16, 3>, launch_conv<__nv_bfloat16, 4>};
-    err = dispatch_k(t, p, G, K, s);
-  } else if (dtype == 0) {
-    static cudaError_t (*const t[4])(const ConvParams&, int, cudaStream_t) = {
-        launch_conv<float, 1>, launch_conv<float, 2>, launch_conv<float, 3>,
-        launch_conv<float, 4>};
-    err = dispatch_k(t, p, G, K, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  const int n = (K + 1) * Wc;
+  ssd_conv_wsum_kernel<<<(n + 255) / 256, 256, 0, s>>>(p.g_part, static_cast<float*>(g_conv),
+                                                       G * ny, n);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of each sub-launch (which: 0 the prep, 1 the
+// pre-pass, 2 the main pass) at K = 0 or 4, for the build report; -1 for
+// anything else.
+extern "C" long long ssd_fused_bwd_smem(int dtype, int K, int P, int N, int which) {
+  auto of = [&](auto s, auto k) -> long long {
+    using S = decltype(s);
+    constexpr int KK = decltype(k)::value;
+    return which == 0 ? (long long)PrepSmem<S>::bytes(N)
+         : which == 1 ? (long long)StateSmem<S>::bytes(P, N)
+         : which == 2 ? (long long)Smem<S, KK>::bytes(P, N) : -1;
+  };
+  using K0 = std::integral_constant<int, 0>;
+  using K4 = std::integral_constant<int, 4>;
+  if (K != 0 && K != 4) return -1;
+  if (dtype == 1) return K ? of(__nv_bfloat16(), K4()) : of(__nv_bfloat16(), K0());
+  if (dtype == 0) return K ? of(0.f, K4()) : of(0.f, K0());
+  return -1;
 }

@@ -26,12 +26,11 @@ tensors in the JAX layouts, ``{"layers_<i>": {"fwd": {"conv", "ssm"}}}``:
   (`_resolved_infer_kernel`, `ops/ssd_head.py resolve_ssd_kernel`: #2
   through `ops/ssd_batched.py ssd_batched_chained`, or #5 through
   `ops/ssd_head.py ssd_head_chained` for "pallas"), with h_init = the
-  cached state; on the CPU their plain versions. The conv output stays in
-  the compute dtype, as in the port's model forward; the JAX prefill adds
-  the fp32 conv bias and so scans in fp32 when the model is bf16. In fp32
-  the two agree; in bf16 the prefill agrees with the model's full forward
-  (kernels #1 / #9, which convolve in fp32 inside the kernel) within bf16
-  roundings.
+  cached state; on the CPU their plain versions. As in the JAX prefill,
+  the conv's taps run in the compute dtype and its fp32 bias promotes the
+  sum, so a bf16 model's prefill scans in fp32 (the fp32 kernels, T = 32
+  rows per chunk); it agrees with the model's full forward (kernels #1 /
+  #9, which convolve in fp32 inside the kernel) within bf16 roundings.
 - The **decode step** (`lm_step`) is plain PyTorch, a few small launches
   per layer per token, where JAX runs the whole loop as one `lax.scan`.
 - **Sampling** takes an explicit `torch.Generator` on the model's device;
@@ -235,12 +234,14 @@ def _conv_with_history(xi: torch.Tensor, cache_conv: torch.Tensor):
 
 
 def _conv_tail(dparams, x_ext: torch.Tensor) -> torch.Tensor:
-    """silu(conv) of the extended input in its dtype, rows K-1 on."""
-    dtype = x_ext.dtype
+    """silu(conv) of the extended input, rows K-1 on: the taps in the
+    input's dtype, then the conv bias as stored (fp32), which promotes the
+    sum, and so the scan after it, to fp32 in a bf16 model -- as the JAX
+    prefill passes its bias uncast (`caduceus_tpu/inference.py`
+    `mamba_direction_prefill`, `mamba2_direction_prefill`)."""
     K = dparams.conv_w.shape[0]
-    b = None if dparams.conv_b is None else dparams.conv_b.to(dtype)
-    return causal_conv1d(x_ext, dparams.conv_w.to(dtype), b,
-                         activation="silu")[:, K - 1:]
+    return causal_conv1d(x_ext, dparams.conv_w.to(x_ext.dtype),
+                         dparams.conv_b, activation="silu")[:, K - 1:]
 
 
 @torch.inference_mode()
@@ -252,13 +253,12 @@ def mamba_direction_prefill(dparams, xi: torch.Tensor,
     ``xi`` (B, Lp, d_inner) is the pre-conv in_proj output."""
     c = dparams.cfg
     N = c.ssm_cfg.d_state
-    dtype = xi.dtype
     xi_ext, new_conv = _conv_with_history(xi, cache["conv"])
     u = _conv_tail(dparams, xi_ext)
-    dt, B, C = (u @ dparams.x_proj_w.to(dtype)).split(
+    dt, B, C = (u @ dparams.x_proj_w.to(u.dtype)).split(
         [c.dt_rank, N, N], dim=-1)
     y, hN = selective_scan_chained(
-        u, dt @ dparams.dt_proj_w.to(dtype), dparams.A(), B, C,
+        u, dt @ dparams.dt_proj_w.to(u.dtype), dparams.A(), B, C,
         D=dparams.D, delta_bias=dparams.dt_proj_b, h_init=cache["ssm"],
         delta_softplus=True)
     return y, {"conv": new_conv.to(cache["conv"].dtype), "ssm": hN}
@@ -294,8 +294,10 @@ def mamba2_direction_prefill(dparams, xBC: torch.Tensor, dt: torch.Tensor,
     xBC_ext, new_conv = _conv_with_history(xBC, cache["conv"])
     xc = _conv_tail(dparams, xBC_ext)
     _, chained_fn = resolve_ssd_kernel(_resolved_infer_kernel(c))
+    # dt in the scan's dtype (xc's: fp32 in a model with a conv bias), as
+    # the kernels take it; the JAX scan resolves dt in fp32 either way
     y, hN = chained_fn(
-        xc[..., :H * P].reshape(Bsz, Lp, H, P), dt,
+        xc[..., :H * P].reshape(Bsz, Lp, H, P), dt.to(xc.dtype),
         -torch.exp(dparams.A_log.float()),
         xc[..., H * P:H * P + NG * N].reshape(Bsz, Lp, NG, N),
         xc[..., H * P + NG * N:].reshape(Bsz, Lp, NG, N),

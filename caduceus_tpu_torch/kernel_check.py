@@ -41,9 +41,10 @@ TOL = {
     torch.bfloat16: Tol(rel_l2=5e-3, rtol=2 ** -6, atol=2 ** -4),
 }
 # The backward's parameter gradients (g_A, g_D, g_dt_bias, g_conv_w/b) are
-# sums over G·L rows, added with atomics in an order that changes from run
-# to run; that order moves them by a few fp32 roundings, well inside both
-# limits (PERF.md, kernel #3).
+# sums over G·L rows taken in another order than the plain version's; that
+# order moves them by a few fp32 roundings, well inside both limits. (The
+# SSD kernels take every sum in a fixed order, so their outputs repeat bit
+# for bit; the v1 scan adjoint's g_B / g_C are fp32 atomics: PERF.md.)
 
 _CHUNK = 1 << 26   # elements per pass: bounds the fp32 temporaries
 

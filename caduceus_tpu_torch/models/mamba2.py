@@ -110,9 +110,17 @@ class _DirectionParamsV2(nn.Module):
             return y.reshape(*lead, L, c.d_inner)
         # "auto", "pallas_batched*" and "xla": the fused-conv kernels. "xla"
         # (the JAX package's chunked XLA form) has no counterpart on the
-        # card without a kernel, so it takes the same route.
+        # card without a kernel, so it takes the same route, with the conv
+        # weights rounded to the compute dtype as that form casts them
+        # (`caduceus_tpu/models/mamba2.py` `__call__`, the XLA branch); the
+        # kernels read them as fp32. "auto" and "pallas_batched*" keep them
+        # fp32, as `ssd_pallas_batched_fused` takes them.
+        conv_w, conv_b = self.conv_w, self.conv_b
+        if k == "xla":
+            conv_w = conv_w.to(x3.dtype).float()
+            conv_b = None if conv_b is None else conv_b.to(x3.dtype).float()
         y = ssd_batched_fused(
-            x3, dt3, -torch.exp(self.A_log), self.conv_w, conv_b=self.conv_b,
+            x3, dt3, -torch.exp(self.A_log), conv_w, conv_b=conv_b,
             D=self.D, dt_bias=self.dt_bias, dims=(H, P, NG, N),
             dt_softplus=True, reverse=reverse)
         return y.reshape(*lead, L, c.d_inner)

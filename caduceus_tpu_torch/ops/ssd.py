@@ -25,6 +25,14 @@ with ``dt = softplus(dt_raw + dt_bias)`` resolved inside (optional).
 - `ssd_chunked_bwd` is the adjoint of `ssd_chunked` on post-conv x, B, C,
   the plain version of the unfused `ssd_bwd` kernel; it shares the chunk
   body `_adjoint` with `ssd_adjoint_xc`.
+- The kernels' chunk-parallel state passing has its plain counterparts
+  here: `segment_bounds` (the segments of whole chunks), `segment_states`
+  and `segment_lambdas` (the forward's and the adjoint's pre-pass: each
+  segment's state, or λ, from zero, and its sum of a) and
+  `combine_segments` (the boundaries walked in series, in fp32). Each
+  whole-function version above takes ``segments=S`` to run pre-pass,
+  combine and per-segment walk in place of one serial walk: the same
+  function, which tests/test_torch_ssd.py holds to the serial one.
 
 Per chunk of T rows, in array order (``reverse`` only transposes the masks
 and walks the chunks right to left — nothing is flipped in memory):
@@ -138,49 +146,60 @@ def _q(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse, T, h_init,
-             return_final_state, return_carries, mm):
-    """The chunk body shared by `ssd_chunked_fused` and `ssd_chunked`.
+def segment_bounds(nc: int, S: int):
+    """The array chunk ranges [lo, hi) of the kernels' chunk-parallel state
+    passing: the nc chunks of a sequence cut into segments of ceil(nc / S)
+    whole chunks (the last may be shorter; none is empty, so there may be
+    fewer than S)."""
+    sc = -(-nc // S)
+    return [(lo, min(lo + sc, nc)) for lo in range(0, nc, sc)]
 
-    ``load(s0, r1)`` gives the fp32 x (G, r1 - s0, H·P) and the B, C (G,
-    r1 - s0, NG·N) of rows [s0, r1), B and C rounded to ``mm``, the storage
-    dtype of the matmul operands and of y. Rows past L in the last chunk
-    are identity steps (dt = 0, x = B = C = 0), the semantics of the JAX
-    package's `_pad_ssd`."""
+
+def _chunk_rows(load, dt, dt_bias, dt_softplus, s0, s1, L):
+    """x, B, C (padded with zero rows past L) and resolved dt of rows
+    [s0, s1), the chunk body's inputs."""
+    r1 = min(s1, L)
+    pad = s1 - r1
+    xs, Bq, Cq = (F.pad(t, (0, 0, 0, pad)) for t in load(s0, r1))
+    dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus), (0, 0, 0, pad))
+    return xs, Bq, Cq, dtf
+
+
+def _in_chunk_cumsum(a, reverse):
+    """Inclusive in-scan-order cumsum over the rows of each chunk (dim 2)."""
+    return a.flip(2).cumsum(2).flip(2) if reverse else a.cumsum(2)
+
+
+def _walk_starts(c0, c1, T, walk_reverse):
+    """Starts of the plain walk's steps of `_SEG_CHUNKS` chunks over chunks
+    [c0, c1), in walk order."""
+    starts = list(range(c0 * T, c1 * T, T * _SEG_CHUNKS))
+    return reversed(starts) if walk_reverse else starts
+
+
+def _fwd_walk(load, dt, A, D, dt_bias, dims, dt_softplus, reverse, T, h, c0,
+              c1, y, carries, mm):
+    """The forward chunk body over chunks [c0, c1) in scan order from the
+    state ``h`` (G, H, N, P) fp32 entering them: writes their rows of y and
+    their carries (when ``carries`` is not None); returns the state leaving
+    them."""
     H, P, NG, N = dims
     G, L = dt.shape[:2]
     rep = H // NG
-    dev = dt.device
     Af = A.float()
-    nc = -(-L // T)
-    Lp = nc * T
-    h = (torch.zeros(G, H, N, P, device=dev) if h_init is None
-         else h_init.float().clone())
-    y = torch.empty(G, L, H, P, dtype=mm, device=dev)
-    carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(mm), device=dev)
-               if return_carries else None)
-    keep = _keep_mask(T, reverse, dev)
-
-    seg = T * _SEG_CHUNKS
-    starts = list(range(0, Lp, seg))
-    for s0 in (reversed(starts) if reverse else starts):
-        s1 = min(s0 + seg, Lp)
+    keep = _keep_mask(T, reverse, dt.device)
+    for s0 in _walk_starts(c0, c1, T, reverse):
+        s1 = min(s0 + T * _SEG_CHUNKS, c1 * T)
         r1 = min(s1, L)
         nci = (s1 - s0) // T
-        pad = s1 - r1
-        xs, Bq, Cq = (F.pad(t, (0, 0, 0, pad)) for t in load(s0, r1))
-        dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus),
-                    (0, 0, 0, pad))
+        xs, Bq, Cq, dtf = _chunk_rows(load, dt, dt_bias, dt_softplus, s0, s1, L)
         xs = xs.reshape(G, nci, T, H, P)
         Bq = Bq.reshape(G, nci, T, NG, N)
         Cq = Cq.reshape(G, nci, T, NG, N)
         dtf = dtf.reshape(G, nci, T, H)
 
         a = dtf * Af
-        if reverse:
-            cum = a.flip(2).cumsum(2).flip(2)
-        else:
-            cum = a.cumsum(2)
+        cum = _in_chunk_cumsum(a, reverse)
         total = a.sum(2)                                      # (G, nci, H)
         segm = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (G,c,T,T,H)
         Lm = torch.exp(torch.where(keep[:, :, None], segm,
@@ -211,6 +230,96 @@ def _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse, T, h_init,
         if D is not None:
             ys = ys + xs.reshape(G, s1 - s0, H, P) * D.float()[:, None]
         y[:, s0:r1] = ys[:, :r1 - s0].to(mm)
+    return h
+
+
+def segment_states(load, dt, A, dt_bias, dims, dt_softplus, reverse, T,
+                   bounds, mm):
+    """The forward pre-pass (`ssd_fwd_state_kernel`): for each segment
+    [lo, hi) of ``bounds``, its state from a zero state, walked in scan
+    order (h <- exp(Σa)·h + Bᵀ @ (exp(Σa - cum) ⊙ dt·x) per chunk), and its
+    sum of a: ((G, H, S, N, P), (G, H, S)) fp32. It reads only x, B and dt
+    (``load`` as `_fwd_walk`'s)."""
+    H, P, NG, N = dims
+    G, L = dt.shape[:2]
+    rep = H // NG
+    Af = A.float()
+    states, sums = [], []
+    for lo, hi in bounds:
+        s0, s1 = lo * T, hi * T
+        nci = hi - lo
+        xs, Bq, _, dtf = _chunk_rows(load, dt, dt_bias, dt_softplus, s0, s1, L)
+        dtf = dtf.reshape(G, nci, T, H)
+        a = dtf * Af
+        cum = _in_chunk_cumsum(a, reverse)
+        total = a.sum(2)                                      # (G, c, H)
+        wdx = _q(torch.exp(total[:, :, None] - cum)[..., None] * dtf[..., None]
+                 * xs.reshape(G, nci, T, H, P), mm)
+        S_chunk = torch.einsum("gcskn,gcskrp->gckrnp",
+                               Bq.reshape(G, nci, T, NG, N),
+                               wdx.reshape(G, nci, T, NG, rep, P))
+        e_end = torch.exp(total).reshape(G, nci, NG, rep, 1, 1)
+        h = torch.zeros(G, NG, rep, N, P, device=dt.device)
+        tot = torch.zeros(G, H, device=dt.device)
+        for c in (range(nci - 1, -1, -1) if reverse else range(nci)):
+            h = e_end[:, c] * h + S_chunk[:, c]
+            tot = tot + total[:, c]
+        states.append(h.reshape(G, H, N, P))
+        sums.append(tot)
+    return torch.stack(states, 2), torch.stack(sums, 2)
+
+
+def combine_segments(states, sums, h0, scan_reverse):
+    """The combine: the segment boundaries walked in series, in fp32, in
+    the order ``scan_reverse`` gives (the forward's scan order; against it
+    for the adjoint's lambda), from ``h0`` (G, H, N, P) or zeros: h <-
+    exp(sum of a)·h + state, per segment. Returns (the value entering each
+    segment (G, H, S, N, P), the value leaving the last)."""
+    G, H, S = sums.shape
+    h = (torch.zeros_like(states[:, :, 0]) if h0 is None
+         else h0.float().reshape(states[:, :, 0].shape))
+    entries = [None] * S
+    for s in (range(S - 1, -1, -1) if scan_reverse else range(S)):
+        entries[s] = h
+        h = torch.exp(sums[:, :, s])[..., None, None] * h + states[:, :, s]
+    return torch.stack(entries, 2), h
+
+
+def _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse, T, h_init,
+             return_final_state, return_carries, mm, segments=None):
+    """The chunk body shared by `ssd_chunked_fused` and `ssd_chunked`.
+
+    ``load(s0, r1)`` gives the fp32 x (G, r1 - s0, H·P) and the B, C (G,
+    r1 - s0, NG·N) of rows [s0, r1), B and C rounded to ``mm``, the storage
+    dtype of the matmul operands and of y. Rows past L in the last chunk
+    are identity steps (dt = 0, x = B = C = 0), the semantics of the JAX
+    package's `_pad_ssd`. With ``segments`` it runs the kernels'
+    decomposition: `segment_states` (the pre-pass), `combine_segments`,
+    then each segment's walk from its entry state."""
+    H, P, NG, N = dims
+    G, L = dt.shape[:2]
+    dev = dt.device
+    nc = -(-L // T)
+    h = (torch.zeros(G, H, N, P, device=dev) if h_init is None
+         else h_init.float().clone())
+    y = torch.empty(G, L, H, P, dtype=mm, device=dev)
+    carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(mm), device=dev)
+               if return_carries else None)
+    def walk(h_in, c0, c1):
+        return _fwd_walk(load, dt, A, D, dt_bias, dims, dt_softplus, reverse,
+                         T, h_in, c0, c1, y, carries, mm)
+
+    if segments is None:
+        h = walk(h, 0, nc)
+    else:
+        bounds = segment_bounds(nc, segments)
+        entries, _ = combine_segments(
+            *segment_states(load, dt, A, dt_bias, dims, dt_softplus, reverse,
+                            T, bounds, mm), h, reverse)
+        for k, (lo, hi) in enumerate(bounds):
+            h_k = walk(entries[:, :, k], lo, hi)
+            if k == (0 if reverse else len(bounds) - 1):
+                h = h_k  # the segment the scan leaves last gives hN
     if return_carries:
         return y, h, carries
     if return_final_state:
@@ -233,6 +342,7 @@ def ssd_chunked_fused(
     h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
     return_final_state: bool = False,
     return_carries: bool = False,
+    segments: Optional[int] = None,
 ):
     """Chunked dual form with the conv fused (see module docstring).
 
@@ -241,7 +351,8 @@ def ssd_chunked_fused(
     the state at the entry (in scan order) of every chunk, (G, nc, H, N, P)
     indexed by the chunk's position in the array, in
     `carry_dtype(xBC.dtype)` — the residual `ssd_chunked_fused_bwd`
-    reads."""
+    reads. ``segments``: run the kernels' chunk-parallel decomposition
+    (`_chunked`) over that many segments; the same function."""
     H, P, NG, N = dims
     Wc = xBC.shape[2]
     assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
@@ -255,7 +366,8 @@ def ssd_chunked_fused(
                 _q(xc[..., H * P + NG * N:], mm))
 
     return _chunked(load, dt, A, D, dt_bias, dims, dt_softplus, reverse,
-                    chunk_size, h_init, return_final_state, return_carries, mm)
+                    chunk_size, h_init, return_final_state, return_carries, mm,
+                    segments)
 
 
 def ssd_chunked(
@@ -272,13 +384,14 @@ def ssd_chunked(
     h_init: Optional[torch.Tensor] = None,  # (G, H, N, P) fp32
     return_final_state: bool = False,
     return_carries: bool = False,
+    segments: Optional[int] = None,
 ):
     """The unfused chunked dual form on post-conv x, B and C: the plain
     version of the `ssd_fwd` CUDA kernel (`ops/ssd_batched.py`), and the
     port of `caduceus_tpu/ops/ssd.py ssd_chunked` without its fused-conv
     mode. The chunk body and the precision policy are those of
     `ssd_chunked_fused` (matmul operands rounded to x's dtype, fp32 cumsum,
-    decays and state); outputs as there."""
+    decays and state); outputs and ``segments`` as there."""
     G, L, H, P = x.shape
     NG, N = B_mat.shape[-2:]
     mm = x.dtype
@@ -291,7 +404,7 @@ def ssd_chunked(
 
     return _chunked(load, dt, A, D, dt_bias, (H, P, NG, N), dt_softplus,
                     reverse, chunk_size, h_init, return_final_state,
-                    return_carries, mm)
+                    return_carries, mm, segments)
 
 
 def ssd_step(
@@ -323,7 +436,7 @@ def ssd_step(
 
 
 def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
-             dt_softplus, reverse, T, mm):
+             dt_softplus, reverse, T, mm, segments=None):
     """The chunk body of the SSD adjoint, shared by `ssd_adjoint_xc` and
     `ssd_chunked_bwd` (the plain versions of the two forms of the backward
     kernel `ssd_fused_bwd_kernel`).
@@ -350,36 +463,100 @@ def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
     then the softplus chain on g_dt. Precision policy as the forward:
     matmul operands rounded to ``mm`` (each head's LG on its own, as the
     kernel sums the heads' products), fp32 accumulation, fp32 cumsums and
-    λ; h_in is the carry as saved."""
+    λ; h_in is the carry as saved. With ``segments`` it runs the kernels'
+    decomposition: `segment_lambdas` (the pre-pass), `combine_segments`
+    against the scan order from g_hN, then each segment's walk."""
+    H, P, NG, N = dims
+    G, L = dt.shape[:2]
+    rep = H // NG
+    dev = dt.device
+    nc = -(-L // T)
+    assert carries.shape == (G, nc, H, N, P), (carries.shape, (G, nc, H, N, P))
+    lam = (torch.zeros(G, H, N, P, device=dev) if g_hN is None
+           else g_hN.float().reshape(G, H, N, P).clone())
+    acc = {"g_dt": torch.zeros(G, L, H, device=dev),
+           "g_A": torch.zeros(H, device=dev), "g_bias": torch.zeros(H, device=dev),
+           "g_D": torch.zeros(H, device=dev)}
+    def walk(lam_out, c0, c1):
+        return _bwd_walk(load, store, dt, A, D, dt_bias, g_y, carries, dims,
+                         dt_softplus, reverse, T, mm, acc, lam_out, c0, c1)
+
+    if segments is None:
+        lam = walk(lam, 0, nc)
+    else:
+        bounds = segment_bounds(nc, segments)
+        entries, _ = combine_segments(
+            *segment_lambdas(load, dt, A, dt_bias, g_y, dims, dt_softplus,
+                             reverse, T, bounds, mm), lam, not reverse)
+        for k, (lo, hi) in enumerate(bounds):
+            lam_k = walk(entries[:, :, k], lo, hi)
+            if k == (len(bounds) - 1 if reverse else 0):
+                lam = lam_k  # the segment the scan enters first gives g_h0
+    return (acc["g_dt"].to(dt.dtype), acc["g_A"], acc["g_D"], acc["g_bias"],
+            lam)
+
+
+def segment_lambdas(load, dt, A, dt_bias, g_y, dims, dt_softplus, reverse, T,
+                    bounds, mm):
+    """The adjoint's pre-pass (`ssd_bwd_state_kernel`): for each segment
+    [lo, hi) of ``bounds``, its λ from a zero λ at its scan end, walked
+    against the scan order (λ <- exp(Σa)·λ + Cᵀ @ (exp(cum) ⊙ g_y) per
+    chunk), and its sum of a: ((G, H, S, N, P), (G, H, S)) fp32. It reads
+    only C, g_y and dt."""
+    H, P, NG, N = dims
+    G, L = dt.shape[:2]
+    rep = H // NG
+    Af = A.float()
+    lams, sums = [], []
+    for lo, hi in bounds:
+        s0, s1 = lo * T, hi * T
+        nci = hi - lo
+        _, _, Cq, dtf = _chunk_rows(load, dt, dt_bias, dt_softplus, s0, s1, L)
+        dtf = dtf.reshape(G, nci, T, H)
+        a = dtf * Af
+        cum = _in_chunk_cumsum(a, reverse)
+        total = a.sum(2)
+        gy = F.pad(g_y[:, s0:min(s1, L)].float(),
+                   (0, 0, 0, 0, 0, s1 - min(s1, L))).reshape(G, nci, T, H, P)
+        gy_e = _q(torch.exp(cum)[..., None] * gy, mm)
+        cterm = torch.einsum("gctkn,gctkrp->gckrnp",
+                             Cq.reshape(G, nci, T, NG, N),
+                             gy_e.reshape(G, nci, T, NG, rep, P))
+        e_end = torch.exp(total).reshape(G, nci, NG, rep, 1, 1)
+        lam = torch.zeros(G, NG, rep, N, P, device=dt.device)
+        tot = torch.zeros(G, H, device=dt.device)
+        for c in (range(nci) if reverse else range(nci - 1, -1, -1)):
+            lam = e_end[:, c] * lam + cterm[:, c]
+            tot = tot + total[:, c]
+        lams.append(lam.reshape(G, H, N, P))
+        sums.append(tot)
+    return torch.stack(lams, 2), torch.stack(sums, 2)
+
+
+def _bwd_walk(load, store, dt, A, D, dt_bias, g_y, carries, dims, dt_softplus,
+              reverse, T, mm, acc, lam, c0, c1):
+    """The adjoint's chunk body over chunks [c0, c1), against the scan
+    order, from the λ (G, H, N, P) leaving them: stores their g_x, g_B,
+    g_C, writes their g_dt into ``acc`` and adds their g_A, g_dt_bias, g_D
+    to it; returns the λ entering them."""
     H, P, NG, N = dims
     G, L = dt.shape[:2]
     rep = H // NG
     dev = dt.device
     Af = A.float()
     Df = (torch.zeros(H, device=dev) if D is None else D.float())
-    nc = -(-L // T)
-    Lp = nc * T
-    assert carries.shape == (G, nc, H, N, P), (carries.shape, (G, nc, H, N, P))
-    lam = (torch.zeros(G, NG, rep, N, P, device=dev) if g_hN is None
-           else g_hN.float().reshape(G, NG, rep, N, P).clone())
-    g_dt = torch.zeros(G, L, H, device=dev)
-    g_A = torch.zeros(H, device=dev)
-    g_bias = torch.zeros(H, device=dev)
-    g_D = torch.zeros(H, device=dev)
+    lam = lam.reshape(G, NG, rep, N, P)
     keep = _keep_mask(T, reverse, dev)
     last = torch.zeros(T, device=dev)
     last[0 if reverse else T - 1] = 1.0
 
-    seg = T * _SEG_CHUNKS
-    starts = list(range(0, Lp, seg))
-    for s0 in (starts if reverse else reversed(starts)):
-        s1 = min(s0 + seg, Lp)
+    for s0 in _walk_starts(c0, c1, T, not reverse):
+        s1 = min(s0 + T * _SEG_CHUNKS, c1 * T)
         r1 = min(s1, L)
         nci = (s1 - s0) // T
         pad = s1 - r1
-        xs, Bq, Cq = (F.pad(t, (0, 0, 0, pad)) for t in load(s0, r1))
-        dtf = F.pad(_resolve_dt(dt[:, s0:r1], dt_bias, dt_softplus),
-                    (0, 0, 0, pad)).reshape(G, nci, T, H)
+        xs, Bq, Cq, dtf = _chunk_rows(load, dt, dt_bias, dt_softplus, s0, s1, L)
+        dtf = dtf.reshape(G, nci, T, H)
         xs = xs.reshape(G, nci, T, NG, rep, P)
         Bq = Bq.reshape(G, nci, T, NG, N)
         Cq = Cq.reshape(G, nci, T, NG, N)
@@ -389,7 +566,7 @@ def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
             G, nci, NG, rep, N, P)
 
         a = dtf * Af
-        cum = a.flip(2).cumsum(2).flip(2) if reverse else a.cumsum(2)
+        cum = _in_chunk_cumsum(a, reverse)
         total = a.sum(2)                                      # (G, c, H)
         ecum = torch.exp(cum).reshape(G, nci, T, NG, rep, 1)
         wv = torch.exp(total[:, :, None] - cum).reshape(G, nci, T, NG, rep, 1)
@@ -435,9 +612,9 @@ def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
             g_dts = g_dts * (1.0 - torch.exp(-dtf))
         valid = (torch.arange(s0, s1, device=dev) < L).reshape(1, nci, T, 1)
         g_dts = torch.where(valid, g_dts, torch.zeros_like(g_dts))
-        g_A += (dtf * g_a).sum((0, 1, 2))
-        g_bias += g_dts.sum((0, 1, 2))
-        g_D += (gy * xs).sum((0, 1, 2, 5)).reshape(H)
+        acc["g_A"] += (dtf * g_a).sum((0, 1, 2))
+        acc["g_bias"] += g_dts.sum((0, 1, 2))
+        acc["g_D"] += (gy * xs).sum((0, 1, 2, 5)).reshape(H)
 
         g_x = (dtf.reshape(G, nci, T, NG, rep, 1) * g_dxv
                + Df.reshape(NG, rep, 1) * gy)
@@ -451,9 +628,9 @@ def _adjoint(load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims,
         store(s0, r1, g_x.reshape(G, s1 - s0, H * P)[:, :n],
               g_B.reshape(G, s1 - s0, NG * N)[:, :n],
               g_C.reshape(G, s1 - s0, NG * N)[:, :n])
-        g_dt[:, s0:r1] = g_dts.reshape(G, s1 - s0, H)[:, :n]
+        acc["g_dt"][:, s0:r1] = g_dts.reshape(G, s1 - s0, H)[:, :n]
 
-    return (g_dt.to(dt.dtype), g_A, g_D, g_bias, lam.reshape(G, H, N, P))
+    return lam.reshape(G, H, N, P)
 
 
 def ssd_adjoint_xc(
@@ -471,13 +648,14 @@ def ssd_adjoint_xc(
     dt_softplus: bool = False,
     reverse: bool = False,
     chunk_size: int = 64,
+    segments: Optional[int] = None,
 ):
     """The SSD part of the adjoint of `ssd_chunked_fused`, from its saved
     chunk carries: the plain version of `ssd_fused_bwd_kernel` (K >= 1).
     Returns ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``: g_xc = d loss / d
     silu(pre) (G, L, Wc) fp32, the input of `conv_silu_bwd`; g_dt in dt's
     dtype; the rest fp32. The chunk body is `_adjoint`'s, on the x, B and C
-    that the forward recomputes from xBC."""
+    that the forward recomputes from xBC; ``segments`` as there."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
@@ -496,7 +674,7 @@ def ssd_adjoint_xc(
 
     g_dt, g_A, g_D, g_bias, g_h0 = _adjoint(
         load, store, dt, A, D, dt_bias, g_y, carries, g_hN, dims, dt_softplus,
-        reverse, chunk_size, mm)
+        reverse, chunk_size, mm, segments)
     return g_xc, g_dt, g_A, g_D, g_bias, g_h0
 
 
@@ -514,6 +692,7 @@ def ssd_chunked_bwd(
     dt_softplus: bool = False,
     reverse: bool = False,
     chunk_size: int = 64,
+    segments: Optional[int] = None,
 ):
     """Adjoint of `ssd_chunked` from its saved chunk carries: the plain
     version of the unfused backward kernel `ssd_bwd` (the K = 0 form of
@@ -524,7 +703,8 @@ def ssd_chunked_bwd(
     Returns ``(g_x, g_dt, g_A, g_B, g_C, g_D, g_dt_bias, g_h0)``, their
     order: g_x / g_dt in the dtypes of x / dt; g_B, g_C (G, L, NG, N) fp32,
     the sums over the heads of each group; the rest fp32. The chunk body is
-    `_adjoint`'s, on the post-conv x, B and C as given."""
+    `_adjoint`'s, on the post-conv x, B and C as given; ``segments`` as
+    there."""
     G, L, H, P = x.shape
     NG, N = B_mat.shape[-2:]
     mm = x.dtype
@@ -544,7 +724,7 @@ def ssd_chunked_bwd(
 
     g_dt, g_A, g_D, g_bias, g_h0 = _adjoint(
         load, store, dt, A, D, dt_bias, g_y, carries, g_hN, (H, P, NG, N),
-        dt_softplus, reverse, chunk_size, mm)
+        dt_softplus, reverse, chunk_size, mm, segments)
     return (g_x.reshape(G, L, H, P).to(mm), g_dt, g_A,
             g_B.reshape(G, L, NG, N), g_C.reshape(G, L, NG, N), g_D, g_bias,
             g_h0)

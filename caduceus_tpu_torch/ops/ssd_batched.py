@@ -28,10 +28,16 @@ entry `ops/ssd_head.py` runs the same two kernels under its own counters.
   backward = `ssd_fused_bwd`. Differentiable in xBC, dt, A, conv_w,
   conv_b, D, dt_bias and h_init, with a cotangent for hN.
 
-Launch counters (one per kernel launch on a CUDA tensor): ``launches``
+Launch counters (one per call of a TPU kernel's counterpart on a CUDA
+tensor, however many `__global__` launches it makes): ``launches``
 (`ssd_fused_fwd`), ``unfused_launches`` (`ssd_fwd`), ``bwd_launches``
-(`ssd_fused_bwd_kernel`), ``conv_bwd_launches`` (`ssd_conv_bwd_kernel`)
-and ``unfused_bwd_launches`` (`ssd_bwd`).
+(the SSD adjoint of `ssd_fused_bwd`), ``conv_bwd_launches`` (its SiLU + conv
+adjoint) and ``unfused_bwd_launches`` (`ssd_bwd`). A forward call is three
+launches (the B/C conv and CB per group, the segment pre-pass, the main
+pass; `csrc/ssd_fused_fwd.cu`), an adjoint call four (the same three and
+the fixed-order g_B / g_C head sum; `csrc/ssd_fused_bwd.cu`), and the
+chunks of each (g, h) are cut into `n_segments` segments so that the grid
+fills the card.
 """
 
 from __future__ import annotations
@@ -56,6 +62,11 @@ KERNEL_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 MAX_CONV_WIDTH = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# sub-launches of one call (the `parts` argument of the C entry points)
+PART_PREP, PART_STATE, PART_MAIN, PART_SUM = 1, 2, 4, 8
+ALL_FWD = PART_PREP | PART_STATE | PART_MAIN
+ALL_BWD = ALL_FWD | PART_SUM
+
 launches = 0
 unfused_launches = 0
 bwd_launches = 0
@@ -64,15 +75,11 @@ unfused_bwd_launches = 0
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "ssd_fused_fwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ssd_fwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 7 + [_I] * 8 + [_P],
-    "ssd_fused_bwd": [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ssd_conv_bwd": [_I, _P, _LL, _LL, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _P],
-    "ssd_bwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 11 + [_I] * 8 + [_P],
+    "ssd_fused_fwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 13 + [_I] * 11 + [_P],
+    "ssd_fwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 10 + [_I] * 9 + [_P],
+    "ssd_fused_bwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 19 + [_I] * 11 + [_P],
+    "ssd_conv_bwd": [_I, _P, _LL, _LL] + [_P] * 6 + [_I] * 5 + [_P],
+    "ssd_bwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 17 + [_I] * 9 + [_P],
 }
 _LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fwd": "ssd_fused_fwd",
             "ssd_fused_bwd": "ssd_fused_bwd", "ssd_conv_bwd": "ssd_fused_bwd",
@@ -125,6 +132,57 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+_SM_COUNT: dict = {}
+
+
+def n_segments(G: int, H: int, nc: int, dev) -> int:
+    """Segments per (g, h) sequence of the kernels' chunk-parallel state
+    passing: as many as keep G·H·S blocks (one per SM: the main passes use
+    more than half an SM's shared memory) within the SMs of the card
+    ``dev``, at least 1 and at most nc, then the fewest segments of the same
+    whole-chunk length (`ops/ssd.py segment_bounds`), so that none is
+    empty. G=4 (training, H=8) on 132 SMs gives 4; a batch-1 prefill 16;
+    G=16 1."""
+    idx = torch.device(dev).index or 0
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    S = max(1, min(nc, _SM_COUNT[idx] // max(1, G * H)))
+    sc = -(-nc // S)
+    return -(-nc // sc)
+
+
+def fwd_workspace(G, L, dims, dtype, dev, fused: bool, S: int) -> dict:
+    """Scratch of one forward call: ``bc`` (fused only; the post-conv B and C
+    rows, (G, L, 2·NG·N) in the storage dtype), ``cb`` (CB per group and
+    chunk, (G, NG, nc, T, T) fp32), ``seg`` / ``seg_a`` (each segment's
+    state from zero and its sum of a, (G, H, S, N, P) and (G, H, S) fp32)."""
+    H, P, NG, N = dims
+    T = KERNEL_CHUNK[dtype]
+    nc = -(-L // T)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {"bc": (torch.empty(G, L, 2 * NG * N, dtype=dtype, device=dev)
+                   if fused else None),
+            "cb": torch.empty(G, NG, nc, T, T, **f32),
+            "seg": torch.empty(G, H, S, N, P, **f32),
+            "seg_a": torch.empty(G, H, S, **f32), "S": S}
+
+
+def bwd_workspace(G, L, dims, dtype, dev, fused: bool, S: int) -> dict:
+    """Scratch of one adjoint call: the forward's (``seg``: each segment's
+    lambda from zero), ``shares`` (each head's fp32 [g_B | g_C] share,
+    (G, L, H, 2·N)), ``partials`` / ``tickets`` (the blocks' g_A, g_dt_bias,
+    g_D sums and the per-head ticket that adds them in a fixed order)."""
+    H, P, NG, N = dims
+    ws = fwd_workspace(G, L, dims, dtype, dev, fused, S)
+    ws["shares"] = torch.empty(G, L, H, 2 * N, dtype=torch.float32,
+                               device=dev)
+    ws["partials"] = torch.empty(H, G * S, 3, dtype=torch.float32,
+                                 device=dev)
+    ws["tickets"] = torch.empty(H, dtype=torch.int32, device=dev)
+    return ws
+
+
 def _check(err: int, what: str, G, L, dims, dtype):
     if err != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {err} "
@@ -168,20 +226,25 @@ def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
                        _small(conv_b, (Wc,), "conv_b", xBC.device))
 
 
-def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
-                  reverse, chunk_size, h_init, save_carries: bool):
-    """One launch of the forward kernel on CUDA tensors: (y, hN, carries),
-    carries = the state entering every chunk, (G, nc, H, N, P) in
-    `carry_dtype`, when ``save_carries`` (else None)."""
+def fused_fwd_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
+                   reverse, chunk_size, h_init, save_carries: bool,
+                   parts: int = ALL_FWD, ws: Optional[dict] = None):
+    """One call of the forward kernels on CUDA tensors, not counted: (y, hN,
+    carries, ws). ``parts`` picks the sub-launches (`PART_PREP`,
+    `PART_STATE`, `PART_MAIN`); ``ws`` (`fwd_workspace`) may be kept from a
+    call to the next, so that the sub-launches can run one at a time."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     dev = xBC.device
     K, (A_, D_, bias_, w_, b_) = _kernel_args(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size)
     h0 = _small(h_init, (G, H, N, P), "h_init", dev)
+    nc = -(-L // chunk_size)
+    if ws is None:
+        ws = fwd_workspace(G, L, dims, xBC.dtype, dev, True,
+                           n_segments(G, H, nc, dev))
     y = torch.empty(G, L, H, P, dtype=xBC.dtype, device=dev)
     hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
-    nc = -(-L // chunk_size)
     carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(xBC.dtype),
                            device=dev) if save_carries else None)
     with torch.cuda.device(dev):
@@ -192,8 +255,23 @@ def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
             dt.data_ptr(), dt.stride(0), dt.stride(1),
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_), _ptr(h0),
             y.data_ptr(), hN.data_ptr(), _ptr(carries),
-            G, L, H, P, NG, N, K, int(dt_softplus), int(reverse), stream)
+            _ptr(ws["bc"]), _ptr(ws["cb"]), _ptr(ws["seg"]),
+            _ptr(ws["seg_a"]),
+            G, L, H, P, NG, N, K, ws["S"], int(dt_softplus), int(reverse),
+            parts, stream)
     _check(err, "ssd_fused_fwd", G, L, dims, xBC.dtype)
+    return y, hN, carries, ws
+
+
+def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
+                  reverse, chunk_size, h_init, save_carries: bool):
+    """One call of the forward kernels on CUDA tensors (TPU kernel #1;
+    `fused_fwd_call`), counted in ``launches``: (y, hN, carries), carries =
+    the state entering every chunk, (G, nc, H, N, P) in `carry_dtype`, when
+    ``save_carries`` (else None)."""
+    y, hN, carries, _ = fused_fwd_call(
+        xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus, reverse,
+        chunk_size, h_init, save_carries)
     global launches
     launches += 1
     return y, hN, carries
@@ -226,11 +304,11 @@ def _strided(*ts):
 
 def launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
                chunk_size, h_init, save_carries: bool):
-    """One launch of the unfused forward kernel (`ssd_fwd`) on CUDA tensors,
+    """One call of the unfused forward kernels (`ssd_fwd`) on CUDA tensors,
     counted by the caller: (y, hN, carries), carries as `ssd_fused_fwd`'s.
     x (G, L, H, P), B_mat and C (G, L, NG, N) and dt (G, L, H) may be views
-    into wider tensors (a conv output and an in_proj output): the kernel
-    takes each one's batch and row strides and needs each row's columns
+    into wider tensors (a conv output and an in_proj output): the kernels
+    take each one's batch and row strides and need each row's columns
     contiguous."""
     G, L, H, P = x.shape
     NG, N = B_mat.shape[-2:]
@@ -238,9 +316,11 @@ def launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
     dev = x.device
     A_, D_, bias_ = _unfused_views(x, B_mat, C, dt, A, D, dt_bias, chunk_size)
     h0 = _small(h_init, (G, H, N, P), "h_init", dev)
+    nc = -(-L // chunk_size)
+    ws = fwd_workspace(G, L, dims, x.dtype, dev, False,
+                       n_segments(G, H, nc, dev))
     y = torch.empty(G, L, H, P, dtype=x.dtype, device=dev)
     hN = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
-    nc = -(-L // chunk_size)
     carries = (torch.empty(G, nc, H, N, P, dtype=carry_dtype(x.dtype),
                            device=dev) if save_carries else None)
     with torch.cuda.device(dev):
@@ -248,7 +328,8 @@ def launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
             _DTYPES[x.dtype], *_strided(x, B_mat, C, dt),
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(h0),
             y.data_ptr(), hN.data_ptr(), _ptr(carries),
-            G, L, H, P, NG, N, int(dt_softplus), int(reverse),
+            _ptr(ws["cb"]), _ptr(ws["seg"]), _ptr(ws["seg_a"]),
+            G, L, H, P, NG, N, ws["S"], int(dt_softplus), int(reverse),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_fwd", G, L, dims, x.dtype)
     return y, hN, carries
@@ -256,17 +337,19 @@ def launch_fwd(x, dt, A, B_mat, C, D, dt_bias, dt_softplus, reverse,
 
 def launch_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
                dt_softplus, reverse, chunk_size):
-    """One launch of the unfused backward kernel (`ssd_bwd`) on CUDA
+    """One call of the unfused backward kernels (`ssd_bwd`) on CUDA
     tensors, counted by the caller: `ops/ssd.py ssd_chunked_bwd`'s
     ``(g_x, g_dt, g_A, g_B, g_C, g_D, g_dt_bias, g_h0)``, g_B and g_C the
-    kernel's fp32 sums over each group's heads. x, B, C and dt as
-    `launch_fwd` takes them; carries from `launch_fwd(save_carries=True)`."""
+    fp32 sums over each group's heads, added in head order. x, B, C and dt
+    as `launch_fwd` takes them; carries from
+    `launch_fwd(save_carries=True)`."""
     G, L, H, P = x.shape
     NG, N = B_mat.shape[-2:]
     dims = (H, P, NG, N)
     dev = x.device
     A_, D_, bias_ = _unfused_views(x, B_mat, C, dt, A, D, dt_bias, chunk_size)
-    want = (G, -(-L // chunk_size), H, N, P)
+    nc = -(-L // chunk_size)
+    want = (G, nc, H, N, P)
     if (tuple(carries.shape) != want or carries.device != dev
             or carries.dtype != carry_dtype(x.dtype)):
         raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
@@ -275,6 +358,8 @@ def launch_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
     g_y = g_y.to(x.dtype).contiguous()
     carries = carries.contiguous()
     ghN = _small(g_hN, (G, H, N, P), "g_hN", dev)
+    ws = bwd_workspace(G, L, dims, x.dtype, dev, False,
+                       n_segments(G, H, nc, dev))
     g_x = torch.empty(G, L, H, P, dtype=x.dtype, device=dev)
     g_BC = torch.empty(2, G, L, NG, N, dtype=torch.float32, device=dev)
     g_dt = torch.empty(G, L, H, dtype=x.dtype, device=dev)
@@ -286,7 +371,9 @@ def launch_bwd(x, dt, A, B_mat, C, D, dt_bias, g_y, carries, g_hN,
             _ptr(A_), _ptr(D_), _ptr(bias_), g_y.data_ptr(),
             carries.data_ptr(), _ptr(ghN), g_x.data_ptr(), g_BC.data_ptr(),
             g_dt.data_ptr(), g_h0.data_ptr(), g_heads.data_ptr(),
-            G, L, H, P, NG, N, int(dt_softplus), int(reverse),
+            _ptr(ws["cb"]), _ptr(ws["seg"]), _ptr(ws["seg_a"]),
+            _ptr(ws["shares"]), _ptr(ws["partials"]), _ptr(ws["tickets"]),
+            G, L, H, P, NG, N, ws["S"], int(dt_softplus), int(reverse),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_bwd", G, L, dims, x.dtype)
     return (g_x, g_dt, g_heads[0], g_BC[0], g_BC[1], g_heads[2], g_heads[1],
@@ -438,38 +525,19 @@ def ssd_batched(x, dt, A, B_mat, C, D=None, dt_bias=None,
     return (y, hN) if return_final_state else y
 
 
-def ssd_adjoint_xc(
-    xBC: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-    conv_w: torch.Tensor, conv_b: Optional[torch.Tensor],
-    D: Optional[torch.Tensor], dt_bias: Optional[torch.Tensor],
-    g_y: torch.Tensor, carries: torch.Tensor, g_hN: Optional[torch.Tensor],
-    dims: Tuple[int, int, int, int], dt_softplus: bool = False,
-    reverse: bool = False, chunk_size: Optional[int] = None,
-):
-    """The SSD part of the backward, `ops/ssd.py ssd_adjoint_xc` semantics:
-    ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``. On a CPU tensor that plain
-    version; on a CUDA tensor one launch of `ssd_fused_bwd_kernel`, or
-    raises. ``g_y`` is cast to xBC's dtype, as the JAX package's
-    `_fused_chained_bwd` does."""
-    H, P, NG, N = (int(v) for v in dims)
-    dims = (H, P, NG, N)
+def adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
+                    g_hN, dims, dt_softplus, reverse, chunk_size,
+                    parts: int = ALL_BWD, ws: Optional[dict] = None):
+    """One call of the fused SSD adjoint's kernels on CUDA tensors, not
+    counted: ``((g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0), ws)``; ``parts``
+    and ``ws`` (`bwd_workspace`) as `fused_fwd_call`'s, with `PART_SUM`."""
+    H, P, NG, N = dims
     G, L, Wc = xBC.shape
-    if chunk_size is None:
-        chunk_size = KERNEL_CHUNK.get(xBC.dtype, 64)
-    if tuple(g_y.shape) != (G, L, H, P):
-        raise ValueError(f"g_y shape {tuple(g_y.shape)}, expected "
-                         f"{(G, L, H, P)}")
-    g_y = g_y.to(xBC.dtype)
-    if xBC.device.type == "cpu":
-        return plain_adjoint_xc(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
-                                carries, g_hN, dims, dt_softplus, reverse,
-                                chunk_size)
-    if xBC.device.type != "cuda":
-        raise ValueError(f"ssd_adjoint_xc: unsupported device {xBC.device}")
     dev = xBC.device
     K, (A_, D_, bias_, w_, b_) = _kernel_args(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size)
-    want = (G, -(-L // chunk_size), H, N, P)
+    nc = -(-L // chunk_size)
+    want = (G, nc, H, N, P)
     if (tuple(carries.shape) != want or carries.device != dev
             or carries.dtype != carry_dtype(xBC.dtype)):
         raise ValueError(f"carries {tuple(carries.shape)} {carries.dtype} on "
@@ -478,6 +546,9 @@ def ssd_adjoint_xc(
     g_y = g_y.contiguous()
     carries = carries.contiguous()
     ghN = _small(g_hN, (G, H, N, P), "g_hN", dev)
+    if ws is None:
+        ws = bwd_workspace(G, L, dims, xBC.dtype, dev, True,
+                           n_segments(G, H, nc, dev))
     g_xc = torch.empty(G, L, Wc, dtype=torch.float32, device=dev)
     g_dt = torch.empty(G, L, H, dtype=xBC.dtype, device=dev)
     g_h0 = torch.empty(G, H, N, P, dtype=torch.float32, device=dev)
@@ -490,13 +561,48 @@ def ssd_adjoint_xc(
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_),
             g_y.data_ptr(), carries.data_ptr(), _ptr(ghN),
             g_xc.data_ptr(), g_dt.data_ptr(), g_h0.data_ptr(),
-            g_heads.data_ptr(),
-            G, L, H, P, NG, N, K, int(dt_softplus), int(reverse),
-            torch.cuda.current_stream(dev).cuda_stream)
+            g_heads.data_ptr(), _ptr(ws["bc"]), _ptr(ws["cb"]),
+            _ptr(ws["seg"]), _ptr(ws["seg_a"]), _ptr(ws["shares"]),
+            _ptr(ws["partials"]), _ptr(ws["tickets"]),
+            G, L, H, P, NG, N, K, ws["S"], int(dt_softplus), int(reverse),
+            parts, torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_fused_bwd", G, L, dims, xBC.dtype)
+    return (g_xc, g_dt, g_heads[0], g_heads[2], g_heads[1], g_h0), ws
+
+
+def ssd_adjoint_xc(
+    xBC: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+    conv_w: torch.Tensor, conv_b: Optional[torch.Tensor],
+    D: Optional[torch.Tensor], dt_bias: Optional[torch.Tensor],
+    g_y: torch.Tensor, carries: torch.Tensor, g_hN: Optional[torch.Tensor],
+    dims: Tuple[int, int, int, int], dt_softplus: bool = False,
+    reverse: bool = False, chunk_size: Optional[int] = None,
+):
+    """The SSD part of the backward, `ops/ssd.py ssd_adjoint_xc` semantics:
+    ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``. On a CPU tensor that plain
+    version; on a CUDA tensor one call of the adjoint's kernels
+    (`adjoint_xc_call`), counted in ``bwd_launches``, or it raises. ``g_y``
+    is cast to xBC's dtype, as the JAX package's `_fused_chained_bwd`
+    does."""
+    H, P, NG, N = (int(v) for v in dims)
+    dims = (H, P, NG, N)
+    G, L, Wc = xBC.shape
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(xBC.dtype, 64)
+    if tuple(g_y.shape) != (G, L, H, P):
+        raise ValueError(f"g_y shape {tuple(g_y.shape)}, expected "
+                         f"{(G, L, H, P)}")
+    g_y = g_y.to(xBC.dtype)
+    if not on_card(xBC, "ssd_adjoint_xc"):
+        return plain_adjoint_xc(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                                carries, g_hN, dims, dt_softplus, reverse,
+                                chunk_size)
+    out, _ = adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                             carries, g_hN, dims, dt_softplus, reverse,
+                             chunk_size)
     global bwd_launches
     bwd_launches += 1
-    return g_xc, g_dt, g_heads[0], g_heads[2], g_heads[1], g_h0
+    return out
 
 
 def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
@@ -504,8 +610,9 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
                   reverse: bool = False):
     """SiLU and depthwise-conv adjoints, `ops/ssd.py conv_silu_bwd`
     semantics: ``(g_xBC, g_conv_w, g_conv_b)``. On a CPU tensor that plain
-    version; on a CUDA tensor one launch of `ssd_conv_bwd_kernel`, or
-    raises."""
+    version; on a CUDA tensor one call of `ssd_conv_bwd` (the conv-adjoint
+    kernel and the fixed-order sum of its g_conv_w / g_conv_b partials),
+    counted in ``conv_bwd_launches``, or raises."""
     if xBC.device.type == "cpu":
         return plain_conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
     if xBC.device.type != "cuda":
@@ -524,11 +631,15 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
     b_ = _small(conv_b, (Wc,), "conv_b", dev)
     g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=dev)
     g_conv = torch.empty(K + 1, Wc, dtype=torch.float32, device=dev)
+    # each conv-adjoint block's g_conv_w / g_conv_b sums (256-row tiles),
+    # added in block order by the second launch
+    g_part = torch.empty(G * -(-L // 256), K + 1, Wc, dtype=torch.float32,
+                         device=dev)
     with torch.cuda.device(dev):
         err = _fn("ssd_conv_bwd")(
             _DTYPES[xBC.dtype], xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
             w_.data_ptr(), _ptr(b_), g_xc.data_ptr(), g_xBC.data_ptr(),
-            g_conv.data_ptr(), G, L, Wc, K, int(reverse),
+            g_conv.data_ptr(), g_part.data_ptr(), G, L, Wc, K, int(reverse),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_conv_bwd", G, L, (Wc, K), xBC.dtype)
     global conv_bwd_launches

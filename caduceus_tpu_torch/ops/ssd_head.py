@@ -6,10 +6,10 @@ and #6, its adjoint).
 On the TPU the per-head kernels keep a (H·N, P) state in VMEM and the
 head-batched ones (`ops/ssd_pallas_batched.py`, #2 and #4) a (N, H·P)
 state: two layouts of one function. On the card both families are the
-same kernels, one block per (g, h) with that head's (N, P) state in shared
-memory: the K = 0 forward `ssd_fwd_kernel` of `csrc/ssd_fused_fwd.cu` and
-the K = 0 backward `ssd_fused_bwd_kernel` of `csrc/ssd_fused_bwd.cu`
-(`ops/ssd_batched.py launch_fwd` / `launch_bwd`). This module is their
+same kernels, one block per (g, h, segment of chunks) with that head's
+(N, P) state in shared memory: the K = 0 forward of `csrc/ssd_fused_fwd.cu`
+and the K = 0 adjoint of `csrc/ssd_fused_bwd.cu` (`ops/ssd_batched.py
+launch_fwd` / `launch_bwd`). This module is their
 second entry, with its own launch counters, ``head_fwd_launches`` and
 ``head_bwd_launches``, so that a run can tell the per-head model path from
 the head-batched callers.

@@ -10,23 +10,28 @@ order (any failure exits non-zero; nothing is caught and passed over):
 
 1. build the kernels from `caduceus_tpu_torch/csrc` (nvcc, sm_90a; one
    nvcc per source, side by side): `ssd_fused_fwd.cu` (entry points
-   `ssd_fused_fwd` and `ssd_fwd`) and `ssd_fused_bwd.cu` (two
-   __global__ kernels), and the two scan sources; print build times and
-   the ptxas reports;
+   `ssd_fused_fwd` and `ssd_fwd`: prep, segment pre-pass and main pass)
+   and `ssd_fused_bwd.cu` (`ssd_fused_bwd` / `ssd_bwd`: prep, pre-pass,
+   main pass, head-order g_B / g_C sum; `ssd_conv_bwd`), and the two scan
+   sources; print build times, every compiled kernel's registers, spills
+   and static shared memory, and each SSD sub-launch's dynamic shared
+   memory;
 2. hold the forward kernel (y, hN and the chunk carries) against its
    plain PyTorch version (`ops/ssd.py ssd_chunked_fused`) on the card:
    small shapes (fp32 and bf16, both directions, nonzero h_init, L not a
    multiple of the chunk, ngroups 1 and 2) and the main-path geometry
-   (H=8, P=64, N=128, K=4, Wc=768, G=4, L=8192), by the rule of
-   `caduceus_tpu_torch/kernel_check.py`; faults planted in its output at
-   the main geometry (D term dropped, one 16x16 tile of y or hN wrong)
-   must fail that check;
+   (H=8, P=64, N=128, K=4, Wc=768, G=4, L=8192: 4 segments of 32
+   chunks), by the rule of `caduceus_tpu_torch/kernel_check.py`; faults
+   planted in its output at the main geometry (D term dropped, one 16x16
+   tile of y or hN wrong, and, in each scan direction, one segment's
+   incoming state dropped in the kernels' combine) must fail that check;
 3. the same for the backward kernels (`ssd_fused_bwd`: all eight
    gradients against `ssd_chunked_fused_bwd`, nonzero h_init and g_hN),
    each kernel also alone against its own plain version, and four faults
    planted in the backward's outputs at the main geometry (the conv
    transpose's neighbour rows dropped, one 16-row tile of g_dt zeroed,
-   g_A scaled by 1+2^-4, one 16x16 tile of g_xBC's B columns zeroed);
+   g_A scaled by 1+2^-4, one 16x16 tile of g_xBC's B columns zeroed, and
+   in each direction one segment's incoming lambda dropped);
 4. hold the whole model on the card against the same model on the CPU
    (same weights, full width, 2 layers, L=2048, fp32 logits);
 5. serve the full-width `hg38_mlm_v2` model (16 layers, random weights
@@ -48,8 +53,10 @@ order (any failure exits non-zero; nothing is caught and passed over):
    pinned per micro-batch;
 8. time the kernels at the training shape (G=4, L=131072, bf16) and the
    forward also at G=16 (`bench.py`'s batch of 8 x 2 strands) beside
-   their plain versions and bounds, and hold the timed outputs against
-   the plain versions';
+   their plain versions and bounds, each SSD sub-launch alone beside its
+   bytes, and hold the timed outputs against the plain versions'; then
+   run #1 + #3 and #2 + #4 twice on the same inputs at the training shape
+   and require every output bit for bit the same;
 
 then the v1 (Mamba-1) model of `configs/hg38_mlm.yaml` and its selective
 scan kernels, `selective_scan_fwd.cu` (`selective_scan_fwd`, one
@@ -99,9 +106,11 @@ through `selective_scan_fwd`, #7, chained from the cache):
    its scan kernel 16 times per request and decoding none; a bf16
    prefill's last logits against the full forward's last position
    (BF16_MODEL_TOL); prefill tokens/s at 131,072, decode ms per token at
-   batch 1 and 8, /generate latency, each beside its bound;
-20. `ssd_fwd` per launch at G=1 and G=4, L=131072, bf16, beside its plain
-   version and bound;
+   batch 1 and 8, /generate latency, each beside its bound; the 131,072
+   prefill and /generate timed again with the scan in bf16 (the rule
+   before the bf16 prefill scanned in fp32, as the JAX prefill does);
+20. `ssd_fwd` per call at G=1 and G=4, L=131072, bf16, and at G=1 in
+   fp32 (the prefill's scan dtype), beside its plain version and bound;
 
 and, after 16, the last four TPU kernels: the unfused SSD adjoint `ssd_bwd`
 (the K = 0 instantiation of `ssd_fused_bwd.cu`'s SSD adjoint; #4 behind
@@ -237,7 +246,39 @@ def ssd_inputs(G, L, H, P, NG, N, K, dtype, seed, width_pad=0):
         g_y=rnd(G, L, H, P).to(dtype), g_hN=rnd(G, H, N, P))
 
 
+_KERNEL_NAMES = ("ssd_prep_kernel", "ssd_fwd_state_kernel", "ssd_fwd_kernel",
+                 "ssd_bwd_state_kernel", "ssd_fused_bwd_kernel",
+                 "ssd_share_sum_kernel", "ssd_conv_bwd_kernel",
+                 "ssd_conv_wsum_kernel", "selective_scan_fwd_kernel",
+                 "selective_scan_bwd_kernel")
+
+
+def _instantiation(mangled: str) -> str:
+    """A readable name of one compiled kernel: its name, storage type,
+    conv width K and scan direction, from the mangled symbol."""
+    import re
+
+    name = next((k for k in _KERNEL_NAMES if k in mangled), mangled)
+    tail = mangled.split(name, 1)[-1]
+    args = []
+    if "bfloat16" in tail:
+        args.append("bf16")
+    elif re.match(r"I(Li\d+E)?f", tail):
+        args.append("fp32")
+    k = re.search(r"Li(\d+)E", tail)
+    if k and name.startswith("ssd"):
+        args.append(f"K={k.group(1)}")
+    if "Lb1E" in tail:
+        args.append("reverse")
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
 def phase_build():
+    """nvcc of the four sources side by side; then every compiled kernel's
+    registers, static shared memory and spills (`-Xptxas -v`), and the
+    dynamic shared memory each SSD sub-launch asks for at the main geometry
+    (P=64, N=128) and K = 4 and 0."""
+    import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     from caduceus_tpu_torch import _build
@@ -248,28 +289,32 @@ def phase_build():
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     wall = time.perf_counter() - t0
-    out = {"nvcc_flags": list(_build.NVCC_FLAGS), "wall_s": wall}
-    kernels = ("ssd_fwd_kernel", "ssd_fused_bwd_kernel",
-               "ssd_conv_bwd_kernel", "selective_scan_fwd_kernel",
-               "selective_scan_bwd_kernel")
+    out = {"nvcc_flags": list(_build.NVCC_FLAGS), "wall_s": wall,
+           "ptxas": {}, "dynamic_smem": {}}
     for name, (path, secs) in built.items():
         log(f"[build] {name}: {secs:.1f} s -> {os.path.relpath(path)}")
         out[f"{name}_s"] = secs
         with open(path[:-3] + ".log") as f:
             report = f.read().split("Compiling entry function")
         for entry in report[1:]:
-            head = entry.split("\n", 1)[0]
-            kernel = next(k for k in kernels if k in head)
-            unfused = (kernel in ("ssd_fwd_kernel", "ssd_fused_bwd_kernel")
-                       and "Li0E" in head)
-            if kernel.startswith("ssd") and "Li4E" not in head and not unfused:
-                continue    # the SSD kernels: the K=4 (d_conv) and K=0 ones
-            kind = "bf16" if "bfloat16" in head else "fp32"
-            kind += ", reverse" if "Lb1E" in head else ""
-            kind += ", unfused (K = 0)" if unfused else ""
-            for line in entry.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build]   {kernel} ({kind}): {line.strip()}")
+            head = entry.split("\n", 1)[0].strip(" '")
+            kernel = _instantiation(head)
+            used = [ln.strip() for ln in entry.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            out["ptxas"][kernel] = used
+            log(f"[build]   {kernel}: {'; '.join(used)}")
+        if name.startswith("ssd"):
+            fn = getattr(ctypes.CDLL(path), f"{name}_smem")
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_int] * 5
+            for dtype, dname in ((1, "bf16"), (0, "fp32")):
+                for K in (4, 0):
+                    sizes = {part: fn(dtype, K, 64, 128, i) for i, part in
+                             enumerate(("prep", "pre-pass", "main pass"))}
+                    out["dynamic_smem"][f"{name} {dname} K={K}"] = sizes
+                    log(f"[build]   {name} {dname} K={K} dynamic shared "
+                        f"memory (P=64, N=128): " + ", ".join(
+                            f"{k} {v:,} B" for k, v in sizes.items()))
     log(f"[build] {len(names)} libraries in {wall:.1f} s wall")
     return out
 
@@ -352,6 +397,51 @@ def planted_faults(inp, kernel, plain):
     return res
 
 
+def _second_segment(S, reverse):
+    """The array index of the segment the scan passes second: dropping its
+    pre-pass output hands the third segment a zero incoming state."""
+    check(S >= 3, f"{S} segments: the segment faults need 3 or more")
+    return S - 2 if reverse else 1
+
+
+def drop_segment_fwd(inp, reverse):
+    """The forward kernels (y, hN, carries) with one segment's incoming
+    state dropped: after the prep and the pre-pass, the state of the
+    segment the scan passes second is set to 0 and its sum of a to -inf, so
+    the combine hands the next segment a zero state."""
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+
+    T = sb.KERNEL_CHUNK[inp["xBC"].dtype]
+    a = (inp["xBC"], inp["dt"], inp["A"], inp["conv_w"], inp["conv_b"],
+         inp["D"], inp["dt_bias"], inp["dims"], True, reverse, T,
+         inp["h_init"], True)
+    ws = sb.fused_fwd_call(*a, parts=sb.PART_PREP | sb.PART_STATE)[3]
+    j = _second_segment(ws["S"], reverse)
+    ws["seg"][:, :, j] = 0
+    ws["seg_a"][:, :, j] = -math.inf
+    return sb.fused_fwd_call(*a, parts=sb.PART_MAIN, ws=ws)[:3]
+
+
+def drop_segment_bwd(inp, reverse, car):
+    """The backward kernels' eight gradients with one segment's incoming
+    lambda dropped (as `drop_segment_fwd`, on the adjoint's pre-pass)."""
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+
+    T = sb.KERNEL_CHUNK[inp["xBC"].dtype]
+    a = (inp["xBC"], inp["dt"], inp["A"], inp["conv_w"], inp["conv_b"],
+         inp["D"], inp["dt_bias"], inp["g_y"], car, inp["g_hN"], inp["dims"],
+         True, reverse, T)
+    ws = sb.adjoint_xc_call(*a, parts=sb.PART_PREP | sb.PART_STATE)[1]
+    j = _second_segment(ws["S"], not reverse)
+    ws["seg"][:, :, j] = 0
+    ws["seg_a"][:, :, j] = -math.inf
+    (g_xc, g_dt, g_A, g_D, g_bias, g_h0), _ = sb.adjoint_xc_call(
+        *a, parts=sb.PART_MAIN | sb.PART_SUM, ws=ws)
+    g_xBC, g_w, g_b = sb.conv_silu_bwd(g_xc, inp["xBC"], inp["conv_w"],
+                                       inp["conv_b"], reverse)
+    return g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0
+
+
 def phase_kernel_checks():
     from caduceus_tpu_torch.kernel_check import TOL
 
@@ -381,6 +471,11 @@ def phase_kernel_checks():
                                               plain)})
         if faults is None:
             faults = planted_faults(inp, kernel, plain)
+        if dtype == torch.bfloat16:
+            name = f"segment's incoming state dropped, rev={reverse}"
+            faults[name] = hold(f"planted fault: {name}", TOL[dtype],
+                                drop_segment_fwd(inp, reverse), plain,
+                                expect_ok=False)
         del inp, kernel, plain
     return results, faults
 
@@ -480,6 +575,11 @@ def phase_bwd_checks():
             label, TOL[dtype], kernel, plain, BWD_NAMES, tag="bwd")})
         if faults is None:
             faults = bwd_planted_faults(inp, kernel, plain + (car,))
+        if dtype == torch.bfloat16:
+            name = f"segment's incoming lambda dropped, rev={reverse}"
+            faults[name] = hold(f"planted fault: {name}", TOL[dtype],
+                                drop_segment_bwd(inp, reverse, car), plain,
+                                BWD_NAMES, expect_ok=False, tag="bwd")
         del inp, kernel, plain, car
     return results, faults
 
@@ -893,6 +993,25 @@ def _timed(kernel_fn, plain_fn, n_kernel=3):
             "plain_ms": float(np.mean(plain_ms)), "plain_ms_runs": plain_ms}
 
 
+def _sub_launches(call, parts, bytes_of, n=3):
+    """Each sub-launch of one kernel call timed alone (``call(parts, ws)``
+    runs the chosen ones with the workspace of a full call made first, so
+    every input a sub-launch reads is in place), beside the bytes it must
+    move and their time at the card's memory rate."""
+    ws = call(sum(parts.values()), None)
+    out = {}
+    for name, part in parts.items():
+        ms = _time_cuda(lambda: call(part, ws), n)
+        nbytes = bytes_of[name]
+        out[name] = {"ms": ms, "bytes": nbytes,
+                     "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log("[time]   sub-launches: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms ({v['bytes'] / 1e9:.3f} GB, "
+        f"{v['bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+        for k, v in out.items()))
+    return out
+
+
 def phase_timing():
     """The forward kernel at the serving batch (G=16: 8 sequences x 2
     strands, L=131072, bf16, no carries) and every kernel at the training
@@ -901,6 +1020,7 @@ def phase_timing():
     versions'."""
     from caduceus_tpu_torch.kernel_check import TOL
     from caduceus_tpu_torch.ops import ssd as plain
+    from caduceus_tpu_torch.ops import ssd_batched as sb
     from caduceus_tpu_torch.ops.ssd_batched import (
         KERNEL_CHUNK, conv_silu_bwd, ssd_adjoint_xc, ssd_batched_fused,
         ssd_fused_fwd)
@@ -968,6 +1088,24 @@ def phase_timing():
     log(f"[time] ssd_fused_fwd + carries G=4 L={L} bf16: kernel "
         f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
         f"{t['bound_ms']:.3f} ms ({t['bound_by']}: {t['bytes'] / 1e9:.2f} GB)")
+    # the three launches of one call: bytes each must move (bf16 rows; the
+    # pre-pass reads x, dt and B for the S - 1 segments it covers; the main
+    # pass reads x, dt, B, C and CB and writes y and the carries)
+    S = sb.n_segments(G, H, nc, "cuda")
+    frac = (S - 1) / S
+    cb_bytes = G * NG * nc * T * T * 4
+    t["segments"] = S
+    t["sub_launches"] = _sub_launches(
+        lambda parts, ws: sb.fused_fwd_call(
+            *a7, inp["dims"], True, False, T, None, True, parts=parts,
+            ws=ws)[3],
+        {"prep": sb.PART_PREP, "pre-pass": sb.PART_STATE,
+         "main pass": sb.PART_MAIN},
+        {"prep": rows * 2 * NG * N * 2 * 2 + cb_bytes,
+         "pre-pass": frac * rows * (H * P + H + NG * N) * 2
+         + G * H * (S - 1) * N * P * 4,
+         "main pass": rows * (H * P + H + 2 * NG * N) * 2 + cb_bytes
+         + rows * H * P * 2 + car_bytes + G * H * N * P * 4})
     car = fwd_k[2]
     del fwd_k, fwd_p
     bwd_args = a7 + (inp["g_y"], car, None, inp["dims"], True, False, T)
@@ -990,6 +1128,23 @@ def phase_timing():
     t.update(_bound(rows * (Wc * 2 + H * 2 + H * P * 2 + H * 2) + car_bytes,
                     rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P))))
     t["extra_bytes"] = rows * Wc * 4
+    # the four launches of one call: the pre-pass reads C, dt and g_y for
+    # S - 1 segments; the main pass reads x, dt, B, C, CB, g_y and the
+    # carries and writes g_x (fp32 workspace columns), g_dt and the heads'
+    # fp32 g_B / g_C shares; the share sum reads those and writes g_B, g_C
+    t["segments"] = S
+    share_bytes = rows * H * 2 * N * 4
+    t["sub_launches"] = _sub_launches(
+        lambda parts, ws: sb.adjoint_xc_call(*bwd_args, parts=parts,
+                                             ws=ws)[1],
+        {"prep": sb.PART_PREP, "pre-pass": sb.PART_STATE,
+         "main pass": sb.PART_MAIN, "share sum": sb.PART_SUM},
+        {"prep": rows * 2 * NG * N * 2 * 2 + cb_bytes,
+         "pre-pass": frac * rows * (NG * N + H + H * P) * 2
+         + G * H * (S - 1) * N * P * 4,
+         "main pass": rows * (H * P + H + 2 * NG * N + H * P) * 2 + cb_bytes
+         + car_bytes + rows * (H * P * 4 + H * 2) + share_bytes,
+         "share sum": share_bytes + rows * 2 * NG * N * 4})
     res["bwd_main"] = t
     log(f"[time] ssd_fused_bwd_kernel G=4 L={L} bf16: kernel {t['ms']:.3f} "
         f"ms, plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
@@ -1035,6 +1190,53 @@ def phase_timing():
         f"the function {res['bwd_function_bound']['bound_ms']:.3f} ms "
         f"({res['bwd_function_bound']['bytes'] / 1e9:.2f} GB), sum of the "
         f"kernels' bounds {res['bwd_main']['bound_ms'] + res['bwd_conv']['bound_ms']:.3f} ms")
+    return res
+
+
+def phase_determinism():
+    """Run-to-run bits at the training shape (G=4, L=131072, bf16, forward
+    direction): the fused forward with carries (#1) and the fused backward
+    (#3: the SSD adjoint and the conv adjoint), and the unfused forward and
+    adjoint (#2 / #4), each twice on the same inputs; every output must be
+    bit for bit the same (no sum is left to atomics)."""
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+
+    G, L, H, P, NG, N, K = 4, 131072, 8, 64, 1, 128, 4
+    T = sb.KERNEL_CHUNK[torch.bfloat16]
+    inp = ssd_inputs(G, L, H, P, NG, N, K, torch.bfloat16, 97, width_pad=512)
+    a7 = (inp["xBC"], inp["dt"], inp["A"], inp["conv_w"], inp["conv_b"],
+          inp["D"], inp["dt_bias"])
+    runs = {}
+
+    def fused():
+        y, hN, car = sb.ssd_fused_fwd(*a7, inp["dims"], True, False, T,
+                                      inp["h_init"], save_carries=True)
+        g = sb.ssd_fused_bwd(*a7, inp["g_y"], car, inp["g_hN"], inp["dims"],
+                             True, False, T)
+        return dict(zip(FWD_NAMES + BWD_NAMES, (y, hN, car) + tuple(g)))
+
+    uinp = unfused_inputs(G, L, H, P, NG, N, torch.bfloat16, 96, pad=16)
+    ua = _unfused_args(uinp)
+
+    def unfused():
+        y, hN, car = sb.ssd_fwd(*ua, True, False, T, uinp["h_init"], True)
+        g = sb.ssd_bwd(*ua, uinp["g_y"], car, uinp["g_hN"], True, False, T)
+        return dict(zip(FWD_NAMES + UNFUSED_BWD_NAMES, (y, hN, car) + g))
+
+    res = {}
+    for name, fn in (("fused #1 + #3", fused), ("unfused #2 + #4", unfused)):
+        first = {k: v.clone() for k, v in fn().items()}
+        second = fn()
+        torch.cuda.synchronize()
+        same = {k: bool(torch.equal(first[k], second[k])) for k in first}
+        res[name] = same
+        log(f"[determinism] {name}, G={G} L={L} bf16, two runs: " + ", ".join(
+            f"{k} {'bit-equal' if v else 'DIFFER'}" for k, v in same.items()))
+        check(all(same.values()), f"{name}: outputs differ between two runs "
+              f"on the same inputs: {[k for k, v in same.items() if not v]}")
+        del first, second
+    del inp, uinp
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1656,27 +1858,47 @@ def phase_prefill_vs_cpu(version, use_kernel="auto"):
 
 
 def _prefill_bound(cfg, L, B=1):
-    """The least time of a bf16 prefill of B x L tokens: every layer's
-    scan kernel's bytes (as its own bound) plus the layer's hidden state
-    in and out, and the projections' and the scan's operations at the bf16
-    tensor-core peak; the conv, norms and the rest add to it."""
+    """The least time of a bf16 model's prefill of B x L tokens: every
+    layer's scan kernel's bytes (as its own bound) plus the layer's hidden
+    state in and out, and the operations: the projections at the bf16
+    tensor-core peak, the scan at the fp32 peak (with a conv bias the
+    scan's operands are fp32, as in the JAX prefill; `inference._conv_tail`)
+    or the bf16 one; the conv, norms and the rest add to it."""
     c, s = cfg, cfg.ssm_cfg
     rows = B * L
     d, di = c.d_model, c.d_inner
+    es = 4 if s.conv_bias else 2   # bytes per scan operand
     if s.version == 2:
         H, P, NG, N = c.nheads, s.headdim, s.ngroups, s.d_state
-        T = 64
+        T = 32 if s.conv_bias else 64
         proj = 2 * d * (2 * di + 2 * NG * N + H) + 2 * di * d
-        scan_bytes = rows * ((H * P + 2 * NG * N + H) * 2 + H * P * 2)
+        scan_bytes = rows * ((H * P + 2 * NG * N + H) * es + H * P * es)
         scan_ops = rows * (2 * T * N * NG + 2 * T * P * H + 4 * N * P * H)
     else:
         N, R = s.d_state, c.dt_rank
         proj = 2 * d * 2 * di + 2 * di * (R + 2 * N) + 2 * R * di + 2 * di * d
-        scan_bytes = rows * (2 * di * 2 + 2 * N * 2 + di * 2)
+        scan_bytes = rows * (2 * di * es + 2 * N * es + di * es)
         scan_ops = 5 * rows * di * N
     n = c.n_layer
-    return _bound(n * (scan_bytes + rows * d * 2 * 2),
-                  n * (scan_ops + rows * proj))
+    nbytes = n * (scan_bytes + rows * d * 2 * 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (n * rows * proj / BF16_FLOP_PER_S + n * scan_ops
+              / (FP32_FLOP_PER_S if s.conv_bias else BF16_FLOP_PER_S)) * 1e3
+    return {"bytes": nbytes, "flops": n * (scan_ops + rows * proj),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _bf16_conv_tail(dparams, x_ext):
+    """The prefill's conv with its bias cast to the input's dtype, so that a
+    bf16 model's scan runs in bf16: the rule before `inference._conv_tail`
+    mirrored the JAX prefill's fp32 promotion; timed beside it."""
+    from caduceus_tpu_torch.ops.conv import causal_conv1d
+
+    K = dparams.conv_w.shape[0]
+    b = None if dparams.conv_b is None else dparams.conv_b.to(x_ext.dtype)
+    return causal_conv1d(x_ext, dparams.conv_w.to(x_ext.dtype), b,
+                         activation="silu")[:, K - 1:]
 
 
 def phase_generate_serve(version):
@@ -1686,6 +1908,7 @@ def phase_generate_serve(version):
     bf16 prefill's last logits against the full forward's last position;
     prefill tokens/s, decode ms per token at batch 1 and 8, /generate
     latency, each beside its bound."""
+    from caduceus_tpu_torch import inference
     from caduceus_tpu_torch.inference import lm_step, prefill
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
     from caduceus_tpu_torch.serve import InferenceServer, InferenceService
@@ -1715,6 +1938,14 @@ def phase_generate_serve(version):
             log(f"[generate] v{version} /generate {len(prompt)} + {n_new} "
                 f"tokens: {dt * 1e3:.1f} ms over HTTP")
         counts = _counts()
+        # the long request again with the prefill's scan in bf16 (its conv
+        # bias cast to bf16, as before the JAX prefill's fp32 promotion was
+        # mirrored): a time to compare, not a path of the port
+        with mock.patch.object(inference, "_conv_tail", _bf16_conv_tail):
+            t0 = time.perf_counter()
+            _post(server.port, "/generate",
+                  {"prompt": prompts[-1], "max_new_tokens": n_new})
+            bf16_generate_s = time.perf_counter() - t0
     finally:
         server.stop()
     want = dict.fromkeys(counts, 0)
@@ -1744,6 +1975,20 @@ def phase_generate_serve(version):
         check(_counts()[counter] == cfg.n_layer, "prefill launches")
         res["prefill_tokens_per_s"] = ids.shape[1] / res["prefill_s"]
         res["prefill_bound"] = _prefill_bound(cfg, ids.shape[1])
+        with mock.patch.object(inference, "_conv_tail", _bf16_conv_tail):
+            prefill(model, ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(model, ids)
+            torch.cuda.synchronize()
+            res["prefill_bf16_scan_s"] = time.perf_counter() - t0
+        res["generate_bf16_scan_s"] = bf16_generate_s
+        log(f"[generate] v{version} with the prefill's scan in bf16 (the "
+            f"earlier rule; time only): prefill 1 x {ids.shape[1]} "
+            f"{res['prefill_bf16_scan_s'] * 1e3:.1f} ms, /generate "
+            f"{ids.shape[1]} + {n_new} over HTTP {bf16_generate_s * 1e3:.1f} "
+            f"ms (fp32 scan: {res['prefill_s'] * 1e3:.1f} ms, "
+            f"{requests[-1]['latency_s'] * 1e3:.1f} ms)")
         # decode: ms per token after a 1,000-token prompt, batch 1 and 8
         n_params = sum(p.numel() for p in model.parameters())
         for B in (1, 8):
@@ -1790,19 +2035,21 @@ def phase_generate_serve(version):
 
 
 def phase_unfused_timing():
-    """`ssd_fwd` per launch at the prefill's batch G=1 and at G=4, L=131072,
-    bf16, no carries (as the prefill runs it), beside its plain version and
-    bound; the timed outputs held against the plain version's."""
+    """`ssd_fwd` per call at the prefill's batch G=1 and at G=4, L=131072,
+    bf16, and at G=1 in fp32 (the dtype of a bf16 model's prefill scan), no
+    carries (as the prefill runs it), beside its plain version and bound;
+    the timed outputs held against the plain version's."""
     from caduceus_tpu_torch.kernel_check import TOL
     from caduceus_tpu_torch.ops.ssd import ssd_chunked
     from caduceus_tpu_torch.ops.ssd_batched import KERNEL_CHUNK, ssd_fwd
 
     L, H, P, NG, N = 131072, 8, 64, 1, 128
-    T = KERNEL_CHUNK[torch.bfloat16]
     res = {}
-    for G in (1, 4):
-        inp = unfused_inputs(G, L, H, P, NG, N, torch.bfloat16, 700 + G,
-                             pad=16)
+    for G, dtype in ((1, torch.bfloat16), (4, torch.bfloat16),
+                     (1, torch.float32)):
+        T = KERNEL_CHUNK[dtype]
+        es = 2 if dtype == torch.bfloat16 else 4
+        inp = unfused_inputs(G, L, H, P, NG, N, dtype, 700 + G + es, pad=16)
         a = _unfused_args(inp)
         outs = {}
         t = _timed(lambda: outs.__setitem__("k", ssd_fwd(
@@ -1810,17 +2057,20 @@ def phase_unfused_timing():
                    lambda: outs.__setitem__("p", ssd_chunked(
                        *a, True, False, T, inp["h_init"],
                        return_final_state=True)))
-        t["check"] = hold(f"timed ssd_fwd G={G} L={L} bf16",
-                          TOL[torch.bfloat16], outs.pop("k"), outs.pop("p"),
+        dname = str(dtype)[6:]
+        t["check"] = hold(f"timed ssd_fwd G={G} L={L} {dname}",
+                          TOL[dtype], outs.pop("k"), outs.pop("p"),
                           ("y", "hN"), tag="ssd-unfused")
         rows = G * L
-        # x, B, C, dt read once, y written once (bf16); h_init and hN fp32
-        t.update(_bound(rows * (H * P + 2 * NG * N + H) * 2 + rows * H * P * 2
-                        + 2 * G * H * N * P * 4,
+        # x, B, C, dt read once, y written once; h_init and hN fp32; in
+        # fp32 the matmul work runs on the fp32 units
+        t.update(_bound(rows * (H * P + 2 * NG * N + H) * es
+                        + rows * H * P * es + 2 * G * H * N * P * 4,
                         rows * (2 * T * N * NG + 2 * T * P * H
-                                + 4 * N * P * H)))
-        res[f"G{G}"] = t
-        log(f"[time] ssd_fwd G={G} L={L} bf16: kernel {t['ms']:.3f} ms "
+                                + 4 * N * P * H),
+                        BF16_FLOP_PER_S if es == 2 else FP32_FLOP_PER_S))
+        res[f"G{G}" if es == 2 else f"G{G}_fp32"] = t
+        log(f"[time] ssd_fwd G={G} L={L} {dname}: kernel {t['ms']:.3f} ms "
             f"(runs {', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), "
             f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}: {t['bytes'] / 1e9:.3f} GB)")
@@ -2244,6 +2494,7 @@ def main() -> int:
     # (PERF.md), and the generation phases need the time
     report["train"] = phase_train_full(n_layer=8)
     report["timing"] = phase_timing()
+    report["determinism"] = phase_determinism()
     t_gen = time.perf_counter()
     (report["unfused_checks"],
      report["unfused_planted_faults"]) = phase_unfused_checks()
@@ -2356,6 +2607,8 @@ def main() -> int:
               tm["fwd_G4_carries"], tr["launches"]["ssd_fused_fwd"],
               tm["fwd_G4_carries"]["check"]["y"]["max_abs_err"],
               shape="G=4 L=131072 bf16, carries saved",
+              segments=tm["fwd_G4_carries"]["segments"],
+              sub_launches=tm["fwd_G4_carries"]["sub_launches"],
               launches_serve=report["serve"]["launches"],
               serve_G16={k: f16[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")}),
@@ -2366,11 +2619,15 @@ def main() -> int:
               launches_path="/generate of the v2 causal model: prompts of "
               "1,000 and 131,072 tokens, 16 layers each",
               G4={k: ut["G4"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")}),
+                                            "bound_by")},
+              G1_fp32={k: ut["G1_fp32"][k] for k in ("ms", "plain_ms",
+                                                      "bound_ms", "bound_by")}),
         entry("ssd_fused_bwd_kernel", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               tm["bwd_main"], tr["launches"]["ssd_fused_bwd_kernel"],
               tm["bwd_main"]["check"]["g_xc"]["max_abs_err"],
               shape="G=4 L=131072 bf16",
+              segments=tm["bwd_main"]["segments"],
+              sub_launches=tm["bwd_main"]["sub_launches"],
               extra_bytes=tm["bwd_main"]["extra_bytes"], **pair),
         entry("ssd_conv_bwd_kernel", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               tm["bwd_conv"], tr["launches"]["ssd_conv_bwd_kernel"],

@@ -593,3 +593,44 @@ def test_paired_backward_is_taken_under_the_environment_flag(card,
     for a, b in zip(grads["1"], grads["0"]):
         stats = compare(a, b, TOL[torch.float32])
         assert stats["ok"], stats
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_are_deterministic_at_the_training_shape(card):
+    """The fused forward and backward (#1 + #3) and the unfused forward and
+    adjoint (#2 + #4), twice on the same inputs at the training shape (G=4,
+    L=131072, bf16, the main geometry): every output bit for bit the same,
+    the conv-weight sums included (all sums in a fixed order, no atomics)."""
+    G, L, H, P, NG, N, K = 4, 131072, 8, 64, 1, 128, 4
+    T = ssd_batched.KERNEL_CHUNK[torch.bfloat16]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    Wc = H * P + 2 * NG * N
+    xBC, dt = rnd(G, L, Wc).bfloat16(), (rnd(G, L, H) * 0.5).bfloat16()
+    ps = (-torch.exp(rnd(H, sc=0.5)), rnd(K, Wc, sc=0.5), rnd(Wc, sc=0.1),
+          rnd(H), rnd(H, sc=0.1))
+    h0, gy, ghN = rnd(G, H, N, P), rnd(G, L, H, P).bfloat16(), rnd(G, H, N, P)
+    dims = (H, P, NG, N)
+    xc = rnd(G, L, Wc).bfloat16()
+    x = xc[..., :H * P].reshape(G, L, H, P)
+    B = xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N)
+    C = xc[..., H * P + NG * N:].reshape(G, L, NG, N)
+    A, _, _, D, bias = ps
+
+    def fused():
+        y, hN, car = ssd_batched.ssd_fused_fwd(xBC, dt, *ps, dims, True,
+                                               False, T, h0, True)
+        return (y, hN, car) + tuple(ssd_batched.ssd_fused_bwd(
+            xBC, dt, *ps, gy, car, ghN, dims, True, False, T))
+
+    def unfused():
+        y, hN, car = ssd_batched.ssd_fwd(x, dt, A, B, C, D, bias, True,
+                                         False, T, h0, True)
+        return (y, hN, car) + tuple(ssd_batched.ssd_bwd(
+            x, dt, A, B, C, D, bias, gy, car, ghN, True, False, T))
+
+    for fn in (fused, unfused):
+        first = [t.clone() for t in fn()]
+        second = fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), fn

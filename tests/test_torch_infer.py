@@ -169,6 +169,47 @@ def test_pallas_prefill_matches_jax():
     _close(got_caches, want_caches, PREFILL)
 
 
+# bf16 prefill vs the JAX bf16 prefill, in units of the JAX value's
+# max|.|: the first layer's scan state (before any bf16 rounding of a
+# layer's output: what is left is the bf16 conv, rounded per op here and
+# fused by XLA) and every other output (a few bf16 steps, 2^-8 each, passed
+# through one more layer)
+BF16_FIRST_STATE = 3e-3
+BF16 = 1e-2
+
+
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_bf16_prefill_matches_jax(name):
+    """A bf16 model's prefill (logits and every cache entry) against the
+    JAX bf16 prefill, the XLA routes, the weights of `family`. The JAX
+    prefill adds the fp32 conv bias uncast, so its scan runs in fp32; the
+    port's `_conv_tail` does the same (a scan in bf16 put the first
+    layer's state 6.0e-3 / 6.4e-3 of max from JAX's)."""
+    cfg, params, _ = family(name)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", ssm_cfg=dataclasses.replace(
+        cfg.ssm_cfg, use_kernel="xla"))
+    pcfg = CaduceusConfig.from_dict(dataclasses.asdict(cfg))
+    model = CaduceusForMaskedLM(pcfg, device="cpu")
+    model.load_state_dict(from_jax_params(
+        {k: np.asarray(v) for k, v in tu.flatten_dict(
+            params["params"], sep="/").items()}, pcfg))
+    ids = _ids(2, 40, 1)
+    want_logits, want_caches = jax.jit(lambda i: jinf.prefill(
+        params, cfg, i))(ids)
+    got_logits, got_caches = inf.prefill(model, _t(ids).long())
+
+    def err(got, want):
+        want = np.asarray(want, np.float32)
+        return np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+
+    assert err(got_logits, want_logits) <= BF16
+    for key, layer in want_caches.items():
+        for n, want in layer["fwd"].items():
+            got = got_caches[key]["fwd"][n]
+            tol = BF16_FIRST_STATE if (key, n) == ("layers_0", "ssm") else BF16
+            assert err(got, want) <= tol, (key, n, err(got, want))
+
+
 @pytest.mark.parametrize("name", ["v1", "v2"])
 def test_chained_prefill_equals_one_call(name):
     """A prompt split in two chained prefills (at 2 rows, fewer than

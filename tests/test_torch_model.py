@@ -243,3 +243,48 @@ def test_v1_backbone_hidden_states_match_jax():
     with torch.inference_mode():
         got = model(torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["xla", "auto", "pallas_batched"])
+def test_fused_ssd_conv_weights_per_use_kernel(kernel, monkeypatch):
+    """The conv weights the fused-conv SSD receives in a bf16 model, per
+    ``use_kernel``: "xla" rounds conv_w / conv_b to bf16 first, as the JAX
+    XLA form casts them to the compute dtype; "auto" and "pallas_batched"
+    pass the fp32 parameters, as JAX's `ssd_pallas_batched_fused` takes
+    them. Exact: the same values, bit for bit."""
+    from caduceus_tpu_torch.config import SSMConfig
+    from caduceus_tpu_torch.models import mamba2
+
+    tok = CaduceusTokenizer()
+    cfg = CaduceusConfig(
+        d_model=32, n_layer=1, vocab_size=tok.vocab_size, rcps=True,
+        complement_map=tok.complement_map, bidirectional=True,
+        dtype="bfloat16", param_dtype="float32",
+        ssm_cfg=SSMConfig(version=2, d_state=16, headdim=16, ngroups=1,
+                          use_kernel=kernel))
+    model = CaduceusForMaskedLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    params = [(m.conv_w, m.conv_b) for m in model.modules()
+              if isinstance(m, mamba2._DirectionParamsV2)]
+    seen = []
+    real = mamba2.ssd_batched_fused
+
+    def spy(*args, **kw):
+        seen.append((args[3], kw["conv_b"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mamba2, "ssd_batched_fused", spy)
+    with torch.inference_mode():
+        model(torch.full((1, 24), 7, dtype=torch.long))
+    assert seen
+    for w, b in seen:
+        assert w.dtype == torch.float32 and b.dtype == torch.float32
+        if kernel == "xla":
+            want = [(pw.to(torch.bfloat16).float(), pb.to(torch.bfloat16).float())
+                    for pw, pb in params]
+        else:
+            want = params
+        assert any(torch.equal(w, ww) and torch.equal(b, wb)
+                   for ww, wb in want)
+        if kernel == "xla":  # the fp32 parameters are not bf16 values
+            assert not any(torch.equal(w, pw) for pw, _ in params)

@@ -17,6 +17,12 @@ in fp32. `ssd_chunked`, the plain version of the unfused `ssd_fwd` kernel
 `ssd_chunked_bwd` (held against JAX in tests/test_torch_ssd_head.py). The
 kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
+
+The kernels' chunk-parallel decomposition (`segment_states` /
+`segment_lambdas`, the pre-passes; `combine_segments`; each segment's walk
+from its entry state: ``segments=S`` of the plain versions) is held,
+torch only, to the serial plain versions, forward and adjoint, by the rule
+and tolerances the kernels are held to (`kernel_check.py`).
 """
 
 import functools
@@ -388,3 +394,118 @@ def test_chained_wrapper_runs_plain_version_on_cpu_and_refuses_grad():
             ssd_batched.unfused_bwd_launches) == before  # no kernel
     with pytest.raises(ValueError):
         ssd_batched.ssd_batched_chained(x, dt[:, :-1], A, B, C)
+
+
+# -- the chunk-parallel decomposition (torch only) --------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for these tiny tensors: with the default thread
+    per core, each op's thread pool waits on the other test workers' load,
+    which made these tests ~40x slower in the whole suite."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _segment_inputs(dtype, NG, L, seed, H=4, P=16, N=16, K=4, G=2):
+    """Inputs whose state outlives a segment: dt near 0.05 and |A| near
+    0.2, so a row decays the state by ~1% and the state entering a segment
+    moves its rows (a dropped one fails the checks below)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(*s, generator=g) * sc
+    Wc = H * P + 2 * NG * N
+    return dict(xBC=r(G, L, Wc).to(dtype), dt=r(G, L, H, sc=0.5).to(dtype),
+                A=-0.2 * torch.exp(r(H, sc=0.5)), conv_w=r(K, Wc, sc=0.5),
+                conv_b=r(Wc, sc=0.1), D=r(H), dt_bias=r(H, sc=0.1) - 3.0,
+                h_init=r(G, H, N, P), g_y=r(G, L, H, P).to(dtype),
+                g_hN=r(G, H, N, P), dims=(H, P, NG, N))
+
+
+def _hold(got, want, dtype):
+    from caduceus_tpu_torch.kernel_check import TOL as KTOL, compare
+
+    return all(compare(g, w, KTOL[dtype])["ok"] for g, w in zip(got, want))
+
+
+def _segmented_pairs(inp, reverse, S):
+    """(serial, segmented) outputs of the four plain functions: the fused
+    forward (y, hN, carries) and adjoint, the unfused forward and adjoint
+    on the fused form's conv output."""
+    from caduceus_tpu_torch.ops.ssd import _conv_silu_rows, ssd_adjoint_xc
+
+    dtype = inp["xBC"].dtype
+    T = ssd_batched.KERNEL_CHUNK[dtype]
+    H, P, NG, N = inp["dims"]
+    G, L, _ = inp["xBC"].shape
+    a7 = (inp["xBC"], inp["dt"], inp["A"], inp["conv_w"], inp["conv_b"],
+          inp["D"], inp["dt_bias"])
+    kw = dict(dims=inp["dims"], dt_softplus=True, reverse=reverse,
+              chunk_size=T, h_init=inp["h_init"], return_carries=True)
+    out = {}
+    fwd = [ssd_chunked_fused(*a7, segments=s, **kw) for s in (None, S)]
+    out["fused fwd"] = fwd
+    car = fwd[0][2]
+    out["fused adjoint"] = [ssd_adjoint_xc(
+        *a7, inp["g_y"], car, inp["g_hN"], inp["dims"], True, reverse, T,
+        segments=s) for s in (None, S)]
+    xc = _conv_silu_rows(inp["xBC"], inp["conv_w"], inp["conv_b"], 0, L,
+                         reverse).to(dtype)
+    x = xc[..., :H * P].reshape(G, L, H, P)
+    B = xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N)
+    C = xc[..., H * P + NG * N:].reshape(G, L, NG, N)
+    u = (x, inp["dt"], inp["A"], B, C, inp["D"], inp["dt_bias"])
+    ufwd = [port_ssd_chunked(*u, True, reverse, T, inp["h_init"],
+                             return_carries=True, segments=s)
+            for s in (None, S)]
+    out["unfused fwd"] = ufwd
+    out["unfused adjoint"] = [ssd_chunked_bwd(
+        *u, inp["g_y"], ufwd[0][2], inp["g_hN"], True, reverse, T,
+        segments=s) for s in (None, S)]
+    return out
+
+
+@pytest.mark.parametrize("NG", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segmented_decomposition_equals_serial(one_thread, dtype, reverse, NG):
+    """Pre-pass + combine + per-segment walk against the serial walk, for
+    the fused and the unfused forms, forward (y, hN, carries) and adjoint
+    (every gradient, g_h0 among them), from a nonzero h_init and g_hN, at a
+    ragged L (200 rows: the last chunk part-filled) cut into 3 segments (4
+    of 7 chunks in fp32, 2 of 4 in bf16)."""
+    inp = _segment_inputs(dtype, NG, 200, seed=10 + NG + 2 * reverse)
+    for name, (serial, seg) in _segmented_pairs(inp, reverse, 3).items():
+        assert _hold(seg, serial, dtype), name
+
+
+def test_segmented_decomposition_short_sequence_and_dropped_state(one_thread):
+    """L shorter than one segment (one chunk for 4 segments) gives the
+    serial result; and a segment's incoming state dropped in the combine
+    (forward and adjoint) fails the check, so the tests above see it."""
+    from caduceus_tpu_torch.ops import ssd
+
+    inp = _segment_inputs(torch.float32, 2, 20, seed=20)
+    for name, (serial, seg) in _segmented_pairs(inp, False, 4).items():
+        assert _hold(seg, serial, torch.float32), name
+    inp = _segment_inputs(torch.float32, 2, 200, seed=21)
+    real = ssd.combine_segments
+
+    def dropped(states, sums, h0, scan_reverse):
+        entries, last = real(states, sums, h0, scan_reverse)
+        entries = entries.clone()
+        entries[:, :, 1] = 0
+        return entries, last
+
+    try:
+        ssd.combine_segments = dropped
+        for reverse in (False, True):
+            pairs = _segmented_pairs(inp, reverse, 3)
+            for name in ("fused fwd", "fused adjoint", "unfused fwd",
+                         "unfused adjoint"):
+                assert not _hold(pairs[name][1], pairs[name][0],
+                                 torch.float32), (name, reverse)
+    finally:
+        ssd.combine_segments = real
