@@ -7,7 +7,9 @@ under a file name keyed by a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside the
-library as `<name>-<hash>.log`.
+library as `<name>-<hash>.log`. ``defines`` (``NAME=value`` strings, passed
+as ``-D`` flags) build a variant library of the same source beside it: the
+checks build their planted faults so (`csrc/scan_common.cuh` SCAN_DROP).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port, and this machine may have no `nvcc`.
@@ -43,10 +45,14 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
-def library_path(name: str) -> str:
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> str:
     """Path of the built library for `csrc/<name>.cu` (hash-keyed by the
     source, the shared headers `csrc/*.cuh` and the flags)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
     for f in [f"{name}.cu", *headers]:
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
@@ -55,15 +61,16 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{key}.so")
 
 
-def build(name: str) -> tuple:
-    """Compile `csrc/<name>.cu` unless its hash-keyed library exists.
-    Returns (path, seconds spent compiling — 0.0 if it was already built)."""
-    out = library_path(name)
+def build(name: str, defines=()) -> tuple:
+    """Compile `csrc/<name>.cu` (with ``-D`` ``defines``) unless its
+    hash-keyed library exists. Returns (path, seconds spent compiling — 0.0
+    if it was already built)."""
+    out = library_path(name, defines)
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -75,11 +82,13 @@ def build(name: str) -> tuple:
     return out, seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu` (with ``defines``), built on
+    first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            path, _ = build(name)
-            lib = _loaded[name] = ctypes.CDLL(path)
+            path, _ = build(name, defines)
+            lib = _loaded[key] = ctypes.CDLL(path)
         return lib

@@ -25,9 +25,17 @@ g_hN, g_h0 are (G, d, N) fp32 (the JAX kernels' are (G, N, d)).
   one launch of `bidir_scan_bwd`, as the JAX `_bwd` reads the same
   variable), on either device.
 
-Launch counters (one per kernel launch on a CUDA tensor): ``fwd_launches``
-(`selective_scan_fwd`, TPU kernel #7), ``bidir_launches``
-(`bidir_scan_fwd`, #9), ``bwd_launches`` (`selective_scan_bwd`, #8) and
+- `selective_scan_gated` is the one-direction entry with the SiLU(z) gate
+  and no states, the counterpart of `selective_scan_pallas`: the forward
+  kernel gates y in its epilogue; under grad (as the JAX `_fwd` / `_bwd`
+  take the gated path apart) the kernel runs without z, with carries, the
+  gate is applied by PyTorch ops for autograd, and the scan's adjoint is
+  `selective_scan_bwd`.
+
+Launch counters (one per call of a kernel's entry point on a CUDA tensor,
+whatever its sub-launches): ``fwd_launches`` (`selective_scan_fwd`, TPU
+kernel #7), ``bidir_launches`` (`bidir_scan_fwd`, #9), ``bwd_launches``
+(`selective_scan_bwd`, #8: the main pass and the g_B / g_C share sum) and
 ``bidir_bwd_launches`` (`bidir_scan_bwd`, #10).
 """
 
@@ -43,15 +51,19 @@ from caduceus_tpu_torch import _build
 from caduceus_tpu_torch.ops.selective_scan import (
     selective_scan as plain_scan,
     selective_scan_bwd,
+    silu_gate,
 )
 
-# rows per chunk of the kernels (`T` in csrc/scan_common.cuh): the carries
+# rows per chunk of the kernels (`CH` in csrc/scan_common.cuh): the carries
 # sit at chunk boundaries, so the forward, the backward and the plain
 # versions on the CPU all chunk by it
-KERNEL_CHUNK = 64
+KERNEL_CHUNK = 256
+_TILE = 8           # channels per block (`WARPS` in csrc/scan_common.cuh)
+_MAX_CLUSTER = 2    # blocks per cluster of the adjoint's g_B / g_C sum
+PART_MAIN, PART_SUM = 1, 2   # the adjoint's sub-launches (`parts`)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_DIR_WORDS = 20     # `Dir` of csrc/scan_common.cuh in 64-bit words
-_OUT_WORDS = 11     # `Out` of csrc/selective_scan_bwd.cu in 64-bit words
+_DIR_WORDS = 23     # `Dir` of csrc/scan_common.cuh in 64-bit words
+_OUT_WORDS = 13     # `Out` of csrc/selective_scan_bwd.cu in 64-bit words
 
 fwd_launches = 0
 bidir_launches = 0
@@ -60,10 +72,10 @@ bidir_bwd_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "selective_scan_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
-    "bidir_scan_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
-    "selective_scan_bwd": [_I, _P] + [_P] * 11 + [_I] * 5 + [_P],
-    "bidir_scan_bwd": [_I, _P, _P] + [_I] * 5 + [_P],
+    "selective_scan_fwd": [_I, _P] + [_I] * 5 + [_P],
+    "bidir_scan_fwd": [_I, _P] + [_I] * 5 + [_P],
+    "selective_scan_bwd": [_I, _P, _P] + [_I] * 7 + [_P],
+    "bidir_scan_bwd": [_I, _P, _P] + [_I] * 7 + [_P],
 }
 _LIBRARY = {"selective_scan_fwd": "selective_scan_fwd",
             "bidir_scan_fwd": "selective_scan_fwd",
@@ -71,9 +83,11 @@ _LIBRARY = {"selective_scan_fwd": "selective_scan_fwd",
             "bidir_scan_bwd": "selective_scan_bwd"}
 
 
-def _fn(name: str):
-    """The C entry point ``name``, loaded (and built) on first use."""
-    fn = getattr(_build.load(_LIBRARY[name]), name)
+def _fn(name: str, defines=()):
+    """The C entry point ``name``, loaded (and built) on first use; from
+    the variant library built with ``defines`` when they are given (the
+    checks' planted faults, `csrc/scan_common.cuh` SCAN_DROP)."""
+    fn = getattr(_build.load(_LIBRARY[name], defines), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
@@ -106,7 +120,19 @@ def _small(t: Optional[torch.Tensor], shape, name: str, dev):
     return t.detach().float().contiguous()
 
 
-def _check(u, delta, A, B, C, D, delta_bias, chunk_size, h_init=None):
+def n_bc_shares(d: int) -> int:
+    """The adjoint's g_B / g_C shares: one per thread-block cluster along d
+    (the d / 8 channel tiles in clusters of the largest power of two up to
+    `_MAX_CLUSTER` blocks that divides their count)."""
+    tiles = -(-d // _TILE)
+    cl = _MAX_CLUSTER
+    while tiles % cl:
+        cl //= 2
+    return tiles // cl
+
+
+def _check(u, delta, A, B, C, D, delta_bias, chunk_size, h_init=None,
+           z=None):
     """Check what the CUDA kernels take; returns the fp32 copies of (A, D,
     bias, h_init) the kernel reads."""
     G, L, d = u.shape
@@ -115,8 +141,9 @@ def _check(u, delta, A, B, C, D, delta_bias, chunk_size, h_init=None):
     if u.dtype not in _DTYPES:
         raise TypeError(f"u dtype {u.dtype}: the kernel takes float32 or "
                         "bfloat16")
+    gate = () if z is None else (("z", z, (G, L, d)),)
     for name, t, shape in (("delta", delta, (G, L, d)), ("B", B, (G, L, N)),
-                           ("C", C, (G, L, N))):
+                           ("C", C, (G, L, N))) + gate:
         if t.dtype != u.dtype or t.device != dev:
             raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel "
                             f"takes u's {u.dtype} on {dev}")
@@ -137,11 +164,12 @@ def _check(u, delta, A, B, C, D, delta_bias, chunk_size, h_init=None):
             _small(h_init, (G, d, N), "h_init", dev))
 
 
-def _dir(u, delta, B, C, A_, D_, bias_, h0, y, hN, carries, reverse):
+def _dir(u, delta, B, C, A_, D_, bias_, h0, y, hN, carries, reverse, z=None):
     """The kernel's `Dir` (csrc/scan_common.cuh) as 64-bit words."""
     words = []
-    for t in (u, delta, B, C):
-        words += [t.data_ptr(), t.stride(0), t.stride(1)]
+    for t in (u, delta, B, C, z):
+        words += [0, 0, 0] if t is None else [t.data_ptr(), t.stride(0),
+                                              t.stride(1)]
     words += [_ptr(t) for t in (A_, D_, bias_, h0, y, hN, carries)]
     words.append(int(reverse))
     assert len(words) == _DIR_WORDS
@@ -170,27 +198,27 @@ def _on_card(u: torch.Tensor, what: str) -> bool:
 def selective_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
                        delta_softplus=False, reverse=False,
                        chunk_size=KERNEL_CHUNK, h_init=None,
-                       save_carries=False):
-    """One direction: (y, hN, carries). y (G, L, d) in u's dtype, hN (G,
-    d, N) fp32, carries (G, nc, d, N) fp32 when ``save_carries`` (else
-    None). On a CUDA tensor one launch of `selective_scan_fwd` (TPU kernel
-    #7)."""
+                       save_carries=False, z=None):
+    """One direction: (y, hN, carries). y (G, L, d) in u's dtype, gated by
+    SiLU(z) when ``z`` (G, L, d) is given, hN (G, d, N) fp32, carries (G,
+    nc, d, N) fp32 when ``save_carries`` (else None). On a CUDA tensor one
+    launch of `selective_scan_fwd` (TPU kernel #7)."""
     if not _on_card(u, "selective_scan_fwd"):
         out = plain_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
                          reverse, chunk_size, h_init, return_final_state=True,
-                         return_carries=save_carries)
+                         return_carries=save_carries, z=z)
         return out if save_carries else out + (None,)
     G, L, d = u.shape
     N = A.shape[-1]
     A_, D_, bias_, h0 = _check(u, delta, A, B, C, D, delta_bias, chunk_size,
-                               h_init)
+                               h_init, z)
     y = torch.empty(G, L, d, dtype=u.dtype, device=u.device)
     hN = torch.empty(G, d, N, dtype=torch.float32, device=u.device)
     nc = -(-L // chunk_size)
     car = (torch.empty(G, nc, d, N, dtype=torch.float32, device=u.device)
            if save_carries else None)
     words = _words(_dir(u, delta, B, C, A_, D_, bias_, h0, y, hN, car,
-                        reverse))
+                        reverse, z))
     with torch.cuda.device(u.device):
         err = _fn("selective_scan_fwd")(
             _DTYPES[u.dtype], ctypes.cast(words, _P), G, L, d, N,
@@ -251,11 +279,9 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, g_y, carries,
     """The adjoint from the forward's carries, `selective_scan_bwd`
     semantics: ``(g_u, g_delta, g_A, g_B, g_C, g_D, g_bias, g_h0)``.
     ``g_y`` is cast to u's dtype, as the JAX package's `_bwd` does. On a
-    CUDA tensor one launch of `selective_scan_bwd` (TPU kernel #8); g_B
-    and g_C are summed in an fp32 workspace and cast to B's / C's dtype
-    here."""
+    CUDA tensor one call of `selective_scan_bwd` (TPU kernel #8: its main
+    pass and its g_B / g_C share sum)."""
     G, L, d = u.shape
-    N = A.shape[-1]
     if tuple(g_y.shape) != (G, L, d):
         raise ValueError(f"g_y shape {tuple(g_y.shape)}, expected {(G, L, d)}")
     g_y = g_y.to(u.dtype)
@@ -263,23 +289,36 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, g_y, carries,
         return selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g_y,
                                   carries, g_hN, delta_softplus, reverse,
                                   chunk_size)
+    return bwd_call(u, delta, A, B, C, D, delta_bias, g_y, carries, g_hN,
+                    delta_softplus, reverse, chunk_size)[0]
+
+
+def bwd_call(u, delta, A, B, C, D, delta_bias, g_y, carries, g_hN=None,
+             delta_softplus=False, reverse=False, chunk_size=KERNEL_CHUNK,
+             parts=PART_MAIN | PART_SUM, out=None):
+    """One call of the `selective_scan_bwd` entry on the card: (the eight
+    gradients, its `_Out`). ``parts`` picks the sub-launches (the share sum
+    alone reads the shares of ``out``, an earlier call's `_Out`)."""
+    G, L, d = u.shape
+    N = A.shape[-1]
     dev = u.device
     A_, D_, bias_, _ = _check(u, delta, A, B, C, D, delta_bias, chunk_size)
     _carries_ok(carries, G, L, d, N, chunk_size, dev)
     carries = carries.contiguous()
     ghN = _small(g_hN, (G, d, N), "g_hN", dev)
-    o = _Out(u, N, g_y, ghN, with_h0=True)
+    o = out or _Out(u, N, g_y.to(u.dtype), ghN, with_h0=True)
     words = _words(_dir(u, delta, B, C, A_, D_, bias_, None, None, None,
                         carries, reverse))
+    out_words = (ctypes.c_longlong * _OUT_WORDS)(*o.words())
     with torch.cuda.device(dev):
         err = _fn("selective_scan_bwd")(
-            _DTYPES[u.dtype], ctypes.cast(words, _P), *o.words(),
-            G, L, d, N, int(delta_softplus),
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPES[u.dtype], ctypes.cast(words, _P),
+            ctypes.cast(out_words, _P), G, L, d, N, int(delta_softplus),
+            n_bc_shares(d), parts, torch.cuda.current_stream().cuda_stream)
     _raise(err, "selective_scan_bwd", u, N)
     global bwd_launches
     bwd_launches += 1
-    return o.grads(B, C)
+    return o.grads(), o
 
 
 def bidir_scan_bwd(uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, biasf,
@@ -290,7 +329,7 @@ def bidir_scan_bwd(uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df, Dr, biasf,
     g_df, g_Bf, g_Cf, g_ur, g_dr, g_Br, g_Cr, g_Af, g_Ar, g_Df, g_Dr,
     g_biasf, g_biasr)``; set f was scanned left to right and set r right to
     left, both from zero states. ``gyf`` / ``gyr`` are cast to u's dtype.
-    On a CUDA tensor one launch of `bidir_scan_bwd` (TPU kernel #10); on a
+    On a CUDA tensor one call of `bidir_scan_bwd` (TPU kernel #10); on a
     CPU tensor the plain adjoint `selective_scan_bwd` once per set."""
     sets = ((uf, df, Af, Bf, Cf, Df, biasf, gyf, carf, False),
             (ur, dr, Ar, Br, Cr, Dr, biasr, gyr, carr, True))
@@ -334,11 +373,12 @@ def _bidir_bwd_launch(sets, delta_softplus, chunk_size):
         err = _fn("bidir_scan_bwd")(
             _DTYPES[uf.dtype], ctypes.cast(words, _P),
             ctypes.cast(out_words, _P), G, L, d, N, int(delta_softplus),
+            n_bc_shares(d), PART_MAIN | PART_SUM,
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "bidir_scan_bwd", uf, N)
     global bidir_bwd_launches
     bidir_bwd_launches += 1
-    return tuple(o.grads(s[3], s[4]) for o, s in zip(outs, sets))
+    return tuple(o.grads() for o in outs)
 
 
 def _carries_ok(carries, G, L, d, N, chunk_size, dev):
@@ -351,7 +391,7 @@ def _carries_ok(carries, G, L, d, N, chunk_size, dev):
 
 class _Out:
     """One direction's cotangents, outputs and scratch for the backward
-    kernel: its `Out` (csrc/selective_scan_bwd.cu) as 64-bit words."""
+    kernels: its `Out` (csrc/selective_scan_bwd.cu) as 64-bit words."""
 
     def __init__(self, u, N, g_y, g_hN, with_h0):
         G, L, d = u.shape
@@ -361,28 +401,30 @@ class _Out:
         self.g_hN = g_hN
         self.g_u = torch.empty(G, L, d, dtype=u.dtype, device=dev)
         self.g_delta = torch.empty(G, L, d, dtype=u.dtype, device=dev)
-        self.g_BC = torch.empty(2, G, L, N, **f32)
+        self.g_BC = torch.empty(2, G, L, N, dtype=u.dtype, device=dev)
         self.g_h0 = torch.empty(G, d, N, **f32) if with_h0 else None
+        self.bc_shares = torch.empty(n_bc_shares(d), 2, G, N, L, **f32)
         self.shares = torch.empty(G, d * N + 2 * d, **f32)
-        self.tickets = torch.empty(-(-d // (256 // N)), dtype=torch.int32,
+        self.tickets = torch.empty(-(-d // _TILE), dtype=torch.int32,
                                    device=dev)
         self.g_A = torch.empty(d, N, **f32)
         self.g_Db = torch.empty(2, d, **f32)
 
     def words(self):
         words = [_ptr(t) for t in (
-            self.g_y, self.g_hN, self.g_u, self.g_delta, self.g_BC,
-            self.g_h0, self.shares, self.tickets, self.g_A)]
+            self.g_y, self.g_hN, self.g_u, self.g_delta)]
+        words += [self.g_BC[0].data_ptr(), self.g_BC[1].data_ptr()]
+        words += [_ptr(t) for t in (self.g_h0, self.bc_shares, self.shares,
+                                    self.tickets, self.g_A)]
         words += [self.g_Db[0].data_ptr(), self.g_Db[1].data_ptr()]
         assert len(words) == _OUT_WORDS
         return words
 
-    def grads(self, B, C):
-        """(g_u, g_delta, g_A, g_B, g_C, g_D, g_bias, g_h0), g_B / g_C cast
-        to B's / C's dtype."""
-        return (self.g_u, self.g_delta, self.g_A, self.g_BC[0].to(B.dtype),
-                self.g_BC[1].to(C.dtype), self.g_Db[0], self.g_Db[1],
-                self.g_h0)
+    def grads(self):
+        """(g_u, g_delta, g_A, g_B, g_C, g_D, g_bias, g_h0), g_B / g_C in
+        u's dtype (B's and C's: `_check` requires them equal)."""
+        return (self.g_u, self.g_delta, self.g_A, self.g_BC[0],
+                self.g_BC[1], self.g_Db[0], self.g_Db[1], self.g_h0)
 
 
 def _like(grad, p):
@@ -486,6 +528,31 @@ def selective_scan_chained(
     y, hN, _ = selective_scan_fwd(u, delta, A, B, C, D, delta_bias,
                                   delta_softplus, reverse, chunk_size, h_init)
     return y, hN
+
+
+def selective_scan_gated(
+    u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None, delta_softplus: bool = False,
+    reverse: bool = False, chunk_size: int = KERNEL_CHUNK,
+):
+    """One direction from a zero state, y gated by SiLU(z) (the
+    counterpart of `selective_scan_pallas`, `scan_pallas.py:694`). Without
+    grad: `selective_scan_fwd` with z (the gate in the kernel's epilogue).
+    Under grad, as the JAX `_fwd` / `_bwd` do not use the gated kernel's
+    adjoint: the kernel without z and with carries (`_SelectiveScanFn`, whose
+    backward is `selective_scan_bwd`), then the gate as PyTorch ops in fp32,
+    which autograd differentiates (in bf16 y is rounded before the gate and
+    after it)."""
+    inputs = (u, delta, A, B, C, D, delta_bias, z)
+    if _wants_grad(*inputs):
+        y, _ = _SelectiveScanFn.apply(u, delta, A, B, C, D, delta_bias, None,
+                                      delta_softplus, reverse, chunk_size)
+        return y if z is None else silu_gate(y.float(), z).to(y.dtype)
+    y, _, _ = selective_scan_fwd(u, delta, A, B, C, D, delta_bias,
+                                 delta_softplus, reverse, chunk_size, z=z)
+    return y
 
 
 def bidir_selective_scan(uf, df, Bf, Cf, ur, dr, Br, Cr, Af, Ar, Df=None,

@@ -30,6 +30,17 @@ chunks chained one after another; ``reverse`` flips one segment at a
 time. Rows past L are identity steps (resolved delta 0, u = B = C = 0),
 the semantics of `_pad_state_transparent` (`scan_pallas.py:79`).
 
+- `selective_scan_runs` / `selective_scan_runs_bwd` compute the same
+  functions by the kernels' decomposition (csrc/scan_common.cuh): each
+  chunk cut into runs of ``run_rows`` rows, each run's affine aggregate
+  (prod dA, h from 0; for the adjoint, lam's aggregate walked backwards), a
+  scan of the aggregates across the runs from the chunk's carry, and each
+  run re-walked from its incoming state with the same dA. The tests hold
+  them to the serial versions above.
+
+``z`` gates y as the JAX kernel's ``has_z`` does: y = (sum_n C h + D u) *
+z sigmoid(z), in fp32, rounded once.
+
 softplus is ``max(x, 0) + log1p(exp(-|x|))`` everywhere (the kernels
 too): `torch.nn.functional.softplus` switches to x above 20.
 """
@@ -45,6 +56,8 @@ import torch.nn.functional as F
 # (G, rows, d, N) fp32 temporaries (134 MB each at G=4, d=512, N=16)
 _SEG_ROWS = 1024
 LOG2E = 1.4426950408889634
+# rows a thread of the kernels walks per chunk (`R` in csrc/scan_common.cuh)
+RUN_ROWS = 8
 
 
 def _decay(dl: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -64,6 +77,11 @@ def resolve_delta(delta, delta_bias, delta_softplus):
     if delta_bias is not None:
         d = d + delta_bias.float()
     return softplus(d) if delta_softplus else d
+
+
+def silu_gate(y: torch.Tensor, z: Optional[torch.Tensor]) -> torch.Tensor:
+    """y * z sigmoid(z) in fp32 (y unchanged without z)."""
+    return y if z is None else y * F.silu(z.float())
 
 
 def selective_scan_ref(
@@ -160,10 +178,11 @@ def selective_scan(
     delta_bias: Optional[torch.Tensor] = None,  # (d,)
     delta_softplus: bool = False,
     reverse: bool = False,
-    chunk_size: int = 64,
+    chunk_size: int = 256,
     h_init: Optional[torch.Tensor] = None,     # (G, d, N) fp32
     return_final_state: bool = False,
     return_carries: bool = False,
+    z: Optional[torch.Tensor] = None,          # (G, L, d) gate
 ):
     """Chunked selective scan. Returns y (G, L, d) in u's dtype, then hN
     (G, d, N) fp32 when ``return_final_state``, then the carries (G, nc,
@@ -195,7 +214,8 @@ def selective_scan(
         if D is not None:
             y = y + uf * D.float()
         ys.append(_unsegment(y.reshape(G, n * T, d), r0, r1, reverse))
-    y = torch.cat(ys[::-1] if reverse else ys, dim=1).to(u.dtype)
+    y = silu_gate(torch.cat(ys[::-1] if reverse else ys, dim=1), z)
+    y = y.to(u.dtype)
     out = (y,)
     if return_final_state:
         out += (h,)
@@ -205,7 +225,7 @@ def selective_scan(
 
 
 def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g_y, carries, g_hN,
-                       delta_softplus=False, reverse=False, chunk_size=64):
+                       delta_softplus=False, reverse=False, chunk_size=256):
     """Adjoint of `selective_scan` from its carries (the contract of
     `selective_scan_pallas_bwd_impl`, `scan_pallas.py:549-684`, chained
     as `selective_scan_pallas_chained`): returns ``(g_u, g_delta, g_A,
@@ -280,3 +300,142 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, g_y, carries, g_hN,
     g_u, g_delta, g_B, g_C = (torch.cat(p, dim=1) for p in zip(*outs))
     return (g_u.to(u.dtype), g_delta.to(delta.dtype), g_A, g_B.to(B.dtype),
             g_C.to(C.dtype), g_D, g_bias, lam)
+
+
+def _run_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """Inclusive scan of the maps x -> a x + b along ``dim`` (log-depth):
+    (prod a, x from 0) of every prefix."""
+    a, b = _inclusive_scan(a.movedim(dim, 2), b.movedim(dim, 2))
+    return a.movedim(2, dim), b.movedim(2, dim)
+
+
+def _exclusive(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """The inclusive prefixes shifted by one along ``dim``: the identity map
+    (1, 0) first."""
+    one = torch.ones_like(a.narrow(dim, 0, 1))
+    return (torch.cat([one, a.narrow(dim, 0, a.shape[dim] - 1)], dim),
+            torch.cat([torch.zeros_like(one), b.narrow(dim, 0, b.shape[dim] - 1)],
+                      dim))
+
+
+def _runs_inputs(u, delta, A, B, C, delta_bias, delta_softplus, reverse, T,
+                 run_rows):
+    """Scan-order fp32 (G, nc, lanes, run_rows, ·) views of u, the resolved
+    delta, B, C, and dA, over the whole (padded) sequence."""
+    G, L, d = u.shape
+    nc = -(-L // T)
+    if T % run_rows:
+        raise ValueError(f"run_rows {run_rows} must divide chunk_size {T}")
+    uf, dl, Bf, Cf = _segment_inputs(u, delta, B, C, delta_bias,
+                                     delta_softplus, 0, L, nc, T, reverse)
+    lanes = (G, nc, T // run_rows, run_rows)
+    uf, dl, Bf, Cf = (t.reshape(*lanes, t.shape[-1]) for t in (uf, dl, Bf, Cf))
+    return uf, dl, Bf, Cf, _decay(dl, A.float())
+
+
+def selective_scan_runs(u, delta, A, B, C, D=None, delta_bias=None,
+                        delta_softplus=False, reverse=False, chunk_size=256,
+                        h_init=None, run_rows=RUN_ROWS, z=None,
+                        drop_run=None):
+    """`selective_scan` by the kernels' decomposition: (y, hN, carries).
+    Per chunk, each run's aggregate (prod dA, h from 0), a scan of the
+    aggregates across the runs from the chunk's carry (the chunks chained
+    in scan order), each run re-walked from its incoming state.
+    ``drop_run``: the run (in scan order) whose incoming state is taken as
+    0 in every chunk, the fault the card checks plant in the kernels
+    (`csrc/scan_common.cuh` SCAN_DROP=1)."""
+    G, L, d = u.shape
+    N = A.shape[-1]
+    T = chunk_size
+    nc = -(-L // T)
+    uf, dl, Bf, Cf, dA = _runs_inputs(u, delta, A, B, C, delta_bias,
+                                      delta_softplus, reverse, T, run_rows)
+    v = (dl * uf)[..., None] * Bf[..., None, :]        # (G, nc, l, R, d, N)
+    a, b = _run_scan(dA, v, 3)                         # within each run
+    Pi, Hi = _run_scan(a[:, :, :, -1], b[:, :, :, -1], 2)   # across runs
+    Pe, He = _exclusive(Pi, Hi, 2)
+    h = (torch.zeros(G, d, N, device=u.device) if h_init is None
+         else h_init.float())
+    enter, cars = [], []
+    for c in range(nc):                                # scan order
+        cars.append(h)
+        enter.append(Pe[:, c] * h[:, None] + He[:, c])
+        h = Pi[:, c, -1] * h + Hi[:, c, -1]
+    enter = torch.stack(enter, 1)                      # (G, nc, l, d, N)
+    if drop_run is not None:
+        enter[:, :, drop_run] = 0
+    hs = a * enter[:, :, :, None] + b
+    y = torch.einsum("gclrdn,gclrn->gclrd", hs, Cf)
+    if D is not None:
+        y = y + uf * D.float()
+    y = _unsegment(y.reshape(G, nc * T, d), 0, L, reverse)
+    y = silu_gate(y, z).to(u.dtype)
+    if reverse:
+        cars = cars[::-1]
+    return y, h, torch.stack(cars, 1)
+
+
+def selective_scan_runs_bwd(u, delta, A, B, C, D, delta_bias, g_y, carries,
+                            g_hN, delta_softplus=False, reverse=False,
+                            chunk_size=256, run_rows=RUN_ROWS, drop_run=None):
+    """`selective_scan_bwd` by the kernels' decomposition, the same eight
+    outputs. Per chunk from its carry: h recomputed as in
+    `selective_scan_runs`; lam's run aggregates (lam -> prod dA lam + K,
+    each run walked backwards), a scan of them against the run order from
+    the later chunk's lam, each run re-walked from its incoming lam.
+    ``drop_run``: the run whose incoming lam is taken as 0."""
+    G, L, d = u.shape
+    N = A.shape[-1]
+    T = chunk_size
+    nc = -(-L // T)
+    if tuple(carries.shape) != (G, nc, d, N):
+        raise ValueError(f"carries {tuple(carries.shape)}, expected "
+                         f"{(G, nc, d, N)} for chunk_size {T}")
+    Af = A.float()
+    uf, dl, Bf, Cf, dA = _runs_inputs(u, delta, A, B, C, delta_bias,
+                                      delta_softplus, reverse, T, run_rows)
+    gy = _segment(g_y, 0, L, nc * T, reverse).reshape(uf.shape)
+    car = carries.float()
+    if reverse:
+        car = car.flip(1)                              # scan order
+    du = dl * uf
+    a, b = _run_scan(dA, du[..., None] * Bf[..., None, :], 3)
+    Pi, Hi = _run_scan(a[:, :, :, -1], b[:, :, :, -1], 2)
+    Pe, He = _exclusive(Pi, Hi, 2)
+    enter = Pe * car[:, :, None] + He                  # (G, nc, l, d, N)
+    h = a * enter[:, :, :, None] + b                   # state after each row
+    hp = torch.cat([enter[:, :, :, None], h[:, :, :, :-1]], 3)
+    # lam walked backwards: x -> dA (x + C g_y) per row, runs and lanes
+    # flipped
+    cg = Cf[..., None, :] * gy[..., None]
+    la, lb = _run_scan(dA.flip(3), (dA * cg).flip(3), 3)
+    Pl, Kl = _run_scan(la[:, :, :, -1].flip(2), lb[:, :, :, -1].flip(2), 2)
+    Ple, Kle = _exclusive(Pl, Kl, 2)
+    lam = (torch.zeros(G, d, N, device=u.device) if g_hN is None
+           else g_hN.float())
+    lin = [None] * nc
+    for c in range(nc - 1, -1, -1):                    # the scan's last first
+        lin[c] = (Ple[:, c] * lam[:, None] + Kle[:, c]).flip(1)
+        lam = Pl[:, c, -1] * lam + Kl[:, c, -1]
+    lin = torch.stack(lin, 1)                          # (G, nc, l, d, N)
+    if drop_run is not None:
+        lin[:, :, drop_run] = 0
+    # lam entering each row from the later side, then li = lam + C g_y
+    ex_a, ex_b = _exclusive(la, lb, 3)
+    li = (ex_a * lin[:, :, :, None] + ex_b).flip(3) + cg
+    lam_h = li * dA * hp
+    g_C = torch.einsum("gclrd,gclrdn->gclrn", gy, h)
+    g_B = torch.einsum("gclrdn,gclrd->gclrn", li, du)
+    g_du = torch.einsum("gclrdn,gclrn->gclrd", li, Bf)
+    g_dd = torch.einsum("gclrdn,dn->gclrd", lam_h, Af)
+    g_delta = g_dd + uf * g_du
+    if delta_softplus:
+        g_delta = g_delta * (1.0 - torch.exp(-dl))
+    g_u = dl * g_du if D is None else gy * D.float() + dl * g_du
+    g_A = torch.einsum("gclrdn,gclrd->dn", lam_h, dl)
+    g_D = (gy * uf).sum((0, 1, 2, 3))
+    g_u, g_delta, g_B, g_C = (_unsegment(t.reshape(G, nc * T, -1), 0, L,
+                                         reverse)
+                              for t in (g_u, g_delta, g_B, g_C))
+    return (g_u.to(u.dtype), g_delta.to(delta.dtype), g_A, g_B.to(B.dtype),
+            g_C.to(C.dtype), g_D, g_delta.float().sum((0, 1)), lam)

@@ -55,8 +55,9 @@ order (any failure exits non-zero; nothing is caught and passed over):
    forward also at G=16 (`bench.py`'s batch of 8 x 2 strands) beside
    their plain versions and bounds, each SSD sub-launch alone beside its
    bytes, and hold the timed outputs against the plain versions'; then
-   run #1 + #3 and #2 + #4 twice on the same inputs at the training shape
-   and require every output bit for bit the same;
+   run #1 + #3, #2 + #4 and the v1 scan kernels (#9 + #8 in both
+   directions, #7 + #8 with h_init and g_hN, #10) twice on the same inputs
+   at the training shape and require every output bit for bit the same;
 
 then the v1 (Mamba-1) model of `configs/hg38_mlm.yaml` and its selective
 scan kernels, `selective_scan_fwd.cu` (`selective_scan_fwd`, one
@@ -64,15 +65,18 @@ direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
 
 9. the forward kernels against the plain forward (`ops/selective_scan.py
    selective_scan`): small shapes (fp32 and bf16, both directions,
-   nonzero h_init, L not a multiple of the chunk, with and without D and
-   bias, both entry points) and the main geometry (d=512, N=16, G=4,
-   L=8192: y, hN, carries), then planted faults that must fail (D term
+   nonzero h_init, L = 200 and 600: one partial 256-row chunk, and two
+   and a partial one, with and without D and bias, both entry points, the
+   SiLU(z) gate) and the main geometry (d=512, N=16, G=4, L=8192: y, hN,
+   carries; gated too), then planted faults that must fail (D term
    dropped, one 16-row x 16-channel y tile zeroed, the reverse set run
-   with the forward set's A);
-10. the backward kernel against `selective_scan_bwd`, all eight outputs,
+   with the forward set's A, and in each scan direction one run's
+   incoming state dropped);
+10. the backward kernels against `selective_scan_bwd`, all eight outputs,
    nonzero g_hN, small and main geometry, and planted faults (g_A scaled
    by 1+2^-4, one 16x16 tile of g_delta zeroed, the softplus chain
-   dropped from g_delta);
+   dropped from g_delta, one cluster's g_B share left out, and in each
+   scan direction one run's incoming lam dropped);
 11. the 2-layer full-width v1 model, card vs CPU (as 4);
 12. serve the full-width 16-layer v1 model: /embed and /logits at bucket
    1024 and one 131,072-token /logits, 16 `bidir_scan_fwd` launches per
@@ -83,7 +87,10 @@ direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
 15. train the full-width v1 model as 7: 32 `bidir_scan_fwd` and 32
    `selective_scan_bwd` launches per micro-batch;
 16. time the three scan kernels at the training shape beside their plain
-   versions, bounds and exp counts, holding the timed outputs;
+   versions, bounds and exp counts, #7 also at the v1 prefill's shape
+   (G=1, fp32) and with the SiLU(z) gate, and #8's main pass and g_B /
+   g_C share sum each alone beside their bytes, holding the timed
+   outputs;
 
 and generation, for the causal models of `cli.py pretrain --model mamba`
 (v2: after phase 8, through the unfused SSD forward `ssd_fwd`, TPU kernel
@@ -250,12 +257,13 @@ _KERNEL_NAMES = ("ssd_prep_kernel", "ssd_fwd_state_kernel", "ssd_fwd_kernel",
                  "ssd_bwd_state_kernel", "ssd_fused_bwd_kernel",
                  "ssd_share_sum_kernel", "ssd_conv_bwd_kernel",
                  "ssd_conv_wsum_kernel", "selective_scan_fwd_kernel",
-                 "selective_scan_bwd_kernel")
+                 "selective_scan_bwd_kernel", "bc_share_sum_kernel")
 
 
 def _instantiation(mangled: str) -> str:
     """A readable name of one compiled kernel: its name, storage type,
-    conv width K and scan direction, from the mangled symbol."""
+    conv width K and scan direction (SSD), or d_state N, gate and warps per
+    block (scan), from the mangled symbol."""
     import re
 
     name = next((k for k in _KERNEL_NAMES if k in mangled), mangled)
@@ -265,19 +273,40 @@ def _instantiation(mangled: str) -> str:
         args.append("bf16")
     elif re.match(r"I(Li\d+E)?f", tail):
         args.append("fp32")
-    k = re.search(r"Li(\d+)E", tail)
-    if k and name.startswith("ssd"):
-        args.append(f"K={k.group(1)}")
+    ints = re.findall(r"Li(\d+)E", tail)
+    if ints:
+        args.append(f"{'K' if name.startswith('ssd') else 'N'}={ints[0]}")
+    if name == "selective_scan_fwd_kernel" and len(ints) > 1:
+        args.append(f"{ints[1]} warps")
     if "Lb1E" in tail:
-        args.append("reverse")
+        args.append("reverse" if name.startswith("ssd") else "gated")
     return f"{name}<{', '.join(args)}>" if args else name
 
 
+# the scan kernels' planted faults: variant libraries of the same sources
+# built with these defines (`csrc/scan_common.cuh` SCAN_DROP)
+DROP_RUN = ("SCAN_DROP=1",)     # one run's incoming state / lam zeroed
+DROP_SHARE = ("SCAN_DROP=2",)   # one cluster's g_B share left out
+FAULT_BUILDS = (("selective_scan_fwd", DROP_RUN),
+                ("selective_scan_bwd", DROP_RUN),
+                ("selective_scan_bwd", DROP_SHARE))
+
+
+def scan_fault(defines):
+    """While open, the scan wrappers launch the variant library built with
+    ``defines`` (a planted fault) instead of the shipped one."""
+    from caduceus_tpu_torch.ops import scan
+
+    real = scan._fn
+    return mock.patch.object(scan, "_fn", lambda name: real(name, defines))
+
+
 def phase_build():
-    """nvcc of the four sources side by side; then every compiled kernel's
-    registers, static shared memory and spills (`-Xptxas -v`), and the
-    dynamic shared memory each SSD sub-launch asks for at the main geometry
-    (P=64, N=128) and K = 4 and 0."""
+    """nvcc of the four sources and of the scan kernels' three planted-fault
+    variants side by side; then every compiled kernel's registers, static
+    shared memory and spills (`-Xptxas -v`), and the dynamic shared memory
+    each SSD sub-launch asks for at the main geometry (P=64, N=128) and K =
+    4 and 0."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -285,10 +314,12 @@ def phase_build():
 
     names = ("ssd_fused_fwd", "ssd_fused_bwd", "selective_scan_fwd",
              "selective_scan_bwd")
+    builds = [(n, ()) for n in names] + list(FAULT_BUILDS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(_build.build, names)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        done = list(pool.map(lambda b: _build.build(*b), builds))
     wall = time.perf_counter() - t0
+    built = dict(zip(names, done))
     out = {"nvcc_flags": list(_build.NVCC_FLAGS), "wall_s": wall,
            "ptxas": {}, "dynamic_smem": {}}
     for name, (path, secs) in built.items():
@@ -315,7 +346,10 @@ def phase_build():
                     log(f"[build]   {name} {dname} K={K} dynamic shared "
                         f"memory (P=64, N=128): " + ", ".join(
                             f"{k} {v:,} B" for k, v in sizes.items()))
-    log(f"[build] {len(names)} libraries in {wall:.1f} s wall")
+    for (name, defines), (path, secs) in zip(FAULT_BUILDS, done[len(names):]):
+        log(f"[build] {name} -D{' -D'.join(defines)} (planted fault): "
+            f"{secs:.1f} s -> {os.path.relpath(path)}")
+    log(f"[build] {len(builds)} libraries in {wall:.1f} s wall")
     return out
 
 
@@ -1196,9 +1230,10 @@ def phase_timing():
 def phase_determinism():
     """Run-to-run bits at the training shape (G=4, L=131072, bf16, forward
     direction): the fused forward with carries (#1) and the fused backward
-    (#3: the SSD adjoint and the conv adjoint), and the unfused forward and
-    adjoint (#2 / #4), each twice on the same inputs; every output must be
-    bit for bit the same (no sum is left to atomics)."""
+    (#3: the SSD adjoint and the conv adjoint), the unfused forward and
+    adjoint (#2 / #4), and the v1 scan pairs of `scan_determinism_pairs`,
+    each twice on the same inputs; every output must be bit for bit the
+    same (no sum is left to atomics)."""
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
     G, L, H, P, NG, N, K = 4, 131072, 8, 64, 1, 128, 4
@@ -1224,7 +1259,8 @@ def phase_determinism():
         return dict(zip(FWD_NAMES + UNFUSED_BWD_NAMES, (y, hN, car) + g))
 
     res = {}
-    for name, fn in (("fused #1 + #3", fused), ("unfused #2 + #4", unfused)):
+    pairs = [("fused #1 + #3", fused), ("unfused #2 + #4", unfused)]
+    for name, fn in pairs + scan_determinism_pairs():
         first = {k: v.clone() for k, v in fn().items()}
         second = fn()
         torch.cuda.synchronize()
@@ -1235,9 +1271,51 @@ def phase_determinism():
         check(all(same.values()), f"{name}: outputs differ between two runs "
               f"on the same inputs: {[k for k, v in same.items() if not v]}")
         del first, second
-    del inp, uinp
+    del inp, uinp, pairs
     torch.cuda.empty_cache()
     return res
+
+
+def scan_determinism_pairs():
+    """The v1 scan kernels at the training shape (G=4, L=131072, d=512,
+    N=16, bf16) for `phase_determinism`: #9 + #8 (both directions, #8 once
+    per set), #7 + #8 with h_init and g_hN, and #10 from #9's carries."""
+    from caduceus_tpu_torch.ops import scan
+
+    G, L, d, N = 4, 131072, 512, 16
+    T = scan.KERNEL_CHUNK
+    f = scan_inputs(G, L, d, N, torch.bfloat16, 95, model_like=True)
+    r = scan_inputs(G, L, d, N, torch.bfloat16, 94, model_like=True)
+    a, b = _scan_args(f), _scan_args(r)
+    pa = (*a[:2], *a[3:5], *b[:2], *b[3:5], a[2], b[2], a[5], b[5], a[6],
+          b[6])
+
+    def paired():
+        yf, yr, cf, cr = scan.bidir_scan_fwd(*pa, save_carries=True)
+        gf = scan.selective_scan_bwd_cuda(*a, f["g_y"], cf, None, True, False,
+                                          T)
+        gr = scan.selective_scan_bwd_cuda(*b, r["g_y"], cr, None, True, True,
+                                          T)
+        return dict(zip(("yf", "yr", "carf", "carr") + tuple(
+            f"{n}f" for n in SCAN_BWD_NAMES[:7]) + tuple(
+            f"{n}r" for n in SCAN_BWD_NAMES[:7]), (yf, yr, cf, cr) + gf[:7]
+            + gr[:7]))
+
+    def one_direction():
+        y, hN, car = scan.selective_scan_fwd(*a, True, False, T, f["h0"],
+                                             save_carries=True)
+        g = scan.selective_scan_bwd_cuda(*a, f["g_y"], car, f["g_hN"], True,
+                                         False, T)
+        return dict(zip(SCAN_FWD_NAMES + SCAN_BWD_NAMES, (y, hN, car) + g))
+
+    def paired_bwd():
+        _, _, cf, cr = scan.bidir_scan_fwd(*pa, save_carries=True)
+        g = scan.bidir_scan_bwd(*pa, f["g_y"], r["g_y"], cf, cr)
+        return dict(zip(BIDIR_BWD_NAMES, g))
+
+    return [("scan #9 + #8 (both directions)", paired),
+            ("scan #7 + #8 (h_init, g_hN)", one_direction),
+            ("scan #10", paired_bwd)]
 
 
 # --- the v1 (Mamba-1) model: the selective scan kernels #7, #8, #9 -------
@@ -1298,19 +1376,32 @@ def _scan_args(inp, **over):
     return [k[n] for n in ("u", "delta", "A", "B", "C", "D", "bias")]
 
 
-def scan_pair(inp, reverse, **over):
-    """`selective_scan_fwd` (with h_init and carries) and its plain version
-    on the same card tensors; ``over`` replaces the kernel's inputs."""
+def scan_pair(inp, reverse, z=None, fault=(), **over):
+    """`selective_scan_fwd` (with h_init and carries, gated by ``z`` when
+    given) and its plain version on the same card tensors; ``over``
+    replaces the kernel's inputs, ``fault`` names a planted fault's build
+    (`scan_fault`)."""
     from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops.selective_scan import selective_scan
 
     T = scan.KERNEL_CHUNK
-    kernel = scan.selective_scan_fwd(*_scan_args(inp, **over), True, reverse,
-                                     T, inp["h0"], save_carries=True)
+    with scan_fault(fault):
+        kernel = scan.selective_scan_fwd(*_scan_args(inp, **over), True,
+                                         reverse, T, inp["h0"],
+                                         save_carries=True, z=z)
     torch.cuda.synchronize()
     plain = selective_scan(*_scan_args(inp), True, reverse, T, inp["h0"],
-                           True, True)
+                           True, True, z=z)
     return kernel, plain
+
+
+def gate_of(inp, seed):
+    """A SiLU gate z for `scan_inputs`' u: the second half of a seeded
+    (G, L, 2 d) tensor, as the in_proj output gives it (row stride 2 d)."""
+    G, L, d = inp["u"].shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xz = torch.randn(G, L, 2 * d, generator=g, device="cuda")
+    return xz.to(inp["u"].dtype)[..., d:]
 
 
 def bidir_pair(f, r, **over):
@@ -1332,27 +1423,38 @@ def bidir_pair(f, r, **over):
 
 
 def phase_scan_checks():
-    """The forward kernels against the plain forward: small shapes and the
+    """The forward kernels against the plain forward: small shapes (one
+    partial chunk, and two chunks and a partial one), the SiLU(z) gate, the
     main geometry (d=512, N=16, G=4, L=8192), then planted faults."""
     from caduceus_tpu_torch.kernel_check import TOL
 
     res, seed = [], 200
     bidir_names = ("yf", "carf", "yr", "carr")
     for dtype in (torch.float32, torch.bfloat16):
-        for reverse in (False, True):
-            for with_dd in (True, False):
-                seed += 1
-                inp = scan_inputs(2, 200, 48, 16, dtype, seed, D=with_dd,
-                                  bias=with_dd)
-                label = (f"scan fwd small G=2 L=200 d=48 N=16 "
-                         f"{str(dtype)[6:]} rev={reverse} D,bias={with_dd}")
-                res.append({"case": label, **hold(
-                    label, TOL[dtype], *scan_pair(inp, reverse),
-                    SCAN_FWD_NAMES, tag="scan")})
+        for L in (200, 600):
+            for reverse in (False, True):
+                for with_dd in (True, False):
+                    seed += 1
+                    inp = scan_inputs(2, L, 48, 16, dtype, seed, D=with_dd,
+                                      bias=with_dd)
+                    label = (f"scan fwd small G=2 L={L} d=48 N=16 "
+                             f"{str(dtype)[6:]} rev={reverse} "
+                             f"D,bias={with_dd}")
+                    res.append({"case": label, **hold(
+                        label, TOL[dtype], *scan_pair(inp, reverse),
+                        SCAN_FWD_NAMES, tag="scan")})
+            seed += 1
+            inp = scan_inputs(2, L, 48, 16, dtype, seed)
+            label = (f"scan fwd gated small G=2 L={L} d=48 N=16 "
+                     f"{str(dtype)[6:]}")
+            res.append({"case": label, **hold(
+                label, TOL[dtype], *scan_pair(inp, L == 600,
+                                              z=gate_of(inp, seed)),
+                SCAN_FWD_NAMES, tag="scan")})
         seed += 1
-        f = scan_inputs(2, 200, 48, 8, dtype, seed)
-        r = scan_inputs(2, 200, 48, 8, dtype, seed + 50, D=False)
-        label = f"bidir small G=2 L=200 d=48 N=8 {str(dtype)[6:]}"
+        f = scan_inputs(2, 600, 48, 8, dtype, seed)
+        r = scan_inputs(2, 600, 48, 8, dtype, seed + 50, D=False)
+        label = f"bidir small G=2 L=600 d=48 N=8 {str(dtype)[6:]}"
         res.append({"case": label, **hold(label, TOL[dtype], *bidir_pair(f, r),
                                           bidir_names, tag="scan")})
     faults = {}
@@ -1365,9 +1467,22 @@ def phase_scan_checks():
         kernel, plain = scan_pair(inp, reverse)
         res.append({"case": label, **hold(label, TOL[dtype], kernel, plain,
                                           SCAN_FWD_NAMES, tag="scan")})
-        if faults:
+        if dtype != torch.bfloat16:
             continue
         bf16 = TOL[torch.bfloat16]
+        # every scan direction: one run's incoming state dropped
+        dropped, _ = scan_pair(inp, reverse, fault=DROP_RUN)
+        faults[f"one run's incoming state dropped (rev={reverse})"] = hold(
+            f"planted fault: one run's incoming state dropped "
+            f"(rev={reverse})", bf16, dropped, plain, SCAN_FWD_NAMES,
+            expect_ok=False, tag="scan")
+        z = gate_of(inp, seed + 70)
+        label = f"scan fwd gated main G=4 L=8192 d=512 N=16 bf16 rev={reverse}"
+        res.append({"case": label, **hold(label, bf16, *scan_pair(
+            inp, reverse, z=z), SCAN_FWD_NAMES, tag="scan")})
+        del dropped, z
+        if reverse:
+            continue
         no_d, _ = scan_pair(inp, reverse, D=None)
         faults["D term dropped"] = hold(
             "planted fault: D term dropped", bf16, no_d, plain,
@@ -1390,12 +1505,20 @@ def phase_scan_checks():
             bf16, k2, p2, bidir_names, expect_ok=False, tag="scan")
         del r, k2, p2
         del inp, kernel, plain
+    # the v1 prefill's shape (G=1, fp32: blocks of 4 warps) at a ragged L
+    seed += 1
+    inp = scan_inputs(1, 8000, 512, 16, torch.float32, seed, model_like=True)
+    label = "scan fwd main G=1 L=8000 d=512 N=16 float32 (4-warp blocks)"
+    res.append({"case": label, **hold(label, TOL[torch.float32],
+                                      *scan_pair(inp, False), SCAN_FWD_NAMES,
+                                      tag="scan")})
     return res, faults
 
 
-def scan_bwd_pair(inp, reverse):
+def scan_bwd_pair(inp, reverse, fault=()):
     """`selective_scan_bwd` and its plain version from the same carries
-    (the forward kernel's), nonzero h_init and g_hN."""
+    (the forward kernel's), nonzero h_init and g_hN; ``fault`` names a
+    planted fault's build of the adjoint (`scan_fault`)."""
     from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops.selective_scan import selective_scan_bwd
 
@@ -1403,8 +1526,9 @@ def scan_bwd_pair(inp, reverse):
     a = _scan_args(inp)
     _, _, car = scan.selective_scan_fwd(*a, True, reverse, T, inp["h0"],
                                         save_carries=True)
-    kernel = scan.selective_scan_bwd_cuda(*a, inp["g_y"], car, inp["g_hN"],
-                                          True, reverse, T)
+    with scan_fault(fault):
+        kernel = scan.bwd_call(*a, inp["g_y"], car, inp["g_hN"], True,
+                               reverse, T)[0]
     torch.cuda.synchronize()
     plain = selective_scan_bwd(*a, inp["g_y"], car, inp["g_hN"], True,
                                reverse, T)
@@ -1417,14 +1541,15 @@ def phase_scan_bwd_checks():
 
     res, seed = [], 300
     for dtype in (torch.float32, torch.bfloat16):
-        for reverse in (False, True):
-            seed += 1
-            inp = scan_inputs(2, 200, 48, 16, dtype, seed)
-            label = (f"scan bwd small G=2 L=200 d=48 N=16 {str(dtype)[6:]} "
-                     f"rev={reverse}")
-            res.append({"case": label, **hold(
-                label, TOL[dtype], *scan_bwd_pair(inp, reverse),
-                SCAN_BWD_NAMES, tag="scan-bwd")})
+        for L in (200, 600):
+            for reverse in (False, True):
+                seed += 1
+                inp = scan_inputs(2, L, 48, 16, dtype, seed)
+                label = (f"scan bwd small G=2 L={L} d=48 N=16 "
+                         f"{str(dtype)[6:]} rev={reverse}")
+                res.append({"case": label, **hold(
+                    label, TOL[dtype], *scan_bwd_pair(inp, reverse),
+                    SCAN_BWD_NAMES, tag="scan-bwd")})
     faults = {}
     for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
                            (torch.float32, False)):
@@ -1435,9 +1560,23 @@ def phase_scan_bwd_checks():
         kernel, plain = scan_bwd_pair(inp, reverse)
         res.append({"case": label, **hold(label, TOL[dtype], kernel, plain,
                                           SCAN_BWD_NAMES, tag="scan-bwd")})
-        if faults:
+        if dtype != torch.bfloat16:
             continue
         bf16 = TOL[torch.bfloat16]
+        # every scan direction: one run's incoming lam dropped
+        dropped, _ = scan_bwd_pair(inp, reverse, fault=DROP_RUN)
+        faults[f"one run's incoming lam dropped (rev={reverse})"] = hold(
+            f"planted fault: one run's incoming lam dropped (rev={reverse})",
+            bf16, dropped, plain, SCAN_BWD_NAMES, expect_ok=False,
+            tag="scan-bwd")
+        del dropped
+        if reverse:
+            continue
+        dropped, _ = scan_bwd_pair(inp, reverse, fault=DROP_SHARE)
+        faults["one cluster's g_B share left out"] = hold(
+            "planted fault: one cluster's g_B share left out", bf16, dropped,
+            plain, SCAN_BWD_NAMES, expect_ok=False, tag="scan-bwd")
+        del dropped
         planted = {"g_A scaled by 1+2^-4": kernel[:2] + (
             kernel[2] * (1 + 2 ** -4),) + kernel[3:]}
         g_d = kernel[1].clone()
@@ -1581,9 +1720,14 @@ def phase_mamba_mixer_step():
 
 
 def phase_scan_timing():
-    """The three kernels at the training shape (G=4, L=131072, bf16, d=512,
-    N=16) beside their plain versions and bounds; the timed outputs held
-    against the plain ones."""
+    """The scan kernels at the training shape (G=4, L=131072, bf16, d=512,
+    N=16) beside their plain versions and bounds; #7 also at the v1
+    prefill's shape (G=1, fp32) and with the SiLU(z) gate; #8's two
+    sub-launches (main pass, g_B / g_C share sum) each alone beside the
+    bytes it must move. The timed outputs are held against the plain
+    ones. Exps: one per (row, channel, n) and direction, the dA the
+    kernels keep for every walk; beside them, per (row, channel), the
+    softplus (an exp and a log1p) and, in the adjoint, its chain's exp."""
     from caduceus_tpu_torch.kernel_check import TOL
     from caduceus_tpu_torch.ops import scan
     from caduceus_tpu_torch.ops import selective_scan as plain
@@ -1611,8 +1755,55 @@ def phase_scan_timing():
     # fp32 FLOP on the non-tensor-core units; the exps (MUFU, 16 per clock
     # per SM) stand beside the bound, not in it
     t.update(_bound(io_fwd + car_bytes, 5 * rows * d * N, FP32_FLOP_PER_S))
-    t["exps"] = rows * d * N
+    t["exps"], t["exps_softplus"] = rows * d * N, 2 * rows * d
     res["fwd"] = t
+
+    z = gate_of(f, 403)
+    t = _timed(lambda: outs.__setitem__("k", scan.selective_scan_fwd(
+                   *a, True, False, T, None, save_carries=True, z=z)),
+               lambda: outs.__setitem__("p", plain.selective_scan(
+                   *a, True, False, T, None, True, True, z=z)))
+    t["check"] = hold(f"timed gated selective_scan_fwd + carries G=4 L={L} "
+                      "bf16", bf16, outs.pop("k"), outs.pop("p"),
+                      SCAN_FWD_NAMES, tag="scan")
+    t.update(_bound(io_fwd + rows * d * 2 + car_bytes,
+                    5 * rows * d * N + 4 * rows * d, FP32_FLOP_PER_S))
+    t["exps"], t["exps_softplus"] = rows * d * N + rows * d, 2 * rows * d
+    res["fwd_gated"] = t
+    del z
+
+    # the v1 prefill's call: one sequence, the scan in fp32 (B and C column
+    # views of the fp32 x_proj output), from a state
+    f1 = scan_inputs(1, L, d, N, torch.float32, 404, model_like=True)
+    a1 = _scan_args(f1)
+    rows1 = L
+    t = _timed(lambda: outs.__setitem__("k", scan.selective_scan_fwd(
+                   *a1, True, False, T, f1["h0"])[:2]),
+               lambda: outs.__setitem__("p", plain.selective_scan(
+                   *a1, True, False, T, f1["h0"], True)))
+    t["check"] = hold(f"timed selective_scan_fwd G=1 L={L} fp32 (prefill)",
+                      TOL[torch.float32], outs.pop("k"), outs.pop("p"),
+                      ("y", "hN"), tag="scan")
+    t.update(_bound(rows1 * (2 * d * 4 + 2 * N * 4 + d * 4) + 2 * d * N * 4,
+                    5 * rows1 * d * N, FP32_FLOP_PER_S))
+    t["exps"], t["exps_softplus"] = rows1 * d * N, 2 * rows1 * d
+    res["fwd_G1_fp32"] = t
+    del f1, a1
+    # the same in bf16 (a prefill whose scan is not promoted): 8-byte rows
+    # of the 4-warp blocks' channels, staged by plain loads
+    f1 = scan_inputs(1, L, d, N, torch.bfloat16, 405, model_like=True)
+    a1 = _scan_args(f1)
+    t = _timed(lambda: outs.__setitem__("k", scan.selective_scan_fwd(
+                   *a1, True, False, T, f1["h0"])[:2]),
+               lambda: outs.__setitem__("p", plain.selective_scan(
+                   *a1, True, False, T, f1["h0"], True)))
+    t["check"] = hold(f"timed selective_scan_fwd G=1 L={L} bf16", bf16,
+                      outs.pop("k"), outs.pop("p"), ("y", "hN"), tag="scan")
+    t.update(_bound(rows1 * (3 * d * 2 + 2 * N * 2) + 2 * d * N * 4,
+                    5 * rows1 * d * N, FP32_FLOP_PER_S))
+    t["exps"], t["exps_softplus"] = rows1 * d * N, 2 * rows1 * d
+    res["fwd_G1_bf16"] = t
+    del f1, a1
 
     t = _timed(lambda: outs.__setitem__("k", scan.bidir_scan_fwd(
                    *a[:2], *a[3:5], *b[:2], *b[3:5], a[2], b[2], a[5], b[5],
@@ -1629,7 +1820,7 @@ def phase_scan_timing():
     del k
     t.update(_bound(2 * (io_fwd + car_bytes), 2 * 5 * rows * d * N,
                     FP32_FLOP_PER_S))
-    t["exps"] = 2 * rows * d * N
+    t["exps"], t["exps_softplus"] = 2 * rows * d * N, 2 * 2 * rows * d
     res["bidir"] = t
 
     bwd_args = a + [f["g_y"], car, None, True, False, T]
@@ -1641,21 +1832,45 @@ def phase_scan_timing():
                       outs.pop("k"), outs.pop("p"), SCAN_BWD_NAMES,
                       tag="scan-bwd")
     # reads u, delta, g_y, B, C and the carries; writes g_u, g_delta, g_B,
-    # g_C; the fp32 (2, G, L, N) workspace of g_B / g_C stands beside it
+    # g_C; the fp32 g_B / g_C shares (written by the main pass, read by the
+    # share sum) stand beside it as extra_bytes
     t.update(_bound(rows * (3 * d * 2 + 2 * N * 2 + 2 * d * 2 + 2 * N * 2)
                     + car_bytes, 20 * rows * d * N, FP32_FLOP_PER_S))
-    t["exps"] = 2 * rows * d * N + rows * d
-    t["extra_bytes"] = 2 * rows * N * 4 * 2
+    nsh = scan.n_bc_shares(d)
+    share_bytes = nsh * 2 * rows * N * 4
+    t["exps"], t["exps_softplus"] = rows * d * N + rows * d, 2 * rows * d
+    t["extra_bytes"] = 2 * share_bytes
+    t["bc_shares"] = nsh
+    o = scan.bwd_call(*bwd_args)[1]
+    t["sub_launches"] = {}
+    for name, part, nbytes in (
+            ("main pass", scan.PART_MAIN,
+             rows * (3 * d * 2 + 2 * N * 2 + 2 * d * 2) + car_bytes
+             + share_bytes),
+            ("share sum", scan.PART_SUM, share_bytes + rows * 2 * N * 2)):
+        ms = _time_cuda(lambda: scan.bwd_call(*bwd_args, parts=part, out=o), 3)
+        t["sub_launches"][name] = {"ms": ms, "bytes": nbytes,
+                                   "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log("[time]   scan bwd sub-launches: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms ({v['bytes'] / 1e9:.3f} GB, "
+        f"{v['bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+        for k, v in t["sub_launches"].items()))
+    del o
     res["bwd"] = t
     for name, t in res.items():
         # MUFU exp2: 16 per clock per SM, 132 SMs at 1.98 GHz
         t["exp_ms"] = t["exps"] / (16 * 132 * 1.98e9) * 1e3
-        log(f"[time] scan {name} G=4 L={L} bf16: kernel {t['ms']:.3f} ms "
+        shape = {"fwd_G1_fp32": f"G=1 L={L} fp32",
+                 "fwd_G1_bf16": f"G=1 L={L} bf16"}.get(name, f"G=4 L={L} bf16")
+        log(f"[time] scan {name} {shape}: kernel {t['ms']:.3f} ms "
             f"(runs {', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), "
             f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}: {t['bytes'] / 1e9:.2f} GB, "
             f"{t['flops'] / 1e9:.1f} GFLOP); {t['exps'] / 1e9:.2f}e9 exps "
-            f"= {t['exp_ms']:.3f} ms at the MUFU rate")
+            f"(one per (row, channel, n){' and the chain' if name == 'bwd' else ''}"
+            f"{' and the gate' if name == 'fwd_gated' else ''}) "
+            f"= {t['exp_ms']:.3f} ms at the MUFU rate, "
+            f"{t['exps_softplus'] / 1e9:.2f}e9 in the softplus")
     return res
 
 
@@ -2454,6 +2669,9 @@ def phase_new_timing():
                                      Ts),
         scan.selective_scan_bwd_cuda(*ra, r["g_y"], carr, None, True, True,
                                      Ts)), 3)
+    # per set, as #8: the fp32 g_B / g_C shares written and read again
+    t["extra_bytes"] = 2 * 2 * scan.n_bc_shares(d) * 2 * rows * Ns * 4
+    t["exps"] = 2 * (rows * d * Ns + rows * d)
     res["bidir_bwd"] = t
     for name, t in res.items():
         log(f"[time] {name} G=4 L={L} bf16: kernel {t['ms']:.3f} ms (runs "
@@ -2641,21 +2859,32 @@ def main() -> int:
               shape="G=4 L=131072 bf16, one direction, carries saved",
               launches_path="MambaMixer train step (2 layers, accum 2)",
               launches_generate=report["v1_generate"]["launches"],
-              exps=st["fwd"]["exps"], exp_ms=st["fwd"]["exp_ms"]),
+              exps=st["fwd"]["exps"], exp_ms=st["fwd"]["exp_ms"],
+              exps_softplus=st["fwd"]["exps_softplus"],
+              G1_fp32={k: st["fwd_G1_fp32"][k] for k in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "exps", "exp_ms")},
+              G1_bf16={k: st["fwd_G1_bf16"][k] for k in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "exps", "exp_ms")},
+              gated={k: st["fwd_gated"][k] for k in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "exps", "exp_ms")}),
         entry("bidir_scan_fwd",
               "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["bidir"],
               t1["launches"]["bidir_scan_fwd"],
               st["bidir"]["check"]["yf"]["max_abs_err"],
               shape="G=4 L=131072 bf16, two directions, carries saved",
               launches_serve=report["v1_serve"]["launches"],
-              exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"]),
+              exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"],
+              exps_softplus=st["bidir"]["exps_softplus"]),
         entry("selective_scan_bwd",
               "caduceus_tpu_torch/csrc/selective_scan_bwd.cu", st["bwd"],
               t1["launches"]["selective_scan_bwd"],
               st["bwd"]["check"]["g_u"]["max_abs_err"],
               shape="G=4 L=131072 bf16, one direction",
               extra_bytes=st["bwd"]["extra_bytes"],
-              exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"]),
+              bc_shares=st["bwd"]["bc_shares"],
+              sub_launches=st["bwd"]["sub_launches"],
+              exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"],
+              exps_softplus=st["bwd"]["exps_softplus"]),
         entry("ssd_head_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu",
               nt["head_fwd"], ht["launches"]["ssd_head_fwd"],
               nt["head_fwd"]["check"]["y"]["max_abs_err"],
@@ -2681,7 +2910,9 @@ def main() -> int:
               nt["bidir_bwd"]["check"]["g_uf"]["max_abs_err"],
               shape="G=4 L=131072 bf16, two directions",
               launches_path="v1 train step with CADUCEUS_BIDIR_BWD=1, 16 "
-              "layers", two_launch_ms=nt["bidir_bwd"]["two_launch_ms"]),
+              "layers", two_launch_ms=nt["bidir_bwd"]["two_launch_ms"],
+              extra_bytes=nt["bidir_bwd"]["extra_bytes"],
+              exps=nt["bidir_bwd"]["exps"]),
     ]}
     report.update(kernels)
     report["card"] = card

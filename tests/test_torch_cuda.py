@@ -634,3 +634,152 @@ def test_ssd_kernels_are_deterministic_at_the_training_shape(card):
         second = fn()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second)), fn
+
+
+# --- the redesigned scan kernels where their pieces meet: chunks of 256
+# rows (32 runs of 8), and the adjoint's clusters of channel tiles (d / 8
+# tiles in clusters of up to 2: d = 40 gives 5 clusters of 1, d = 48 three
+# of 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,d,dtype,reverse,G", [
+    (255, 48, torch.float32, False, 2), (257, 40, torch.bfloat16, True, 2),
+    (700, 48, torch.bfloat16, False, 2), (512, 40, torch.float32, True, 2),
+    (9, 16, torch.float32, True, 2), (257, 512, torch.bfloat16, True, 3),
+    (700, 512, torch.float32, False, 3), (300, 42, torch.float32, True, 1)])
+def test_scan_kernels_at_piece_edges(card, L, d, dtype, reverse, G):
+    """L = one chunk - 1 and + 1, a ragged L over three chunks, two whole
+    chunks, and L shorter than a run; forward (y, hN, carries, h_init in)
+    and adjoint (all eight outputs, g_hN in) against the plain versions.
+    The forward runs blocks of 8 channels, or in fp32 of 4 where blocks of
+    8 would be fewer than the SMs (the small fp32 cases and the prefill):
+    G=3, d=512 runs 192 blocks of 8 at a ragged L, d=42 in fp32 blocks of
+    4 (and the adjoint a tile of 8) whose last is partial."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import (selective_scan,
+                                                       selective_scan_bwd)
+
+    args, h0, gy, ghN = _scan_inputs(dtype, G=G, L=L, d=d, seed=50 + L)
+    T = scan.KERNEL_CHUNK
+    got = scan.selective_scan_fwd(*args, True, reverse, T, h0,
+                                  save_carries=True)
+    want = selective_scan(*args, True, reverse, T, h0, True, True)
+    car = got[2]
+    got += scan.selective_scan_bwd_cuda(*args, gy, car, ghN, True, reverse, T)
+    torch.cuda.synchronize()
+    want += selective_scan_bwd(*args, gy, car, ghN, True, reverse, T)
+    for name, k, p in zip(("y", "hN", "carries") + SCAN_GRADS, got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_scan_kernel_matches_plain(card, dtype):
+    """`selective_scan_fwd` with z (a column slice of a (G, L, 2 d)
+    tensor, as in_proj gives it) against the plain gated forward, and
+    `selective_scan_gated` without grad is that launch."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    args, h0, _, _ = _scan_inputs(dtype, L=600, seed=60)
+    G, L, d = args[0].shape
+    g = torch.Generator(device="cuda").manual_seed(61)
+    z = torch.randn(G, L, 2 * d, generator=g, device="cuda").to(dtype)[..., d:]
+    for reverse in (False, True):
+        got = scan.selective_scan_fwd(*args, True, reverse, scan.KERNEL_CHUNK,
+                                      h0, save_carries=True, z=z)
+        want = selective_scan(*args, True, reverse, scan.KERNEL_CHUNK, h0,
+                              True, True, z=z)
+        for name, k, p in zip(("y", "hN", "carries"), got, want):
+            stats = compare(k, p, TOL[dtype])
+            assert stats["ok"], (name, reverse, stats)
+    before = scan.fwd_launches
+    y = scan.selective_scan_gated(*args[:6], z, args[6], True)
+    assert scan.fwd_launches == before + 1
+    want = selective_scan(*args, True, z=z)
+    assert compare(y, want, TOL[dtype])["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_scan_under_grad_matches_plain(card, dtype):
+    """`selective_scan_gated` under grad (the kernel without z, y rounded
+    to its dtype, then the gate as PyTorch ops: in bf16 a second rounding
+    the launch without grad does not make) against the plain gated
+    forward, both directions."""
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops.selective_scan import selective_scan
+
+    args, _, _, _ = _scan_inputs(dtype, L=600, seed=66)
+    g = torch.Generator(device="cuda").manual_seed(67)
+    z = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+    u = args[0].clone().requires_grad_()
+    for reverse in (False, True):
+        before = scan.fwd_launches
+        y = scan.selective_scan_gated(u, *args[1:6], z, args[6], True,
+                                      reverse)
+        assert y.requires_grad and scan.fwd_launches == before + 1
+        want = selective_scan(*args, True, reverse, z=z)
+        stats = compare(y.detach(), want, TOL[dtype])
+        assert stats["ok"], (reverse, stats)
+
+
+@pytest.mark.cuda
+def test_gated_scan_matches_finite_differences(card):
+    """`selective_scan_gated` under grad (the kernel without z and its
+    adjoint, the gate as PyTorch ops): every input, z included."""
+    from caduceus_tpu_torch.ops import scan
+
+    args, _, gy, _ = _scan_inputs(torch.float32, G=1, L=300, d=16, seed=62)
+    args = [t.contiguous() for t in args]
+    g = torch.Generator(device="cuda").manual_seed(63)
+    z = torch.randn(args[0].shape, generator=g, device="cuda")
+    for reverse in (False, True):
+        def loss(ts):
+            y = scan.selective_scan_gated(*ts[:6], ts[7], ts[6], True,
+                                          reverse)
+            return (y.double() * gy).sum()
+
+        _fd_check(loss, args + [z], 64 + reverse)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_are_deterministic_at_the_training_shape(card):
+    """#9 + #8 (both directions), #7 + #8 with h_init and g_hN, and #10,
+    twice on the same inputs at the training shape (G=4, L=131072, d=512,
+    N=16, bf16): every output bit for bit the same (g_B / g_C added in a
+    fixed order, no float atomics)."""
+    from caduceus_tpu_torch.ops import scan
+
+    G, L, d, N = 4, 131072, 512, 16
+    T = scan.KERNEL_CHUNK
+    f, h0, gyf, ghN = _scan_inputs(torch.bfloat16, G=G, L=L, d=d, N=N,
+                                   seed=70)
+    r, _, gyr, _ = _scan_inputs(torch.bfloat16, G=G, L=L, d=d, N=N, seed=71)
+    pa = (*f[:2], *f[3:5], *r[:2], *r[3:5], f[2], r[2], f[5], r[5], f[6],
+          r[6])
+
+    def paired():
+        yf, yr, cf, cr = scan.bidir_scan_fwd(*pa, save_carries=True)
+        return (yf, yr, cf, cr) + scan.selective_scan_bwd_cuda(
+            *f, gyf, cf, None, True, False, T)[:7] + \
+            scan.selective_scan_bwd_cuda(*r, gyr, cr, None, True, True, T)[:7]
+
+    def one_direction():
+        out = scan.selective_scan_fwd(*f, True, False, T, h0,
+                                      save_carries=True)
+        return out + scan.selective_scan_bwd_cuda(*f, gyf, out[2], ghN, True,
+                                                  False, T)
+
+    def paired_bwd():
+        _, _, cf, cr = scan.bidir_scan_fwd(*pa, save_carries=True)
+        return scan.bidir_scan_bwd(*pa, gyf, gyr, cf, cr)
+
+    for fn in (paired, one_direction, paired_bwd):
+        first = [t.clone() for t in fn()]
+        second = fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), fn

@@ -286,3 +286,129 @@ def test_paired_backward_matches_tpu_kernel_and_two_launches(monkeypatch):
         torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
     for i, (leaf, w) in enumerate(zip(grads["1"], jax_bidir()[1])):
         _close(leaf.grad.numpy(), w, 5e-3, f"paired TPU kernel output {i}")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the tiny ops below would otherwise wait on a
+    thread pool shared with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _runs_case(reverse, L, N, drop_run=None, seed=5):
+    """The kernels' decomposition (`selective_scan_runs`, `_runs_bwd`: runs
+    of 4 rows, 4 runs a chunk of T) and the serial plain versions on the
+    same inputs, h_init and g_hN nonzero: ((y, hN, carries) + 8 gradients)
+    of each."""
+    x = inputs(L=L, d=8, N=N, seed=seed)
+    a = _args(x)
+    h0, gy, ghN = _t(x["h0"]), _t(x["g_y"]), _t(x["g_hN"])
+    serial = plain.selective_scan(*a, True, reverse, T, h0, True, True)
+    runs = plain.selective_scan_runs(*a, True, reverse, T, h0, 4,
+                                     drop_run=drop_run)
+    car = serial[2]
+    serial += plain.selective_scan_bwd(*a, gy, car, ghN, True, reverse, T)
+    runs += plain.selective_scan_runs_bwd(*a, gy, car, ghN, True, reverse, T,
+                                          4, drop_run=drop_run)
+    return runs, serial
+
+
+OUT_NAMES = ("y", "hN", "carries") + GRADS
+
+
+@pytest.mark.parametrize("reverse,L,N", [(False, 50, 8), (True, 50, 16),
+                                         (False, 3, 16), (True, 10, 8)])
+def test_runs_decomposition_equals_serial(one_thread, reverse, L, N):
+    """Ragged L (50 = 3 chunks + 2 rows), L shorter than a chunk (10) and
+    than a run (3), both directions, N = 8 and 16: every output of the
+    forward and the adjoint at 1e-5 of its largest element (fp32)."""
+    runs, serial = _runs_case(reverse, L, N)
+    for name, got, want in zip(OUT_NAMES, runs, serial):
+        assert got.shape == want.shape, name
+        _close(got.numpy(), want.numpy(), 1e-5, name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_runs_decomposition_dropped_state_fails(one_thread, reverse):
+    """Run 1's incoming state (lam in the adjoint) taken as 0, the kernels'
+    planted fault: y and the adjoint's outputs leave the tolerance."""
+    runs, serial = _runs_case(reverse, 50, 8, drop_run=1)
+    for name in ("y", "u", "delta", "A"):
+        i = OUT_NAMES.index(name)
+        with pytest.raises(AssertionError):
+            _close(runs[i].numpy(), serial[i].numpy(), 1e-5, name)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_gated(reverse):
+    """JAX's XLA `selective_scan(z=...)` on `inputs(seed=6)` with a gate z,
+    and `jax.grad` of <y, g_y> in the nine inputs (z included)."""
+    x = inputs(seed=6)
+    z = np.random.default_rng(7).standard_normal(x["u"].shape).astype(
+        np.float32)
+
+    def fwd(u, dl, A, B, C, D, z, bias):
+        return jax_scan(u, dl, A, B, C, D=D, z=z, delta_bias=bias,
+                        delta_softplus=True, reverse=reverse, chunk_size=T)
+
+    def loss(*a):
+        return jnp.sum(fwd(*a) * x["g_y"])
+
+    args = [x[k] for k in ("u", "delta", "A", "B", "C", "D")] + [z, x["bias"]]
+    y, g = jax.jit(lambda *a: (fwd(*a), jax.grad(
+        loss, argnums=tuple(range(8)))(*a)))(*args)
+    return x, z, np.asarray(y), [np.asarray(t) for t in g]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gated_scan_matches_jax(one_thread, reverse):
+    """The SiLU(z) gate (#7's ``has_z``): the plain forward and the
+    differentiable one-direction entry `selective_scan_gated` against JAX's
+    XLA `selective_scan(z=...)`, and the entry's gradients (the ungated
+    Function's adjoint under the PyTorch gate) against `jax.grad`, all at
+    1e-5 of the largest element (fp32)."""
+    x, z, y_want, g_want = jax_gated(reverse)
+    a = _args(x)
+    y = plain.selective_scan(*a, True, reverse, T, z=_t(z))
+    _close(y.numpy(), y_want, 1e-5, "plain gated y")
+    names = ("u", "delta", "A", "B", "C", "D", "z", "bias")
+    vals = dict(zip(KEYS, a), z=_t(z))
+    leaves = {k: vals[k].clone().requires_grad_() for k in names}
+    y = scan.selective_scan_gated(
+        leaves["u"], leaves["delta"], leaves["A"], leaves["B"], leaves["C"],
+        leaves["D"], leaves["z"], leaves["bias"], True, reverse, T)
+    _close(y.detach().numpy(), y_want, 1e-5, "gated entry y")
+    with torch.no_grad():
+        y_ng = scan.selective_scan_gated(*a[:6], _t(z), a[6], True, reverse, T)
+    _close(y_ng.numpy(), y_want, 1e-5, "gated entry y without grad")
+    (y * _t(x["g_y"])).sum().backward()
+    for name, w in zip(names, g_want):
+        _close(leaves[name].grad.numpy(), w, 1e-5, f"jax.grad {name}")
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gated_scan_bf16_under_grad_matches_plain(one_thread, reverse):
+    """In bf16, `selective_scan_gated` under grad rounds y before the
+    PyTorch gate and after it, the call without grad once: both outputs
+    held against the plain gated forward by kernel_check's bf16 rule, and
+    the gradients are finite."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare
+
+    x = inputs(seed=8)
+    a = [t.to(torch.bfloat16) if t.dim() == 3 else t for t in _args(x)]
+    z = torch.randn(a[0].shape, generator=torch.Generator().manual_seed(9))
+    z = z.to(torch.bfloat16)
+    want = plain.selective_scan(*a, True, reverse, T, z=z)
+    u = a[0].clone().requires_grad_()
+    y = scan.selective_scan_gated(u, *a[1:6], z, a[6], True, reverse, T)
+    with torch.no_grad():
+        y_ng = scan.selective_scan_gated(*a[:6], z, a[6], True, reverse, T)
+    for what, got in (("under grad", y), ("without grad", y_ng)):
+        assert got.dtype == torch.bfloat16, what
+        stats = compare(got.detach(), want, TOL[torch.bfloat16])
+        assert stats["ok"], (what, stats)
+    y.float().sum().backward()
+    assert torch.isfinite(u.grad.float()).all()
