@@ -65,11 +65,12 @@
 // the current chunk computes, each issued right after the last read of its
 // buffer; warp 0 holds the next chunk's dt in registers.
 //
-// `ssd_conv_bwd_kernel` then recomputes pre = conv(xBC), takes g_pre = g_xc
-// * silu'(pre) and the conv transpose g_xBC[j] = sum_k w[k] g_pre[j + dir
-// (K-1-k)] over the whole array (so the TPU kernel's chunk-to-chunk `pend`
-// spillover is not needed); each block writes its g_conv_w / g_conv_b
-// partial sums, and `ssd_conv_wsum_kernel` adds them in block order.
+// `ssd_conv_bwd` then runs the SiLU + conv adjoint over the whole array
+// (so the TPU kernel's chunk-to-chunk `pend` spillover is not needed): a
+// streaming kernel, `ssd_conv_bwd_kernel`, whose warps walk (row tile,
+// column tile) items with a cp.async ring and write per-tile g_conv_w /
+// g_conv_b partials, then `ssd_conv_wsum_kernel`, which adds them in a fixed
+// order (design notes at the kernel).
 //
 // Precision: the forward's policy. Matmul operands are rounded to the storage
 // dtype (bf16 WMMA with fp32 accumulation; fp32 FMA loops, no TF32); cumsums,
@@ -83,9 +84,6 @@
 using namespace ssd;
 
 namespace {
-
-constexpr int CONV_THREADS = 256;  // conv adjoint: one column per thread
-constexpr int CONV_ROWS = 256;     // rows per conv-adjoint block
 
 struct Params {
   const void* x;            // K >= 1: the pre-conv xBC; K = 0: post-conv x (G, L, H*P);
@@ -595,6 +593,57 @@ __global__ void ssd_share_sum_kernel(const float* shares, float* out_b, float* o
   (part ? out_c : out_b)[g * o_sg + r * o_sl + (long long)k * N + nn] = s;
 }
 
+// -- the SiLU + depthwise-conv adjoint (`ssd_conv_bwd`) --------------------
+//
+// The function: pre = conv(xBC) (recomputed), g_pre = g_xc * silu'(pre),
+// g_xBC[j] = sum_k w[k] g_pre[j + dir (K-1-k)], g_conv_w[k] = sum_i
+// x[i - dir (K-1-k)] g_pre[i], g_conv_b = sum_i g_pre[i]. It is bound by
+// bytes: g_xc (fp32) and xBC read once, g_xBC written once, 8 B an element
+// in bf16 (3.22 GB, 0.961 ms at 3.35 TB/s for G=4, L=131072, Wc=768); the
+// ~6K + 8 fp32 operations an element take a third of that time.
+//
+// Design. A warp owns one work item, (g, row tile of CONV_TILE rows, column
+// tile of CONV_COLS columns), and walks its rows alone: each lane owns
+// CONV_VC consecutive columns for the whole tile, so the warps of a block
+// are independent (no barrier anywhere). The walk reads the tile's rows in
+// the scan's order (downwards when `REV`), so that both directions are one
+// forward-form recurrence: in walk order pre needs the K-1 raw rows before
+// a row and the transpose the K-1 g_pre rows after it. Each lane stages its
+// own columns of CONV_RS rows at a time into a ring of CONV_NST stages of
+// shared memory by cp.async (8-byte copies of bf16 x, 16-byte of fp32 x and
+// g_xc), CONV_NST - 1 stages ahead of the stage it computes (18 KB a warp
+// in flight in bf16; two 96 KB blocks a SM), and reads each staged value
+// once: x and g_pre move through K-row windows in registers, so g_pre is
+// computed once per row, halo included. The halo (2(K-1) raw rows, K-1
+// g_xc rows) is read from device memory once per tile, 0.6% of a
+// 1,024-row tile. Each lane keeps its g_conv_w / g_conv_b sums over its
+// tile's own rows in registers and writes them as the tile's partial, one
+// per (g, row tile, column); `ssd_conv_wsum_kernel` adds them in a fixed
+// order. No float atomics: the bits repeat from run to run. On the H100 at
+// G=4, L=131072, Wc=768, bf16 it moves 2.9 TB/s (PERF.md); its cut-outs
+// (`phase_cutouts.py --set conv`) put the rest in the memory system, not in
+// the exps or the sums.
+//
+// A Wc that is not a multiple of CONV_VC, and operands whose rows are not
+// aligned for the vector copies, take a scalar path for the lanes they
+// touch (`vec_x`, `vec_g` and the lane's `full`).
+//
+// CONV_DROP (0 unless given; chip_smoke.py's planted faults, never the
+// shipped library): 1 = the g_pre rows past each tile read as zero, 2 = the
+// raw rows before each tile read as zero.
+
+#ifndef CONV_DROP
+#define CONV_DROP 0
+#endif
+
+constexpr int CONV_WARPS = 4;              // warps (work items) per block
+constexpr int CONV_VC = 4;                 // columns per lane
+constexpr int CONV_COLS = 32 * CONV_VC;    // columns per tile
+constexpr int CONV_TILE = 1024;            // rows per tile (ops/ssd.py CONV_TILE_ROWS)
+constexpr int CONV_RS = 8;                 // rows per ring stage
+constexpr int CONV_NST = 4;                // ring stages per warp
+constexpr int WSUM_WARPS = 8;              // tile ranges of the partial sum (ops/ssd.py CONV_SUM_RANGES)
+
 struct ConvParams {
   const void* xBC;          // (G, L, Wc) storage dtype, unit column stride
   long long xbc_sg, xbc_sl;
@@ -602,86 +651,276 @@ struct ConvParams {
   const float* conv_b;      // (Wc,) or null
   const float* g_xc;        // (G, L, Wc) fp32: d loss / d silu(pre)
   void* g_xBC;              // (G, L, Wc) storage dtype, contiguous
-  float* g_part;            // (G * row tiles, K + 1, Wc): each block's g_conv_w / g_conv_b sums
-  int L, Wc, reverse;
+  float* g_part;            // (G * nrt, K + 1, Wc): each tile's g_conv_w / g_conv_b sums
+  int G, L, Wc, nrt, nct, reverse;
+  int vec_x;                // xBC rows take CONV_VC-wide copies
+  int vec_g;                // so do g_xc, g_xBC and g_part rows (Wc % CONV_VC == 0)
 };
 
-// Block (column tile, row tile, g); a thread owns one column and walks its
-// row tile in groups of RG rows. Three blocks per SM (at most 85 registers
-// a thread): at two the kernel took 4.0 ms against 2.8 at the main
-// geometry on the card. For output rows j0..j0+RG-1 it needs g_pre
-// of RG + K - 1 rows, and pre of those reads RG + 2(K-1) raw rows, all from
-// r0 - (K-1) on (forward: g_pre rows r0.., reverse: r0-(K-1)..).
-template <typename S, int K, bool REV>
-__global__ void __launch_bounds__(CONV_THREADS, 3) ssd_conv_bwd_kernel(const ConvParams p) {
-  const int col = blockIdx.x * CONV_THREADS + threadIdx.x;
-  if (col >= p.Wc) return;
-  const int g = blockIdx.z;
-  const int L = p.L, Wc = p.Wc;
-  constexpr bool rev = REV;  // a template argument: the taps index registers
-  const S* xBC = static_cast<const S*>(p.xBC) + (long long)g * p.xbc_sg;
-  const float* gxc = p.g_xc + (long long)g * L * Wc;
-  S* out = static_cast<S*>(p.g_xBC) + (long long)g * L * Wc;
-  float w[K], gw[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) { w[k] = p.conv_w[k * Wc + col]; gw[k] = 0.f; }
-  const float b = p.conv_b ? p.conv_b[col] : 0.f;
-  float gb = 0.f;
-  const int rend = min(L, (int)(blockIdx.y + 1) * CONV_ROWS);
-  for (int r0 = blockIdx.y * CONV_ROWS; r0 < rend; r0 += RG) {
-    float xr[RG + 2 * (K - 1)];   // xr[m] = xBC[r0 - (K-1) + m]
-    float gp[RG + K - 1];         // gp[i] = g_pre[gi0 + i]
-    const int gi0 = rev ? r0 - (K - 1) : r0;
-#pragma unroll
-    for (int m = 0; m < RG + 2 * (K - 1); ++m) {
-      const int r = r0 - (K - 1) + m;
-      const int rc = r < 0 ? 0 : (r < L ? r : L - 1);
-      const float v = to_f<S>(xBC[(long long)rc * p.xbc_sl + col]);
-      xr[m] = (r >= 0 && r < L) ? v : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RG + K - 1; ++i) {
-      const int r = gi0 + i;
-      const int rc = r < 0 ? 0 : (r < L ? r : L - 1);
-      const float gv = gxc[(long long)rc * Wc + col];
-      // pre[r] = sum_k w[k] x[r - (K-1) + k] (forward) / x[r + K-1-k] (reverse)
-      float pre = b;
-#pragma unroll
-      for (int k = 0; k < K; ++k) pre += w[k] * xr[rev ? i + K - 1 - k : i + k];
-      const float sg = 1.f / (1.f + expf(-pre));
-      gp[i] = (r >= 0 && r < L) ? gv * sg * (1.f + pre * (1.f - sg)) : 0.f;
-    }
-#pragma unroll
-    for (int jj = 0; jj < RG; ++jj) {
-      const int j = r0 + jj;
-      if (j >= L) break;
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) acc += w[k] * gp[rev ? jj + k : jj + K - 1 - k];
-      out[(long long)j * Wc + col] = from_f<S>(acc);
-      // row j's own g_pre, against the raw row each tap read for it
-      const float gj = gp[rev ? jj + K - 1 : jj];
-#pragma unroll
-      for (int k = 0; k < K; ++k) gw[k] += xr[rev ? jj + 2 * (K - 1) - k : jj + k] * gj;
-      gb += gj;
-    }
-  }
-  float* part = p.g_part + ((long long)g * gridDim.y + blockIdx.y) * (K + 1) * Wc;
-#pragma unroll
-  for (int k = 0; k < K; ++k) part[k * Wc + col] = gw[k];
-  part[K * Wc + col] = gb;
+template <typename S>
+__host__ __device__ constexpr size_t conv_smem_bytes() {
+  return (size_t)CONV_WARPS * CONV_NST * CONV_RS * CONV_COLS * (sizeof(float) + sizeof(S));
 }
 
-// g_conv_w / g_conv_b: the conv-adjoint blocks' partial sums added in block
-// order, one thread per (tap or bias, column). The loop is unrolled so that
-// 32 loads are in flight ahead of the adds, which stay in order.
-__global__ void ssd_conv_wsum_kernel(const float* part, float* out, int nblocks, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// cp.async of 4 or 8 bytes (`cp_async16` copies 16); `valid` false writes
+// zeros (src-size 0)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+               "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+
+static_assert(CONV_VC == 4, "the vector loads and stores below move 4 columns");
+
+__device__ __forceinline__ void ld4(const float* s, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(s);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* s, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(s);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void st4(float* d, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* d, const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&a);
+  t.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(d) = t;
+}
+
+// 4 columns from c on: one vector store, or (`vec` false) the ones < Wc
+template <typename E>
+__device__ __forceinline__ void store4(E* d, const float (&v)[4], bool vec, int c, int Wc) {
+  if (vec) {
+    st4(d, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < Wc) d[j] = from_f<E>(v[j]);
+  }
+}
+
+// One lane's walk over its work item (registers only: every method is
+// inlined into the kernel).
+template <typename S, int K, bool REV>
+struct ConvLane {
+  static constexpr int V = CONV_VC, HK = K - 1, SLOT = CONV_RS * CONV_COLS;
+  long long xsl;            // xBC row stride
+  int L, Wc, c, r0, r1, n, E;
+  bool full, vx, vg;
+  float* gring;             // this lane's columns of its warp's g_xc ring
+  S* xring;                 // ... and xBC ring
+  const S* xg;
+  const float* gg;
+  S* out;
+  float w[K][V], b[V];
+  float xw[K][V];           // raw rows pos-(K-1) .. pos of the walk
+  float gw[K][V];           // g_pre rows pos-(K-1) .. pos
+  float aw[K][V], ab[V];    // g_conv_w / g_conv_b over the tile's own rows
+
+  __device__ __forceinline__ ConvLane(const ConvParams& pp, int g, int rt, int ct, int lane,
+                                      unsigned char* smem, int warp)
+      : xsl(pp.xbc_sl), L(pp.L), Wc(pp.Wc) {
+    c = ct * CONV_COLS + lane * V;
+    r0 = rt * CONV_TILE;
+    r1 = min(L, r0 + CONV_TILE);
+    n = r1 - r0;
+    // ext row e is walk position e - (K-1): e < K-1 the raw rows before the
+    // tile, e >= n + K-1 the g_pre rows past it
+    E = n + 2 * HK;
+    full = c + V <= Wc;
+    vx = pp.vec_x && full;
+    vg = pp.vec_g && full;
+    gring = reinterpret_cast<float*>(smem) + (size_t)warp * CONV_NST * SLOT + lane * V;
+    xring = reinterpret_cast<S*>(reinterpret_cast<float*>(smem) +
+                                 (size_t)CONV_WARPS * CONV_NST * SLOT) +
+            (size_t)warp * CONV_NST * SLOT + lane * V;
+    xg = static_cast<const S*>(pp.xBC) + (long long)g * pp.xbc_sg;
+    gg = pp.g_xc + (long long)g * L * Wc;
+    out = static_cast<S*>(pp.g_xBC) + (long long)g * L * Wc;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const bool ok = c + j < Wc;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        w[k][j] = ok ? pp.conv_w[k * Wc + c + j] : 0.f;
+        xw[k][j] = gw[k][j] = aw[k][j] = 0.f;
+      }
+      b[j] = ok && pp.conv_b ? pp.conv_b[c + j] : 0.f;
+      ab[j] = 0.f;
+    }
+  }
+
+  // the array row of walk position pos
+  __device__ __forceinline__ int row(int pos) const { return REV ? r1 - 1 - pos : r0 + pos; }
+
+  // ext rows [q RS, q RS + RS) into ring slot q % NST: one commit group
+  __device__ __forceinline__ void stage(int q) {
+    float* gs = gring + (q % CONV_NST) * SLOT;
+    S* xs = xring + (q % CONV_NST) * SLOT;
+#pragma unroll
+    for (int i = 0; i < CONV_RS; ++i) {
+      const int e = q * CONV_RS + i;
+      if (e >= E) break;
+      const int r = row(e - HK);
+      const bool in = r >= 0 && r < L;
+      bool okx = in, okg = in && e >= HK;
+#if CONV_DROP == 1
+      okg = okg && e < n + HK;
+#elif CONV_DROP == 2
+      okx = okx && e >= HK;
+#endif
+      const long long rr = in ? r : 0;
+      if (vx) {
+        if constexpr (sizeof(S) == 4)
+          cp_async16(xs + i * CONV_COLS, xg + rr * xsl + c, okx);
+        else
+          cp_async_small<V * sizeof(S)>(xs + i * CONV_COLS, xg + rr * xsl + c, okx);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          xs[i * CONV_COLS + j] = okx && c + j < Wc ? xg[rr * xsl + c + j] : from_f<S>(0.f);
+      }
+      if (vg) {
+        cp_async16(gs + i * CONV_COLS, gg + rr * Wc + c, okg);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          gs[i * CONV_COLS + j] = okg && c + j < Wc ? gg[rr * Wc + c + j] : 0.f;
+      }
+    }
+    cp_async_commit();
+  }
+
+  // one ext row: x enters its window; from walk position 0 on, its g_pre
+  // (an own row: into the partial sums) enters the g_pre window; from K-1
+  // on, the output row K-1 positions back is complete. CHECK: the row may
+  // be a halo row (the first and last stages of a tile).
+  template <bool CHECK>
+  __device__ __forceinline__ void step(int e, const S* xs, const float* gs) {
+    float xv[V];
+    ld4(xs, xv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+#pragma unroll
+      for (int k = 0; k + 1 < K; ++k) xw[k][j] = xw[k + 1][j];
+      xw[K - 1][j] = xv[j];
+    }
+    const int pos = e - HK;
+    if (CHECK && pos < 0) return;
+    float gv[V], gp[V];
+    ld4(gs, gv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float pre = w[0][j] * xw[0][j];
+#pragma unroll
+      for (int k = 1; k < K; ++k) pre = fmaf(w[k][j], xw[k][j], pre);
+      pre += b[j];
+      const float sg = __fdividef(1.f, 1.f + __expf(-pre));
+      gp[j] = gv[j] * sg * (1.f + pre * (1.f - sg));
+    }
+    if (!CHECK || pos < n) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) aw[k][j] = fmaf(xw[k][j], gp[j], aw[k][j]);
+        ab[j] += gp[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+#pragma unroll
+      for (int k = 0; k + 1 < K; ++k) gw[k][j] = gw[k + 1][j];
+      gw[K - 1][j] = gp[j];
+    }
+    const int qo = pos - HK;
+    if (CHECK && qo < 0) return;
+    float o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float acc = w[0][j] * gw[K - 1][j];
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc = fmaf(w[k][j], gw[K - 1 - k][j], acc);
+      o[j] = acc;
+    }
+    store4(out + (long long)row(qo) * Wc + c, o, vg, c, Wc);
+  }
+
+  __device__ __forceinline__ void walk() {
+    const int nq = (E + CONV_RS - 1) / CONV_RS;
+#pragma unroll
+    for (int q = 0; q < CONV_NST - 1; ++q) {
+      if (q < nq) stage(q);
+      else cp_async_commit();
+    }
+    for (int q = 0; q < nq; ++q) {
+      cp_async_wait<CONV_NST - 2>();  // stage q has landed (this lane's own copies)
+      // into the slot of stage q - 1, which the last trip read in full
+      if (q + CONV_NST - 1 < nq) stage(q + CONV_NST - 1);
+      else cp_async_commit();
+      const float* gs = gring + (q % CONV_NST) * SLOT;
+      const S* xs = xring + (q % CONV_NST) * SLOT;
+      const int e0 = q * CONV_RS;
+      if (e0 >= 2 * HK && e0 + CONV_RS <= n + HK) {
+        // every row of the stage is an own row whose output is complete
+#pragma unroll
+        for (int i = 0; i < CONV_RS; ++i) step<false>(e0 + i, xs + i * CONV_COLS, gs + i * CONV_COLS);
+      } else {
+#pragma unroll
+        for (int i = 0; i < CONV_RS; ++i)
+          if (e0 + i < E) step<true>(e0 + i, xs + i * CONV_COLS, gs + i * CONV_COLS);
+      }
+    }
+  }
+};
+
+template <typename S, int K, bool REV>
+__global__ void __launch_bounds__(CONV_WARPS * 32) ssd_conv_bwd_kernel(const ConvParams p) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long item = (long long)blockIdx.x * CONV_WARPS + warp;
+  if (item >= (long long)p.G * p.nrt * p.nct) return;  // no barrier follows
+  const int ct = (int)(item % p.nct);
+  const long long gt = item / p.nct;  // g * nrt + row tile: the partial's index
+  ConvLane<S, K, REV> lw(p, (int)(gt / p.nrt), (int)(gt % p.nrt), ct, lane, conv_smem, warp);
+  lw.walk();
+  float* part = p.g_part + gt * (K + 1) * p.Wc + lw.c;
+#pragma unroll
+  for (int k = 0; k < K; ++k) store4(part + k * p.Wc, lw.aw[k], lw.vg, lw.c, p.Wc);
+  store4(part + K * p.Wc, lw.ab, lw.vg, lw.c, p.Wc);
+}
+
+// g_conv_w / g_conv_b: the tiles' partial sums added in a fixed order. A
+// block takes 32 consecutive outputs (a lane each, coalesced), its warps
+// contiguous ranges of tiles, each added in tile order; warp 0 then adds
+// the ranges' sums in warp order.
+__global__ void __launch_bounds__(WSUM_WARPS * 32)
+    ssd_conv_wsum_kernel(const float* part, float* out, int ntiles, int n) {
+  __shared__ float red[WSUM_WARPS][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  const int per = (ntiles + WSUM_WARPS - 1) / WSUM_WARPS;
+  const int t0 = min(ntiles, warp * per), t1 = min(ntiles, t0 + per);
   float s = 0.f;
-#pragma unroll 32
-  for (int b = 0; b < nblocks; ++b) s += __ldg(part + (long long)b * n + i);
-  out[i] = s;
+  if (i < n) {
+#pragma unroll 8
+    for (int t = t0; t < t1; ++t) s += __ldg(part + (long long)t * n + i);
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float r = red[0][lane];
+    for (int k = 1; k < WSUM_WARPS; ++k) r += red[k][lane];
+    out[i] = r;
+  }
 }
 
 // Sub-launches of one `ssd_fused_bwd` / `ssd_bwd` call, selected by `parts`:
@@ -753,12 +992,14 @@ cudaError_t run(int dtype, Params& p, PrepParams& pp, int G, int K, int parts, f
 }
 
 template <typename S, int K>
-cudaError_t launch_conv(const ConvParams& p, int G, int ny, cudaStream_t stream) {
-  const dim3 grid((p.Wc + CONV_THREADS - 1) / CONV_THREADS, ny, G);
-  if (p.reverse)
-    ssd_conv_bwd_kernel<S, K, true><<<grid, CONV_THREADS, 0, stream>>>(p);
-  else
-    ssd_conv_bwd_kernel<S, K, false><<<grid, CONV_THREADS, 0, stream>>>(p);
+cudaError_t launch_conv(const ConvParams& p, cudaStream_t stream) {
+  constexpr size_t smem = conv_smem_bytes<S>();
+  const long long items = (long long)p.G * p.nrt * p.nct;
+  const unsigned blocks = (unsigned)((items + CONV_WARPS - 1) / CONV_WARPS);
+  auto* kern = p.reverse ? ssd_conv_bwd_kernel<S, K, true> : ssd_conv_bwd_kernel<S, K, false>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, CONV_WARPS * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -871,16 +1112,18 @@ extern "C" int ssd_bwd(
 }
 
 // The SiLU + depthwise-conv adjoint, after ssd_fused_bwd has filled g_xc:
-// the conv-adjoint blocks, then their g_conv_w / g_conv_b sums in block
-// order into g_conv ((K + 1) * Wc floats). g_part: (G * ceil(L / 256),
-// K + 1, Wc) fp32 scratch.
+// the conv-adjoint walk over (g, 1,024-row tile, 128-column tile), then the
+// tiles' g_conv_w / g_conv_b sums in a fixed order into g_conv ((K + 1) *
+// Wc floats). g_part: (G * ceil(L / 1024), K + 1, Wc) fp32 scratch.
 extern "C" int ssd_conv_bwd(
     int dtype,
     const void* xBC, long long xbc_sg, long long xbc_sl,
     const void* conv_w, const void* conv_b, const void* g_xc,
     void* g_xBC, void* g_conv, void* g_part,
     int G, int L, int Wc, int K, int reverse, void* stream) {
-  if (L <= 0 || G <= 0 || Wc <= 0 || K < 1 || K > 4) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || G <= 0 || Wc <= 0 || K < 1 || K > 4 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t es = dtype == 1 ? 2 : 4;
   ConvParams p;
   p.xBC = xBC; p.xbc_sg = xbc_sg; p.xbc_sl = xbc_sl;
   p.conv_w = static_cast<const float*>(conv_w);
@@ -888,35 +1131,41 @@ extern "C" int ssd_conv_bwd(
   p.g_xc = static_cast<const float*>(g_xc);
   p.g_xBC = g_xBC;
   p.g_part = static_cast<float*>(g_part);
-  p.L = L; p.Wc = Wc; p.reverse = reverse;
+  p.G = G; p.L = L; p.Wc = Wc; p.reverse = reverse;
+  p.nrt = (L + CONV_TILE - 1) / CONV_TILE;
+  p.nct = (Wc + CONV_COLS - 1) / CONV_COLS;
+  const size_t xb = CONV_VC * es;  // bytes of one lane's x copy
+  p.vec_x = reinterpret_cast<uintptr_t>(xBC) % xb == 0 && (xbc_sg * (long long)es) % xb == 0 &&
+            (xbc_sl * (long long)es) % xb == 0;
+  p.vec_g = Wc % CONV_VC == 0 && reinterpret_cast<uintptr_t>(g_xc) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(g_xBC) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(g_part) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ny = (L + CONV_ROWS - 1) / CONV_ROWS;
-  static cudaError_t (*const bf[4])(const ConvParams&, int, int, cudaStream_t) = {
+  static cudaError_t (*const bf[4])(const ConvParams&, cudaStream_t) = {
       launch_conv<__nv_bfloat16, 1>, launch_conv<__nv_bfloat16, 2>,
       launch_conv<__nv_bfloat16, 3>, launch_conv<__nv_bfloat16, 4>};
-  static cudaError_t (*const f32[4])(const ConvParams&, int, int, cudaStream_t) = {
+  static cudaError_t (*const f32[4])(const ConvParams&, cudaStream_t) = {
       launch_conv<float, 1>, launch_conv<float, 2>, launch_conv<float, 3>,
       launch_conv<float, 4>};
-  cudaError_t err = dtype == 1 ? bf[K - 1](p, G, ny, s)
-                  : dtype == 0 ? f32[K - 1](p, G, ny, s)
-                               : cudaErrorInvalidValue;
+  cudaError_t err = (dtype == 1 ? bf : f32)[K - 1](p, s);
   if (err != cudaSuccess) return (int)err;
   const int n = (K + 1) * Wc;
-  ssd_conv_wsum_kernel<<<(n + 255) / 256, 256, 0, s>>>(p.g_part, static_cast<float*>(g_conv),
-                                                       G * ny, n);
+  ssd_conv_wsum_kernel<<<(n + 31) / 32, WSUM_WARPS * 32, 0, s>>>(
+      p.g_part, static_cast<float*>(g_conv), G * p.nrt, n);
   return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of each sub-launch (which: 0 the prep, 1 the
-// pre-pass, 2 the main pass) at K = 0 or 4, for the build report; -1 for
-// anything else.
+// pre-pass, 2 the main pass, 3 the conv adjoint's block) at K = 0 or 4,
+// for the build report; -1 for anything else.
 extern "C" long long ssd_fused_bwd_smem(int dtype, int K, int P, int N, int which) {
   auto of = [&](auto s, auto k) -> long long {
     using S = decltype(s);
     constexpr int KK = decltype(k)::value;
     return which == 0 ? (long long)PrepSmem<S>::bytes(N)
          : which == 1 ? (long long)StateSmem<S>::bytes(P, N)
-         : which == 2 ? (long long)Smem<S, KK>::bytes(P, N) : -1;
+         : which == 2 ? (long long)Smem<S, KK>::bytes(P, N)
+         : which == 3 && KK > 0 ? (long long)conv_smem_bytes<S>() : -1;
   };
   using K0 = std::integral_constant<int, 0>;
   using K4 = std::integral_constant<int, 4>;

@@ -738,7 +738,8 @@ def conv_silu_bwd(
     reverse: bool = False,
 ):
     """SiLU and depthwise-conv adjoints over the whole array, from
-    g_xc = d loss / d silu(pre): the plain version of `ssd_conv_bwd_kernel`.
+    g_xc = d loss / d silu(pre): the plain version of the `ssd_conv_bwd`
+    kernels (`conv_silu_bwd_tiled` is the same function in their tiles).
     Returns (g_xBC in xBC's dtype, g_conv_w, g_conv_b) (fp32). Over every
     row at once the conv transpose needs no chunk-to-chunk spillover."""
     G, L, Wc = xBC.shape
@@ -764,6 +765,93 @@ def conv_silu_bwd(
         g_raw += w[k] * gp[:, o_g:o_g + L]
         g_w[k] = (xp[:, o_x:o_x + L] * g_pre).sum((0, 1))
     return g_raw.to(xBC.dtype), g_w, g_pre.sum((0, 1))
+
+
+# The `ssd_conv_bwd` kernel's decomposition (csrc/ssd_fused_bwd.cu): rows
+# per tile (`CONV_TILE`) and the ranges of tiles its weight-gradient sum
+# adds in order (`WSUM_WARPS`).
+CONV_TILE_ROWS = 1024
+CONV_SUM_RANGES = 8
+
+
+def conv_tile_rows(r0, r1, K, reverse):
+    """The rows a conv-adjoint tile of output rows [r0, r1) reads:
+    ``((x0, x1), (g0, g1))``, raw xBC rows [x0, x1) and g_xc rows [g0, g1).
+    Its K-1 halo rows on each side of the raw rows feed the recompute of
+    pre; the K-1 g_xc rows past the tile in the scan's order (after r1, or
+    before r0 when ``reverse``) give the g_pre that the conv transpose of
+    its last rows reads."""
+    h = K - 1
+    return (r0 - h, r1 + h), ((r0 - h, r1) if reverse else (r0, r1 + h))
+
+
+def _tile_rows_of(t, lo, hi, r0, count):
+    """Rows [r0, r0 + count) of ``t`` (G, L, W) in fp32, zero outside
+    [lo, hi) and outside the array."""
+    G, L, W = t.shape
+    out = torch.zeros(G, count, W, device=t.device)
+    a, b = max(lo, r0, 0), min(hi, r0 + count, L)
+    if a < b:
+        out[:, a - r0:b - r0] = t[:, a:b].float()
+    return out
+
+
+def conv_silu_bwd_tiled(g_xc, xBC, conv_w, conv_b, reverse=False,
+                        tile_rows=CONV_TILE_ROWS):
+    """`conv_silu_bwd` in the `ssd_conv_bwd` kernel's decomposition, for
+    the tests: each tile of ``tile_rows`` output rows per batch row reads
+    only its `conv_tile_rows` (halos included), recomputes g_pre on them and
+    writes its output rows and its g_conv_w / g_conv_b partial; the partials
+    of every (batch row, tile), in that order, are added as the kernel's
+    second launch adds them (`CONV_SUM_RANGES` contiguous ranges, each in
+    order, then the ranges in order). The same function as
+    `conv_silu_bwd`."""
+    G, L, Wc = xBC.shape
+    K = conv_w.shape[0]
+    h = K - 1
+    w = conv_w.float()
+    b = None if conv_b is None else conv_b.float()
+    g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=xBC.device)
+    parts = []
+    for r0 in range(0, L, tile_rows):
+        r1 = min(L, r0 + tile_rows)
+        n = r1 - r0
+        (x0, x1), (g0, g1) = conv_tile_rows(r0, r1, K, reverse)
+        # ext rows r0 - h .. r1 + h - 1
+        xe = _tile_rows_of(xBC, x0, x1, r0 - h, n + 2 * h)
+        ge = _tile_rows_of(g_xc, g0, g1, r0 - h, n + 2 * h)
+        # g_pre of the n + h rows the tile's transpose reads, from ext row m0
+        m0 = 0 if reverse else h
+        pre = None
+        for k in range(K):
+            i = m0 + h - k if reverse else m0 - h + k
+            term = xe[:, i:i + n + h] * w[k]
+            pre = term if pre is None else pre + term
+        if b is not None:
+            pre = pre + b
+        sig = torch.sigmoid(pre)
+        gp = ge[:, m0:m0 + n + h] * sig * (1.0 + pre * (1.0 - sig))
+        o = h if reverse else 0               # the tile's own rows in gp
+        own = gp[:, o:o + n]
+        acc = torch.zeros(G, n, Wc, device=xBC.device)
+        part = torch.empty(G, K + 1, Wc, device=xBC.device)
+        for k in range(K):
+            og = k if reverse else h - k      # g_pre row read for row j
+            ox = 2 * h - k if reverse else k  # x row tap k read for row i
+            acc = acc + w[k] * gp[:, og:og + n]
+            part[:, k] = (xe[:, ox:ox + n] * own).sum(1)
+        part[:, K] = own.sum(1)
+        g_xBC[:, r0:r1] = acc.to(xBC.dtype)
+        parts.append(part)
+    parts = torch.stack(parts, 1).reshape(-1, K + 1, Wc)  # (g, tile) order
+    per = -(-parts.shape[0] // CONV_SUM_RANGES)
+    total = None
+    for lo in range(0, parts.shape[0], per):
+        s = parts[lo]
+        for t in range(lo + 1, min(lo + per, parts.shape[0])):
+            s = s + parts[t]
+        total = s if total is None else total + s
+    return g_xBC, total[:K], total[K]
 
 
 def ssd_chunked_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,

@@ -48,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from caduceus_tpu_torch import _build
-from caduceus_tpu_torch.ops.ssd import carry_dtype
+from caduceus_tpu_torch.ops.ssd import CONV_TILE_ROWS, carry_dtype
 from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain_conv_silu_bwd
 from caduceus_tpu_torch.ops.ssd import ssd_adjoint_xc as plain_adjoint_xc
 from caduceus_tpu_torch.ops.ssd import ssd_chunked as plain_chunked
@@ -86,9 +86,11 @@ _LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fwd": "ssd_fused_fwd",
             "ssd_bwd": "ssd_fused_bwd"}
 
 
-def _fn(name: str):
-    """The C entry point ``name``, loaded (and built) on first use."""
-    fn = getattr(_build.load(_LIBRARY[name]), name)
+def _fn(name: str, defines=()):
+    """The C entry point ``name``, loaded (and built) on first use; from
+    the variant library built with ``defines`` when they are given (the
+    checks' planted faults, `csrc/ssd_fused_bwd.cu` CONV_DROP)."""
+    fn = getattr(_build.load(_LIBRARY[name], defines), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
@@ -610,9 +612,10 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
                   reverse: bool = False):
     """SiLU and depthwise-conv adjoints, `ops/ssd.py conv_silu_bwd`
     semantics: ``(g_xBC, g_conv_w, g_conv_b)``. On a CPU tensor that plain
-    version; on a CUDA tensor one call of `ssd_conv_bwd` (the conv-adjoint
-    kernel and the fixed-order sum of its g_conv_w / g_conv_b partials),
-    counted in ``conv_bwd_launches``, or raises."""
+    version; on a CUDA tensor one call of `ssd_conv_bwd` (the streaming
+    conv-adjoint kernel over 1,024-row tiles and the fixed-order sum of its
+    per-tile g_conv_w / g_conv_b partials), counted in
+    ``conv_bwd_launches``, or raises."""
     if xBC.device.type == "cpu":
         return plain_conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
     if xBC.device.type != "cuda":
@@ -631,10 +634,10 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
     b_ = _small(conv_b, (Wc,), "conv_b", dev)
     g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=dev)
     g_conv = torch.empty(K + 1, Wc, dtype=torch.float32, device=dev)
-    # each conv-adjoint block's g_conv_w / g_conv_b sums (256-row tiles),
-    # added in block order by the second launch
-    g_part = torch.empty(G * -(-L // 256), K + 1, Wc, dtype=torch.float32,
-                         device=dev)
+    # each conv-adjoint tile's g_conv_w / g_conv_b sums, per (g, row tile),
+    # added in a fixed order by the second launch
+    g_part = torch.empty(G * -(-L // CONV_TILE_ROWS), K + 1, Wc,
+                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _fn("ssd_conv_bwd")(
             _DTYPES[xBC.dtype], xBC.data_ptr(), xBC.stride(0), xBC.stride(1),

@@ -12,10 +12,12 @@ order (any failure exits non-zero; nothing is caught and passed over):
    nvcc per source, side by side): `ssd_fused_fwd.cu` (entry points
    `ssd_fused_fwd` and `ssd_fwd`: prep, segment pre-pass and main pass)
    and `ssd_fused_bwd.cu` (`ssd_fused_bwd` / `ssd_bwd`: prep, pre-pass,
-   main pass, head-order g_B / g_C sum; `ssd_conv_bwd`), and the two scan
-   sources; print build times, every compiled kernel's registers, spills
-   and static shared memory, and each SSD sub-launch's dynamic shared
-   memory;
+   main pass, head-order g_B / g_C sum; `ssd_conv_bwd`: the streaming
+   SiLU + conv adjoint and its fixed-order weight sum), the two scan
+   sources and five planted-fault variants (three of the scan kernels, two
+   of the conv adjoint); print build times, every compiled kernel's
+   registers, spills and static shared memory, and each SSD sub-launch's
+   dynamic shared memory;
 2. hold the forward kernel (y, hN and the chunk carries) against its
    plain PyTorch version (`ops/ssd.py ssd_chunked_fused`) on the card:
    small shapes (fp32 and bf16, both directions, nonzero h_init, L not a
@@ -31,7 +33,13 @@ order (any failure exits non-zero; nothing is caught and passed over):
    planted in the backward's outputs at the main geometry (the conv
    transpose's neighbour rows dropped, one 16-row tile of g_dt zeroed,
    g_A scaled by 1+2^-4, one 16x16 tile of g_xBC's B columns zeroed, and
-   in each direction one segment's incoming lambda dropped);
+   in each direction one segment's incoming lambda dropped); then the SiLU
+   + conv adjoint `ssd_conv_bwd` (#3b) alone against `ops/ssd.py
+   conv_silu_bwd`: small shapes (fp32 and bf16, both directions, K 1-4,
+   L=4099 over five 1,024-row tiles, Wc 388, and Wc 203 as a column view
+   at an odd offset) and the main geometry (G=4, L=8192, Wc=768), with the
+   halo of every row tile dropped (the g_pre rows past it, the raw rows
+   before it: `CONV_DROP` variant builds) failing the check;
 4. hold the whole model on the card against the same model on the CPU
    (same weights, full width, 2 layers, L=2048, fp32 logits);
 5. serve the full-width `hg38_mlm_v2` model (16 layers, random weights
@@ -54,7 +62,10 @@ order (any failure exits non-zero; nothing is caught and passed over):
 8. time the kernels at the training shape (G=4, L=131072, bf16) and the
    forward also at G=16 (`bench.py`'s batch of 8 x 2 strands) beside
    their plain versions and bounds, each SSD sub-launch alone beside its
-   bytes, and hold the timed outputs against the plain versions'; then
+   bytes, #3b also beside the floor of its own traffic and the two PyTorch
+   calls that compute its function (`silu_backward` then
+   `convolution_backward`, held to the plain version first), and hold the
+   timed outputs against the plain versions'; then
    run #1 + #3, #2 + #4 and the v1 scan kernels (#9 + #8 in both
    directions, #7 + #8 with h_init and g_hN, #10) twice on the same inputs
    at the training shape and require every output bit for bit the same;
@@ -157,6 +168,7 @@ JSON line, the card's name and power limit, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -287,26 +299,36 @@ def _instantiation(mangled: str) -> str:
 # built with these defines (`csrc/scan_common.cuh` SCAN_DROP)
 DROP_RUN = ("SCAN_DROP=1",)     # one run's incoming state / lam zeroed
 DROP_SHARE = ("SCAN_DROP=2",)   # one cluster's g_B share left out
+# the conv adjoint's (`csrc/ssd_fused_bwd.cu` CONV_DROP): a row tile's halo
+CONV_DROP_AFTER = ("CONV_DROP=1",)   # the g_pre rows past each tile zero
+CONV_DROP_BEFORE = ("CONV_DROP=2",)  # the raw rows before each tile zero
 FAULT_BUILDS = (("selective_scan_fwd", DROP_RUN),
                 ("selective_scan_bwd", DROP_RUN),
-                ("selective_scan_bwd", DROP_SHARE))
+                ("selective_scan_bwd", DROP_SHARE),
+                ("ssd_fused_bwd", CONV_DROP_AFTER),
+                ("ssd_fused_bwd", CONV_DROP_BEFORE))
+
+
+def _variant(module, defines):
+    """While open, the wrappers of ``module`` launch the variant library
+    built with ``defines`` (a planted fault) instead of the shipped one."""
+    real = module._fn
+    return mock.patch.object(module, "_fn", lambda name: real(name, defines))
 
 
 def scan_fault(defines):
-    """While open, the scan wrappers launch the variant library built with
-    ``defines`` (a planted fault) instead of the shipped one."""
+    """`_variant` of the scan wrappers (`csrc/scan_common.cuh` SCAN_DROP)."""
     from caduceus_tpu_torch.ops import scan
 
-    real = scan._fn
-    return mock.patch.object(scan, "_fn", lambda name: real(name, defines))
+    return _variant(scan, defines)
 
 
 def phase_build():
-    """nvcc of the four sources and of the scan kernels' three planted-fault
-    variants side by side; then every compiled kernel's registers, static
-    shared memory and spills (`-Xptxas -v`), and the dynamic shared memory
-    each SSD sub-launch asks for at the main geometry (P=64, N=128) and K =
-    4 and 0."""
+    """nvcc of the four sources and of the five planted-fault variants
+    (three of the scan kernels, two of the conv adjoint) side by side; then
+    every compiled kernel's registers, static shared memory and spills
+    (`-Xptxas -v`), and the dynamic shared memory each SSD sub-launch asks
+    for at the main geometry (P=64, N=128) and K = 4 and 0."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -342,6 +364,8 @@ def phase_build():
                 for K in (4, 0):
                     sizes = {part: fn(dtype, K, 64, 128, i) for i, part in
                              enumerate(("prep", "pre-pass", "main pass"))}
+                    if name == "ssd_fused_bwd" and K:
+                        sizes["conv adjoint block"] = fn(dtype, K, 64, 128, 3)
                     out["dynamic_smem"][f"{name} {dname} K={K}"] = sizes
                     log(f"[build]   {name} {dname} K={K} dynamic shared "
                         f"memory (P=64, N=128): " + ", ".join(
@@ -615,6 +639,76 @@ def phase_bwd_checks():
                                 drop_segment_bwd(inp, reverse, car), plain,
                                 BWD_NAMES, expect_ok=False, tag="bwd")
         del inp, kernel, plain, car
+    return results, faults
+
+
+def conv_inputs(G, L, Wc, K, dtype, seed, pad=None):
+    """The conv adjoint's inputs on the card: g_xc (fp32), xBC (contiguous,
+    or a column view at offset ``pad`` of a wider row), conv_w, conv_b."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    wide = rnd(G, L, (pad or 0) + Wc + 8).to(dtype)
+    xBC = (wide[..., :Wc].contiguous() if pad is None
+           else wide[..., pad:pad + Wc])
+    return rnd(G, L, Wc), xBC, rnd(K, Wc, sc=0.5), rnd(Wc, sc=0.1)
+
+
+CONV_NAMES = ("g_xBC", "g_conv_w", "g_conv_b")
+
+
+def conv_pair(args, reverse, fault=()):
+    """`ssd_conv_bwd` (or a planted fault's build of it) and its plain
+    version, `ops/ssd.py conv_silu_bwd`, on the same tensors."""
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+    from caduceus_tpu_torch.ops.ssd import conv_silu_bwd
+
+    with _variant(sb, fault) if fault else contextlib.nullcontext():
+        kernel = sb.conv_silu_bwd(*args, reverse)
+    torch.cuda.synchronize()
+    return kernel, conv_silu_bwd(*args, reverse)
+
+
+def phase_conv_checks():
+    """#3b alone (`ssd_conv_bwd`, the SiLU + conv adjoint) against its
+    plain version: small shapes (fp32 and bf16, both directions, K 1-4,
+    L=4099: four 1,024-row tiles and a ragged fifth; Wc 388 contiguous, and
+    Wc 203 as a column view at an odd offset, which takes the scalar path)
+    and the main geometry (G=4, L=8192, Wc=768 in a 1288-wide row, bf16
+    both directions, fp32); then the halo of every row tile dropped (the
+    g_pre rows past it, the raw rows before it: variant builds), which
+    must fail."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    results, faults = [], {}
+    seed = 300
+    for dtype in (torch.float32, torch.bfloat16):
+        for reverse in (False, True):
+            for K in (1, 2, 3, 4):
+                for Wc, pad in ((388, None), (203, 5)):
+                    seed += 1
+                    label = (f"conv small G=2 L=4099 Wc={Wc} K={K} "
+                             f"{str(dtype)[6:]} rev={reverse}")
+                    args = conv_inputs(2, 4099, Wc, K, dtype, seed, pad)
+                    results.append({"case": label, **hold(
+                        label, TOL[dtype], *conv_pair(args, reverse),
+                        CONV_NAMES, tag="conv")})
+    for dtype, reverse in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, False)):
+        seed += 1
+        args = conv_inputs(4, 8192, 768, 4, dtype, seed, pad=512)
+        label = f"conv main G=4 L=8192 Wc=768 {str(dtype)[6:]} rev={reverse}"
+        kernel, plain = conv_pair(args, reverse)
+        results.append({"case": label, **hold(
+            label, TOL[dtype], kernel, plain, CONV_NAMES, tag="conv")})
+        if dtype == torch.bfloat16:
+            for what, fault in (("g_pre rows past", CONV_DROP_AFTER),
+                                ("raw rows before", CONV_DROP_BEFORE)):
+                name = f"the {what} each row tile dropped, rev={reverse}"
+                faults[name] = hold(
+                    f"planted fault: {name}", TOL[dtype],
+                    conv_pair(args, reverse, fault)[0], plain, CONV_NAMES,
+                    expect_ok=False, tag="conv")
+        del args, kernel, plain
     return results, faults
 
 
@@ -1189,7 +1283,8 @@ def phase_timing():
     g_xc = adj_k[0]
     conv_args = (g_xc, inp["xBC"], inp["conv_w"], inp["conv_b"], False)
     t = _timed(lambda: outs.__setitem__("k", conv_silu_bwd(*conv_args)),
-               lambda: outs.__setitem__("p", plain.conv_silu_bwd(*conv_args)))
+               lambda: outs.__setitem__("p", plain.conv_silu_bwd(*conv_args)),
+               n_kernel=10)
     conv_k, conv_p = outs.pop("k"), outs.pop("p")
     t["check"] = hold(
         f"timed ssd_conv_bwd_kernel G=4 L={L} bf16 (the kernel's g_xc)",
@@ -1202,11 +1297,20 @@ def phase_timing():
     # second time
     t.update(_bound(rows * Wc * 2, rows * Wc * (6 * K + 8), FP32_FLOP_PER_S))
     t["extra_bytes"] = rows * Wc * (4 + 2)
+    # the kernel alone as a function of its own inputs: g_xc and xBC read
+    # once, g_xBC written once
+    t["floor"] = _bound(rows * Wc * (4 + 2 + 2), rows * Wc * (6 * K + 8),
+                        FP32_FLOP_PER_S)
+    t["library_pair"] = library_pair_timing(conv_args, conv_p)
     res["bwd_conv"] = t
     log(f"[time] ssd_conv_bwd_kernel G=4 L={L} bf16: kernel {t['ms']:.3f} "
-        f"ms, plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
+        f"ms (runs {', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), "
+        f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.3f} ms "
         f"({t['bound_by']}; workspace and xBC reads "
-        f"{t['extra_bytes'] / 1e9:.2f} GB on top)")
+        f"{t['extra_bytes'] / 1e9:.2f} GB on top); floor of the kernel's own "
+        f"traffic {t['floor']['bound_ms']:.3f} ms "
+        f"({t['floor']['bytes'] / 1e9:.2f} GB); two PyTorch calls "
+        f"{t['library_pair']['ms']:.3f} ms")
     # the whole backward against the plain version end to end
     whole_p = plain.conv_silu_bwd(adj_p[0], inp["xBC"], inp["conv_w"],
                                   inp["conv_b"], False)
@@ -1225,6 +1329,56 @@ def phase_timing():
         f"({res['bwd_function_bound']['bytes'] / 1e9:.2f} GB), sum of the "
         f"kernels' bounds {res['bwd_main']['bound_ms'] + res['bwd_conv']['bound_ms']:.3f} ms")
     return res
+
+
+def library_pair(g_xc, xBC, conv_w, conv_b):
+    """The pair of PyTorch calls that computes #3b's function (forward
+    direction), a yardstick the port never calls: ``torch.ops.aten.
+    silu_backward`` then ``convolution_backward`` of the depthwise causal
+    conv (groups = Wc) on channel-first views. Set-up, not timed: xBC in
+    fp32 with K-1 zero rows in front (the conv's causal padding), and
+    pre = conv(xBC) by `conv1d`. Returns (call, to_outputs): ``call()``
+    runs the two calls; ``to_outputs`` maps its result to (g_xBC,
+    g_conv_w, g_conv_b) in the port's layouts."""
+    G, L, Wc = xBC.shape
+    K = conv_w.shape[0]
+    x_cf = torch.nn.functional.pad(xBC.float().transpose(1, 2), (K - 1, 0))
+    weight = conv_w.float().t().reshape(Wc, 1, K).contiguous()
+    pre = torch.nn.functional.conv1d(x_cf, weight, conv_b.float(), groups=Wc)
+    g_cf = g_xc.transpose(1, 2)
+
+    def call():
+        g_pre = torch.ops.aten.silu_backward(g_cf, pre)
+        return torch.ops.aten.convolution_backward(
+            g_pre, x_cf, weight, [Wc], [1], [0], [1], False, [0], Wc,
+            [True, True, True])
+
+    def to_outputs(res):
+        g_x, g_w, g_b = res
+        return (g_x[..., K - 1:].transpose(1, 2).to(xBC.dtype),
+                g_w.reshape(Wc, K).t(), g_b)
+
+    return call, to_outputs
+
+
+def library_pair_timing(conv_args, conv_p):
+    """The two PyTorch calls of `library_pair` timed on #3b's inputs (the
+    set-up outside the timing), after holding their outputs to the plain
+    version's (the bf16 rule), so the yardstick computes the same
+    function."""
+    from caduceus_tpu_torch.kernel_check import TOL
+
+    g_xc, xBC, conv_w, conv_b, _ = conv_args
+    call, to_outputs = library_pair(g_xc, xBC, conv_w, conv_b)
+    out = {"check": hold("library pair (silu_backward + convolution_backward)"
+                         " vs plain", TOL[torch.bfloat16],
+                         to_outputs(call()), conv_p, CONV_NAMES, tag="conv")}
+    call()
+    out["ms_runs"] = [_time_cuda(call, 3), _time_cuda(call, 3)]
+    out["ms"] = float(np.mean(out["ms_runs"]))
+    del call, to_outputs
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_determinism():
@@ -2705,6 +2859,7 @@ def main() -> int:
     phases = time.perf_counter()
     report["ssd_checks"], report["planted_faults"] = phase_kernel_checks()
     report["bwd_checks"], report["bwd_planted_faults"] = phase_bwd_checks()
+    report["conv_checks"], report["conv_planted_faults"] = phase_conv_checks()
     report["model_vs_cpu"] = phase_model_vs_cpu()
     report["serve"] = phase_serve()
     report["train_vs_cpu"] = phase_train_vs_cpu()
@@ -2851,7 +3006,12 @@ def main() -> int:
               tm["bwd_conv"], tr["launches"]["ssd_conv_bwd_kernel"],
               tm["bwd_conv"]["check"]["g_xBC"]["max_abs_err"],
               shape="G=4 L=131072 bf16",
-              extra_bytes=tm["bwd_conv"]["extra_bytes"], **pair),
+              extra_bytes=tm["bwd_conv"]["extra_bytes"],
+              floor_ms=tm["bwd_conv"]["floor"]["bound_ms"],
+              library_pair_ms=tm["bwd_conv"]["library_pair"]["ms"],
+              library_pair="2 calls: torch.ops.aten.silu_backward + "
+              "convolution_backward (depthwise, fp32, pre and padded xBC "
+              "made beforehand)", **pair),
         entry("selective_scan_fwd",
               "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["fwd"],
               report["mamba_mixer_step"]["launches"]["selective_scan_fwd"],

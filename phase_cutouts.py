@@ -13,7 +13,7 @@ bound of what its phase costs: what it leaves out no longer waits for
 anything. The variants compute wrong values; they are timed, never checked,
 and the port never loads them.
 
-Sets (ssd and scan by default):
+Sets (ssd and scan by default; `--set` repeats, and takes conv too):
 - ssd: the main passes of `ssd_fused_fwd.cu` / `ssd_fused_bwd.cu` (`parts` =
   the main pass only, on the workspace of a full call), G=4, L=131072, bf16;
 - scan: the selective-scan kernels `selective_scan_fwd.cu` (timed through
@@ -25,6 +25,11 @@ Sets (ssd and scan by default):
   L=131072, d=512, N=16, fp32: 128 blocks of 4 warps), with phases cut and
   settings changed (the state loop's unrolling, the grid of 8-warp blocks),
   and in bf16 the blocks of 8 against blocks of 4;
+- conv: the SiLU + conv adjoint `ssd_conv_bwd` (#3b: the streaming kernel
+  and its fixed-order weight sum), G=4, L=131072, Wc=768, bf16, with the
+  staging, the halo rows, the partial sums, the weight-sum launch, the exps
+  or the output stores cut, and settings changed (ring stages, rows a
+  stage, warps a block, rows a tile);
 - scan-pr6: the same two calls on the scan kernels as they were before their
   redesign (a thread per (channel, n), 64-row chunks walked serially);
   give the root of a checkout of that version with ``--tree``: its package,
@@ -320,8 +325,58 @@ def prefill_variants(csrc):
     return v
 
 
+CONV = ("ssd_conv_bwd_kernel(const ConvParams p) {", "// g_conv_w / g_conv_b: the tiles")
+CONV_LANE = ("struct ConvLane {", "template <typename S, int K, bool REV>\n__global__")
+
+
+def conv_variants(csrc):
+    """The SiLU + conv adjoint (`ssd_conv_bwd`: the streaming kernel and the
+    fixed-order weight sum), one phase cut or one setting changed each."""
+    bwd = open(os.path.join(csrc, "ssd_fused_bwd.cu")).read()
+    C = "conv"
+    v = {"conv base": (C, bwd)}
+    v["conv no staging (stale rows)"] = (C, _cut(
+        bwd, CONV_LANE, "if (q + CONV_NST - 1 < nq) stage(", "if (q < 0) stage("))
+    v["conv no halo rows"] = (C, _cut(bwd, CONV_LANE, "E = n + 2 * HK;", "E = n;"))
+    v["conv no partial sums"] = (C, _cuts(bwd, CONV_LANE, (
+        ("aw[k][j] = fmaf(xw[k][j], gp[j], aw[k][j]);", ";"),
+        ("ab[j] += gp[j];", ";"))))
+    v["conv no weight-sum launch"] = (C, bwd.replace(
+        "  ssd_conv_wsum_kernel<<<", "  if (n < 0) ssd_conv_wsum_kernel<<<", 1))
+    v["conv exp -> constant"] = (C, _cut(
+        bwd, CONV_LANE, "__expf(-pre)", "(0.5f + 0.f * pre)"))
+    v["conv output stores cut"] = (C, _cut(
+        bwd, CONV_LANE, "store4(out + (long long)row(qo) * Wc + c, o, vg, c, Wc);",
+        "if (o[0] == 1.2345f) store4(out + (long long)row(qo) * Wc + c, o, vg, c, Wc);"))
+    # settings: the ring, the warps per block, the tile rows (the wrapper's
+    # partial buffer follows `CONV_TILE_ROWS`, patched while timed)
+    const = lambda old, new: bwd.replace(old, new, 1)
+    v["conv 3 ring stages"] = (C, const("CONV_NST = 4;", "CONV_NST = 3;"))
+    v["conv 5 ring stages"] = (C, const("CONV_NST = 4;", "CONV_NST = 5;"))
+    v["conv 4-row stages"] = (C, const("CONV_RS = 8;", "CONV_RS = 4;"))
+    v["conv 16-row stages"] = (C, const("CONV_RS = 8;", "CONV_RS = 16;"))
+    v["conv 2 warps a block"] = (C, const("CONV_WARPS = 4;", "CONV_WARPS = 2;"))
+    v["conv 8 warps a block"] = (C, const("CONV_WARPS = 4;", "CONV_WARPS = 8;"))
+    v["conv 4-row stages, 4 blocks a SM (128 registers)"] = (C, bwd.replace(
+        "CONV_RS = 8;", "CONV_RS = 4;", 1).replace(
+        "__launch_bounds__(CONV_WARPS * 32) ssd_conv_bwd_kernel",
+        "__launch_bounds__(CONV_WARPS * 32, 4) ssd_conv_bwd_kernel", 1))
+    # the 16-byte copies are the shared header's: inlined into the copy
+    common = open(os.path.join(csrc, "ssd_common.cuh")).read().replace(
+        "cp.async.cg.shared.global [%0]", "cp.async.cg.shared.global.L2::256B [%0]")
+    v["conv cp.async with L2::256B prefetch"] = (C, bwd.replace(
+        '#include "ssd_common.cuh"', common, 1).replace(
+        "cp.async.ca.shared.global [%0]", "cp.async.ca.shared.global.L2::256B [%0]", 1))
+    for rows in (512, 2048, 4096):
+        v[f"conv {rows}-row tiles"] = (C, const("CONV_TILE = 1024;",
+                                                f"CONV_TILE = {rows};"),
+                                       {"CONV_TILE_ROWS": rows})
+    return v
+
+
 SETS = {"ssd": ssd_variants, "scan": scan_variants,
         "scan-pr6": scan_pr6_variants, "scan-prefill": prefill_variants}
+SETS["conv"] = conv_variants
 
 
 def build(v, csrc):
@@ -409,6 +464,20 @@ def prefill_calls(cs):
     return calls
 
 
+def conv_calls(cs):
+    """{"conv": (module, call)}: `ssd_conv_bwd` (#3b) at the training shape,
+    G=4, L=131072, Wc=768, bf16, xBC a column view of the mixer's in_proj
+    output, forward direction."""
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+
+    inp = cs.ssd_inputs(4, 131072, 8, 64, 1, 128, 4, torch.bfloat16, 98,
+                        width_pad=512)
+    g = torch.Generator(device="cuda").manual_seed(99)
+    g_xc = torch.randn(inp["xBC"].shape, generator=g, device="cuda")
+    return {"conv": (sb, lambda: sb.conv_silu_bwd(
+        g_xc, inp["xBC"], inp["conv_w"], inp["conv_b"], False))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--set", action="append", choices=sorted(SETS))
@@ -437,6 +506,8 @@ def main() -> int:
         calls.update(scan_calls(cs))
     if "scan-prefill" in sets:
         calls.update(prefill_calls(cs))
+    if "conv" in sets:
+        calls.update(conv_calls(cs))
 
     def timed(name):
         lib, _, *patch = v[name]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: `ssd_fused_fwd` (with its carries),
-the unfused `ssd_fwd` and `ssd_fused_bwd`, and the selective scan's
+the unfused `ssd_fwd` and `ssd_fused_bwd` (its SiLU + conv adjoint
+`ssd_conv_bwd` also alone), and the selective scan's
 `selective_scan_fwd`, `bidir_scan_fwd` and `selective_scan_bwd`, against
 their plain versions; the autograd Functions against finite differences; a
 v1 model backward through the scan kernels; the prefill of both causal
@@ -94,6 +95,38 @@ def test_bwd_kernel_matches_plain(card, dtype, reverse, NG):
         assert k.shape == p.shape and k.dtype == p.dtype, name
         stats = compare(k, p, TOL[dtype])
         assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_conv_bwd_kernel_matches_plain(card, dtype, reverse):
+    """The SiLU + conv adjoint `ssd_conv_bwd` (1,024-row tiles, 128-column
+    tiles of 4 columns a lane) against `ops/ssd.py conv_silu_bwd`: K 1-4, L
+    200, 1000 and 4099 (one ragged tile; four and a ragged fifth), Wc 388
+    contiguous (vector copies) or a column view at an odd offset (scalar
+    raw rows), and Wc 203 (not a multiple of 4 or 8: scalar throughout)."""
+    from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain
+
+    g = torch.Generator(device="cuda").manual_seed(11 + reverse)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    for K in (1, 2, 3, 4):
+        for L in (200, 1000, 4099):
+            for Wc, pad in ((388, None), (388, 3), (203, 5)):
+                wide = rnd(2, L, (pad or 0) + Wc + 3).to(dtype)
+                xBC = (wide[..., :Wc].contiguous() if pad is None
+                       else wide[..., pad:pad + Wc])
+                g_xc, w, b = rnd(2, L, Wc), rnd(K, Wc, sc=0.5), rnd(Wc, sc=0.1)
+                n0 = ssd_batched.conv_bwd_launches
+                got = ssd_batched.conv_silu_bwd(g_xc, xBC, w, b, reverse)
+                torch.cuda.synchronize()
+                assert ssd_batched.conv_bwd_launches == n0 + 1
+                want = plain(g_xc, xBC, w, b, reverse)
+                for name, k, p in zip(("g_xBC", "g_conv_w", "g_conv_b"), got,
+                                      want):
+                    assert k.shape == p.shape and k.dtype == p.dtype, name
+                    stats = compare(k, p, TOL[dtype])
+                    assert stats["ok"], (K, L, Wc, pad, name, stats)
 
 
 @pytest.mark.cuda

@@ -509,3 +509,72 @@ def test_segmented_decomposition_short_sequence_and_dropped_state(one_thread):
                                  torch.float32), (name, reverse)
     finally:
         ssd.combine_segments = real
+
+
+# -- the conv adjoint's tiles (torch only) ----------------------------------
+
+
+def _conv_adjoint_inputs(G, L, Wc, K, seed):
+    """fp32 g_xc, xBC, conv_w, conv_b: Wc not a multiple of the kernel's 4
+    columns per lane."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(*s, generator=g) * sc
+    return r(G, L, Wc), r(G, L, Wc), r(K, Wc, sc=0.5), r(Wc, sc=0.1)
+
+
+def _conv_adjoint_close(got, want):
+    """1e-6 relative in fp32, each output against its own largest value."""
+    return all(torch.allclose(a, b, rtol=1e-6,
+                              atol=1e-6 * float(b.abs().max()))
+               for a, b in zip(got, want))
+
+
+# (K, reverse, L, tile rows): 150 rows in ragged 24-row tiles (7 per batch
+# row, 14 partials in 8 ranges), and 1,100 rows in the kernel's own tiles
+CONV_TILE_CASES = [(K, rev, 150, 24) for K in (2, 4) for rev in (False, True)]
+CONV_TILE_CASES += [(3, False, 1100, None), (1, True, 1100, None)]
+
+
+@pytest.mark.parametrize("K,reverse,L,tile", CONV_TILE_CASES)
+def test_conv_adjoint_tiles_equal_serial(one_thread, K, reverse, L, tile):
+    """`conv_silu_bwd_tiled` (the `ssd_conv_bwd` kernel's row tiles, halos
+    and fixed-order partial sums) against the serial `conv_silu_bwd`, which
+    test_fused_bwd_plain_matches_jax_kernel_and_autograd holds to the JAX
+    kernel: g_xBC, g_conv_w and g_conv_b within 1e-6 relative (fp32)."""
+    from caduceus_tpu_torch.ops.ssd import (CONV_TILE_ROWS, conv_silu_bwd,
+                                            conv_silu_bwd_tiled)
+
+    g_xc, xBC, w, b = _conv_adjoint_inputs(2, L, 50, K, seed=30 + K)
+    got = conv_silu_bwd_tiled(g_xc, xBC, w, b, reverse,
+                              tile or CONV_TILE_ROWS)
+    want = conv_silu_bwd(g_xc, xBC, w, b, reverse)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert _conv_adjoint_close(got, want)
+
+
+@pytest.mark.parametrize("side", ["raw rows before", "g_xc rows after"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_conv_adjoint_tiles_fail_without_one_tiles_halo(one_thread, side,
+                                                        reverse):
+    """One tile's halo dropped (its raw rows before the tile, or its g_xc
+    rows past it in the scan's order) fails the check above."""
+    from caduceus_tpu_torch.ops import ssd
+
+    g_xc, xBC, w, b = _conv_adjoint_inputs(2, 150, 50, 4, seed=40)
+    want = ssd.conv_silu_bwd(g_xc, xBC, w, b, reverse)
+    real = ssd.conv_tile_rows
+
+    def dropped(r0, r1, K, rev):
+        (x0, x1), (g0, g1) = real(r0, r1, K, rev)
+        if r0 != 48:
+            return (x0, x1), (g0, g1)
+        if side == "raw rows before":
+            return ((x0, r1) if rev else (r0, x1)), (g0, g1)
+        return (x0, x1), ((r0, g1) if rev else (g0, r1))
+
+    try:
+        ssd.conv_tile_rows = dropped
+        got = ssd.conv_silu_bwd_tiled(g_xc, xBC, w, b, reverse, 24)
+    finally:
+        ssd.conv_tile_rows = real
+    assert not _conv_adjoint_close(got, want)
