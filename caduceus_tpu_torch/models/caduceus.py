@@ -106,6 +106,27 @@ class CaduceusBlock(nn.Module):
         return self.mixer(normed), residual
 
 
+class _Embedding(torch.autograd.Function):
+    """``F.embedding(ids, weight)`` whose weight gradient is the matmul
+    ``one_hot(ids)ᵀ @ g``. PyTorch's CUDA embedding backward adds the rows
+    of a token in an order that varies from run to run (a batch's
+    embedding gradient then differs in the last bits between two runs,
+    which breaks a bit-exact resume); the matmul adds them in a fixed
+    order. The one-hot rows are (tokens, padded vocab), 16 wide."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.vocab = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        onehot = F.one_hot(ids.reshape(-1).long(), ctx.vocab).to(g.dtype)
+        return None, onehot.t() @ g.reshape(-1, g.shape[-1])
+
+
 def _run_blocks(blocks, h, residual):
     for block in blocks:
         h, residual = block(h, residual)
@@ -158,7 +179,7 @@ class CaduceusBackbone(nn.Module):
         else:
             ids = input_ids[None]
         S, B, L = ids.shape
-        h = F.embedding(ids.reshape(S * B, L), self.embedding.to(dtype))
+        h = _Embedding.apply(ids.reshape(S * B, L), self.embedding.to(dtype))
         residual = None
         if c.remat and torch.is_grad_enabled():
             # gradient checkpointing per span of remat_span blocks

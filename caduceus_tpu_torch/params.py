@@ -124,17 +124,37 @@ def load_npz_params(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_run_dir(run_dir: str) -> Tuple[CaduceusConfig, Dict[str, torch.Tensor]]:
+def load_run_dir(run_dir: str, prefer_ema: bool = True
+                 ) -> Tuple[CaduceusConfig, Dict[str, torch.Tensor]]:
     """(config, state_dict) of a run dir holding ``model_config.json`` and
-    ``params.npz``; the LM head is untied when the export has ``lm_head``
-    (pass ``tie_word_embeddings="lm_head" not in state_dict`` to the
-    model)."""
+    parameters, read from the first of:
+
+    1. a ``params.npz`` export (flat flax paths, this module's contract);
+    2. the port's latest checkpoint, ``checkpoints/<step>/`` written by
+       `train/trainer.py Trainer` (its EMA weights when kept and
+       ``prefer_ema``);
+    3. the latest Orbax checkpoint a JAX run wrote (`caduceus_tpu.cli
+       pretrain`), read with `tensorstore` (`train/checkpoint.py
+       load_run_params`; EMA preferred the same way).
+
+    Raises if none is there; never returns fresh weights. The LM head is
+    untied when the parameters hold ``lm_head`` (pass
+    ``tie_word_embeddings="lm_head" not in state_dict`` to the model)."""
+    from caduceus_tpu_torch.train import checkpoint
+
     cfg = CaduceusConfig.load(os.path.join(run_dir, "model_config.json"))
     npz = os.path.join(run_dir, "params.npz")
-    if not os.path.exists(npz):
+    ckpts = os.path.join(run_dir, "checkpoints")
+    if os.path.exists(npz):
+        flat = load_npz_params(npz)
+    elif checkpoint.latest_step(ckpts) is not None:
+        flat, _ = checkpoint.read_latest_params(run_dir, prefer_ema)
+    elif checkpoint.jax_latest_step(ckpts) is not None:
+        flat, _ = checkpoint.load_run_params(run_dir, prefer_ema)
+    else:
         raise FileNotFoundError(
-            f"{npz} not found: the port reads params.npz exports; reading "
-            "Orbax checkpoints is not ported yet")
-    flat = load_npz_params(npz)
+            f"{run_dir} holds no parameters: expected a params.npz export, "
+            "the port's checkpoints/<step>/ (meta.json) or a JAX run's "
+            "Orbax checkpoints/<step>/ (_CHECKPOINT_METADATA)")
     untied = "lm_head" in flat or "params/lm_head" in flat
     return cfg, from_jax_params(flat, cfg, tie_word_embeddings=not untied)

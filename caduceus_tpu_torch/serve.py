@@ -28,8 +28,9 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
   the `NotImplementedError`, as the JAX server does.
 
 Not ported yet: /classify (finetuned exports), which answers 501.
-`from_run_dir` reads ``model_config.json`` + ``params.npz`` (`params.py`);
-Orbax checkpoints are not read yet.
+`from_run_dir` reads ``model_config.json`` and the parameters from a
+``params.npz`` export, the port's latest checkpoint or a JAX run's Orbax
+checkpoint (`params.py load_run_dir`).
 """
 
 from __future__ import annotations
@@ -116,8 +117,9 @@ class InferenceService:
 
     @classmethod
     def from_run_dir(cls, run_dir: str, **kw) -> "InferenceService":
-        """Serve a run dir holding ``model_config.json`` and ``params.npz``
-        (flat flax paths, see `params.py`)."""
+        """Serve a run dir's model (`params.py load_run_dir`: a
+        ``params.npz`` export, else the latest checkpoint, EMA weights
+        preferred)."""
         from caduceus_tpu_torch.params import load_run_dir
 
         return cls(*load_run_dir(run_dir), **kw)

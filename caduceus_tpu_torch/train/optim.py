@@ -12,9 +12,9 @@ Port of `caduceus_tpu/train/optim.py`:
 - `make_optimizer` (`:254`): clip by global norm, then AdamW with betas
   (0.9, 0.95), eps 1e-8 outside the root and decoupled decay scaled by the
   scheduled lr (optax's `clip_by_global_norm` + `adamw`, realised with
-  `torch.optim.AdamW`), on the cosine warmup schedule. Not ported yet:
-  ``schedule_name``, ``lr_overrides``, ``layer_decay`` and ``wd_mask_fn``
-  (the config-driven Trainer, Hyena and fine-tuning).
+  `torch.optim.AdamW`), on the schedule ``schedule_name`` names (`:275-286`).
+  Not ported yet: ``lr_overrides``, ``layer_decay`` and ``wd_mask_fn``
+  (Hyena and fine-tuning).
 """
 
 from __future__ import annotations
@@ -169,6 +169,14 @@ class Optimizer:
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """The update count (the schedule's step) and AdamW's state."""
+        return {"count": self.count, "adamw": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["adamw"])
+
 
 def make_optimizer(
     named_params,
@@ -180,13 +188,26 @@ def make_optimizer(
     lr_min: float = 0.0,
     warmup_lr_init: float = 1e-6,
     gradient_clip: Optional[float] = 1.0,
+    schedule_name: str = "cosine_warmup_timm",
 ):
-    """AdamW + the cosine warmup schedule (the JAX default,
-    ``schedule_name="cosine_warmup_timm"``) + clipping over
+    """AdamW + the schedule ``schedule_name`` + clipping over
     ``named_params`` (e.g. ``model.named_parameters()``); returns
     (optimizer, schedule)."""
-    schedule = cosine_warmup_schedule(lr, warmup_t, t_initial, lr_min,
-                                      warmup_lr_init)
+    if schedule_name in ("cosine_warmup", "cosine_warmup_timm"):
+        schedule = cosine_warmup_schedule(lr, warmup_t, t_initial, lr_min,
+                                          warmup_lr_init)
+    elif schedule_name == "constant":
+        schedule = constant_schedule(lr)
+    elif schedule_name == "constant_warmup":
+        schedule = constant_warmup_schedule(lr, warmup_t, warmup_lr_init)
+    elif schedule_name == "linear_warmup":
+        schedule = linear_warmup_schedule(lr, warmup_t, t_initial, lr_min,
+                                          warmup_lr_init)
+    elif schedule_name == "inv_sqrt":
+        schedule = inv_sqrt_schedule(lr, warmup_t, warmup_lr_init)
+    else:
+        raise KeyError(f"unknown schedule: {schedule_name} "
+                       f"(have {list(SCHEDULE_REGISTRY)})")
     named = list(named_params)
     return Optimizer(named, schedule, weight_decay, betas, 1e-8,
                      gradient_clip, weight_decay_mask(named)), schedule

@@ -161,6 +161,27 @@ adjoint `bidir_scan_bwd` (#10):
    training shape (G=4, L=131072, bf16) beside their plain versions and
    bounds, holding the timed outputs.
 
+and, last, pretraining through the port's own loop (`cli.py pretrain`: the
+hg38 loader, `Trainer`, checkpoints) on a synthetic genome of 2 contigs of
+2^23 bases in 2^20-base windows, written into a temporary directory:
+
+30. the Python and the native loader (built from `native/dataloader.cc`
+   with g++) timed per batch of 4 x 131,072 tokens; whether `tensorstore`
+   and `yaml` import here;
+31. the bare 16-layer `make_train_step` at the loop's geometry (as 7);
+32. `hg38_mlm_v2` at 16 layers, L=131072, 4 sequences in 2 micro-batches,
+   4 steps, EMA, a checkpoint every 2 steps, an eval at step 4: run A
+   through `cli.main` in this process (its launches counted: the loop runs
+   the kernels of 7 and the eval's forwards), run B with the native loader
+   in a subprocess, SIGKILLed once its step-2 checkpoint is in place and
+   run again with ``--resume``; B's logged loss, acc, grad_norm and lr at
+   every step, its eval and its final parameters and EMA must equal A's
+   bit for bit; the loop's step against the bare step;
+33. `cli.py eval` of run A's test split (finite), and run A, which holds
+   only checkpoints, served: a 1,024-token /logits equal to a direct
+   forward of the checkpoint's EMA weights;
+34. 32 for the v1 model at 4 layers.
+
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.
@@ -170,11 +191,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from unittest import mock
@@ -2838,6 +2861,241 @@ def phase_new_timing():
     return res
 
 
+# -- pretraining through the port's own loop (cli.py pretrain) --------------
+
+PRETRAIN_L, PRETRAIN_BATCH, PRETRAIN_ACCUM = 131072, 4, 2
+# synthetic hg38 stand-in: 2 contigs of 2^23 bases cut into the production
+# window of 2^20 (train, valid and test rows)
+GENOME_CONTIGS, GENOME_CONTIG_LEN, GENOME_WINDOW = 2, 1 << 23, 1 << 20
+
+
+def _pretrain_argv(fasta, bed, config_path, run_dir):
+    return ["pretrain", "--fasta", fasta, "--bed", bed,
+            "--config-path", config_path, "--run-dir", run_dir,
+            "--max-length", str(PRETRAIN_L),
+            "--batch-size", str(PRETRAIN_BATCH),
+            "--accum-steps", str(PRETRAIN_ACCUM), "--max-steps", "4",
+            "--checkpoint-every", "2", "--log-every", "1", "--eval-every", "4",
+            "--eval-batches", "1", "--ema-decay", "0.999"]
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = {r["step"]: r for r in rows if "loss" in r}
+    evals = [r for r in rows if "val/loss" in r and "step" not in r]
+    return steps, evals
+
+
+def _run_cli(argv, log_path, kill_when=None):
+    """`python -m caduceus_tpu_torch.cli` in a subprocess from the checkout
+    (output to ``log_path``); with ``kill_when``, SIGKILL it as soon as that
+    path exists. Returns the exit code."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "ab") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "caduceus_tpu_torch.cli", *argv],
+            cwd=root, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                if kill_when is not None and os.path.exists(kill_when):
+                    proc.kill()
+                    break
+                time.sleep(0.02)
+            return proc.wait(timeout=1800)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _tail(path, n=40):
+    with open(path, errors="replace") as f:
+        return "".join(f.readlines()[-n:])
+
+
+def phase_pretrain(workdir, fasta, bed, config, n_layer):
+    """Pretrain through `cli.py pretrain` (the port's data loader, `Trainer`,
+    checkpoints): run A in this process (launches counted) with the Python
+    loader; run B, the same command with the native loader in a
+    subprocess, SIGKILLed as soon as its step-2 checkpoint is in place and
+    rerun with ``--resume``. B's steps (1-2 before the kill, 3-4 after it)
+    must log A's loss, acc, grad_norm and lr, and the two runs end with
+    the same parameters, EMA and eval record, bit for bit."""
+    from caduceus_tpu_torch import cli
+    from caduceus_tpu_torch.train import checkpoint
+
+    name = config.__name__[:-7]
+    cfg = config(n_layer=n_layer)
+    cfg_path = os.path.join(workdir, f"{name}_{n_layer}.json")
+    cfg.save(cfg_path)
+    run_a = os.path.join(workdir, f"{name}_a")
+    run_b = os.path.join(workdir, f"{name}_b")
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        cli.main(_pretrain_argv(fasta, bed, cfg_path, run_a))
+    a_s = time.perf_counter() - t0
+    counts = _counts()
+    gc.collect()   # run A's model and optimizer, before B takes the card
+    torch.cuda.empty_cache()
+    n_mb = 4 * PRETRAIN_ACCUM
+    want = {k: v * n_mb for k, v in _per_micro_batch(cfg).items()}
+    # the eval at step 4: one batch through the weights and one through the
+    # EMA, each forward one scan launch per direction and layer
+    fwd = "ssd_fused_fwd" if cfg.ssm_cfg.version == 2 else "bidir_scan_fwd"
+    want[fwd] += 2 * (2 if cfg.ssm_cfg.version == 2 else 1) * n_layer
+    check(counts == want, f"pretrain {name}: launches {counts} != {want}")
+
+    log_b = os.path.join(workdir, f"{name}_b.log")
+    argv_b = _pretrain_argv(fasta, bed, cfg_path, run_b) + [
+        "--use-native-loader"]
+    ck_b = os.path.join(run_b, "checkpoints")
+    t0 = time.perf_counter()
+    rc = _run_cli(argv_b, log_b,
+                  kill_when=os.path.join(ck_b, "2", "meta.json"))
+    b1_s = time.perf_counter() - t0
+    check(rc == -9, f"run B was not killed (exit {rc}):\n{_tail(log_b)}")
+    check(checkpoint.latest_step(ck_b) == 2,
+          f"run B killed at step {checkpoint.latest_step(ck_b)}, not 2")
+    t0 = time.perf_counter()
+    rc = _run_cli(argv_b + ["--resume"], log_b)
+    b2_s = time.perf_counter() - t0
+    check(rc == 0, f"resumed run B failed ({rc}):\n{_tail(log_b)}")
+
+    steps_a, evals_a = _records(run_a)
+    steps_b, evals_b = _records(run_b)
+    check(sorted(steps_a) == sorted(steps_b) == [1, 2, 3, 4],
+          f"logged steps A {sorted(steps_a)}, B {sorted(steps_b)}")
+    for s in (1, 2, 3, 4):
+        for k in ("loss", "acc", "grad_norm", "lr"):
+            check(steps_a[s][k] == steps_b[s][k],
+                  f"{name} step {s} {k}: A {steps_a[s][k]!r} != B "
+                  f"{steps_b[s][k]!r}")
+        check(math.isfinite(steps_a[s]["loss"]), f"step {s}: loss not finite")
+    check(len(evals_a) == len(evals_b) == 1 and evals_a == evals_b,
+          f"eval records differ: A {evals_a}, B {evals_b}")
+    for f in ("params.npz", "ema_params.npz"):
+        za = np.load(os.path.join(run_a, "checkpoints", "4", f))
+        zb = np.load(os.path.join(run_b, "checkpoints", "4", f))
+        check(sorted(za.files) == sorted(zb.files), f"{f}: keys differ")
+        for k in za.files:
+            check(np.array_equal(za[k], zb[k]), f"{f} {k}: A != B")
+
+    tokens = PRETRAIN_BATCH * PRETRAIN_L
+    step_s = {s: tokens / r["tokens_per_sec"] for s, r in steps_a.items()}
+    # steps 2 and 4: no warm-up, checkpoint or eval inside their interval
+    loop_s = (step_s[2] + step_s[4]) / 2
+    log(f"[pretrain] {name}, {n_layer} layers, L={PRETRAIN_L}, "
+        f"{PRETRAIN_BATCH} sequences in {PRETRAIN_ACCUM} micro-batches: run "
+        f"A (Python loader, in process) {a_s:.1f} s for 4 steps, seconds "
+        f"per logged step {', '.join(f'{step_s[s]:.3f}' for s in (1, 2, 3, 4))}"
+        f" (loop step {loop_s:.3f} s, {tokens / loop_s:,.0f} tokens/s); run B "
+        f"(native loader, subprocess) killed after its step-2 checkpoint "
+        f"({b1_s:.1f} s) and resumed ({b2_s:.1f} s): steps 1-4 and the eval "
+        f"equal A's bit for bit, params and EMA at step 4 equal; launches "
+        f"{counts}; eval {evals_a[0]}")
+    return {"n_layer": n_layer, "step_s": step_s, "loop_step_s": loop_s,
+            "loop_tokens_per_s": tokens / loop_s, "run_a_s": a_s,
+            "run_b_killed_s": b1_s, "run_b_resumed_s": b2_s,
+            "launches": counts, "eval": evals_a[0],
+            "steps": {s: {k: r[k] for k in ("loss", "acc", "grad_norm", "lr")}
+                      for s, r in steps_a.items()},
+            "run_a": run_a}
+
+
+def phase_loader_timing(fasta, bed, n=6):
+    """ms per batch of 4 x 131,072 tokens from the Python and the native
+    loader (MLM, shuffled train windows), the first batch left out."""
+    from caduceus_tpu_torch.data.hg38 import HG38DataModule
+
+    out = {}
+    for native in (False, True):
+        dm = HG38DataModule(bed, fasta, max_length=PRETRAIN_L,
+                            batch_size=PRETRAIN_BATCH, seed=1,
+                            use_native=native)
+        loader = dm.train_loader()
+        try:
+            it = iter(loader)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(n - 1):
+                b = next(it)
+            ms = (time.perf_counter() - t0) / (n - 1) * 1e3
+        finally:
+            loader.close()
+        check(b["input_ids"].shape == (PRETRAIN_BATCH, PRETRAIN_L),
+              f"loader batch {b['input_ids'].shape}")
+        out["native" if native else "python"] = ms
+    log(f"[pretrain] loader, batch of {PRETRAIN_BATCH} x {PRETRAIN_L} "
+        f"(MLM): Python {out['python']:.1f} ms, native {out['native']:.1f} ms "
+        f"(host, {os.cpu_count()} cores)")
+    return out
+
+
+def phase_pretrain_reads(run_a, fasta, bed):
+    """`cli.py eval` of run A's test split on the card, and run A (no
+    params.npz, only checkpoints) served: a 1,024-token /logits equals a
+    direct forward of its latest EMA weights."""
+    import io
+
+    from caduceus_tpu_torch import cli
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.params import from_jax_params
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+    from caduceus_tpu_torch.train.checkpoint import read_latest_params
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval", "--fasta", fasta, "--bed", bed, "--run-dir", run_a,
+                  "--split", "test", "--max-length", str(PRETRAIN_L),
+                  "--batch-size", str(PRETRAIN_BATCH), "--max-batches", "1"])
+    ev = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(set(ev) == {"test/loss", "test/acc", "test/ppl"}
+          and all(math.isfinite(v) for v in ev.values()),
+          f"cli eval: {ev}")
+    check(not os.path.exists(os.path.join(run_a, "params.npz")),
+          "run A has a params.npz export")
+    svc = InferenceService.from_run_dir(run_a, device="cuda", max_batch=1,
+                                        min_bucket=1024, max_length=1024)
+    server = InferenceServer(svc, port=0).start()
+    seq = "".join(np.random.default_rng(3).choice(list("ACGT"), 1024))
+    try:
+        served = np.asarray(_post(server.port, "/logits",
+                                  {"sequences": [seq]})["logits"][0],
+                            np.float32)
+    finally:
+        server.stop()
+    flat, step = read_latest_params(run_a)
+    model = CaduceusForMaskedLM(svc.cfg, device="cuda")
+    model.load_state_dict(from_jax_params(flat, svc.cfg))
+    ids = torch.from_numpy(svc.tok.encode(seq).astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        direct = model(ids)[0].cpu().numpy()
+    err = float(np.abs(served - direct).max())
+    check(served.shape == direct.shape and err <= 1e-6,
+          f"served /logits of the checkpoint differ from a direct forward "
+          f"by {err}")
+    del model, svc
+    torch.cuda.empty_cache()
+    log(f"[pretrain] cli eval of run A, test split, 1 batch: {ev}; run A "
+        f"served from checkpoints/{step} (EMA): /logits of 1,024 tokens "
+        f"equal a direct forward (max |diff| {err:.1e})")
+    return {"eval": ev, "serve_max_abs_err": err, "served_step": step}
+
+
+def _imports_here(*names):
+    out = {}
+    for n in names:
+        try:
+            __import__(n)
+            out[n] = True
+        except ImportError:
+            out[n] = False
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2912,6 +3170,32 @@ def main() -> int:
         report["paired_train"] = phase_train_full(hg38_mlm_config)
     report["new_timing"] = phase_new_timing()
     report["new_phase_s"] = time.perf_counter() - t_new
+    # pretraining through the port's own loop: data, Trainer, checkpoints,
+    # the CLI, kill and resume
+    t_pre = time.perf_counter()
+    from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_") as work:
+        fasta, bed = make_synthetic_genome(
+            os.path.join(work, "genome"), n_chromosomes=GENOME_CONTIGS,
+            chrom_len=GENOME_CONTIG_LEN, window=GENOME_WINDOW)
+        report["imports"] = _imports_here("tensorstore", "yaml")
+        log(f"[pretrain] importable on this machine: {report['imports']}")
+        report["loader"] = phase_loader_timing(fasta, bed)
+        log("[pretrain] the bare make_train_step at the loop's geometry:")
+        report["pretrain_bare"] = phase_train_full(n_layer=16)
+        report["pretrain"] = phase_pretrain(work, fasta, bed,
+                                            hg38_mlm_v2_config, 16)
+        report["pretrain_reads"] = phase_pretrain_reads(
+            report["pretrain"].pop("run_a"), fasta, bed)
+        report["v1_pretrain"] = phase_pretrain(work, fasta, bed,
+                                               hg38_mlm_config, 4)
+        report["v1_pretrain"].pop("run_a")
+    pre, bare = report["pretrain"], report["pretrain_bare"]
+    pre["overhead"] = pre["loop_step_s"] / bare["step_s"] - 1
+    log(f"[pretrain] loop step {pre['loop_step_s']:.3f} s against the bare "
+        f"step {bare['step_s']:.3f} s at 16 layers: {pre['overhead']:+.1%}")
+    report["pretrain_phase_s"] = time.perf_counter() - t_pre
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
     # share of the training step inside the kernels (derived: per-launch
@@ -2983,6 +3267,7 @@ def main() -> int:
               segments=tm["fwd_G4_carries"]["segments"],
               sub_launches=tm["fwd_G4_carries"]["sub_launches"],
               launches_serve=report["serve"]["launches"],
+              launches_pretrain=pre["launches"]["ssd_fused_fwd"],
               serve_G16={k: f16[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")}),
         entry("ssd_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu", ut["G1"],
@@ -3001,7 +3286,9 @@ def main() -> int:
               shape="G=4 L=131072 bf16",
               segments=tm["bwd_main"]["segments"],
               sub_launches=tm["bwd_main"]["sub_launches"],
-              extra_bytes=tm["bwd_main"]["extra_bytes"], **pair),
+              extra_bytes=tm["bwd_main"]["extra_bytes"],
+              launches_pretrain=pre["launches"]["ssd_fused_bwd_kernel"],
+              **pair),
         entry("ssd_conv_bwd_kernel", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               tm["bwd_conv"], tr["launches"]["ssd_conv_bwd_kernel"],
               tm["bwd_conv"]["check"]["g_xBC"]["max_abs_err"],
@@ -3011,7 +3298,9 @@ def main() -> int:
               library_pair_ms=tm["bwd_conv"]["library_pair"]["ms"],
               library_pair="2 calls: torch.ops.aten.silu_backward + "
               "convolution_backward (depthwise, fp32, pre and padded xBC "
-              "made beforehand)", **pair),
+              "made beforehand)",
+              launches_pretrain=pre["launches"]["ssd_conv_bwd_kernel"],
+              **pair),
         entry("selective_scan_fwd",
               "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["fwd"],
               report["mamba_mixer_step"]["launches"]["selective_scan_fwd"],
@@ -3033,6 +3322,8 @@ def main() -> int:
               st["bidir"]["check"]["yf"]["max_abs_err"],
               shape="G=4 L=131072 bf16, two directions, carries saved",
               launches_serve=report["v1_serve"]["launches"],
+              launches_pretrain=report["v1_pretrain"]["launches"][
+                  "bidir_scan_fwd"],
               exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"],
               exps_softplus=st["bidir"]["exps_softplus"]),
         entry("selective_scan_bwd",
@@ -3041,6 +3332,8 @@ def main() -> int:
               st["bwd"]["check"]["g_u"]["max_abs_err"],
               shape="G=4 L=131072 bf16, one direction",
               extra_bytes=st["bwd"]["extra_bytes"],
+              launches_pretrain=report["v1_pretrain"]["launches"][
+                  "selective_scan_bwd"],
               bc_shares=st["bwd"]["bc_shares"],
               sub_launches=st["bwd"]["sub_launches"],
               exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"],

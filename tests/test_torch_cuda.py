@@ -816,3 +816,103 @@ def test_scan_kernels_are_deterministic_at_the_training_shape(card):
         second = fn()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second)), fn
+
+
+def _resume_config(version):
+    """`configs/hg38_mlm_v2.yaml` (v2) or `configs/hg38_mlm.yaml` (v1) at
+    full width, 2 layers."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    ssm = (SSMConfig(version=2, d_state=128, headdim=64, ngroups=1, d_conv=4,
+                     expand=2, ssd_chunk_size=128, ssd_seg_chunks=8)
+           if version == 2 else SSMConfig(version=1, d_state=16, d_conv=4,
+                                          expand=2))
+    return CaduceusConfig(
+        d_model=256, n_layer=2, vocab_size=tok.vocab_size, rcps=True,
+        complement_map=tok.complement_map, residual_in_fp32=False,
+        dtype="bfloat16", param_dtype="float32", remat=True, remat_span=1,
+        ssm_cfg=ssm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [2, 1])
+def test_backward_repeats_bit_for_bit_on_the_card(card, tmp_path, version):
+    """Forward and backward of six MLM batches of 4 x 4096 tokens (ids
+    with masks, PAD and random tokens, as the loader makes them), twice
+    each from the same weights: every parameter's gradient equal, the
+    embedding's among them (PyTorch's CUDA embedding backward is not:
+    `models/caduceus.py _Embedding`)."""
+    from caduceus_tpu_torch.data.hg38 import HG38DataModule
+    from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.train.metrics import cross_entropy_loss
+
+    fa, bed = make_synthetic_genome(str(tmp_path / "genome"), chrom_len=1 << 16)
+    dm = HG38DataModule(bed, fa, max_length=4096, batch_size=4, seed=1)
+    model = CaduceusForMaskedLM(_resume_config(version), device="cuda",
+                                generator=torch.Generator().manual_seed(5))
+
+    def grads(batch):
+        for p in model.parameters():
+            p.grad = None
+        ids = torch.from_numpy(batch["input_ids"]).cuda()
+        tgt = torch.from_numpy(batch["targets"]).cuda()
+        cross_entropy_loss(model(ids), tgt)[0].backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    for k, batch in enumerate(dm.train_loader()):
+        if k == 6:
+            break
+        a, b = grads(batch), grads(batch)
+        for n in a:
+            assert torch.equal(a[n], b[n]), (k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [2, 1])
+def test_trainer_resume_is_bit_exact_on_the_card(card, tmp_path, version):
+    """`Trainer.fit(4)` against fit(2), save, a fresh Trainer, restore,
+    fit(4), at L=4096, batches of 4 in 2 micro-batches, EMA on: steps 3
+    and 4 log the same loss, acc and grad_norm, and the parameters and the
+    EMA end the same, compared with ==."""
+    from caduceus_tpu_torch.data.hg38 import HG38DataModule
+    from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    fa, bed = make_synthetic_genome(str(tmp_path / "genome"), chrom_len=1 << 16)
+    cfg = _resume_config(version)
+
+    def trainer(run_dir):
+        dm = HG38DataModule(bed, fa, max_length=4096, batch_size=4, seed=1)
+        model = CaduceusForMaskedLM(cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(5))
+        records = []
+        t = Trainer(model, TrainerConfig(
+            max_steps=4, log_every=1, eval_every=100, checkpoint_every=100,
+            accum_steps=2, ema_decay=0.999, run_dir=str(run_dir)),
+            dm.train_loader(), log_fn=records.append)
+        t.init_state()
+        return t, records
+
+    whole, rec_w = trainer(tmp_path / "whole")
+    whole.fit(4)
+    first, _ = trainer(tmp_path / "cut")
+    first.fit(2)
+    first.save_checkpoint()
+    del first
+    second, rec_r = trainer(tmp_path / "cut")
+    assert second.restore_checkpoint() and second.state.step == 2
+    second.fit(4)
+    for a, b in zip(rec_w[2:], rec_r):
+        assert a["step"] == b["step"]
+        for k in ("loss", "acc", "grad_norm"):
+            assert a[k] == b[k], (a["step"], k, a[k], b[k])
+    assert [r["step"] for r in rec_r] == [3, 4]
+    for (n, p), (_, q) in zip(whole.model.named_parameters(),
+                              second.model.named_parameters()):
+        assert torch.equal(p, q), n
+        assert torch.equal(whole.state.ema_params[n],
+                           second.state.ema_params[n]), n
