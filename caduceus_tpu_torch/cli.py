@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m caduceus_tpu_torch.cli
-{pretrain,eval,serve,generate}``.
+{pretrain,eval,finetune,vep,serve,generate}``.
 
 Port of those subcommands of `caduceus_tpu/cli.py`, with its flags and its
 ``model_config.json``. ``pretrain`` trains ``--model caduceus`` (MLM, or
@@ -8,9 +8,13 @@ BED through `train/trainer.py Trainer`, writing ``model_config.json``,
 ``metrics.jsonl`` and ``checkpoints/`` into the run dir. ``eval``,
 ``serve`` and ``generate`` read a run dir's parameters from a
 ``params.npz`` export, the port's latest checkpoint or a JAX run's Orbax
-checkpoint, in that order (`params.py load_run_dir`). Every subcommand
-runs on the card unless ``--device cpu`` is given. Not ported yet:
-``finetune``, ``vep``, ``--model hyena`` and the multi-device flags
+checkpoint, in that order (`params.py load_run_dir`). ``finetune``
+(`finetune.py`) trains a classifier on a downstream task from a pretraining
+run dir and exports it (``--save-dir``), which ``serve`` answers /classify
+from; ``vep`` (`vep.py`) dumps variant embeddings of a run dir's model and
+scores them with ``--svm``. Every subcommand runs on the card unless
+``--device cpu`` is given. Not ported yet: ``--model hyena`` (and the
+downstream ``--model hyena`` / ``cnn``) and the multi-device flags
 (``--mesh-model`` > 1, ``--tensor-parallel``, ``--context-parallel``).
 """
 
@@ -327,6 +331,22 @@ def cmd_eval(argv):
                                       prefix=args.split)))
 
 
+def cmd_finetune(argv):
+    """Fine-tune on a downstream classification task (`finetune.py
+    main`)."""
+    from caduceus_tpu_torch.finetune import main as finetune_main
+
+    finetune_main(argv)
+
+
+def cmd_vep(argv):
+    """Variant embeddings of a run dir's model, and their SVM eval with
+    ``--svm`` (`vep.py main`)."""
+    from caduceus_tpu_torch.vep import main as vep_main
+
+    vep_main(argv)
+
+
 def cmd_generate(argv):
     """Autoregressive generation through the recurrent (O(1)/token) path
     (`inference.py generate`), for a causal model (bidirectional=False,
@@ -371,9 +391,12 @@ def cmd_generate(argv):
 
 def cmd_serve(argv):
     """HTTP server for /embed, /logits and /generate over a run dir
-    (`serve.py`; parameters as `params.py load_run_dir` reads them)."""
+    (`serve.py`; parameters as `params.py load_run_dir` reads them), or for
+    /classify over a `finetune --save-dir` export."""
     p = argparse.ArgumentParser(prog="serve")
-    p.add_argument("--run-dir", required=True, help=_RUN_DIR_HELP)
+    p.add_argument("--run-dir", required=True,
+                   help=_RUN_DIR_HELP + "; or a finetune --save-dir export "
+                   "(task_config.json)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda",
@@ -389,17 +412,19 @@ def cmd_serve(argv):
         args.run_dir, device=args.device, max_batch=args.max_batch,
         max_length=args.max_length, min_bucket=args.min_bucket)
     server = InferenceServer(svc, args.host, args.port)
+    endpoints = (["/classify"] if svc.task_cfg is not None
+                 else ["/embed", "/logits", "/generate"])
     print(json.dumps({"serving": f"http://{args.host}:{server.port}",
                       "device": str(svc.device),
-                      "endpoints": ["/embed", "/logits", "/generate",
-                                    "/healthz"]}),
+                      "endpoints": endpoints + ["/healthz"]}),
           flush=True)
     server.serve_forever()
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    cmds = {"pretrain": cmd_pretrain, "eval": cmd_eval, "serve": cmd_serve,
+    cmds = {"pretrain": cmd_pretrain, "eval": cmd_eval,
+            "finetune": cmd_finetune, "vep": cmd_vep, "serve": cmd_serve,
             "generate": cmd_generate}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m caduceus_tpu_torch.cli {{{','.join(cmds)}}} ...")

@@ -1,7 +1,9 @@
 """Synthetic genome generator for tests and benchmarks.
 
-An owned copy of `make_synthetic_genome` and `make_structured_genome` of
-`caduceus_tpu/data/synthetic.py`: the same genome for the same arguments.
+An owned copy of `make_synthetic_genome`, `make_structured_genome` and
+`make_structured_classification_suite` of `caduceus_tpu/data/synthetic.py`:
+the same files for the same arguments (the suite draws only from contigs
+at least ``seq_len`` long, where the JAX function raises on a shorter one).
 
 Produces a random FASTA + BED pair with the same window contract as the
 hg38 assets the reference trains on (BED rows spanning 2^20-base intervals
@@ -165,3 +167,74 @@ def make_synthetic_genome(
         for chr_name, s, e, split in bed_rows:
             f.write(f"{chr_name}\t{s}\t{e}\t{split}\n")
     return fasta_path, bed_path
+
+
+def make_structured_classification_suite(
+    out_dir: str,
+    genome_fasta: str,
+    tasks=None,          # {task_name: (num_classes, seq_len)}
+    n_train: int = 2000,
+    n_test: int = 500,
+    motif_len: int = 12,
+    motif_noise: float = 0.1,
+    seed: int = 0,
+) -> str:
+    """GenomicBenchmarks-shaped synthetic classification tasks over a
+    genome background; returns ``out_dir``.
+
+    Each task's sequences are windows sampled from ``genome_fasta`` with a
+    per-class motif planted at a random position, mutated at
+    ``motif_noise`` per base, written as ``<out_dir>/<task>/{train,
+    test}.tsv``. Tasks default to the GenomicBenchmarks catalog at the
+    sequence lengths of ``configs/downstream/gb/*.yaml``. Windows are drawn
+    only from contigs at least ``seq_len`` long; a task none of whose
+    contigs is long enough raises ValueError."""
+    from caduceus_tpu_torch.data.classification import (
+        GENOMIC_BENCHMARK_TASKS)
+    from caduceus_tpu_torch.data.fasta import FastaFile
+
+    preset_lens = {
+        "dummy_mouse_enhancers_ensembl": 1024,
+        "demo_coding_vs_intergenomic_seqs": 200,
+        "demo_human_or_worm": 200,
+        "human_enhancers_cohn": 500,
+        "human_enhancers_ensembl": 512,
+        "human_ensembl_regulatory": 512,
+        "human_nontata_promoters": 251,
+        "human_ocr_ensembl": 512,
+    }
+    if tasks is None:
+        tasks = {t: (c, preset_lens.get(t, 512))
+                 for t, c in GENOMIC_BENCHMARK_TASKS.items()}
+
+    fa = FastaFile(genome_fasta)
+    alphabet = np.array(list("ACGT"))
+    for ti, (task, (num_classes, seq_len)) in enumerate(sorted(tasks.items())):
+        names = [n for n in fa.names if fa.length(n) >= seq_len]
+        if not names:
+            raise ValueError(
+                f"task {task!r}: no contig of {genome_fasta} is at least "
+                f"seq_len={seq_len} bases long (longest "
+                f"{max(fa.length(n) for n in fa.names)})")
+        rng = np.random.default_rng(seed + 1000 * ti)
+        motifs = ["".join(alphabet[rng.integers(0, 4, motif_len)])
+                  for _ in range(num_classes)]
+        os.makedirs(os.path.join(out_dir, task), exist_ok=True)
+        for split, n in (("train", n_train), ("test", n_test)):
+            with open(os.path.join(out_dir, task, f"{split}.tsv"), "w") as f:
+                for _ in range(n):
+                    c = int(rng.integers(num_classes))
+                    chrom = names[int(rng.integers(len(names)))]
+                    clen = fa.length(chrom)
+                    start = (int(rng.integers(0, clen - seq_len))
+                             if clen > seq_len else 0)
+                    seq = np.array(list(fa.fetch(chrom, start,
+                                                 start + seq_len)))
+                    m = np.array(list(motifs[c]))
+                    noise = rng.random(motif_len) < motif_noise
+                    m[noise] = alphabet[rng.integers(0, 4, int(noise.sum()))]
+                    p = int(rng.integers(0, seq_len - motif_len))
+                    seq[p : p + motif_len] = m
+                    f.write("".join(seq) + f"\t{c}\n")
+    fa.close()
+    return out_dir

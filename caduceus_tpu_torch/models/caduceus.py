@@ -169,17 +169,28 @@ class CaduceusBackbone(nn.Module):
             self.register_buffer("complement", _complement(cfg),
                                  persistent=False)
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor, inputs_embeds=None):
+        """``inputs_embeds`` (non-RCPS only): precomputed (B, L, d_model)
+        inputs in place of the token embedding, from an input encoder
+        (`models/encoders.py`)."""
         c = self.cfg
         dtype = getattr(torch, c.dtype)
-        if c.rcps:
-            ids = torch.stack(
-                [input_ids, reverse_complement_ids(input_ids,
-                                                   self.complement)])
+        if inputs_embeds is not None:
+            if c.rcps:
+                raise ValueError("inputs_embeds bypasses the token "
+                                 "complement map; RCPS needs token ids")
+            S, (B, L) = 1, inputs_embeds.shape[:2]
+            h = inputs_embeds.to(dtype)
         else:
-            ids = input_ids[None]
-        S, B, L = ids.shape
-        h = _Embedding.apply(ids.reshape(S * B, L), self.embedding.to(dtype))
+            if c.rcps:
+                ids = torch.stack(
+                    [input_ids, reverse_complement_ids(input_ids,
+                                                       self.complement)])
+            else:
+                ids = input_ids[None]
+            S, B, L = ids.shape
+            h = _Embedding.apply(ids.reshape(S * B, L),
+                                 self.embedding.to(dtype))
         residual = None
         if c.remat and torch.is_grad_enabled():
             # gradient checkpointing per span of remat_span blocks
@@ -257,4 +268,66 @@ class CaduceusForMaskedLM(nn.Module):
             logits = h[0] @ W.t() + h[1].flip(-2) @ W[comp].t()
         else:
             logits = h @ W.t()
+        return logits.float()
+
+
+class CaduceusForSequenceClassification(nn.Module):
+    """Classification head over the backbone (`caduceus_tpu/models/
+    caduceus.py:343-399`); logits are fp32. Input modes:
+
+    - rcps: (B, L) ids; each strand's hidden states pooled, scored with the
+      shared head and averaged;
+    - ``conjoin``: (B, L, 2) ids, forward and rc strands stacked on the last
+      axis, the backbone run on each with shared weights;
+    - plain: (B, L) ids.
+
+    ``pooling_strategy`` is mean, max, first or last over L. The head is
+    ``score`` (num_labels, d_model) without bias (flax ``score/kernel``)."""
+
+    def __init__(self, cfg: CaduceusConfig, num_labels: int = 2,
+                 pooling_strategy: str = "mean", conjoin: bool = False,
+                 device="cuda", generator: torch.Generator = None,
+                 fused_frame: str = "conj"):
+        super().__init__()
+        dev = resolve_device(device)
+        g = generator if generator is not None else torch.Generator()
+        self.cfg = cfg
+        self.pooling_strategy = pooling_strategy
+        self.conjoin = conjoin
+        self.backbone = CaduceusBackbone(cfg, g, fused_frame)
+        self.score = nn.Linear(cfg.d_model, num_labels, bias=False,
+                               dtype=getattr(torch, cfg.param_dtype))
+        with torch.no_grad():
+            self.score.weight.normal_(0.0, cfg.initializer_range,
+                                      generator=g)
+        self.to(dev)
+
+    def _pool(self, h: torch.Tensor) -> torch.Tensor:
+        if self.pooling_strategy == "mean":
+            return h.mean(dim=-2)
+        if self.pooling_strategy == "max":
+            return h.max(dim=-2).values
+        if self.pooling_strategy == "first":
+            return h[..., 0, :]
+        if self.pooling_strategy == "last":
+            return h[..., -1, :]
+        raise NotImplementedError(self.pooling_strategy)
+
+    def _head(self, pooled: torch.Tensor) -> torch.Tensor:
+        # the JAX Dense computes in the config's dtype
+        return pooled @ self.score.weight.to(pooled.dtype).t()
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.cfg.rcps:
+            pooled = self._pool(self.backbone(input_ids)[0])  # (2, B, d)
+            logits = (self._head(pooled[0]) + self._head(pooled[1])) / 2
+        elif self.conjoin:
+            if input_ids.dim() != 3:
+                raise ValueError("conjoin expects (B, L, 2) input_ids")
+            h_f, _ = self.backbone(input_ids[..., 0])
+            h_r, _ = self.backbone(input_ids[..., 1])
+            logits = (self._head(self._pool(h_f))
+                      + self._head(self._pool(h_r))) / 2
+        else:
+            logits = self._head(self._pool(self.backbone(input_ids)[0]))
         return logits.float()

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,9 +88,14 @@ def _expected_state_dict(cfg: CaduceusConfig, backbone_only: bool = False,
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: CaduceusConfig,
                     backbone_only: bool = False,
-                    tie_word_embeddings: bool = True) -> Dict[str, torch.Tensor]:
+                    tie_word_embeddings: bool = True,
+                    model: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Map flat flax params to a state_dict for `CaduceusForMaskedLM`
-    (or `Caduceus` when ``backbone_only``) built from ``cfg``."""
+    (or `Caduceus` when ``backbone_only``) built from ``cfg``, or for
+    ``model`` when given: a classifier's tree (``backbone/...``,
+    ``decoder/output_transform/{kernel,bias}``, ``encoder/...``,
+    ``score/kernel``) maps onto the module's keys the same way."""
     pending = {}
     for path, arr in flat.items():
         path = path[len("params/"):] if path.startswith("params/") else path
@@ -98,7 +103,10 @@ def from_jax_params(flat: Dict[str, np.ndarray], cfg: CaduceusConfig,
         if key in pending:
             raise KeyError(f"two flax paths map to {key!r}")
         pending[key] = (path, arr)
-    want = _expected_state_dict(cfg, backbone_only, tie_word_embeddings)
+    want = (_expected_state_dict(cfg, backbone_only, tie_word_embeddings)
+            if model is None else
+            {k: (tuple(v.shape), v.dtype)
+             for k, v in model.state_dict().items()})
     missing = [k for k in want if k not in pending]
     if missing:
         raise KeyError(f"flax params lack {len(missing)} keys: {missing[:8]}")

@@ -1,4 +1,5 @@
-"""Batch inference server: /embed, /logits and /generate over HTTP.
+"""Batch inference server: /embed, /logits, /generate and /classify over
+HTTP.
 
 Port of `caduceus_tpu/serve.py` (`InferenceService`, `InferenceServer` and
 its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
@@ -7,6 +8,8 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
   POST /logits   {"sequences": [...]}   -> per-position logits
   POST /generate {"prompt": "ACGT", "max_new_tokens": 64, "temperature":
                   0.0, "top_k": null, "seed": 0}  -> {"prompt", "generated"}
+  POST /classify {"sequences": [...]}   -> per-sequence scores of a
+                                           fine-tuned classifier
   GET  /healthz                         -> liveness + stats
 
 - **Length buckets.** Each request is padded to the next power-of-two
@@ -27,10 +30,19 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
   the request's ``seed``. Causal models only; the others answer 500 with
   the `NotImplementedError`, as the JAX server does.
 
-Not ported yet: /classify (finetuned exports), which answers 501.
+- **Classification.** A model dir holding ``task_config.json`` (`finetune
+  --save-dir`, the port's or the JAX package's) serves /classify only: each
+  sequence is encoded as the fine-tuning's eval encodes it (the task's
+  padding side and ``add_eos``, the rc strand stacked when conjoined) at
+  the task's fixed length, and the batch is padded to a power of two with
+  pad rows of length 1; replies by problem type (label and softmax probs,
+  sigmoid probs and labels, or a regression value).
+
 `from_run_dir` reads ``model_config.json`` and the parameters from a
 ``params.npz`` export, the port's latest checkpoint or a JAX run's Orbax
-checkpoint (`params.py load_run_dir`).
+checkpoint (`params.py load_run_dir`), or a fine-tuned export: its
+``params.npz``, or the JAX export's Orbax ``params/`` (`train/checkpoint.py
+read_orbax_arrays`, tensorstore).
 """
 
 from __future__ import annotations
@@ -55,9 +67,11 @@ from caduceus_tpu_torch.models.caduceus import (
     canonical_to_reference,
     collapse_strand_mean,
 )
-from caduceus_tpu_torch.tokenization import CaduceusTokenizer
-
-NOT_PORTED = ("/classify",)
+from caduceus_tpu_torch.tokenization import (
+    CaduceusTokenizer,
+    CharacterTokenizer,
+    string_reverse_complement,
+)
 
 
 def _next_bucket(n: int, min_bucket: int, max_len: int) -> int:
@@ -69,7 +83,7 @@ def _next_bucket(n: int, min_bucket: int, max_len: int) -> int:
 
 @dataclass
 class _Request:
-    kind: str                 # "embed" | "logits" | "generate"
+    kind: str                 # "embed" | "logits" | "generate" | "classify"
     payload: Any
     bucket: int
     event: threading.Event = field(default_factory=threading.Event)
@@ -82,19 +96,32 @@ class _Request:
 
 
 class InferenceService:
-    """A `CaduceusForMaskedLM` on one device behind /embed and /logits.
+    """A `CaduceusForMaskedLM` on one device behind /embed and /logits, or,
+    with ``task_cfg`` (a fine-tuned export's ``task_config.json``), its
+    classifier (`finetune.py _make_classifier`) behind /classify.
 
     ``params`` is the model's state_dict (e.g. from `params.py
     from_jax_params`, or `model.state_dict()`)."""
 
     def __init__(self, cfg: CaduceusConfig, params: Dict[str, torch.Tensor],
                  device="cuda", max_batch: int = 8, min_bucket: int = 128,
-                 max_length: int = 131072, linger_ms: float = 5.0):
+                 max_length: int = 131072, linger_ms: float = 5.0,
+                 task_cfg: Optional[dict] = None):
         self.cfg = cfg
+        self.task_cfg = task_cfg
         self.device = resolve_device(device)
-        self.model = CaduceusForMaskedLM(
-            cfg, device=self.device,
-            tie_word_embeddings="lm_head" not in params)
+        if task_cfg is not None:
+            from caduceus_tpu_torch.finetune import _make_classifier
+
+            self.model = _make_classifier(
+                cfg, task_cfg["num_classes"], task_cfg["pooling"],
+                task_cfg["use_lengths"], task_cfg.get("padding_side", "left"),
+                encoder=task_cfg.get("encoder", "id"),
+                model_kind=task_cfg["model_kind"], device=self.device)
+        else:
+            self.model = CaduceusForMaskedLM(
+                cfg, device=self.device,
+                tie_word_embeddings="lm_head" not in params)
         self.model.load_state_dict(params)
         self.model.eval()
         if self.device.type == "cuda":
@@ -107,7 +134,14 @@ class InferenceService:
             else:
                 from caduceus_tpu_torch.ops.ssd_batched import build
             build()
-        self.tok = CaduceusTokenizer(model_max_length=max_length)
+        if task_cfg is not None:
+            # encode as the fine-tuning's eval does: the task's padding
+            # side, its fixed length
+            self.tok = CharacterTokenizer(
+                model_max_length=max_length,
+                padding_side=task_cfg.get("padding_side", "left"))
+        else:
+            self.tok = CaduceusTokenizer(model_max_length=max_length)
         self.max_batch = max_batch
         self.min_bucket = min_bucket
         self.max_length = max_length
@@ -119,10 +153,69 @@ class InferenceService:
     def from_run_dir(cls, run_dir: str, **kw) -> "InferenceService":
         """Serve a run dir's model (`params.py load_run_dir`: a
         ``params.npz`` export, else the latest checkpoint, EMA weights
-        preferred)."""
+        preferred), or a fine-tuned export (``task_config.json``) behind
+        /classify."""
         from caduceus_tpu_torch.params import load_run_dir
 
+        task_path = os.path.join(run_dir, "task_config.json")
+        if os.path.exists(task_path):
+            return cls._from_finetuned(run_dir, task_path, **kw)
         return cls(*load_run_dir(run_dir), **kw)
+
+    @classmethod
+    def _from_finetuned(cls, run_dir: str, task_path: str,
+                        **kw) -> "InferenceService":
+        """A `finetune --save-dir` export: ``task_config.json`` and the
+        classifier's parameters as ``params.npz`` (the port's export) or an
+        Orbax ``params/`` directory (the JAX package's)."""
+        from caduceus_tpu_torch.finetune import _make_classifier
+        from caduceus_tpu_torch.params import from_jax_params, load_npz_params
+        from caduceus_tpu_torch.train.checkpoint import read_orbax_arrays
+
+        with open(task_path) as f:
+            tc = json.load(f)
+        if tc["model_kind"] != "caduceus":
+            raise NotImplementedError(
+                f"model_kind {tc['model_kind']!r}: hyena and cnn exports are "
+                "not ported yet (ROADMAP.md queue 1 item 7)")
+        cfg = CaduceusConfig.from_dict(tc["model_cfg"])
+        npz = os.path.join(run_dir, "params.npz")
+        if os.path.exists(npz):
+            flat = load_npz_params(npz)
+        else:
+            flat = read_orbax_arrays(os.path.join(run_dir, "params"),
+                                     "params")
+        with torch.device("meta"):
+            shape = _make_classifier(
+                cfg, tc["num_classes"], tc["pooling"], tc["use_lengths"],
+                tc.get("padding_side", "left"),
+                encoder=tc.get("encoder", "id"), device="meta")
+        params = from_jax_params(flat, cfg, model=shape)
+        kw.setdefault("max_length", tc["max_length"])
+        return cls(cfg, params, task_cfg=tc, **kw)
+
+    def warmup(self) -> int:
+        """Run a classifier's dispatch signatures once before live requests
+        (the allocator's first blocks, cuBLAS's handles): its fixed length
+        x each power-of-two batch up to ``max_batch`` (the batch sizes a
+        dispatch pads to). Returns the number of dispatches."""
+        if self.task_cfg is None:
+            raise ValueError("warmup runs a fine-tuned classifier's "
+                             "/classify signatures")
+        batch_sizes, b = [], 1
+        while b < self.max_batch:
+            batch_sizes.append(b)
+            b *= 2
+        batch_sizes.append(self.max_batch)
+        L = self.task_cfg["max_length"]
+        with torch.inference_mode():
+            for bs in batch_sizes:
+                shape = (bs, L, 2) if self.task_cfg.get("conjoin") else (bs, L)
+                self.model(torch.full(shape, self.tok.pad_token_id,
+                                      device=self.device),
+                           torch.ones(bs, dtype=torch.long,
+                                      device=self.device))
+        return len(batch_sizes)
 
     # --- one padded dispatch ---
 
@@ -135,6 +228,8 @@ class InferenceService:
 
     def _run_batch(self, kind: str, batch: List[_Request]):
         try:
+            if kind == "classify":
+                return self._run_classify(batch)
             bucket = batch[0].bucket
             bs = _next_bucket(len(batch), 1, self.max_batch)
             ids = np.full((bs, bucket), self.tok.pad_token_id, np.int64)
@@ -162,6 +257,45 @@ class InferenceService:
             for r in batch:
                 r.finish(error=f"{type(e).__name__}: {e}")
 
+    def _run_classify(self, batch: List[_Request]):
+        """One fixed-length /classify dispatch; each payload is the raw
+        sequence string."""
+        tc = self.task_cfg
+        L = tc["max_length"]
+        xs, lens = [], []
+        for r in batch:
+            seq = r.payload
+            ids = self.tok.encode_padded(seq, L, add_sep=tc["add_eos"])
+            if tc.get("conjoin"):
+                rc = self.tok.encode_padded(string_reverse_complement(seq), L,
+                                            add_sep=tc["add_eos"])
+                ids = np.stack([ids, rc], axis=-1)
+            xs.append(ids)
+            lens.append(min(len(seq) + int(tc["add_eos"]), L))
+        bs = _next_bucket(len(batch), 1, self.max_batch)
+        while len(xs) < bs:
+            xs.append(np.full_like(xs[0], self.tok.pad_token_id))
+            lens.append(1)
+        ids = torch.from_numpy(np.stack(xs).astype(np.int64)).to(self.device)
+        lengths = torch.tensor(lens, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            scores = self.model(ids, lengths).cpu().numpy()
+        pt = tc["problem_type"]
+        for i, r in enumerate(batch):
+            s = scores[i]
+            if pt == "regression":
+                r.finish(result={"prediction": float(s[0])})
+            elif pt == "multi_label_classification":
+                p = 1.0 / (1.0 + np.exp(-s))
+                r.finish(result={"probs": p.tolist(),
+                                 "labels": np.nonzero(s > 0)[0].tolist()})
+            else:
+                e = np.exp(s - s.max())
+                r.finish(result={"label": int(np.argmax(s)),
+                                 "probs": (e / e.sum()).tolist()})
+        self.n_dispatches += 1
+        self.n_served += len(batch)
+
     def _run_generate(self, r: _Request):
         from caduceus_tpu_torch.inference import generate
 
@@ -184,6 +318,13 @@ class InferenceService:
             r.finish(error=f"{type(e).__name__}: {e}")
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # the listen backlog: socketserver's default of 5 is fewer than the
+    # connections one batch of concurrent requests opens at once, and a
+    # connect past a full backlog waits for a SYN retry (about a second)
+    request_queue_size = 128
+
+
 class InferenceServer:
     """HTTP front + batching worker around an `InferenceService`."""
 
@@ -193,7 +334,7 @@ class InferenceServer:
         self.queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._drain, daemon=True)
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        self.httpd = _HTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_address[1]
 
     # --- batching worker: coalesce same-kind/same-bucket requests ---
@@ -294,13 +435,19 @@ def _make_handler(server: InferenceServer):
 
         def do_GET(self):
             if self.path == "/healthz":
+                if svc.task_cfg is not None:
+                    info = {"task": svc.task_cfg["task"],
+                            "num_classes": svc.task_cfg["num_classes"],
+                            "model_kind": svc.task_cfg["model_kind"]}
+                else:
+                    info = {"d_model": svc.cfg.d_model,
+                            "n_layer": svc.cfg.n_layer,
+                            "rcps": svc.cfg.rcps}
                 self._reply(200, {
                     "status": "ok",
                     "served": svc.n_served,
                     "dispatches": svc.n_dispatches,
-                    "model": {"d_model": svc.cfg.d_model,
-                              "n_layer": svc.cfg.n_layer,
-                              "rcps": svc.cfg.rcps},
+                    "model": info,
                     "device": str(svc.device),
                 })
             else:
@@ -313,11 +460,27 @@ def _make_handler(server: InferenceServer):
             except Exception as e:
                 return self._reply(400, {"error": f"bad json: {e}"})
             try:
-                if self.path in NOT_PORTED:
-                    return self._reply(501, {
-                        "error": f"{self.path} is not yet ported to the "
-                                 "PyTorch server; use caduceus_tpu.serve"})
+                if self.path == "/classify":
+                    if svc.task_cfg is None:
+                        return self._reply(
+                            400, {"error": "/classify needs a finetuned "
+                                  "model dir (finetune --save-dir)"})
+                    seqs = req.get("sequences")
+                    if not isinstance(seqs, list) or not seqs:
+                        return self._reply(
+                            400, {"error": "'sequences' must be a "
+                                  "non-empty list of strings"})
+                    L = svc.task_cfg["max_length"]
+                    outs = server.submit_many(
+                        "classify", [(s, L) for s in seqs])
+                    return self._reply(200, {"classify": outs})
                 if self.path in ("/embed", "/logits"):
+                    if svc.task_cfg is not None:
+                        return self._reply(
+                            400, {"error": f"{self.path} needs a pretrain "
+                                  "run dir; this server hosts the "
+                                  f"'{svc.task_cfg['task']}' classifier "
+                                  "(/classify)"})
                     seqs = req.get("sequences")
                     if not isinstance(seqs, list) or not seqs:
                         return self._reply(
@@ -337,6 +500,10 @@ def _make_handler(server: InferenceServer):
                     return self._reply(
                         200, {kind: [o.tolist() for o in outs]})
                 if self.path == "/generate":
+                    if svc.task_cfg is not None:
+                        return self._reply(
+                            400, {"error": "/generate needs a pretrain run "
+                                  "dir (causal LM)"})
                     prompt = req.get("prompt", "")
                     ids = svc.tok.encode(prompt)
                     if len(ids) > svc.max_length:

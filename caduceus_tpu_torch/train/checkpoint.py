@@ -22,7 +22,10 @@ leaves no step directory that `latest_step` would pick. The newest
 wrote (Orbax `StandardSave` of its `TrainState`: an OCDBT key-value store
 of zarr arrays under ``<step>/state``) with `tensorstore` alone, which is
 not JAX; it takes the latest complete step and prefers the EMA weights,
-with no template (`caduceus_tpu/train/checkpoint.py:142`).
+with no template (`caduceus_tpu/train/checkpoint.py:142`);
+`read_orbax_arrays` is its reader, which also opens a JAX `finetune
+--save-dir` export. `load_backbone` grafts pretrained backbone weights into
+a fine-tuning model (`:179`).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +184,50 @@ def jax_latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def orbax_tree_paths(state_dir: str) -> List[Tuple[str, ...]]:
+    """The tree paths of the arrays in an Orbax `StandardSave` directory
+    (from its ``_METADATA``)."""
+    with open(os.path.join(state_dir, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise NotImplementedError(
+            f"{state_dir}: only OCDBT-backed zarr (v2) checkpoints are "
+            f"read (use_ocdbt={meta.get('use_ocdbt')}, "
+            f"use_zarr3={meta.get('use_zarr3')})")
+    return [tuple(k["key"] for k in v["key_metadata"])
+            for v in meta["tree_metadata"].values()]
+
+
+def read_orbax_arrays(state_dir: str, root: str
+                      ) -> Dict[str, np.ndarray]:
+    """{flat path below ``root``: array} of the arrays under ``root`` in an
+    Orbax `StandardSave` directory (an OCDBT key-value store of zarr
+    arrays), read with `tensorstore` alone. Both a JAX run's checkpoint
+    step (``<step>/state``, roots ``params`` / ``ema_params``) and a JAX
+    `finetune --save-dir` export (``params/``, root ``params``) are such
+    directories."""
+    keys = [k for k in orbax_tree_paths(state_dir) if k[0] == root]
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"reading the JAX checkpoint {state_dir} needs the tensorstore "
+            "package; without it, export the parameters as params.npz "
+            "(flat flax paths, caduceus_tpu_torch/params.py) beside it"
+            ) from e
+    ctx = ts.Context()
+    base = "file://" + os.path.abspath(state_dir)
+    out = {}
+    for k in keys:
+        spec = {"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": base, "path": ".".join(k) + "/"}}
+        out["/".join(k[1:])] = np.asarray(
+            ts.open(spec, context=ctx).result().read().result())
+    if not out:
+        raise ValueError(f"{state_dir}: no '{root}' arrays")
+    return out
+
+
 def load_run_params(run_dir: str, prefer_ema: bool = True
                     ) -> Tuple[Dict[str, np.ndarray], int]:
     """(flat params, step) of the latest Orbax checkpoint a JAX run wrote
@@ -191,37 +238,29 @@ def load_run_params(run_dir: str, prefer_ema: bool = True
     step = jax_latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no Orbax checkpoint under {path}")
-    try:
-        import tensorstore as ts
-    except ImportError as e:
-        raise ImportError(
-            f"reading the JAX run dir {run_dir} needs the tensorstore "
-            "package; without it, export the parameters as params.npz "
-            "(flat flax paths, caduceus_tpu_torch/params.py) into the run "
-            "dir") from e
     state_dir = os.path.join(path, str(step), "state")
-    with open(os.path.join(state_dir, "_METADATA")) as f:
-        meta = json.load(f)
-    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
-        raise NotImplementedError(
-            f"{state_dir}: only OCDBT-backed zarr (v2) checkpoints are "
-            f"read (use_ocdbt={meta.get('use_ocdbt')}, "
-            f"use_zarr3={meta.get('use_zarr3')})")
-    keys = [tuple(k["key"] for k in v["key_metadata"])
-            for v in meta["tree_metadata"].values()]
     root = "params"
-    if prefer_ema and any(k[0] == "ema_params" for k in keys):
+    if prefer_ema and any(k[0] == "ema_params"
+                          for k in orbax_tree_paths(state_dir)):
         root = "ema_params"
-    ctx = ts.Context()
-    base = "file://" + os.path.abspath(state_dir)
-    flat = {}
-    for k in keys:
-        if k[0] != root:
-            continue
-        spec = {"driver": "zarr", "kvstore": {
-            "driver": "ocdbt", "base": base, "path": ".".join(k) + "/"}}
-        flat["/".join(k[1:])] = np.asarray(
-            ts.open(spec, context=ctx).result().read().result())
-    if not flat:
-        raise ValueError(f"{state_dir}: no '{root}' arrays")
-    return flat, step
+    return read_orbax_arrays(state_dir, root), step
+
+
+def load_backbone(pretrained: Dict[str, torch.Tensor],
+                  scratch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Graft pretrained backbone weights into a downstream model's
+    state_dict (`caduceus_tpu/train/checkpoint.py:179`): every key under
+    ``backbone.`` that ``pretrained`` holds at the same shape takes the
+    pretrained value (in the scratch tensor's dtype and device); the head,
+    decoder, encoder and score keep their scratch init. Returns the merged
+    state_dict."""
+    out = {}
+    for k, v in scratch.items():
+        p = pretrained.get(k)
+        if (k.startswith("backbone.") and p is not None
+                and tuple(p.shape) == tuple(v.shape)):
+            out[k] = p.detach().to(dtype=v.dtype, device=v.device)
+        else:
+            out[k] = v
+    return out

@@ -5,8 +5,12 @@ Port of `caduceus_tpu/train/metrics.py`: `cross_entropy_loss` (`:24`) and
 reference's PAD = 4), optional per-position `loss_weights` and the
 streaming ``loss_sum`` / ``count`` sums; `last_k_ppl` (`:73`) and
 `per_token_ppl` (`:83`), the reference HG38Task eval metrics; and the
-host-side accumulators `Perplexity` (`:129`) and `NumTokens` (`:172`). The
-classification metrics of the registry come with fine-tuning.
+host-side accumulators `Perplexity` (`:129`) and `NumTokens` (`:172`); the
+classification metrics `mcc`, `f1` and `roc_auc` (`:109-126`), which the
+JAX package takes from scikit-learn, written here in numpy from their
+definitions (the fine-tuning path must not need scikit-learn, which the
+card's machine does not have); tests/test_torch_finetune.py holds them
+against scikit-learn.
 """
 
 from __future__ import annotations
@@ -78,6 +82,82 @@ def per_token_ppl(logits: torch.Tensor, targets: torch.Tensor,
     ll = logz - logits.gather(-1, safe[..., None])[..., 0]
     mask = tgt != ignore_index
     return ll * mask, mask
+
+
+def _labels_and_index(*arrays):
+    """The sorted union of the labels in ``arrays`` and each array as
+    indices into it."""
+    labels = np.unique(np.concatenate([np.asarray(a).ravel()
+                                       for a in arrays]))
+    return labels, [np.searchsorted(labels, np.asarray(a).ravel())
+                    for a in arrays]
+
+
+def _confusion(targets, preds):
+    """(labels, C) with C[i, j] the count of target i predicted as j."""
+    labels, (t, p) = _labels_and_index(targets, preds)
+    c = np.zeros((len(labels), len(labels)), np.int64)
+    np.add.at(c, (t, p), 1)
+    return labels, c
+
+
+def mcc(preds: np.ndarray, targets: np.ndarray) -> float:
+    """Matthews correlation of the multiclass confusion matrix (Gorodkin's
+    R_K; the binary phi coefficient for two classes); 0 where a margin is
+    constant."""
+    _, c = _confusion(targets, preds)
+    c = c.astype(np.float64)
+    t_sum, p_sum = c.sum(axis=1), c.sum(axis=0)
+    n, correct = c.sum(), np.trace(c)
+    cov_tp = correct * n - t_sum @ p_sum
+    cov_pp = n * n - p_sum @ p_sum
+    cov_tt = n * n - t_sum @ t_sum
+    if cov_pp * cov_tt == 0:
+        return 0.0
+    return float(cov_tp / np.sqrt(cov_tt * cov_pp))
+
+
+def f1(preds: np.ndarray, targets: np.ndarray,
+       average: str = "binary") -> float:
+    """F1 = 2·tp / (2·tp + fp + fn): of label 1 (``"binary"``) or the mean
+    over the labels present in either array (``"macro"``); 0 where a
+    label has no true or predicted member."""
+    labels, c = _confusion(targets, preds)
+    tp = np.diag(c).astype(np.float64)
+    denom = c.sum(axis=0) + c.sum(axis=1)  # 2·tp + fp + fn
+    per = np.where(denom > 0, 2 * tp / np.maximum(denom, 1), 0.0)
+    if average == "binary":
+        if not set(labels.tolist()) <= {0, 1}:
+            raise ValueError(f"binary f1 needs labels in {{0, 1}}, got "
+                             f"{labels.tolist()}")
+        hit = np.nonzero(labels == 1)[0]
+        return float(per[hit[0]]) if len(hit) else 0.0
+    if average == "macro":
+        return float(per.mean())
+    raise ValueError(f"average={average!r}")
+
+
+def roc_auc(scores: np.ndarray, targets: np.ndarray) -> float:
+    """Area under the ROC curve of binary ``targets`` as the Mann-Whitney
+    statistic: the share of (positive, negative) pairs ranked in order,
+    tied scores counted as half."""
+    scores = np.asarray(scores, np.float64).ravel()
+    targets = np.asarray(targets).ravel()
+    classes = np.unique(targets)
+    if len(classes) != 2:
+        raise ValueError(f"ROC AUC needs two classes in targets, got "
+                         f"{classes.tolist()}")
+    pos = targets == classes[1]
+    order = np.argsort(scores, kind="mergesort")
+    s = scores[order]
+    # average 1-based ranks over runs of tied scores
+    starts = np.r_[0, np.nonzero(np.diff(s))[0] + 1]
+    ends = np.r_[starts[1:], len(s)]
+    ranks = np.empty(len(s))
+    ranks[order] = np.repeat((starts + ends + 1) / 2.0, ends - starts)
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    u = ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0
+    return float(u / (n_pos * n_neg))
 
 
 @dataclass

@@ -12,14 +12,19 @@ Port of `caduceus_tpu/train/optim.py`:
 - `make_optimizer` (`:254`): clip by global norm, then AdamW with betas
   (0.9, 0.95), eps 1e-8 outside the root and decoupled decay scaled by the
   scheduled lr (optax's `clip_by_global_norm` + `adamw`, realised with
-  `torch.optim.AdamW`), on the schedule ``schedule_name`` names (`:275-286`).
-  Not ported yet: ``lr_overrides``, ``layer_decay`` and ``wd_mask_fn``
-  (Hyena and fine-tuning).
+  `torch.optim.AdamW`), on the schedule ``schedule_name`` names (`:275-286`);
+- `layer_decay_multipliers` (`:104`) and ``make_optimizer(layer_decay=)``
+  (`:289-301`), the fine-tuning's layer-wise lr decay: the JAX chain scales
+  AdamW's whole update, weight decay included, by a per-leaf factor
+  (`scale_updates_by_tree`, `:159`); here each factor is a parameter group
+  whose lr is the scheduled lr times the factor, which is the same update.
+  Not ported yet: ``lr_overrides`` and ``wd_mask_fn`` (Hyena).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -52,6 +57,31 @@ def weight_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]
         out[name] = (not any(n in _NO_DECAY_TOKENS for n in parts)
                      and p.dim() >= 2)
     return out
+
+
+def _layer_id(names) -> Optional[int]:
+    """A parameter's layer from its flax path: ``layers_<i>`` (also
+    ``mixer_`` / ``ln1_`` / ``ln2_`` / ``mlp_``) is i + 1, an embedding 0,
+    anything else (head, final norm) None, the top layer."""
+    for n in names:
+        m = re.fullmatch(r"(?:layers|mixer|ln1|ln2|mlp)_(\d+)", n)
+        if m:
+            return int(m.group(1)) + 1
+    if any(n in ("embedding", "pos_embedding") for n in names):
+        return 0
+    return None
+
+
+def layer_decay_multipliers(named_params: Iterable[Tuple[str, torch.Tensor]],
+                            decay: float) -> Dict[str, float]:
+    """{state_dict key: decay ** (max_layer - layer)}: layer-wise lr decay
+    (`caduceus_tpu/train/optim.py:104`), with the layers counted on the flax
+    paths (`_layer_id`)."""
+    ids = {name: _layer_id(flax_path(name).split("/"))
+           for name, _ in named_params}
+    max_id = max((i for i in ids.values() if i is not None), default=0) + 1
+    return {name: decay ** (max_id - (max_id if i is None else i))
+            for name, i in ids.items()}
 
 
 def _warm(step, lr, warmup_t, warmup_lr_init):
@@ -139,21 +169,30 @@ class Optimizer:
     does — g·max_norm/‖g‖ when ‖g‖ ≥ max_norm, g unchanged below (no
     epsilon, unlike `torch.nn.utils.clip_grad_norm_`) — sets the lr of
     update ``count`` (0 first) and applies one `torch.optim.AdamW` step.
-    Parameters outside the decay mask get weight_decay 0."""
+    Parameters outside the decay mask get weight_decay 0; a parameter's
+    group runs at the scheduled lr times its ``factors`` entry (1 when
+    absent)."""
 
     def __init__(self, named_params, schedule: Schedule, weight_decay: float,
                  betas, eps: float, gradient_clip: Optional[float],
-                 mask: Dict[str, bool]):
+                 mask: Dict[str, bool],
+                 factors: Optional[Dict[str, float]] = None):
         named = list(named_params)
-        decay = [p for n, p in named if mask[n]]
-        rest = [p for n, p in named if not mask[n]]
+        factors = factors or {}
+        groups = {}
+        for n, p in named:
+            key = (bool(mask[n]), float(factors.get(n, 1.0)))
+            groups.setdefault(key, []).append(p)
         self.params = [p for _, p in named]
         self.schedule = schedule
         self.gradient_clip = gradient_clip
         self.count = 0
         self.opt = torch.optim.AdamW(
-            [{"params": decay, "weight_decay": weight_decay},
-             {"params": rest, "weight_decay": 0.0}],
+            [{"params": ps, "weight_decay": weight_decay if decays else 0.0,
+              "lr_factor": f}
+             for (decays, f), ps in sorted(groups.items(),
+                                           key=lambda kv: (not kv[0][0],
+                                                           -kv[0][1]))],
             lr=schedule(0), betas=tuple(betas), eps=eps)
 
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -165,7 +204,7 @@ class Optimizer:
                 g.copy_(torch.where(keep, g, g / norm * self.gradient_clip))
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_factor", 1.0)
         self.opt.step()
         self.count += 1
 
@@ -189,10 +228,12 @@ def make_optimizer(
     warmup_lr_init: float = 1e-6,
     gradient_clip: Optional[float] = 1.0,
     schedule_name: str = "cosine_warmup_timm",
+    layer_decay: Optional[float] = None,
 ):
     """AdamW + the schedule ``schedule_name`` + clipping over
-    ``named_params`` (e.g. ``model.named_parameters()``); returns
-    (optimizer, schedule)."""
+    ``named_params`` (e.g. ``model.named_parameters()``), with layer-wise lr
+    decay when ``layer_decay`` is set (the decayed groups keep their
+    weight decay); returns (optimizer, schedule)."""
     if schedule_name in ("cosine_warmup", "cosine_warmup_timm"):
         schedule = cosine_warmup_schedule(lr, warmup_t, t_initial, lr_min,
                                           warmup_lr_init)
@@ -209,5 +250,8 @@ def make_optimizer(
         raise KeyError(f"unknown schedule: {schedule_name} "
                        f"(have {list(SCHEDULE_REGISTRY)})")
     named = list(named_params)
+    factors = (None if layer_decay is None
+               else layer_decay_multipliers(named, layer_decay))
     return Optimizer(named, schedule, weight_decay, betas, 1e-8,
-                     gradient_clip, weight_decay_mask(named)), schedule
+                     gradient_clip, weight_decay_mask(named),
+                     factors), schedule

@@ -180,7 +180,29 @@ hg38 loader, `Trainer`, checkpoints) on a synthetic genome of 2 contigs of
 33. `cli.py eval` of run A's test split (finite), and run A, which holds
    only checkpoints, served: a 1,024-token /logits equal to a direct
    forward of the checkpoint's EMA weights;
-34. 32 for the v1 model at 4 layers.
+34. 32 for the v1 model at 4 layers;
+
+and, downstream of run A of each family (the same temporary directory):
+
+35. #1 + #3a/#3b and #9 + #8 at the fine-tuning shape, G=256 (128
+   sequences x 2 strands) and L=251, full width, bf16, both directions,
+   against their plain versions, then each timed beside its bound there;
+36. `cli.py finetune` with the `human_nontata_promoters` preset (L=251,
+   batch 128, 2 classes, lr 1e-3, metric all) on a
+   `make_structured_classification_suite` task over the synthetic genome
+   (1,024 training sequences), from v2 run A (16 layers): 2 epochs, seeds 1
+   and 2, ``--save-dir``; launches against the config's count, every
+   logged loss finite; the step timed (sequences/s, peak memory); one step
+   card vs CPU at 2 layers in fp32; `finetune_one` for seed 1 twice, bit for
+   bit; then v1 run A (4 layers), 1 epoch, seed 1;
+37. the export served (`cli.py serve`'s service): /classify of 8
+   sequences equal to a direct forward bit for bit, latency at 1 sequence
+   and at 8 concurrent requests;
+38. `cli.py vep` on v2 run A at seq_len 131,072, batch 2, 16 variants and
+   one with a wrong reference base: 16 feature rows, the peak-memory line
+   once, the first variant equal to a direct forward bit for bit; the SVM
+   eval where scikit-learn imports (whether it does is printed); then v1
+   run A.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -1134,6 +1156,45 @@ def _bound(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _ssd_bounds(G, L, H, P, NG, N, K, T):
+    """Bounds of #1 (with carries), #3a and #3b at (G, L), bf16: each input
+    read once and each output written once (bf16 rows, fp32 parameters and
+    hN, bf16 carries); the matmul work the function needs (no per-head
+    recompute of CB): CB per group, M@dx, C@h, B^T@wdx in the forward; CB,
+    LG@B, LG^T@C once per group, G, gdx (T x T x P) and six N x P products
+    per head in the adjoint, which takes the reads of xBC, dt, g_y and the
+    carries and the write of g_dt; #3b the write of g_xBC and its
+    elementwise fp32 work (~6K + 8 operations per element)."""
+    rows, Wc, nc = G * L, H * P + 2 * NG * N, -(-L // T)
+    car_bytes = G * nc * H * N * P * 2
+    return {
+        "ssd_fused_fwd": _bound(
+            rows * (Wc + H) * 2 + rows * H * P * 2 + G * H * N * P * 4
+            + car_bytes,
+            rows * (2 * T * N * NG + 2 * T * P * H + 4 * N * P * H)),
+        "ssd_fused_bwd_kernel": _bound(
+            rows * (Wc * 2 + H * 2 + H * P * 2 + H * 2) + car_bytes,
+            rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P))),
+        "ssd_conv_bwd_kernel": _bound(rows * Wc * 2, rows * Wc * (6 * K + 8),
+                                      FP32_FLOP_PER_S)}
+
+
+def _scan_bounds(G, L, d, N, T):
+    """Bounds of #9 (both directions, carries saved) and #8 at (G, L),
+    bf16: per row and direction u and delta read, B and C read, y written;
+    the adjoint reads u, delta, g_y, B, C and the carries and writes g_u,
+    g_delta, g_B, g_C; fp32 FLOP on the non-tensor-core units."""
+    rows, nc = G * L, -(-L // T)
+    car_bytes = G * nc * d * N * 4
+    io_fwd = rows * (2 * d * 2 + 2 * N * 2 + d * 2)
+    return {
+        "bidir_scan_fwd": _bound(2 * (io_fwd + car_bytes),
+                                 2 * 5 * rows * d * N, FP32_FLOP_PER_S),
+        "selective_scan_bwd": _bound(
+            rows * (3 * d * 2 + 2 * N * 2 + 2 * d * 2 + 2 * N * 2)
+            + car_bytes, 20 * rows * d * N, FP32_FLOP_PER_S)}
+
+
 def _timed(kernel_fn, plain_fn, n_kernel=3):
     """Kernel and plain version in turns (plain, kernel, kernel, plain)."""
     plain_ms = [_time_cuda(plain_fn, 1)]
@@ -1232,9 +1293,8 @@ def phase_timing():
     t["check"] = hold(f"timed fwd + carries G=4 L={L} bf16", bf16, fwd_k,
                       fwd_p)
     car_bytes = G * nc * H * N * P * 2
-    t.update(_bound(rows * (Wc + H) * 2 + rows * H * P * 2
-                    + G * H * N * P * 4 + car_bytes,
-                    rows * (2 * T * N * NG + 2 * T * P * H + 4 * N * P * H)))
+    bounds = _ssd_bounds(G, L, H, P, NG, N, K, T)
+    t.update(bounds["ssd_fused_fwd"])
     res["fwd_G4_carries"] = t
     log(f"[time] ssd_fused_fwd + carries G=4 L={L} bf16: kernel "
         f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
@@ -1276,8 +1336,7 @@ def phase_timing():
     # wdx@lambda^T, C^T@gye) per head. The fp32 (G, L, Wc) workspace
     # between the two kernels is a cost of the split design, not of the
     # function: it stands beside the bound as `extra_bytes`.
-    t.update(_bound(rows * (Wc * 2 + H * 2 + H * P * 2 + H * 2) + car_bytes,
-                    rows * (6 * T * N * NG + H * (4 * T * P + 12 * N * P))))
+    t.update(bounds["ssd_fused_bwd_kernel"])
     t["extra_bytes"] = rows * Wc * 4
     # the four launches of one call: the pre-pass reads C, dt and g_y for
     # S - 1 segments; the main pass reads x, dt, B, C, CB, g_y and the
@@ -1318,7 +1377,7 @@ def phase_timing():
     # g_w / g_b: ~6K + 8 operations per element) on the non-tensor-core
     # fp32 units; on top, the split design reads the workspace and xBC a
     # second time
-    t.update(_bound(rows * Wc * 2, rows * Wc * (6 * K + 8), FP32_FLOP_PER_S))
+    t.update(bounds["ssd_conv_bwd_kernel"])
     t["extra_bytes"] = rows * Wc * (4 + 2)
     # the kernel alone as a function of its own inputs: g_xc and xBC read
     # once, g_xBC written once
@@ -1995,8 +2054,8 @@ def phase_scan_timing():
                       ("yf", "carf", "yr", "carr"), tag="scan")
     car = k[2]
     del k
-    t.update(_bound(2 * (io_fwd + car_bytes), 2 * 5 * rows * d * N,
-                    FP32_FLOP_PER_S))
+    bounds = _scan_bounds(G, L, d, N, T)
+    t.update(bounds["bidir_scan_fwd"])
     t["exps"], t["exps_softplus"] = 2 * rows * d * N, 2 * 2 * rows * d
     res["bidir"] = t
 
@@ -2011,8 +2070,7 @@ def phase_scan_timing():
     # reads u, delta, g_y, B, C and the carries; writes g_u, g_delta, g_B,
     # g_C; the fp32 g_B / g_C shares (written by the main pass, read by the
     # share sum) stand beside it as extra_bytes
-    t.update(_bound(rows * (3 * d * 2 + 2 * N * 2 + 2 * d * 2 + 2 * N * 2)
-                    + car_bytes, 20 * rows * d * N, FP32_FLOP_PER_S))
+    t.update(bounds["selective_scan_bwd"])
     nsh = scan.n_bc_shares(d)
     share_bytes = nsh * 2 * rows * N * 4
     t["exps"], t["exps_softplus"] = rows * d * N + rows * d, 2 * rows * d
@@ -3085,6 +3143,531 @@ def phase_pretrain_reads(run_a, fasta, bed):
     return {"eval": ev, "serve_max_abs_err": err, "served_step": step}
 
 
+# -- fine-tuning, /classify and VEP downstream of run A ----------------------
+
+FT_TASK = "human_nontata_promoters"
+FT_PRESET = os.path.join("configs", "downstream", "gb", f"{FT_TASK}.yaml")
+FT_L, FT_BATCH = 251, 128          # the preset's geometry
+FT_G = 2 * FT_BATCH                # both strands per kernel call (RCPS)
+FT_TRAIN, FT_TEST = 1138, 256      # 1,024 training sequences after the split
+# seed -> the outputs of #3a + #3b that miss the rule with h_init and g_hN at
+# the fine-tuning shape (ROADMAP.md queue 3 item 7; held as expected misses,
+# as tests/test_torch_cuda.py FT_GHN_KNOWN_MISSES holds them)
+FT_GHN_KNOWN_MISSES = {701: ("g_dt_bias",)}
+VEP_L, VEP_BATCH, VEP_N = 131072, 2, 16
+CLASSIFY_BURSTS = 30               # bursts of 8 concurrent /classify requests
+
+
+def phase_finetune_kernels():
+    """#1 + #3a/#3b and #9 + #8 at the fine-tuning shape: G=256 (128
+    sequences x 2 strands), L=251, full width, bf16, both directions,
+    against their plain versions (the forwards from a nonzero h_init; the
+    SSD adjoint as the fine-tuning step runs it, without h_init and g_hN,
+    and with both, where `FT_GHN_KNOWN_MISSES` must miss and the plain
+    version on the CPU is compared with the plain version on the card; the
+    scan adjoint with both); then each kernel timed as the step calls it
+    (forward direction) beside its plain version and its bound at that
+    shape."""
+    from caduceus_tpu_torch.kernel_check import TOL
+    from caduceus_tpu_torch.ops import scan
+    from caduceus_tpu_torch.ops import selective_scan as plain_scan
+    from caduceus_tpu_torch.ops import ssd as plain_ssd
+    from caduceus_tpu_torch.ops import ssd_batched as sb
+
+    G, L = FT_G, FT_L
+    H, P, NG, N, K = 8, 64, 1, 128, 4
+    T = sb.KERNEL_CHUNK[torch.bfloat16]
+    bf16 = TOL[torch.bfloat16]
+    nc = -(-L // T)
+    S = sb.n_segments(G, H, nc, "cuda")
+    res = {"checks": {}, "timing": {}, "segments": S}
+    shape = f"G={G} L={L} bf16"
+    for reverse in (False, True):
+        inp = ssd_inputs(G, L, H, P, NG, N, K, torch.bfloat16, 700 + reverse,
+                         width_pad=512)
+        res["checks"][f"ssd_fwd rev={reverse}"] = hold(
+            f"[finetune] fwd {shape} rev={reverse}", bf16,
+            *run_pair(inp, reverse))
+        kernel, plain, _ = bwd_pair(dict(inp, h_init=None, g_hN=None),
+                                    reverse)
+        res["checks"][f"ssd_bwd rev={reverse}"] = hold(
+            f"[finetune] bwd (#3a + #3b) {shape} rev={reverse}", bf16,
+            kernel[:-1], plain[:-1], BWD_NAMES[:-1], tag="bwd")
+        del kernel, plain
+        res["checks"][f"ssd_bwd g_hN rev={reverse}"] = _hold_ghn(
+            inp, reverse, 700 + reverse, f"{shape} rev={reverse}")
+        del inp
+        f = scan_inputs(G, L, 512, 16, torch.bfloat16, 710 + reverse,
+                        model_like=True)
+        r = scan_inputs(G, L, 512, 16, torch.bfloat16, 720 + reverse,
+                        model_like=True)
+        res["checks"][f"bidir_scan_fwd rev={reverse}"] = hold(
+            f"[finetune] bidir_scan_fwd {shape}", bf16,
+            *(bidir_pair(r, f) if reverse else bidir_pair(f, r)),
+            ("yf", "carf", "yr", "carr"), tag="scan")
+        res["checks"][f"selective_scan_bwd rev={reverse}"] = hold(
+            f"[finetune] selective_scan_bwd {shape} rev={reverse}", bf16,
+            *scan_bwd_pair(f, reverse), SCAN_BWD_NAMES, tag="scan-bwd")
+        del f, r
+
+    # timed as the step calls them
+    inp = ssd_inputs(G, L, H, P, NG, N, K, torch.bfloat16, 730, width_pad=512)
+    a7 = (inp["xBC"], inp["dt"], inp["A"], inp["conv_w"], inp["conv_b"],
+          inp["D"], inp["dt_bias"])
+    outs = {}
+    tm = res["timing"]
+    tm["ssd_fused_fwd"] = _timed(
+        lambda: outs.__setitem__("car", sb.ssd_fused_fwd(
+            *a7, inp["dims"], True, False, T, None, save_carries=True)[2]),
+        lambda: plain_ssd.ssd_chunked_fused(
+            *a7, dims=inp["dims"], dt_softplus=True, chunk_size=T,
+            return_carries=True), n_kernel=10)
+    bwd_args = a7 + (inp["g_y"], outs["car"], None, inp["dims"], True, False,
+                     T)
+    tm["ssd_fused_bwd_kernel"] = _timed(
+        lambda: outs.__setitem__("adj", sb.ssd_adjoint_xc(*bwd_args)),
+        lambda: plain_ssd.ssd_adjoint_xc(*bwd_args), n_kernel=10)
+    conv_args = (outs["adj"][0], inp["xBC"], inp["conv_w"], inp["conv_b"],
+                 False)
+    tm["ssd_conv_bwd_kernel"] = _timed(
+        lambda: sb.conv_silu_bwd(*conv_args),
+        lambda: plain_ssd.conv_silu_bwd(*conv_args), n_kernel=10)
+    for k, b in _ssd_bounds(G, L, H, P, NG, N, K, T).items():
+        tm[k].update(b)
+    del inp, a7, bwd_args, conv_args, outs
+    f = scan_inputs(G, L, 512, 16, torch.bfloat16, 740, model_like=True)
+    r = scan_inputs(G, L, 512, 16, torch.bfloat16, 741, model_like=True)
+    a, b = _scan_args(f), _scan_args(r)
+    Ts = scan.KERNEL_CHUNK
+    outs = {}
+    tm["bidir_scan_fwd"] = _timed(
+        lambda: outs.__setitem__("k", scan.bidir_scan_fwd(
+            *a[:2], *a[3:5], *b[:2], *b[3:5], a[2], b[2], a[5], b[5], a[6],
+            b[6], save_carries=True)),
+        lambda: (plain_scan.selective_scan(*a, True, False, Ts,
+                                           return_carries=True),
+                 plain_scan.selective_scan(*b, True, True, Ts,
+                                           return_carries=True)),
+        n_kernel=10)
+    bwd_args = a + [f["g_y"], outs["k"][2], None, True, False, Ts]
+    tm["selective_scan_bwd"] = _timed(
+        lambda: scan.selective_scan_bwd_cuda(*bwd_args),
+        lambda: plain_scan.selective_scan_bwd(*bwd_args), n_kernel=10)
+    for k, bd in _scan_bounds(G, L, 512, 16, Ts).items():
+        tm[k].update(bd)
+    del f, r, a, b, bwd_args, outs
+    for k, t in tm.items():
+        log(f"[finetune] {k} {shape}: kernel {t['ms']:.3f} ms (runs "
+            f"{', '.join(f'{v:.3f}' for v in t['kernel_ms_runs'])}), plain "
+            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
+            f"{t['flops'] / 1e9:.2f} GFLOP)")
+    log(f"[finetune] SSD segments per (g, h) at {shape}: {S} ({nc} chunks "
+        f"of {T} rows, the last {L - (nc - 1) * T})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _hold_ghn(inp, reverse, seed, shape):
+    """#3a + #3b with h_init and a nonzero g_hN (no model path passes them)
+    against the plain version: each output passes the rule but the seed's
+    known misses (`FT_GHN_KNOWN_MISSES`), which must fail it. Where one is
+    known, the plain version is also run on the CPU and compared with the
+    plain version on the card and with the kernel, its errors logged:
+    whether two orders of the same arithmetic differ as much."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare, describe
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked_fused_bwd
+    from caduceus_tpu_torch.ops.ssd_batched import KERNEL_CHUNK
+
+    bf16 = TOL[torch.bfloat16]
+    miss = FT_GHN_KNOWN_MISSES.get(seed, ())
+    kernel, plain, car = bwd_pair(inp, reverse)
+    keep = [i for i, n in enumerate(BWD_NAMES) if n not in miss]
+    out = hold(f"[finetune] bwd (#3a + #3b) with h_init and g_hN {shape}",
+               bf16, [kernel[i] for i in keep], [plain[i] for i in keep],
+               [BWD_NAMES[i] for i in keep], tag="bwd")
+    for name in miss:
+        i = BWD_NAMES.index(name)
+        out[name] = hold(
+            f"[finetune] bwd (#3a + #3b) with h_init and g_hN {shape} seed "
+            f"{seed}, {name}: known miss (ROADMAP.md queue 3 item 7)", bf16,
+            [kernel[i]], [plain[i]], [name], expect_ok=False,
+            tag="bwd")[name]
+    if miss:
+        on_cpu = ssd_chunked_fused_bwd(
+            *(inp[k].cpu() for k in ("xBC", "dt", "A", "conv_w", "conv_b",
+                                     "D", "dt_bias", "g_y")),
+            car.cpu(), inp["g_hN"].cpu(), inp["dims"], True, reverse,
+            KERNEL_CHUNK[torch.bfloat16])
+        for name, k, p, c in zip(BWD_NAMES, kernel, plain, on_cpu):
+            vs_card = compare(c, p.cpu(), bf16)
+            vs_kernel = compare(k.cpu(), c, bf16)
+            out[f"{name} plain cpu vs card"] = vs_card
+            out[f"{name} kernel vs plain cpu"] = vs_kernel
+            log(f"[bwd]   {name}: plain on the CPU vs on the card "
+                f"{describe(vs_card)}; kernel vs plain on the CPU "
+                f"{describe(vs_kernel)}")
+    return out
+
+
+def _finetune_argv(data_dir, run_dir, epochs, seeds, save_dir=None):
+    argv = ["finetune", "--preset", FT_PRESET, "--data-dir", data_dir,
+            "--pretrained-run-dir", run_dir, "--epochs", str(epochs),
+            "--seeds", *[str(s) for s in seeds]]
+    return argv + (["--save-dir", save_dir] if save_dir else [])
+
+
+def _finetune_dm(data_dir, seed):
+    from caduceus_tpu_torch.data.classification import (
+        ClassificationDataModule)
+
+    return ClassificationDataModule(data_dir, FT_TASK, max_length=FT_L,
+                                    batch_size=FT_BATCH,
+                                    train_val_split_seed=seed, seed=seed)
+
+
+def phase_finetune(data_dir, run_dir, name, n_layer, epochs, seeds,
+                   save_dir=None, full=True):
+    """`cli.py finetune` with the `human_nontata_promoters` preset (L=251,
+    batch 128, lr 1e-3, metric all) on a pretraining run dir, in this
+    process with the launches counted and held against the config's count;
+    every logged loss finite. With ``full``: the fine-tuning step timed
+    (sequences/s, peak memory), one step on the card against the CPU at 2
+    layers in fp32, and `finetune_one` for seed 1 run twice on the card,
+    bit for bit."""
+    import io
+    from types import SimpleNamespace
+
+    from caduceus_tpu_torch import cli
+    from caduceus_tpu_torch.finetune import (
+        _make_classifier, _to_device, finetune_one, make_finetune_step)
+    from caduceus_tpu_torch.params import load_run_dir
+    from caduceus_tpu_torch.train.checkpoint import load_backbone
+    from caduceus_tpu_torch.train.optim import make_optimizer
+
+    torch.cuda.empty_cache()
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(_finetune_argv(data_dir, run_dir, epochs, seeds, save_dir))
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    epochs_logged = [r for r in lines if "epoch" in r]
+    results = [r for r in lines if "best_val" in r]
+    check(len(epochs_logged) == epochs * len(seeds)
+          and len(results) == len(seeds),
+          f"finetune {name}: logged {len(epochs_logged)} epochs, "
+          f"{len(results)} results")
+    check(all(math.isfinite(r["loss"]) for r in epochs_logged),
+          f"finetune {name}: a logged loss is not finite: {epochs_logged}")
+    cfg, pre = load_run_dir(run_dir, prefer_ema=False)
+    dm = _finetune_dm(data_dir, seeds[0])
+    steps = epochs * (len(dm.train_ds) // FT_BATCH)
+    evals = epochs * -(-len(dm.val_ds) // FT_BATCH) + -(-len(dm.test_ds)
+                                                         // FT_BATCH)
+    want = {k: v * steps * len(seeds) for k, v in _per_micro_batch(
+        cfg).items()}
+    fwd = "ssd_fused_fwd" if cfg.ssm_cfg.version == 2 else "bidir_scan_fwd"
+    want[fwd] += evals * len(seeds) * (2 if cfg.ssm_cfg.version == 2
+                                       else 1) * cfg.n_layer
+    check(counts == want, f"finetune {name}: launches {counts} != {want}")
+    out = {"n_layer": n_layer, "cli_s": cli_s, "launches": counts,
+           "steps_per_seed": steps, "evals_per_seed": evals,
+           "results": results, "epochs": epochs_logged,
+           "summary": lines[-1]}
+    log(f"[finetune] {name}, {n_layer} layers, {FT_TASK} preset (L={FT_L}, "
+        f"batch {FT_BATCH}), {len(dm.train_ds)} training sequences, "
+        f"{epochs} epochs, seeds {seeds}: cli.py finetune {cli_s:.1f} s; "
+        f"launches {counts} (= {steps} steps and {evals} eval batches a "
+        f"seed); results {results}; summary {lines[-1]}")
+    if not full:
+        return out
+
+    # the step, timed: the classifier from run A's weights, as finetune_one
+    # builds it
+    batches = [_to_device(b, "cuda") for b, _ in zip(
+        dm.batches("train", seed=1), range(6))]
+    model = _make_classifier(cfg, 2, "mean", False, "left", device="cuda",
+                             generator=torch.Generator().manual_seed(1))
+    model.load_state_dict(load_backbone(pre, model.state_dict()))
+    opt, _ = make_optimizer(model.named_parameters(), lr=1e-3,
+                            betas=(0.9, 0.999), warmup_t=2, t_initial=16)
+    step = make_finetune_step(model, opt, "single_label_classification")
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / len(losses)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(float(x)) for x in losses), "timed step loss")
+    out.update(step_s=step_s, sequences_per_s=FT_BATCH / step_s,
+               peak_mem_bytes=peak)
+    log(f"[finetune] step ({n_layer} layers, {FT_BATCH} x {FT_L}, G={FT_G} "
+        f"per kernel call): {step_s * 1e3:.1f} ms, "
+        f"{FT_BATCH / step_s:,.0f} sequences/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    del model, opt, step, batches
+
+    # card vs CPU, one step at 2 layers, fp32, 32 sequences (gradients
+    # before the optimizer: a no-op step)
+    cfg2 = dataclasses.replace(cfg, n_layer=2, dtype="float32")
+    batch = next(dm.batches("train", seed=3))
+    batch = {k: v[:32] for k, v in batch.items()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = _make_classifier(cfg2, 2, "mean", False, "left", device=dev,
+                             generator=torch.Generator().manual_seed(7))
+        loss = make_finetune_step(m, SimpleNamespace(step=lambda: None),
+                                  "single_label_classification")(
+            _to_device(batch, dev))
+        got[dev] = (float(loss), {n: p.grad.cpu()
+                                  for n, p in m.named_parameters()})
+    (l_c, g_c), (l_k, g_k) = got["cpu"], got["cuda"]
+    rel = abs(l_k - l_c) / abs(l_c)
+    check(rel <= TRAIN_TOL["metric"], f"finetune step card vs CPU loss "
+          f"{l_k} vs {l_c}")
+    g_err, worst = 0.0, ""
+    for n in g_c:
+        e = ((g_k[n] - g_c[n]).abs().max()
+             / (g_c[n].abs().max() + 1e-30)).item()
+        if e > g_err:
+            g_err, worst = e, n
+    check(g_err <= TRAIN_TOL["grad"], f"finetune step card vs CPU gradient "
+          f"{worst}: {g_err:.2e} of its max")
+    out["vs_cpu"] = {"loss": [l_k, l_c], "loss_rel": rel, "grad_err": g_err,
+                     "worst": worst}
+    log(f"[finetune] card vs CPU, 2 layers, fp32, 32 x {FT_L}: loss "
+        f"{l_k:.7f} vs {l_c:.7f} (rel {rel:.1e}, tol {TRAIN_TOL['metric']}); "
+        f"worst gradient {worst} {g_err:.2e} of its max (tol "
+        f"{TRAIN_TOL['grad']})")
+
+    # finetune_one for seed 1, twice: bit for bit
+    runs = []
+    for _ in range(2):
+        logs = []
+        t0 = time.perf_counter()
+        res, best = finetune_one(cfg, _finetune_dm(data_dir, 1), 2,
+                                 pretrained_params=pre, epochs=epochs,
+                                 seed=1, metric="all", log_fn=logs.append,
+                                 return_state=True, device="cuda")
+        runs.append((logs, res, best, time.perf_counter() - t0))
+    (l1, r1, b1, s1), (l2, r2, b2, s2) = runs
+    check(l1 == l2 and r1 == r2, f"finetune_one twice: {l1} != {l2}")
+    for k in b1:
+        check(torch.equal(b1[k], b2[k]), f"finetune_one twice: {k} differs")
+    out["repeat"] = {"logs": l1, "result": r1, "run_s": [s1, s2]}
+    log(f"[finetune] finetune_one seed 1 twice ({s1:.1f} s, {s2:.1f} s): "
+        f"logs, metrics and best-val parameters equal bit for bit; {r1}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_classify(save_dir):
+    """`cli.py serve` of the export (`InferenceService.from_run_dir`, the
+    same call) over HTTP: /classify of 8 sequences equals a direct forward
+    of the exported classifier bit for bit; latency of one sequence and of
+    8 concurrent requests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from caduceus_tpu_torch.finetune import _make_classifier
+    from caduceus_tpu_torch.params import from_jax_params, load_npz_params
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    svc = InferenceService.from_run_dir(save_dir, device="cuda", max_batch=8)
+    n_warm = svc.warmup()
+    server = InferenceServer(svc, port=0).start()
+    rng = np.random.default_rng(11)
+    seqs = ["".join(rng.choice(list("ACGT"), int(n)))
+            for n in rng.integers(200, 260, 8)]
+    try:
+        served = _post(server.port, "/classify", {"sequences": seqs})
+        one = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            _post(server.port, "/classify", {"sequences": [seqs[i]]})
+            one.append(time.perf_counter() - t0)
+
+        def req(s):
+            return _post(server.port, "/classify", {"sequences": [s]})
+
+        def bursts():
+            runs = []
+            with ThreadPoolExecutor(8) as pool:
+                for _ in range(CLASSIFY_BURSTS):
+                    t0 = time.perf_counter()
+                    list(pool.map(req, seqs))
+                    runs.append(time.perf_counter() - t0)
+            return runs
+
+        eight = bursts()
+        # the same bursts with socketserver's default listen backlog of 5
+        # (listen() again sets the backlog of a listening socket)
+        server.httpd.socket.listen(5)
+        eight_b5 = bursts()
+    finally:
+        server.stop()
+    tc = svc.task_cfg
+    cfg = svc.cfg
+    model = _make_classifier(cfg, tc["num_classes"], tc["pooling"],
+                             tc["use_lengths"], tc["padding_side"],
+                             device="cuda")
+    model.load_state_dict(from_jax_params(
+        load_npz_params(os.path.join(save_dir, "params.npz")), cfg,
+        model=model))
+    ids = np.stack([svc.tok.encode_padded(s, tc["max_length"],
+                                          add_sep=tc["add_eos"])
+                    for s in seqs]).astype(np.int64)
+    lengths = torch.tensor([min(len(s), tc["max_length"]) for s in seqs])
+    with torch.inference_mode():
+        scores = model(torch.from_numpy(ids).cuda(), lengths.cuda()).cpu(
+        ).numpy()
+    for r, s in zip(served["classify"], scores):
+        e = np.exp(s - s.max())
+        check(r["probs"] == (e / e.sum()).tolist()
+              and r["label"] == int(np.argmax(s)),
+              f"/classify {r} != direct forward {s}")
+    del model, svc
+    torch.cuda.empty_cache()
+
+    def spread(runs):
+        return {"median_s": float(np.median(runs)),
+                "p90_s": float(np.percentile(runs, 90)),
+                "max_s": float(max(runs)), "runs": runs}
+
+    out = {"warmup_dispatches": n_warm, "latency_1_s": float(np.median(one)),
+           "latency_1_runs": one, "latency_8": spread(eight),
+           "latency_8_backlog_5": spread(eight_b5),
+           "listen_backlog": server.httpd.request_queue_size}
+    log(f"[classify] /classify of the export: 8 sequences equal a direct "
+        f"forward bit for bit; one sequence {out['latency_1_s'] * 1e3:.1f} ms "
+        f"(median of 5)")
+    for key, what in (("latency_8", f"listen backlog "
+                       f"{out['listen_backlog']}"),
+                      ("latency_8_backlog_5", "listen backlog 5")):
+        st = out[key]
+        log(f"[classify] 8 concurrent requests, {what}: median "
+            f"{st['median_s'] * 1e3:.1f} ms, p90 {st['p90_s'] * 1e3:.1f}, "
+            f"max {st['max_s'] * 1e3:.1f} ({CLASSIFY_BURSTS} bursts; "
+            f"{sum(r > 0.5 for r in st['runs'])} over 0.5 s)")
+    return out
+
+
+def _vep_variants(path, fasta):
+    """`VEP_N` variants at random positions of the genome (a base of ACGT)
+    and one more whose reference base is wrong: ``chrom pos ref alt label
+    tss_distance`` rows."""
+    from caduceus_tpu_torch.data.fasta import FastaFile
+
+    fa = FastaFile(fasta)
+    rng = np.random.default_rng(12)
+    rows = []
+    while len(rows) < VEP_N + 1:
+        chrom = fa.names[len(rows) % len(fa.names)]
+        pos = int(rng.integers(0, fa.length(chrom)))
+        ref = fa.fetch(chrom, pos, pos + 1)
+        if ref not in "ACGT":
+            continue
+        alt = "ACGT"[("ACGT".index(ref) + 1 + len(rows) % 3) % 4]
+        if len(rows) == 3:   # the mismatched record: skipped by the dump
+            ref, alt = alt, ref
+        rows.append((chrom, pos, ref, alt, len(rows) % 2,
+                     [1_000, 50_000, 200_000][len(rows) % 3]))
+    fa.close()
+    with open(path, "w") as f:
+        for r in rows:
+            f.write("\t".join(map(str, r)) + "\n")
+    return rows
+
+
+def phase_vep(work, fasta, run_dir, name, sklearn):
+    """`cli.py vep` on a run dir at seq_len 131,072, batch 2, over 16
+    variants and one with a wrong reference base: 16 feature rows, the
+    launches of 8 forwards, the peak-memory line printed once; the first
+    variant's features equal a direct `Caduceus` forward of the same batch,
+    collapsed to the strand mean and window-meaned; with scikit-learn, the
+    SVM eval of the file."""
+    import io
+
+    from caduceus_tpu_torch import cli, vep
+    from caduceus_tpu_torch.data.fasta import FastaFile
+    from caduceus_tpu_torch.models.caduceus import (
+        Caduceus, collapse_strand_mean)
+    from caduceus_tpu_torch.params import load_run_dir
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    variants = os.path.join(work, f"variants_{name}.tsv")
+    rows = _vep_variants(variants, fasta)
+    out_path = os.path.join(work, f"vep_{name}")
+    torch.cuda.empty_cache()
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["vep", "--fasta", fasta, "--variants", variants,
+                  "--run-dir", run_dir, "--out", out_path, "--seq-len",
+                  str(VEP_L), "--batch-size", str(VEP_BATCH)])
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    peaks = [x for x in lines if "vep_peak_hbm_gib" in x]
+    check(len(peaks) == 1, f"vep {name}: {len(peaks)} peak-memory lines")
+    d = np.load(out_path + ".npz")
+    feats = d["features"]
+    cfg, params = load_run_dir(run_dir)
+    check(feats.shape == (VEP_N, 2 * cfg.d_model)
+          and np.isfinite(feats).all(), f"vep {name}: {feats.shape}")
+    n_fwd = VEP_N // VEP_BATCH
+    fwd = "ssd_fused_fwd" if cfg.ssm_cfg.version == 2 else "bidir_scan_fwd"
+    per = (2 if cfg.ssm_cfg.version == 2 else 1) * cfg.n_layer
+    check(counts[fwd] == n_fwd * per and sum(counts.values()) == n_fwd * per,
+          f"vep {name}: launches {counts}")
+    # the first batch again, directly: variants 0 and 1 (row 3 is skipped)
+    tok = CaduceusTokenizer()
+    fa_rows = [r for i, r in enumerate(rows) if i != 3][:VEP_BATCH]
+    fa = FastaFile(fasta)
+    refs, alts, idx = [], [], []
+    for chrom, pos, ref, alt, _, _ in fa_rows:
+        seq, vidx = vep.variant_window(fa, chrom, pos, VEP_L)
+        refs.append(tok.encode(seq))
+        alts.append(tok.encode(seq[:vidx] + alt + seq[vidx + 1:]))
+        idx.append(vidx)
+    fa.close()
+    model = Caduceus(cfg, device="cuda")
+    model.load_state_dict({k: v for k, v in params.items()
+                           if k.startswith("backbone.")})
+    with torch.inference_mode():
+        h = collapse_strand_mean(model(torch.from_numpy(
+            np.stack(refs + alts).astype(np.int64)).cuda())).float()
+        half = vep.WINDOW_SIZE_BP // 2
+        win = [h[i, max(0, j - half):min(VEP_L, j + half)].cpu().numpy()
+               for i, j in enumerate(idx + idx)]
+    direct = np.concatenate([win[0].mean(axis=0), win[VEP_BATCH].mean(
+        axis=0)])
+    err = float(np.abs(direct - feats[0]).max())
+    check(err == 0.0, f"vep {name}: variant 0's features differ from a "
+          f"direct forward by {err}")
+    del model, h
+    torch.cuda.empty_cache()
+    out = {"cli_s": secs, "variants_per_s": VEP_N / secs,
+           "peak_gib": peaks[0]["vep_peak_hbm_gib"], "launches": counts,
+           "direct_max_abs_err": err}
+    if sklearn:
+        out["svm"] = vep.svm_eval(out_path + ".npz")
+    log(f"[vep] {name}, {cfg.n_layer} layers, seq_len {VEP_L}, batch "
+        f"{VEP_BATCH}: {VEP_N} variants (+1 with a wrong reference base, "
+        f"skipped) in {secs:.1f} s of cli.py vep ({VEP_N / secs:.2f} "
+        f"variants/s, model load included), peak {peaks[0]} (one line); "
+        f"launches {counts}; variant 0 equals a direct forward bit for bit"
+        + (f"; SVM {out['svm']}" if sklearn else
+           "; scikit-learn does not import here: no SVM eval"))
+    return out
+
+
 def _imports_here(*names):
     out = {}
     for n in names:
@@ -3186,16 +3769,39 @@ def main() -> int:
         report["pretrain_bare"] = phase_train_full(n_layer=16)
         report["pretrain"] = phase_pretrain(work, fasta, bed,
                                             hg38_mlm_v2_config, 16)
-        report["pretrain_reads"] = phase_pretrain_reads(
-            report["pretrain"].pop("run_a"), fasta, bed)
+        run_a = report["pretrain"].pop("run_a")
+        report["pretrain_reads"] = phase_pretrain_reads(run_a, fasta, bed)
         report["v1_pretrain"] = phase_pretrain(work, fasta, bed,
                                                hg38_mlm_config, 4)
-        report["v1_pretrain"].pop("run_a")
+        v1_run_a = report["v1_pretrain"].pop("run_a")
+        report["pretrain_phase_s"] = time.perf_counter() - t_pre
+        # downstream of run A: fine-tuning, /classify, VEP
+        t_down = time.perf_counter()
+        from caduceus_tpu_torch.data.synthetic import (
+            make_structured_classification_suite)
+
+        report["finetune_kernels"] = phase_finetune_kernels()
+        data_dir = make_structured_classification_suite(
+            os.path.join(work, "tasks"), fasta, tasks={FT_TASK: (2, FT_L)},
+            n_train=FT_TRAIN, n_test=FT_TEST)
+        save = os.path.join(work, "finetuned")
+        report["finetune"] = phase_finetune(data_dir, run_a, "hg38_mlm_v2",
+                                            16, 2, (1, 2), save_dir=save)
+        report["v1_finetune"] = phase_finetune(data_dir, v1_run_a, "hg38_mlm",
+                                               4, 1, (1,), full=False)
+        report["classify"] = phase_classify(save)
+        report["imports"].update(_imports_here("sklearn"))
+        log(f"[vep] scikit-learn imports on this machine: "
+            f"{report['imports']['sklearn']}")
+        report["vep"] = phase_vep(work, fasta, run_a, "hg38_mlm_v2",
+                                  report["imports"]["sklearn"])
+        report["v1_vep"] = phase_vep(work, fasta, v1_run_a, "hg38_mlm",
+                                     report["imports"]["sklearn"])
+        report["downstream_phase_s"] = time.perf_counter() - t_down
     pre, bare = report["pretrain"], report["pretrain_bare"]
     pre["overhead"] = pre["loop_step_s"] / bare["step_s"] - 1
     log(f"[pretrain] loop step {pre['loop_step_s']:.3f} s against the bare "
         f"step {bare['step_s']:.3f} s at 16 layers: {pre['overhead']:+.1%}")
-    report["pretrain_phase_s"] = time.perf_counter() - t_pre
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
     # share of the training step inside the kernels (derived: per-launch
@@ -3256,6 +3862,18 @@ def main() -> int:
 
     f16 = tm["fwd_G16"]
     ut = report["unfused_timing"]
+    ftt = report["finetune_kernels"]["timing"]
+    ft_launch = {k: report["finetune"]["launches"][k]
+                 + report["v1_finetune"]["launches"][k]
+                 for k in report["finetune"]["launches"]}
+
+    def ft(name):
+        """The kernel at the fine-tuning shape and its launches there."""
+        t = ftt[name]
+        return {"finetune_G256_L251": {k: t[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")},
+                "launches_finetune": ft_launch[name]}
+
     # the backward's two kernels split its bound; the workspace traffic of
     # the split stands beside it
     pair = {"function_bound_ms": tm["bwd_function_bound"]["bound_ms"]}
@@ -3269,7 +3887,9 @@ def main() -> int:
               launches_serve=report["serve"]["launches"],
               launches_pretrain=pre["launches"]["ssd_fused_fwd"],
               serve_G16={k: f16[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by")}),
+                                             "bound_by")},
+              launches_vep=report["vep"]["launches"]["ssd_fused_fwd"],
+              **ft("ssd_fused_fwd")),
         entry("ssd_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu", ut["G1"],
               report["v2_generate"]["launches"],
               ut["G1"]["check"]["y"]["max_abs_err"],
@@ -3288,7 +3908,7 @@ def main() -> int:
               sub_launches=tm["bwd_main"]["sub_launches"],
               extra_bytes=tm["bwd_main"]["extra_bytes"],
               launches_pretrain=pre["launches"]["ssd_fused_bwd_kernel"],
-              **pair),
+              **ft("ssd_fused_bwd_kernel"), **pair),
         entry("ssd_conv_bwd_kernel", "caduceus_tpu_torch/csrc/ssd_fused_bwd.cu",
               tm["bwd_conv"], tr["launches"]["ssd_conv_bwd_kernel"],
               tm["bwd_conv"]["check"]["g_xBC"]["max_abs_err"],
@@ -3300,7 +3920,7 @@ def main() -> int:
               "convolution_backward (depthwise, fp32, pre and padded xBC "
               "made beforehand)",
               launches_pretrain=pre["launches"]["ssd_conv_bwd_kernel"],
-              **pair),
+              **ft("ssd_conv_bwd_kernel"), **pair),
         entry("selective_scan_fwd",
               "caduceus_tpu_torch/csrc/selective_scan_fwd.cu", st["fwd"],
               report["mamba_mixer_step"]["launches"]["selective_scan_fwd"],
@@ -3324,6 +3944,8 @@ def main() -> int:
               launches_serve=report["v1_serve"]["launches"],
               launches_pretrain=report["v1_pretrain"]["launches"][
                   "bidir_scan_fwd"],
+              launches_vep=report["v1_vep"]["launches"]["bidir_scan_fwd"],
+              **ft("bidir_scan_fwd"),
               exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"],
               exps_softplus=st["bidir"]["exps_softplus"]),
         entry("selective_scan_bwd",
@@ -3334,6 +3956,7 @@ def main() -> int:
               extra_bytes=st["bwd"]["extra_bytes"],
               launches_pretrain=report["v1_pretrain"]["launches"][
                   "selective_scan_bwd"],
+              **ft("selective_scan_bwd"),
               bc_shares=st["bwd"]["bc_shares"],
               sub_launches=st["bwd"]["sub_launches"],
               exps=st["bwd"]["exps"], exp_ms=st["bwd"]["exp_ms"],

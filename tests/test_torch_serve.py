@@ -119,7 +119,7 @@ def test_errors_are_json(servers):
             ("/logits", {"sequences": []}, 400),
             ("/logits", {"sequences": ["A" * 100]}, 400),   # > max_length
             ("/generate", {"prompt": "ACGT"}, 500),         # RCPS: not causal
-            ("/classify", {"sequences": ["ACGT"]}, 501),
+            ("/classify", {"sequences": ["ACGT"]}, 400),    # not finetuned
             ("/nope", {}, 404)]:
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port_server.port, path, body)
