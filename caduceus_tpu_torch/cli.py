@@ -13,9 +13,18 @@ checkpoint, in that order (`params.py load_run_dir`). ``finetune``
 run dir and exports it (``--save-dir``), which ``serve`` answers /classify
 from; ``vep`` (`vep.py`) dumps variant embeddings of a run dir's model and
 scores them with ``--svm``. Every subcommand runs on the card unless
-``--device cpu`` is given. Not ported yet: ``--model hyena`` (and the
-downstream ``--model hyena`` / ``cnn``) and the multi-device flags
-(``--mesh-model`` > 1, ``--tensor-parallel``, ``--context-parallel``).
+``--device cpu`` is given.
+
+``pretrain`` and ``eval`` run data and context parallelism when launched
+as several ranks by `torch.distributed.run` (``python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+caduceus_tpu_torch.cli pretrain ...``): the ranks form a (data, model) mesh
+(`parallel/mesh.py`), ``--mesh-model M`` ranks along the model axis, and
+``--context-parallel`` shards the sequence over it. ``--dist-backend``
+picks the `torch.distributed` backend (nccl by default; gloo runs several
+ranks on one card, or on the CPU with ``--device cpu``). Not ported yet:
+``--tensor-parallel`` and ``--model hyena`` (and the downstream ``--model
+hyena`` / ``cnn``).
 """
 
 from __future__ import annotations
@@ -43,20 +52,65 @@ def _add_common_model_args(p: argparse.ArgumentParser):
 
 
 def _add_parallel_args(p: argparse.ArgumentParser):
-    # the JAX CLI's multi-device flags, so its command lines parse; the
-    # port runs one device and refuses the rest (`_refuse_parallel`)
+    # the JAX CLI's multi-device flags (`caduceus_tpu/cli.py:192-216`): the
+    # ranks of `torch.distributed.run` form a (data, model) mesh; DP over
+    # 'data' is always on; --mesh-model N carves a 'model' axis for
+    # --context-parallel (the sequence sharded over it)
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="size of the mesh 'model' axis (not ported: 1 only)")
+                   help="size of the mesh 'model' axis (ranks = data x model)")
     p.add_argument("--tensor-parallel", action="store_true",
-                   help="not ported yet")
+                   help="not ported yet (ROADMAP.md queue 1 item 8)")
     p.add_argument("--context-parallel", action="store_true",
-                   help="not ported yet")
+                   help="shard the sequence axis over the 'model' axis")
+    p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a multi-rank run (gloo: "
+                        "several ranks on one card, or the CPU)")
 
 
-def _refuse_parallel(p, args):
-    if args.mesh_model > 1 or args.tensor_parallel or args.context_parallel:
-        p.error("--mesh-model > 1, --tensor-parallel and --context-parallel "
-                "are not ported yet (ROADMAP.md queue 1 item 8)")
+def _check_parallel(p, args):
+    """The JAX CLI's checks of the mesh flags (`caduceus_tpu/cli.py:207-216`),
+    then the port's refusal of tensor parallelism."""
+    if args.tensor_parallel and args.context_parallel:
+        p.error("--tensor-parallel and --context-parallel share the single "
+                "'model' mesh axis; pick one per run")
+    if (args.tensor_parallel or args.context_parallel) and args.mesh_model < 2:
+        p.error("--tensor-parallel/--context-parallel need --mesh-model >= 2")
+    if args.context_parallel and args.max_length % args.mesh_model != 0:
+        p.error(f"--max-length {args.max_length} not divisible by "
+                f"--mesh-model {args.mesh_model} (context parallelism "
+                f"shards the sequence axis)")
+    if args.tensor_parallel:
+        p.error("--tensor-parallel is not ported yet (ROADMAP.md queue 1 "
+                "item 8: TP)")
+
+
+def _maybe_mesh(p, args):
+    """The (data, model) mesh of a multi-rank run (``WORLD_SIZE`` > 1 from
+    the launcher, or ``--mesh-model`` > 1), else None (one device). Prints
+    the backend and the mesh from rank 0."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and args.mesh_model == 1:
+        return None
+    if world % args.mesh_model:
+        p.error(f"{world} ranks do not split into --mesh-model "
+                f"{args.mesh_model} (launch them with torch.distributed.run)")
+    from caduceus_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model=args.mesh_model, backend=args.dist_backend,
+                     device="cpu" if args.device == "cpu" else None)
+    if mesh.is_main:
+        print(json.dumps({"dist_backend": args.dist_backend,
+                          "world_size": mesh.world,
+                          "mesh": {"data": mesh.shape["data"],
+                                   "model": mesh.shape["model"]},
+                          "context_parallel": args.context_parallel,
+                          "device": str(mesh.device)}), flush=True)
+    return mesh
+
+
+def _end_mesh(mesh):
+    if mesh is not None:
+        mesh.close()
 
 
 def _build_model_config(args, tokenizer):
@@ -213,7 +267,7 @@ def cmd_pretrain(argv):
                 "item 7)")
     if args.model == "mamba" and not args.ntp:
         p.error("--model mamba is causal: pretrain with --ntp")
-    _refuse_parallel(p, args)
+    _check_parallel(p, args)
 
     import torch
 
@@ -223,7 +277,11 @@ def cmd_pretrain(argv):
     from caduceus_tpu_torch.train.trainer import Trainer, TrainerConfig
     from caduceus_tpu_torch.utils.logging import make_logger, param_count
 
-    dev = resolve_device(args.device)
+    mesh = _maybe_mesh(p, args)
+    main = mesh is None or mesh.is_main
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    # every rank builds the same global batches from the same seed and
+    # keeps its part (`Trainer`)
     dm = HG38DataModule(
         args.bed,
         args.fasta,
@@ -247,8 +305,11 @@ def cmd_pretrain(argv):
     meta["objective"] = "ntp" if args.ntp else "mlm"
     meta["tensor_parallel_axis"] = None
     meta["context_parallel_axis"] = None
-    with open(os.path.join(args.run_dir, "model_config.json"), "w") as f:
-        json.dump(meta, f, indent=2)
+    if main:
+        with open(os.path.join(args.run_dir, "model_config.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+    if args.context_parallel:
+        cfg.context_parallel_axis = "model"
     model = CaduceusForMaskedLM(
         cfg, device=dev, generator=torch.Generator().manual_seed(args.seed))
     tcfg = TrainerConfig(
@@ -270,12 +331,14 @@ def cmd_pretrain(argv):
         eval_batches=args.eval_batches,
         checkpoint_every=args.checkpoint_every,
     )
-    log_fn = make_logger(run_dir=args.run_dir)
+    log_fn = make_logger(run_dir=args.run_dir,
+                         rank=0 if mesh is None else mesh.rank)
     train_loader = dm.train_loader()
     try:
         trainer = Trainer(model, tcfg, train_loader, dm.eval_loader("valid"),
-                          ignore_index=dm.tokenizer.pad_token_id,
-                          log_fn=log_fn)
+                          mesh=mesh, ignore_index=dm.tokenizer.pad_token_id,
+                          log_fn=log_fn,
+                          context_parallel=args.context_parallel)
         trainer.init_state()
         log_fn(param_count(model))
         if args.resume:
@@ -284,7 +347,9 @@ def cmd_pretrain(argv):
         trainer.save_checkpoint()
     finally:
         train_loader.close()
-    print(json.dumps({"final": metrics}))
+    if main:
+        print(json.dumps({"final": metrics}))
+    _end_mesh(mesh)
 
 
 def cmd_eval(argv):
@@ -303,7 +368,7 @@ def cmd_eval(argv):
                    help="torch device; 'cpu' runs the plain PyTorch path")
     _add_parallel_args(p)
     args = p.parse_args(argv)
-    _refuse_parallel(p, args)
+    _check_parallel(p, args)
     with open(os.path.join(args.run_dir, "model_config.json")) as f:
         raw = json.load(f)
     if raw.get("model_type") == "hyena":
@@ -316,8 +381,11 @@ def cmd_eval(argv):
     from caduceus_tpu_torch.params import load_run_dir
     from caduceus_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    dev = resolve_device(args.device)
+    mesh = _maybe_mesh(p, args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     cfg, params = load_run_dir(args.run_dir)
+    if args.context_parallel:
+        cfg.context_parallel_axis = "model"
     model = CaduceusForMaskedLM(cfg, device=dev,
                                 tie_word_embeddings="lm_head" not in params)
     model.load_state_dict(params)
@@ -326,9 +394,13 @@ def cmd_eval(argv):
     dm = HG38DataModule(args.bed, args.fasta, max_length=args.max_length,
                         batch_size=args.batch_size, mlm=mlm)
     trainer = Trainer(model, TrainerConfig(run_dir=args.run_dir), None,
-                      dm.eval_loader(args.split))
-    print(json.dumps(trainer.evaluate(max_batches=args.max_batches,
-                                      prefix=args.split)))
+                      dm.eval_loader(args.split), mesh=mesh,
+                      context_parallel=args.context_parallel)
+    metrics = trainer.evaluate(max_batches=args.max_batches,
+                               prefix=args.split)
+    if trainer.is_main:
+        print(json.dumps(metrics))
+    _end_mesh(mesh)
 
 
 def cmd_finetune(argv):

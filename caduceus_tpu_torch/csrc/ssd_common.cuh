@@ -24,6 +24,37 @@ using namespace nvcuda;
 constexpr int NTHREADS = 512;   // 16 warps per block
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int RG = 8;           // conv rows per work item (divides T)
+constexpr int HIST_ROWS = 8;    // rows of the context-parallel edge_hist
+
+// The context-parallel entry's edge rows: the neighbour shard's HIST_ROWS
+// boundary raw rows, (G, HIST_ROWS, Wc) with row stride Wc. Rows [lo, lo +
+// HIST_ROWS) of the sequence's index space read edge row r - lo in place of
+// the zeros past the sequence edge: lo = -HIST_ROWS in the forward (rows
+// before the shard; the conv reads the last K - 1), lo = L in reverse (rows
+// after it; the first K - 1). A null `ptr` (no edge_hist) keeps the zeros.
+template <typename E>
+struct Edge {
+  const E* ptr;   // offset to the batch row and the first column read
+  long long sl;   // row stride
+  long long lo;
+  // the edge row standing for sequence row r, or null (r inside the
+  // sequence, or no edge there)
+  __host__ __device__ const E* row(long long r) const {
+    return ptr && r >= lo && r < lo + HIST_ROWS ? ptr + (r - lo) * sl : nullptr;
+  }
+};
+
+template <typename E>
+__host__ __device__ inline Edge<E> no_edge() { return Edge<E>{nullptr, 0, 0}; }
+
+// The Edge of batch row g, from column col0 on, of an edge_hist (G,
+// HIST_ROWS, Wc) with batch stride sg (null: none).
+template <typename E>
+__device__ __forceinline__ Edge<E> edge_of(const void* edge, long long sg, int Wc, int g,
+                                           int col0, int L, bool rev) {
+  return Edge<E>{edge ? static_cast<const E*>(edge) + (long long)g * sg + col0 : nullptr,
+                 (long long)Wc, rev ? (long long)L : -(long long)HIST_ROWS};
+}
 
 // Chunk rows: 64 for bf16; 32 for fp32, whose operand tiles are twice as
 // large and would not fit the backward's shared memory at 64.
@@ -225,7 +256,8 @@ template <typename S, int K, int T>
 __device__ __forceinline__ void conv_silu_bc(const S* xBC, long long xbc_sl,
                                              const float* conv_w, const float* conv_b,
                                              int Wc, int L, long long row0, bool rev, int N,
-                                             int bcol0, int ccol0, S* Bs, S* Cs, int ldN) {
+                                             int bcol0, int ccol0, S* Bs, S* Cs, int ldN,
+                                             const Edge<S>& edge) {
   const int ncol = 2 * N;
   for (int item = threadIdx.x; item < ncol * (T / RG); item += NTHREADS) {
     const int j = item % ncol;
@@ -236,7 +268,8 @@ __device__ __forceinline__ void conv_silu_bc(const S* xBC, long long xbc_sl,
     for (int k = 0; k < K; ++k) wk[k] = conv_w[k * Wc + col];
     const float bj = conv_b ? conv_b[col] : 0.f;
     // raw[i] is the row at scan step q0 - (K-1) + i (negative steps are
-    // the K-1 rows before the chunk in scan order; zeros past the edges)
+    // the K-1 rows before the chunk in scan order; past the sequence edges
+    // the edge rows, or zeros)
     float raw[RG + K - 1];
 #pragma unroll
     for (int i = 0; i < RG + K - 1; ++i) {
@@ -245,8 +278,10 @@ __device__ __forceinline__ void conv_silu_bc(const S* xBC, long long xbc_sl,
       // an unconditional load from a clamped row: guarded loads were
       // issued one after another
       const long long rc = r < 0 ? 0 : (r < L ? r : L - 1);
-      const float v = to_f<S>(xBC[rc * xbc_sl + col]);
-      raw[i] = (r >= 0 && r < L) ? v : 0.f;
+      const bool in = r >= 0 && r < L;
+      const S* er = in ? nullptr : edge.row(r);
+      const float v = to_f<S>(er ? er[col] : xBC[rc * xbc_sl + col]);
+      raw[i] = in || er ? v : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
@@ -297,20 +332,23 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage rows r0 .. r0+nrows-1 (columns 0 .. ncols-1) of a row-strided
 // matrix into shared memory (row i at dst + i*ldd); rows outside [0, L) are
-// zeros. ncols * sizeof(E) is a multiple of 16. With `async` the copies are
-// cp.async (the caller commits and waits); without (an operand that is not
-// 16-byte aligned) plain loads and stores.
+// the `edge` rows where it has them, else zeros. ncols * sizeof(E) is a
+// multiple of 16. With `async` the copies are cp.async (the caller commits
+// and waits); without (an operand that is not 16-byte aligned) plain loads
+// and stores.
 template <typename E>
 __device__ __forceinline__ void stage_rows(E* dst, int ldd, const E* src, long long sl,
                                            long long r0, int nrows, int ncols, long long L,
-                                           bool async) {
+                                           bool async, const Edge<E>& edge = no_edge<E>()) {
   constexpr int V = 16 / sizeof(E);
   const int per_row = ncols / V;
   for (int i = threadIdx.x; i < nrows * per_row; i += NTHREADS) {
     const int t = i / per_row, v = (i % per_row) * V;
     const long long r = r0 + t;
-    const bool ok = r >= 0 && r < L;
-    const E* s = src + (ok ? r : 0) * sl + v;
+    const bool in = r >= 0 && r < L;
+    const E* er = in ? nullptr : edge.row(r);
+    const bool ok = in || er;
+    const E* s = (er ? er : src + (in ? r : 0) * sl) + v;
     E* d = dst + t * ldd + v;
     if (async) {
       cp_async16(d, s, ok);
@@ -434,6 +472,8 @@ struct PrepParams {
   long long c_sg, c_sl;
   void* bc;                 // K >= 1: (G, L, 2*NG*N) storage dtype
   float* cb;                // (G, NG, nc, T, T)
+  const void* edge;         // K >= 1: edge_hist (G, HIST_ROWS, Wc) or null
+  long long edge_sg;
   int L, H, P, NG, N, Wc, reverse;
 };
 
@@ -462,7 +502,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_prep_kernel(const PrepParams p) 
     const int bcol0 = p.H * p.P + grp * N, ccol0 = p.H * p.P + NG * N + grp * N;
     conv_silu_bc<S, K, T>(static_cast<const S*>(p.xBC) + (long long)g * p.xbc_sg, p.xbc_sl,
                           p.conv_w, p.conv_b, p.Wc, L, row0, p.reverse != 0, N, bcol0, ccol0,
-                          Bs, Cs, ldN);
+                          Bs, Cs, ldN,
+                          edge_of<S>(p.edge, p.edge_sg, p.Wc, g, 0, L, p.reverse != 0));
   } else {
     load_bc<S, T>(static_cast<const S*>(p.B) + (long long)g * p.b_sg + (long long)grp * N, p.b_sl,
                   static_cast<const S*>(p.C) + (long long)g * p.c_sg + (long long)grp * N, p.c_sl,

@@ -3,8 +3,12 @@
 // - K >= 1, entry `ssd_fused_bwd`, then `ssd_conv_bwd`: together they
 //   replace the TPU kernel `_bwd_kernel(fused=True)` of
 //   caduceus_tpu/ops/ssd_pallas_batched.py (launched by
-//   `ssd_pallas_batched_fused_bwd_impl`, TPU kernel #3), without its
-//   context-parallel `emit_pend` output. Plain version:
+//   `ssd_pallas_batched_fused_bwd_impl`, TPU kernel #3), with its
+//   context-parallel contract (`ssd_pallas_batched_fused_cp`): an optional
+//   `edge_hist` (G, 8, Wc), the neighbour shard's raw rows that the conv
+//   reads past the sequence edge, and its gradient g_edge, which
+//   `ssd_conv_bwd` writes in place of the TPU kernel's `emit_pend` spill and
+//   its conv transpose (:995-1022). Plain version:
 //   caduceus_tpu_torch/ops/ssd.py `ssd_chunked_fused_bwd`; wrapper:
 //   caduceus_tpu_torch/ops/ssd_batched.py `ssd_fused_bwd`.
 // - K = 0, entry `ssd_bwd`: the adjoint of the unfused forward `ssd_fwd` on
@@ -102,6 +106,8 @@ struct Params {
   const void* g_y;          // (G, L, H, P) storage dtype, contiguous
   const void* carries;      // (G, nc, H, N, P) storage dtype
   const float* g_hN;        // (G, H, N, P) or null
+  const void* edge;         // K >= 1: edge_hist (G, HIST_ROWS, Wc) or null
+  long long edge_sg;
   const float* cb;          // (G, NG, nc, T, T) from the prep
   float* seg_l;             // (G, H, S, N, P): each segment's lambda from zero
   float* seg_a;             // (G, H, S): each segment's sum of a
@@ -329,6 +335,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
   const int xcol0 = hh * P;
   const int n = seg.hi - seg.lo;
   auto walk = [&](int i) { return seg.scan_chunk(n - 1 - i, rev); };
+  const Edge<S> edge = edge_of<S>(p.edge, p.edge_sg, Wc, g, xcol0, L, rev);
 
   // the combine: lambda leaving this segment at its scan end, from g_hN
   // over the later segments (fp32)
@@ -348,7 +355,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fused_bwd_kernel(const Params p)
   auto issue_x = [&](int c) {
     if (c >= 0)
       stage_rows<S>(sm.xr, P, ptr.x, p.x_sl, XRaw<K, T>::row0((long long)c * T, rev),
-                    XRaw<K, T>::ROWS, P, L, async);
+                    XRaw<K, T>::ROWS, P, L, async, edge);
     cp_async_commit();
   };
   auto issue_bcb = [&](int c) {
@@ -652,6 +659,8 @@ struct ConvParams {
   const float* g_xc;        // (G, L, Wc) fp32: d loss / d silu(pre)
   void* g_xBC;              // (G, L, Wc) storage dtype, contiguous
   float* g_part;            // (G * nrt, K + 1, Wc): each tile's g_conv_w / g_conv_b sums
+  const void* edge;         // edge_hist (G, HIST_ROWS, Wc) storage dtype, or null
+  float* g_edge;            // its gradient (G, HIST_ROWS, Wc) fp32 (zeroed), or null
   int G, L, Wc, nrt, nct, reverse;
   int vec_x;                // xBC rows take CONV_VC-wide copies
   int vec_g;                // so do g_xc, g_xBC and g_part rows (Wc % CONV_VC == 0)
@@ -721,6 +730,9 @@ struct ConvLane {
   const S* xg;
   const float* gg;
   S* out;
+  Edge<S> edge;             // the raw rows past the sequence edge
+  float* gedge;             // the edge tile's g_edge row 0, this lane's columns; else null
+  long long elo;            // sequence row of edge row 0
   float w[K][V], b[V];
   float xw[K][V];           // raw rows pos-(K-1) .. pos of the walk
   float gw[K][V];           // g_pre rows pos-(K-1) .. pos
@@ -746,6 +758,12 @@ struct ConvLane {
     xg = static_cast<const S*>(pp.xBC) + (long long)g * pp.xbc_sg;
     gg = pp.g_xc + (long long)g * L * Wc;
     out = static_cast<S*>(pp.g_xBC) + (long long)g * L * Wc;
+    edge = edge_of<S>(pp.edge, (long long)HIST_ROWS * Wc, Wc, g, 0, L, REV);
+    elo = edge.lo;
+    // the tile the walk enters the sequence by writes the conv transpose's
+    // spill past the edge: the edge rows' gradient
+    const bool edge_tile = REV ? r1 == L : r0 == 0;
+    gedge = pp.g_edge && edge_tile ? pp.g_edge + (long long)g * HIST_ROWS * Wc + c : nullptr;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const bool ok = c + j < Wc;
@@ -772,22 +790,25 @@ struct ConvLane {
       if (e >= E) break;
       const int r = row(e - HK);
       const bool in = r >= 0 && r < L;
-      bool okx = in, okg = in && e >= HK;
+      // a raw row past the sequence edge: the edge row, if any
+      const S* er = in ? nullptr : edge.row(r);
+      bool okx = in || er, okg = in && e >= HK;
 #if CONV_DROP == 1
       okg = okg && e < n + HK;
 #elif CONV_DROP == 2
       okx = okx && e >= HK;
 #endif
       const long long rr = in ? r : 0;
+      const S* xsrc = er ? er : xg + rr * xsl;
       if (vx) {
         if constexpr (sizeof(S) == 4)
-          cp_async16(xs + i * CONV_COLS, xg + rr * xsl + c, okx);
+          cp_async16(xs + i * CONV_COLS, xsrc + c, okx);
         else
-          cp_async_small<V * sizeof(S)>(xs + i * CONV_COLS, xg + rr * xsl + c, okx);
+          cp_async_small<V * sizeof(S)>(xs + i * CONV_COLS, xsrc + c, okx);
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j)
-          xs[i * CONV_COLS + j] = okx && c + j < Wc ? xg[rr * xsl + c + j] : from_f<S>(0.f);
+          xs[i * CONV_COLS + j] = okx && c + j < Wc ? xsrc[c + j] : from_f<S>(0.f);
       }
       if (vg) {
         cp_async16(gs + i * CONV_COLS, gg + rr * Wc + c, okg);
@@ -842,7 +863,7 @@ struct ConvLane {
       gw[K - 1][j] = gp[j];
     }
     const int qo = pos - HK;
-    if (CHECK && qo < 0) return;
+    if (CHECK && qo < 0 && !gedge) return;
     float o[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -850,6 +871,12 @@ struct ConvLane {
 #pragma unroll
       for (int k = 1; k < K; ++k) acc = fmaf(w[k][j], gw[K - 1 - k][j], acc);
       o[j] = acc;
+    }
+    if (CHECK && qo < 0) {
+      // a row past the sequence edge (the edge tile's first K-1 positions):
+      // its g_edge row
+      store4(gedge + (row(qo) - elo) * Wc, o, vg, c, Wc);
+      return;
     }
     store4(out + (long long)row(qo) * Wc + c, o, vg, c, Wc);
   }
@@ -985,7 +1012,8 @@ cudaError_t run(int dtype, Params& p, PrepParams& pp, int G, int K, int parts, f
   p.sc = (nc + p.S - 1) / p.S;
   const size_t es = dtype == 1 ? 2 : 4;
   p.async = aligned16(p.x, p.x_sg, p.x_sl, es) && aligned16(p.B, p.b_sg, p.b_sl, es) &&
-            aligned16(p.C, p.c_sg, p.c_sl, es);
+            aligned16(p.C, p.c_sg, p.c_sl, es) &&
+            (!p.edge || aligned16(p.edge, p.edge_sg, p.Wc, es));
   return dtype == 1 ? dispatch_k<__nv_bfloat16>(p, pp, G, K, parts, out_b, out_c, o_sg, o_sl, s)
        : dtype == 0 ? dispatch_k<float>(p, pp, G, K, parts, out_b, out_c, o_sg, o_sl, s)
                     : cudaErrorInvalidValue;
@@ -1006,7 +1034,8 @@ cudaError_t launch_conv(const ConvParams& p, cudaStream_t stream) {
 }  // namespace
 
 // The SSD adjoint of the fused forward. dtype: 0 = float32, 1 = bfloat16.
-// g_hN, D, dt_bias and conv_b may be null. Writes g_xc (G, L, Wc) fp32 (x
+// g_hN, D, dt_bias, conv_b and edge_hist may be null (edge_hist: as
+// `ssd_fused_fwd` takes it; the recompute of the conv reads it). Writes g_xc (G, L, Wc) fp32 (x
 // columns by the main pass, B/C columns by the share sum), g_dt, g_h0 and
 // g_heads = [g_A, g_dt_bias, g_D]. Workspaces: bc (G, L, 2*NG*N) storage
 // dtype, cb (G, NG, nc, T, T), seg_l (G, H, S, N, P), seg_a (G, H, S),
@@ -1018,7 +1047,7 @@ extern "C" int ssd_fused_bwd(
     const void* dt, long long dt_sg, long long dt_sl,
     const void* A, const void* D, const void* dt_bias,
     const void* conv_w, const void* conv_b,
-    const void* g_y, const void* carries, const void* g_hN,
+    const void* g_y, const void* carries, const void* g_hN, const void* edge_hist,
     void* g_xc, void* g_dt, void* g_h0, void* g_heads,
     void* bc, void* cb, void* seg_l, void* seg_a, void* shares, void* partials, void* tickets,
     int G, int L, int H, int P, int NG, int N, int K, int S,
@@ -1040,6 +1069,7 @@ extern "C" int ssd_fused_bwd(
   p.conv_b = static_cast<const float*>(conv_b);
   p.g_y = g_y; p.carries = carries;
   p.g_hN = static_cast<const float*>(g_hN);
+  p.edge = edge_hist; p.edge_sg = (long long)HIST_ROWS * Wc;
   p.cb = static_cast<const float*>(cb);
   p.seg_l = static_cast<float*>(seg_l); p.seg_a = static_cast<float*>(seg_a);
   p.g_xc = static_cast<float*>(g_xc);
@@ -1054,6 +1084,7 @@ extern "C" int ssd_fused_bwd(
   PrepParams pp = {};
   pp.xBC = xBC; pp.xbc_sg = xbc_sg; pp.xbc_sl = xbc_sl;
   pp.conv_w = p.conv_w; pp.conv_b = p.conv_b; pp.bc = bc; pp.cb = static_cast<float*>(cb);
+  pp.edge = edge_hist; pp.edge_sg = p.edge_sg;
   pp.L = L; pp.H = H; pp.P = P; pp.NG = NG; pp.N = N; pp.Wc = Wc; pp.reverse = reverse;
   float* gxc = static_cast<float*>(g_xc);
   return (int)run(dtype, p, pp, G, K, parts, gxc + H * P, gxc + H * P + NG * N,
@@ -1115,13 +1146,19 @@ extern "C" int ssd_bwd(
 // the conv-adjoint walk over (g, 1,024-row tile, 128-column tile), then the
 // tiles' g_conv_w / g_conv_b sums in a fixed order into g_conv ((K + 1) *
 // Wc floats). g_part: (G * ceil(L / 1024), K + 1, Wc) fp32 scratch.
+// edge_hist (G, 8, Wc) storage dtype, contiguous, or null: the raw rows
+// past the sequence edge, as the forward read them; with it, g_edge (G, 8,
+// Wc) fp32 receives their gradient (the conv transpose's spill past the
+// edge; rows the conv does not read are 0), written by the tile the walk
+// enters the sequence by, without atomics.
 extern "C" int ssd_conv_bwd(
     int dtype,
     const void* xBC, long long xbc_sg, long long xbc_sl,
-    const void* conv_w, const void* conv_b, const void* g_xc,
-    void* g_xBC, void* g_conv, void* g_part,
+    const void* conv_w, const void* conv_b, const void* g_xc, const void* edge_hist,
+    void* g_xBC, void* g_conv, void* g_part, void* g_edge,
     int G, int L, int Wc, int K, int reverse, void* stream) {
-  if (L <= 0 || G <= 0 || Wc <= 0 || K < 1 || K > 4 || (dtype != 0 && dtype != 1))
+  if (L <= 0 || G <= 0 || Wc <= 0 || K < 1 || K > 4 || (dtype != 0 && dtype != 1) ||
+      (edge_hist && !g_edge))
     return (int)cudaErrorInvalidValue;
   const size_t es = dtype == 1 ? 2 : 4;
   ConvParams p;
@@ -1131,16 +1168,25 @@ extern "C" int ssd_conv_bwd(
   p.g_xc = static_cast<const float*>(g_xc);
   p.g_xBC = g_xBC;
   p.g_part = static_cast<float*>(g_part);
+  p.edge = edge_hist;
+  p.g_edge = edge_hist ? static_cast<float*>(g_edge) : nullptr;
   p.G = G; p.L = L; p.Wc = Wc; p.reverse = reverse;
   p.nrt = (L + CONV_TILE - 1) / CONV_TILE;
   p.nct = (Wc + CONV_COLS - 1) / CONV_COLS;
   const size_t xb = CONV_VC * es;  // bytes of one lane's x copy
   p.vec_x = reinterpret_cast<uintptr_t>(xBC) % xb == 0 && (xbc_sg * (long long)es) % xb == 0 &&
-            (xbc_sl * (long long)es) % xb == 0;
+            (xbc_sl * (long long)es) % xb == 0 &&
+            (!edge_hist || (reinterpret_cast<uintptr_t>(edge_hist) % xb == 0 &&
+                            ((long long)Wc * (long long)es) % xb == 0));
   p.vec_g = Wc % CONV_VC == 0 && reinterpret_cast<uintptr_t>(g_xc) % 16 == 0 &&
             reinterpret_cast<uintptr_t>(g_xBC) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(g_part) % 16 == 0;
+            reinterpret_cast<uintptr_t>(g_part) % 16 == 0 &&
+            (!p.g_edge || reinterpret_cast<uintptr_t>(p.g_edge) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.g_edge) {
+    const cudaError_t e = cudaMemsetAsync(p.g_edge, 0, sizeof(float) * G * HIST_ROWS * Wc, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   static cudaError_t (*const bf[4])(const ConvParams&, cudaStream_t) = {
       launch_conv<__nv_bfloat16, 1>, launch_conv<__nv_bfloat16, 2>,
       launch_conv<__nv_bfloat16, 3>, launch_conv<__nv_bfloat16, 4>};

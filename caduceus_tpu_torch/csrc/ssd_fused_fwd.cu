@@ -12,7 +12,12 @@
 //   straight from their (G, L, .) tensors through their own batch and row
 //   strides (the prefill passes column views of one conv output). Plain
 //   version: ops/ssd.py `ssd_chunked`.
-// Both chain h_init -> hN, for either scan direction. Python wrappers:
+// Both chain h_init -> hN, for either scan direction. The fused entry also
+// takes an optional `edge_hist` (G, 8, Wc): the context-parallel entry
+// `ssd_pallas_batched_fused_cp` of the same TPU kernel, whose conv reads a
+// neighbour shard's boundary raw rows in place of the zeros past the
+// sequence edge (`_seg_hists`, ops/ssd_pallas_batched.py:148-171). Python
+// wrappers:
 // caduceus_tpu_torch/ops/ssd_batched.py `ssd_fused_fwd` / `ssd_fwd`.
 //
 // Per (g, h) and per chunk of T rows, in scan order (right to left when
@@ -89,6 +94,8 @@ struct Params {
   const float* conv_w;      // (K, Wc); null when K = 0
   const float* conv_b;      // (Wc,) or null
   const float* h_init;      // (G, H, N, P) or null
+  const void* edge;         // K >= 1: edge_hist (G, HIST_ROWS, Wc) or null
+  long long edge_sg;
   const float* cb;          // (G, NG, nc, T, T) from the prep
   float* seg_h;             // (G, H, S, N, P): each segment's state from zero
   float* seg_a;             // (G, H, S): each segment's sum of a
@@ -212,13 +219,14 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fwd_state_kernel(const Params p)
   const float A_h = p.A[hh];
   const float bias_h = p.dt_bias ? p.dt_bias[hh] : 0.f;
   const bool async = p.async != 0;
+  const Edge<S> edge = edge_of<S>(p.edge, p.edge_sg, p.Wc, g, hh * P, L, rev);
 
   for (int i = tid; i < N * P; i += NTHREADS) sm.h[(i / P) * sm.ldh + i % P] = 0.f;
   auto issue = [&](int c, int stage) {
     if (c >= 0) {
       const long long row0 = (long long)c * T;
       stage_rows<S>(sm.xr[stage], P, ptr.x, p.x_sl, XRaw<K, T>::row0(row0, rev),
-                    XRaw<K, T>::ROWS, P, L, async);
+                    XRaw<K, T>::ROWS, P, L, async, edge);
       stage_rows<S>(sm.Bs[stage], sm.ldN, ptr.B, p.b_sl, row0, T, N, L, async);
     }
     cp_async_commit();
@@ -279,6 +287,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fwd_kernel(const Params p) {
   const int tid = threadIdx.x;
   const bool async = p.async != 0;
   const HeadPtrs<S> ptr(p, g, hh, grp);
+  const Edge<S> edge = edge_of<S>(p.edge, p.edge_sg, p.Wc, g, hh * P, L, rev);
   S* y = static_cast<S*>(p.y) + (long long)g * L * H * P + (long long)hh * P;
   const long long y_sl = (long long)H * P;
   const float A_h = p.A[hh];
@@ -302,7 +311,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_fwd_kernel(const Params p) {
   auto issue_x = [&](int c) {
     if (c >= 0)
       stage_rows<S>(sm.xr, P, ptr.x, p.x_sl, XRaw<K, T>::row0((long long)c * T, rev),
-                    XRaw<K, T>::ROWS, P, L, async);
+                    XRaw<K, T>::ROWS, P, L, async, edge);
     cp_async_commit();
   };
   auto issue_c = [&](int c) {
@@ -453,7 +462,8 @@ cudaError_t run(int dtype, Params& p, PrepParams& pp, int G, int K, int parts,
   p.sc = (nc + p.S - 1) / p.S;
   const size_t es = dtype == 1 ? 2 : 4;
   p.async = aligned16(p.x, p.x_sg, p.x_sl, es) && aligned16(p.B, p.b_sg, p.b_sl, es) &&
-            aligned16(p.C, p.c_sg, p.c_sl, es);
+            aligned16(p.C, p.c_sg, p.c_sl, es) &&
+            (!p.edge || aligned16(p.edge, p.edge_sg, p.Wc, es));
   return dtype == 1 ? dispatch_k<__nv_bfloat16>(p, pp, G, K, parts, s)
        : dtype == 0 ? dispatch_k<float>(p, pp, G, K, parts, s)
                     : cudaErrorInvalidValue;
@@ -462,7 +472,10 @@ cudaError_t run(int dtype, Params& p, PrepParams& pp, int G, int K, int parts,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. carries may be null (no backward to
-// feed). Workspaces: bc (G, L, 2*NG*N) storage dtype, cb (G, NG, nc, T, T),
+// feed). edge_hist (G, 8, Wc) in the storage dtype, contiguous, or null:
+// the context-parallel entry's neighbour rows, read in place of the zeros
+// past the sequence edge (rows before row 0; after row L - 1 when
+// `reverse`). Workspaces: bc (G, L, 2*NG*N) storage dtype, cb (G, NG, nc, T, T),
 // seg_h (G, H, S, N, P) and seg_a (G, H, S) fp32. S: segments per (g, h).
 // parts: which sub-launches run (7: all). Returns the cudaError_t.
 extern "C" int ssd_fused_fwd(
@@ -470,7 +483,7 @@ extern "C" int ssd_fused_fwd(
     const void* xBC, long long xbc_sg, long long xbc_sl,
     const void* dt, long long dt_sg, long long dt_sl,
     const void* A, const void* D, const void* dt_bias,
-    const void* conv_w, const void* conv_b, const void* h_init,
+    const void* conv_w, const void* conv_b, const void* h_init, const void* edge_hist,
     void* y, void* hN, void* carries,
     void* bc, void* cb, void* seg_h, void* seg_a,
     int G, int L, int H, int P, int NG, int N, int K, int S,
@@ -490,6 +503,7 @@ extern "C" int ssd_fused_fwd(
   p.conv_w = static_cast<const float*>(conv_w);
   p.conv_b = static_cast<const float*>(conv_b);
   p.h_init = static_cast<const float*>(h_init);
+  p.edge = edge_hist; p.edge_sg = (long long)HIST_ROWS * Wc;
   p.cb = static_cast<const float*>(cb);
   p.seg_h = static_cast<float*>(seg_h); p.seg_a = static_cast<float*>(seg_a);
   p.y = y; p.hN = static_cast<float*>(hN); p.carries = carries;
@@ -498,6 +512,7 @@ extern "C" int ssd_fused_fwd(
   PrepParams pp = {};
   pp.xBC = xBC; pp.xbc_sg = xbc_sg; pp.xbc_sl = xbc_sl;
   pp.conv_w = p.conv_w; pp.conv_b = p.conv_b; pp.bc = bc; pp.cb = static_cast<float*>(cb);
+  pp.edge = edge_hist; pp.edge_sg = p.edge_sg;
   pp.L = L; pp.H = H; pp.P = P; pp.NG = NG; pp.N = N; pp.Wc = Wc; pp.reverse = reverse;
   return (int)run(dtype, p, pp, G, K, parts, static_cast<cudaStream_t>(stream));
 }

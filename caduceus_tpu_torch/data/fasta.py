@@ -91,8 +91,13 @@ class FastaFile:
             line_bases=np.array(line_bases, np.int64),
             line_bytes=np.array(line_bytes, np.int64),
         )
+        # written under a name of this process and renamed into place, so
+        # that ranks building the index side by side never read a partial
+        # file
+        tmp = f"{ipath}.{os.getpid()}.tmp.npz"
         try:
-            np.savez(ipath, **arrs)
+            np.savez(tmp, **arrs)
+            os.replace(tmp, ipath)
         except OSError:
             pass  # read-only location; the index stays in memory
         return arrs

@@ -18,6 +18,16 @@ flips, zero data movement, one final `swap_rc` iff n_layer is odd) or
 same function. ``cfg.remat`` checkpoints spans of ``cfg.remat_span`` blocks when
 grad is enabled (training); inference runs under
 ``torch.inference_mode()`` and keeps nothing for a backward.
+
+Under context parallelism (``cfg.context_parallel_axis`` and a registered
+mesh) the model takes the whole (B, L) ids of its rows and computes the
+rows [m L/M, (m+1) L/M) of model coordinate m: strand 1's ids are rc of the
+whole ids, cut to this shard (no exchange); each flip of the sequence axis
+(`swap_rc`, the LM head's ``flip_L``) is the mirror shard's tensor
+(`parallel/comm.py reverse_shards`) flipped locally, which is what XLA
+inserts for the JAX package on a sequence-sharded array. The LM head
+exchanges the strand-1 logit term (V = 16 columns), not the d_model-wide
+hidden state.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from caduceus_tpu_torch.config import CaduceusConfig
 from caduceus_tpu_torch.models.mamba import BiMamba
 from caduceus_tpu_torch.models.mamba2 import BiMamba2
 from caduceus_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
+from caduceus_tpu_torch.parallel.comm import flip_sharded
+from caduceus_tpu_torch.parallel.mesh import cp_axis
 
 
 def reverse_complement_ids(input_ids: torch.Tensor,
@@ -40,16 +52,22 @@ def reverse_complement_ids(input_ids: torch.Tensor,
     return complement[input_ids.flip(-1)]
 
 
-def rc_hidden(x: torch.Tensor) -> torch.Tensor:
+def _flip_L(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Flip the length dim (-2); of a sequence sharded over ``axis``, this
+    shard of the flip."""
+    return x.flip(-2) if axis is None else flip_sharded(x, axis, -2)
+
+
+def rc_hidden(x: torch.Tensor, axis=None) -> torch.Tensor:
     """Flip the length (-2) and channel (-1) dims."""
-    return x.flip(-2, -1)
+    return _flip_L(x, axis).flip(-1)
 
 
-def swap_rc(t: torch.Tensor) -> torch.Tensor:
+def swap_rc(t: torch.Tensor, axis=None) -> torch.Tensor:
     """The fused-frame involution in canonical-strand coordinates:
     exchange strand rows, reverse (L, d)."""
     half = t.shape[0] // 2
-    return torch.cat([t[half:], t[:half]], dim=0).flip(-2, -1)
+    return rc_hidden(torch.cat([t[half:], t[:half]], dim=0), axis)
 
 
 def collapse_strand_mean(h: torch.Tensor) -> torch.Tensor:
@@ -59,9 +77,9 @@ def collapse_strand_mean(h: torch.Tensor) -> torch.Tensor:
     return (h[..., :d] + h[..., d:].flip(-2, -1)) / 2
 
 
-def canonical_to_reference(hidden: torch.Tensor) -> torch.Tensor:
+def canonical_to_reference(hidden: torch.Tensor, axis=None) -> torch.Tensor:
     """(2, B, L, d) canonical → (B, L, 2d) ``[h_fwd, flip_LC(h_rc)]``."""
-    return torch.cat([hidden[0], rc_hidden(hidden[1])], dim=-1)
+    return torch.cat([hidden[0], rc_hidden(hidden[1], axis)], dim=-1)
 
 
 def _complement(c: CaduceusConfig) -> torch.Tensor:
@@ -97,8 +115,9 @@ class CaduceusBlock(nn.Module):
             weight = weight.flip(0)
             bias = None if bias is None else bias.flip(0)
         if self.frame == "data":
-            x = swap_rc(x)
-            residual = None if residual is None else swap_rc(residual)
+            axis = cp_axis(c)
+            x = swap_rc(x, axis)
+            residual = None if residual is None else swap_rc(residual, axis)
         normed, residual = add_norm(
             x, weight, bias, residual=residual, eps=c.norm_epsilon,
             use_rms=c.rms_norm, residual_in_fp32=c.residual_in_fp32,
@@ -175,6 +194,10 @@ class CaduceusBackbone(nn.Module):
         (`models/encoders.py`)."""
         c = self.cfg
         dtype = getattr(torch, c.dtype)
+        axis = cp_axis(c)
+        if axis is not None and inputs_embeds is not None:
+            raise NotImplementedError("inputs_embeds under context "
+                                      "parallelism")
         if inputs_embeds is not None:
             if c.rcps:
                 raise ValueError("inputs_embeds bypasses the token "
@@ -188,6 +211,14 @@ class CaduceusBackbone(nn.Module):
                                                        self.complement)])
             else:
                 ids = input_ids[None]
+            if axis is not None:
+                # this rank's columns of both strands' whole ids
+                L = ids.shape[-1]
+                if L % axis.size:
+                    raise ValueError(f"sequence of {L} does not split over "
+                                     f"{axis.size} context-parallel ranks")
+                n = L // axis.size
+                ids = ids[..., axis.rank * n:(axis.rank + 1) * n]
             S, B, L = ids.shape
             h = _Embedding.apply(ids.reshape(S * B, L),
                                  self.embedding.to(dtype))
@@ -208,7 +239,7 @@ class CaduceusBackbone(nn.Module):
         if self.final_swap:
             # the conjugated frame leaves the physical state at F^n(y_n):
             # odd n_layer owes one involution
-            final = swap_rc(final)
+            final = swap_rc(final, axis)
         if c.residual_in_fp32:
             final = final.float()
         if c.rms_norm:
@@ -237,7 +268,8 @@ class Caduceus(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         h, _ = self.backbone(input_ids)
-        return canonical_to_reference(h) if self.cfg.rcps else h
+        return (canonical_to_reference(h, cp_axis(self.cfg)) if self.cfg.rcps
+                else h)
 
 
 class CaduceusForMaskedLM(nn.Module):
@@ -265,7 +297,13 @@ class CaduceusForMaskedLM(nn.Module):
         W = (embed if self.lm_head is None else self.lm_head).to(h.dtype)
         if self.cfg.rcps:
             comp = self.backbone.complement
-            logits = h[0] @ W.t() + h[1].flip(-2) @ W[comp].t()
+            axis = cp_axis(self.cfg)
+            if axis is None:
+                logits = h[0] @ W.t() + h[1].flip(-2) @ W[comp].t()
+            else:
+                # flip_L commutes with the row-wise product: exchange the
+                # V-wide logit term, not the d_model-wide hidden state
+                logits = h[0] @ W.t() + _flip_L(h[1] @ W[comp].t(), axis)
         else:
             logits = h @ W.t()
         return logits.float()

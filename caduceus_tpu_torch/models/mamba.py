@@ -23,8 +23,14 @@ combine) configurations plus ``bidirectional=False``. Parameter names and
 layouts follow the flax modules so `params.py` maps them 1:1.
 
 Also `FrameDense`, the torch-default initializers and the GPT-2 residual
-rescale, which the Mamba-2 mixer (`models/mamba2.py`) shares. Not ported
-yet: the context/tensor-parallel branches (`_cp_scan`, `tp_axis`).
+rescale, which the Mamba-2 mixer (`models/mamba2.py`) shares. With
+``context_parallel_axis`` set (and a mesh registered) each direction runs
+`_cp_scan` on this rank's sequence shard, as the JAX mixer does
+(`caduceus_tpu/models/mamba.py:338-360`, `:477-482`): the conv with its
+K-1 halo rows, then `parallel/seq_scan.py sequence_parallel_scan` (two
+single-direction chained scans, #7 / #8, in place of the paired #9). Not
+ported yet: the tensor-parallel branch (`tp_axis`, ROADMAP.md queue 1
+item 8).
 
 Every initializer draws from an explicit `torch.Generator`.
 """
@@ -44,6 +50,9 @@ from caduceus_tpu_torch.ops.scan import (
     bidir_selective_scan,
     selective_scan_chained,
 )
+from caduceus_tpu_torch.parallel.comm import conv_halo
+from caduceus_tpu_torch.parallel.mesh import cp_axis
+from caduceus_tpu_torch.parallel.seq_scan import sequence_parallel_scan
 
 
 def torch_linear_init(t: torch.Tensor, fan_in: int, generator: torch.Generator,
@@ -157,18 +166,22 @@ class _DirectionParams(nn.Module):
         self.A_log = nn.Parameter(a_log_init(di, N))
         self.D = nn.Parameter(torch.ones(di))
 
-    def projections(self, x: torch.Tensor, reverse: bool):
+    def projections(self, x: torch.Tensor, reverse: bool, axis=None):
         """Conv + input-dependent projections of ``x`` (..., L, d_inner):
         (u, delta_raw, B, C) as (G, L, ·); B and C are column slices of the
-        x_proj output."""
+        x_proj output. ``axis``: the context-parallel axis when ``x`` is a
+        sequence shard (the conv then reads the neighbour's K-1 rows)."""
         c = self.cfg
         L, di = x.shape[-2:]
         x3 = x.reshape(-1, L, di)
         dtype = x.dtype
+        K = self.conv_w.shape[0]
+        halo = (conv_halo(x3, K - 1, axis, reverse)
+                if axis is not None and K > 1 else None)
         u = causal_conv1d(
             x3, self.conv_w.to(dtype),
             None if self.conv_b is None else self.conv_b.to(dtype),
-            activation="silu", reverse=reverse)
+            activation="silu", reverse=reverse, halo=halo)
         dbc = u @ self.x_proj_w.to(dtype)
         R, N = c.dt_rank, c.ssm_cfg.d_state
         dt, B, C = dbc.split([R, N, N], dim=-1)
@@ -180,11 +193,28 @@ class _DirectionParams(nn.Module):
 
     def forward(self, x: torch.Tensor, reverse: bool) -> torch.Tensor:
         """`ssm_branch`: the ungated scan output (..., L, d_inner) of one
-        direction."""
+        direction; under context parallelism `_cp_scan`."""
+        if self.cfg.tensor_parallel_axis:
+            raise NotImplementedError(
+                "tensor_parallel_axis is not ported yet: ROADMAP.md queue 1 "
+                "item 8 (TP)")
+        axis = cp_axis(self.cfg)
+        if axis is not None:
+            return self._cp_scan(x, reverse, axis)
         u, delta_raw, B, C = self.projections(x, reverse)
         y, _ = selective_scan_chained(
             u, delta_raw, self.A(), B, C, D=self.D, delta_bias=self.dt_proj_b,
             delta_softplus=True, reverse=reverse)
+        return y.reshape(x.shape)
+
+    def _cp_scan(self, x: torch.Tensor, reverse: bool, axis) -> torch.Tensor:
+        """The context-parallel directional scan of a sequence shard: the
+        conv with its halo rows, then `sequence_parallel_scan`."""
+        u, delta_raw, B, C = self.projections(x, reverse, axis)
+        y = sequence_parallel_scan(
+            u, delta_raw, self.A(), B, C, D=self.D,
+            delta_bias=self.dt_proj_b, delta_softplus=True, reverse=reverse,
+            axis=axis)
         return y.reshape(x.shape)
 
 
@@ -249,6 +279,10 @@ class BiMamba(nn.Module):
 
     def _run_both(self, xi_f: torch.Tensor, xi_r: torch.Tensor):
         rev_f = self.conj           # traversal of the fwd parameter set
+        if cp_axis(self.cfg) is not None:
+            # each direction alone through the sequence-parallel scan
+            return self.fwd(xi_f, reverse=rev_f), self.rev(xi_r,
+                                                           reverse=not rev_f)
         f = self.fwd.projections(xi_f, reverse=rev_f)
         r = self.rev.projections(xi_r, reverse=not rev_f)
         pf = (self.fwd.A(), self.fwd.D, self.fwd.dt_proj_b)

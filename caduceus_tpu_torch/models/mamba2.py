@@ -24,7 +24,16 @@ On the CPU every route runs its plain version. `BiMamba2` covers the four
 (weight-tie × combine) configurations plus ``bidirectional=False``.
 Parameter names follow the flax modules so `params.py` maps them 1:1.
 
-Not ported yet: the context/tensor-parallel `_sharded_ssd` branch.
+With ``context_parallel_axis`` set (and a mesh registered,
+`parallel/mesh.py`) each direction runs the context-parallel branch of
+the JAX mixer's `_sharded_ssd` (`caduceus_tpu/models/mamba2.py:227-310`)
+on this rank's sequence shard: the fused route,
+`parallel/seq_scan.py sequence_parallel_ssd_fused` (the CP entry of the
+fused kernels, its 8 halo rows exchanged), when the kernel route is the
+fused one and the shard length suits it (`fused_cp_ok`, the JAX rule);
+otherwise the conv with its K-1 halo rows as a PyTorch op and
+`sequence_parallel_ssd` on its output. Not ported: the tensor-parallel
+branch (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -42,8 +51,14 @@ from caduceus_tpu_torch.models.mamba import (
     torch_linear_init,
 )
 from caduceus_tpu_torch.ops.conv import causal_conv1d
-from caduceus_tpu_torch.ops.ssd_batched import ssd_batched_fused
+from caduceus_tpu_torch.ops.ssd_batched import fused_cp_ok, ssd_batched_fused
 from caduceus_tpu_torch.ops.ssd_head import resolve_ssd_kernel
+from caduceus_tpu_torch.parallel.comm import conv_halo
+from caduceus_tpu_torch.parallel.mesh import cp_axis
+from caduceus_tpu_torch.parallel.seq_scan import (
+    sequence_parallel_ssd,
+    sequence_parallel_ssd_fused,
+)
 
 
 def rms_norm_gated(y, z, weight, ngroups: int, eps: float):
@@ -92,6 +107,14 @@ class _DirectionParamsV2(nn.Module):
         G = x3.shape[0]
         dt3 = dt_raw.reshape(G, L, H)
         k = s.use_kernel
+        if c.tensor_parallel_axis:
+            raise NotImplementedError(
+                "tensor_parallel_axis is not ported yet: ROADMAP.md queue 1 "
+                "item 8 (TP)")
+        axis = cp_axis(c)
+        if axis is not None:
+            y = self._sharded_ssd(x3, dt3, reverse, axis)
+            return y.reshape(*lead, L, c.d_inner)
         if k.startswith("pallas") and not k.startswith("pallas_batched"):
             # the conv as a global op in the storage dtype (JAX: an XLA op
             # outside the Pallas kernels), then the SSD on column views of
@@ -115,15 +138,59 @@ class _DirectionParamsV2(nn.Module):
         # (`caduceus_tpu/models/mamba2.py` `__call__`, the XLA branch); the
         # kernels read them as fp32. "auto" and "pallas_batched*" keep them
         # fp32, as `ssd_pallas_batched_fused` takes them.
-        conv_w, conv_b = self.conv_w, self.conv_b
-        if k == "xla":
-            conv_w = conv_w.to(x3.dtype).float()
-            conv_b = None if conv_b is None else conv_b.to(x3.dtype).float()
+        conv_w, conv_b = self._fused_conv_weights(x3.dtype)
         y = ssd_batched_fused(
             x3, dt3, -torch.exp(self.A_log), conv_w, conv_b=conv_b,
             D=self.D, dt_bias=self.dt_bias, dims=(H, P, NG, N),
             dt_softplus=True, reverse=reverse)
         return y.reshape(*lead, L, c.d_inner)
+
+    def _fused_conv_weights(self, dtype):
+        """The conv weights the fused kernels read (fp32): rounded to the
+        compute dtype for "xla", as its chunked XLA form casts them."""
+        conv_w, conv_b = self.conv_w, self.conv_b
+        if self.cfg.ssm_cfg.use_kernel == "xla":
+            conv_w = conv_w.to(dtype).float()
+            conv_b = None if conv_b is None else conv_b.to(dtype).float()
+        return conv_w, conv_b
+
+    def _sharded_ssd(self, x3, dt3, reverse: bool, axis):
+        """The context-parallel branch of the JAX `_sharded_ssd` on this
+        rank's shard (G, L_loc, ·): (G, L_loc, H, P). The fused route when
+        the kernel route is the fused one ("auto", "xla",
+        "pallas_batched*", as on one device) and the shard length suits the
+        CP entry (`fused_cp_ok` of the config's chunk and segment: no tail
+        padding); else the conv with its K-1 halo rows as a PyTorch op, in
+        the storage dtype with its weights cast to it (the JAX branch's
+        cast), then `sequence_parallel_ssd` through the route's unfused
+        kernels."""
+        c, s = self.cfg, self.cfg.ssm_cfg
+        H, P, NG, N = c.nheads, s.headdim, s.ngroups, s.d_state
+        G, L = x3.shape[:2]
+        k = s.use_kernel
+        per_head = k.startswith("pallas") and not k.startswith(
+            "pallas_batched")
+        A = -torch.exp(self.A_log)
+        if not per_head and fused_cp_ok(L, s.ssd_chunk_size,
+                                        s.ssd_seg_chunks):
+            conv_w, conv_b = self._fused_conv_weights(x3.dtype)
+            return sequence_parallel_ssd_fused(
+                x3, dt3, A, conv_w, conv_b=conv_b, D=self.D,
+                dt_bias=self.dt_bias, dims=(H, P, NG, N), dt_softplus=True,
+                reverse=reverse, axis=axis, seg_chunks=s.ssd_seg_chunks,
+                cp_chunk_size=s.ssd_chunk_size)
+        K = self.conv_w.shape[0]
+        halo = conv_halo(x3, K - 1, axis, reverse) if K > 1 else None
+        xc = causal_conv1d(
+            x3, self.conv_w.to(x3.dtype),
+            None if self.conv_b is None else self.conv_b.to(x3.dtype),
+            activation="silu", reverse=reverse, halo=halo)
+        return sequence_parallel_ssd(
+            xc[..., :H * P].reshape(G, L, H, P), dt3, A,
+            xc[..., H * P:H * P + NG * N].reshape(G, L, NG, N),
+            xc[..., H * P + NG * N:].reshape(G, L, NG, N), D=self.D,
+            dt_bias=self.dt_bias, dt_softplus=True, reverse=reverse,
+            axis=axis, local_impl="pallas" if per_head else "pallas_batched")
 
 
 def _split_zxbcdt(c: CaduceusConfig, zxbcdt: torch.Tensor):

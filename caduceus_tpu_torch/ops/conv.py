@@ -25,13 +25,26 @@ def causal_conv1d(
     bias: Optional[torch.Tensor] = None,   # (d,)
     activation: Optional[str] = "silu",
     reverse: bool = False,
+    halo: Optional[torch.Tensor] = None,   # (..., K-1, d)
 ) -> torch.Tensor:
     """y[t] = sum_k w[k] * x[t - (K-1-k)] (+ bias), zeros before the start.
 
     ``reverse=True`` is the anti-causal conv ``flip(causal(flip(x)))``:
     tap k reads x[t + (K-1-k)], zeros past the end.
+
+    ``halo``: the K-1 rows before x (after it when ``reverse``) in place of
+    those zeros: a context-parallel shard's neighbour rows
+    (`parallel/comm.py halo_shift`), so that each shard's conv equals its
+    rows of the conv of the whole sequence (the JAX package's global conv
+    on sequence-sharded activations, whose halo XLA exchanges). Autograd
+    carries the halo rows' gradient back.
     """
     K = weight.shape[0]
+    if halo is not None and K > 1:
+        L = x.shape[-2]
+        ext = torch.cat([x, halo] if reverse else [halo, x], dim=-2)
+        y = causal_conv1d(ext, weight, bias, activation, reverse)
+        return y[..., :L, :] if reverse else y[..., K - 1:, :]
     L = x.shape[-2]
     acc = x * weight[K - 1]
     for k in range(K - 1):

@@ -54,6 +54,10 @@ import torch.nn.functional as F
 # chunks batched per step of the plain version's sequential loop (bounds
 # its (G, seg, T, T, H) temporaries)
 _SEG_CHUNKS = 8
+# rows of a context-parallel shard's edge_hist: the neighbour's boundary
+# raw rows that the conv reads past the sequence edge (the JAX package's
+# `_HIST_ROWS`)
+HIST_ROWS = 8
 
 
 def _resolve_dt(dt, dt_bias, dt_softplus):
@@ -113,19 +117,52 @@ def _keep_mask(T: int, reverse: bool, dev) -> torch.Tensor:
     return keep.triu() if reverse else keep.tril()
 
 
-def _conv_silu_rows(xBC, w, b, r0, r1, reverse):
+def _conv_silu_rows(xBC, w, b, r0, r1, reverse, edge=None):
     """fp32 silu(depthwise conv) for rows [r0, r1) of the pre-conv xBC,
     reading the K-1 neighbour rows (before r0, or after r1 when
-    ``reverse``) from xBC, zeros past the sequence edges."""
-    return F.silu(_conv_pre_rows(xBC, w, b, r0, r1, reverse))
+    ``reverse``) from xBC; past the sequence edges from ``edge``, else
+    zeros."""
+    return F.silu(_conv_pre_rows(xBC, w, b, r0, r1, reverse, edge))
 
 
-def _conv_pre_rows(xBC, w, b, r0, r1, reverse):
+def _ext_rows(xBC, edge, lo, hi, reverse):
+    """fp32 rows [lo, hi) of xBC extended past its edge: rows outside [0, L)
+    are the context-parallel ``edge`` rows (G, 8, Wc) where they stand (rows
+    -8..-1 forward, L..L+7 in reverse), else zeros. Differentiable in
+    ``edge``."""
+    G, L, Wc = xBC.shape
+    a, z = max(lo, 0), min(hi, L)
+    mid = xBC[:, a:z].float() if a < z else xBC.new_zeros(G, 0, Wc).float()
+    # rows before 0 and at or after L, each from the edge rows or zeros
+    e_lo, e_hi = (L, L + HIST_ROWS) if reverse else (-HIST_ROWS, 0)
+
+    def side(r0, r1):
+        if r1 <= r0:
+            return mid.new_zeros(G, 0, Wc)
+        if edge is None:
+            return mid.new_zeros(G, r1 - r0, Wc)
+        parts = []
+        if r0 < e_lo:
+            parts.append(mid.new_zeros(G, min(r1, e_lo) - r0, Wc))
+        u0, u1 = max(r0, e_lo), min(r1, e_hi)
+        if u0 < u1:
+            parts.append(edge[:, u0 - e_lo:u1 - e_lo].float())
+        if r1 > e_hi:
+            parts.append(mid.new_zeros(G, r1 - max(r0, e_hi), Wc))
+        return torch.cat(parts, 1)
+
+    return torch.cat([side(lo, min(hi, 0)), mid, side(max(lo, L), hi)], 1)
+
+
+def _conv_pre_rows(xBC, w, b, r0, r1, reverse, edge=None):
     """The fp32 pre-activation of `_conv_silu_rows`."""
     G, L, Wc = xBC.shape
     K = w.shape[0]
     n = r1 - r0
-    if reverse:
+    if edge is not None:
+        ext = (_ext_rows(xBC, edge, r0, r1 + K - 1, True) if reverse
+               else _ext_rows(xBC, edge, r0 - (K - 1), r1, False))
+    elif reverse:
         hi = min(L, r1 + K - 1)
         ext = F.pad(xBC[:, r0:hi].float(), (0, 0, 0, n + K - 1 - (hi - r0)))
     else:
@@ -343,6 +380,7 @@ def ssd_chunked_fused(
     return_final_state: bool = False,
     return_carries: bool = False,
     segments: Optional[int] = None,
+    edge_hist: Optional[torch.Tensor] = None,  # (G, 8, Wc)
 ):
     """Chunked dual form with the conv fused (see module docstring).
 
@@ -352,7 +390,10 @@ def ssd_chunked_fused(
     indexed by the chunk's position in the array, in
     `carry_dtype(xBC.dtype)` — the residual `ssd_chunked_fused_bwd`
     reads. ``segments``: run the kernels' chunk-parallel decomposition
-    (`_chunked`) over that many segments; the same function."""
+    (`_chunked`) over that many segments; the same function.
+    ``edge_hist``: a context-parallel shard's neighbour rows, which the conv
+    reads past the sequence edge in place of zeros (the plain version of
+    the `ssd_batched_fused_cp` entry; autograd differentiates it)."""
     H, P, NG, N = dims
     Wc = xBC.shape[2]
     assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
@@ -361,7 +402,7 @@ def ssd_chunked_fused(
     b = None if conv_b is None else conv_b.float()
 
     def load(s0, r1):
-        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse)
+        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse, edge_hist)
         return (xc[..., :H * P], _q(xc[..., H * P:H * P + NG * N], mm),
                 _q(xc[..., H * P + NG * N:], mm))
 
@@ -649,13 +690,15 @@ def ssd_adjoint_xc(
     reverse: bool = False,
     chunk_size: int = 64,
     segments: Optional[int] = None,
+    edge_hist: Optional[torch.Tensor] = None,
 ):
     """The SSD part of the adjoint of `ssd_chunked_fused`, from its saved
     chunk carries: the plain version of `ssd_fused_bwd_kernel` (K >= 1).
     Returns ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``: g_xc = d loss / d
     silu(pre) (G, L, Wc) fp32, the input of `conv_silu_bwd`; g_dt in dt's
     dtype; the rest fp32. The chunk body is `_adjoint`'s, on the x, B and C
-    that the forward recomputes from xBC; ``segments`` as there."""
+    that the forward recomputes from xBC (and ``edge_hist``, as the forward
+    read it); ``segments`` as there."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     assert Wc == H * P + 2 * NG * N, (xBC.shape, dims)
@@ -665,7 +708,7 @@ def ssd_adjoint_xc(
     g_xc = torch.zeros(G, L, Wc, device=xBC.device)
 
     def load(s0, r1):
-        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse)
+        xc = _conv_silu_rows(xBC, w, b, s0, r1, reverse, edge_hist)
         return (xc[..., :H * P], _q(xc[..., H * P:H * P + NG * N], mm),
                 _q(xc[..., H * P + NG * N:], mm))
 
@@ -730,33 +773,62 @@ def ssd_chunked_bwd(
             g_h0)
 
 
+def edge_grad(g_pre: torch.Tensor, w: torch.Tensor, reverse: bool):
+    """The gradient of a context-parallel shard's edge rows (G, 8, Wc) fp32:
+    the conv transpose's spill past the sequence edge, from the g_pre rows
+    next to it (the JAX package's `ssd_pallas_batched_fused_bwd_impl`
+    `:995-1022`). Forward, edge row 8-(K-1)+j gets Σ_{k<=j} w[k] g_pre[j-k];
+    reverse, edge row j gets Σ_{k<K-1-j} w[k] g_pre[L-(K-1)+j+k]."""
+    G, L, Wc = g_pre.shape
+    K = w.shape[0]
+    g_edge = g_pre.new_zeros(G, HIST_ROWS, Wc)
+    for j in range(K - 1):
+        acc = None
+        for k in range(K - 1 - j if reverse else j + 1):
+            r = L - (K - 1) + j + k if reverse else j - k
+            if not 0 <= r < L:
+                continue
+            term = w[k] * g_pre[:, r]
+            acc = term if acc is None else acc + term
+        if acc is not None:
+            g_edge[:, j if reverse else HIST_ROWS - (K - 1) + j] = acc
+    return g_edge
+
+
 def conv_silu_bwd(
     g_xc: torch.Tensor,                     # (G, L, Wc) fp32
     xBC: torch.Tensor,                      # (G, L, Wc) pre-conv
     conv_w: torch.Tensor,                   # (K, Wc)
     conv_b: Optional[torch.Tensor],         # (Wc,)
     reverse: bool = False,
+    edge_hist: Optional[torch.Tensor] = None,  # (G, 8, Wc)
 ):
     """SiLU and depthwise-conv adjoints over the whole array, from
     g_xc = d loss / d silu(pre): the plain version of the `ssd_conv_bwd`
     kernels (`conv_silu_bwd_tiled` is the same function in their tiles).
     Returns (g_xBC in xBC's dtype, g_conv_w, g_conv_b) (fp32). Over every
-    row at once the conv transpose needs no chunk-to-chunk spillover."""
+    row at once the conv transpose needs no chunk-to-chunk spillover. With
+    ``edge_hist`` (a context-parallel shard's neighbour rows, which the
+    conv read past the sequence edge) it also returns their gradient
+    g_edge (G, 8, Wc) fp32, `edge_grad`."""
     G, L, Wc = xBC.shape
     K = conv_w.shape[0]
     dev = xBC.device
     w = conv_w.float()
     b = None if conv_b is None else conv_b.float()
-    pre = _conv_pre_rows(xBC, w, b, 0, L, reverse)
+    pre = _conv_pre_rows(xBC, w, b, 0, L, reverse, edge_hist)
     sig = torch.sigmoid(pre)
     g_pre = g_xc * sig * (1.0 + pre * (1.0 - sig))
     del pre, sig
-    xf = xBC.float()
     # forward: pre[i] = Σ_k w[k]·x[i-(K-1)+k]; reverse: Σ_k w[k]·x[i+K-1-k]
     front = (0, 0, K - 1, 0)
     back = (0, 0, 0, K - 1)
     gp = F.pad(g_pre, front if reverse else back)
-    xp = F.pad(xf, back if reverse else front)
+    if edge_hist is None:
+        xp = F.pad(xBC.float(), back if reverse else front)
+    else:
+        xp = (_ext_rows(xBC, edge_hist, 0, L + K - 1, True) if reverse
+              else _ext_rows(xBC, edge_hist, -(K - 1), L, False))
     g_raw = torch.zeros_like(g_pre)
     g_w = torch.empty(K, Wc, device=dev)
     for k in range(K):
@@ -764,7 +836,10 @@ def conv_silu_bwd(
         o_x = K - 1 - k if reverse else k     # x row tap k read for row i
         g_raw += w[k] * gp[:, o_g:o_g + L]
         g_w[k] = (xp[:, o_x:o_x + L] * g_pre).sum((0, 1))
-    return g_raw.to(xBC.dtype), g_w, g_pre.sum((0, 1))
+    out = (g_raw.to(xBC.dtype), g_w, g_pre.sum((0, 1)))
+    if edge_hist is None:
+        return out
+    return out + (edge_grad(g_pre, w, reverse),)
 
 
 # The `ssd_conv_bwd` kernel's decomposition (csrc/ssd_fused_bwd.cu): rows
@@ -785,10 +860,17 @@ def conv_tile_rows(r0, r1, K, reverse):
     return (r0 - h, r1 + h), ((r0 - h, r1) if reverse else (r0, r1 + h))
 
 
-def _tile_rows_of(t, lo, hi, r0, count):
+def _tile_rows_of(t, lo, hi, r0, count, edge=None, reverse=False):
     """Rows [r0, r0 + count) of ``t`` (G, L, W) in fp32, zero outside
-    [lo, hi) and outside the array."""
+    [lo, hi) and outside the array, where the context-parallel ``edge``
+    rows stand for the rows past the sequence edge (`_ext_rows`)."""
     G, L, W = t.shape
+    if edge is not None:
+        a, b = max(lo, r0), min(hi, r0 + count)
+        out = torch.zeros(G, count, W, device=t.device)
+        if a < b:
+            out[:, a - r0:b - r0] = _ext_rows(t, edge, a, b, reverse)
+        return out
     out = torch.zeros(G, count, W, device=t.device)
     a, b = max(lo, r0, 0), min(hi, r0 + count, L)
     if a < b:
@@ -797,7 +879,7 @@ def _tile_rows_of(t, lo, hi, r0, count):
 
 
 def conv_silu_bwd_tiled(g_xc, xBC, conv_w, conv_b, reverse=False,
-                        tile_rows=CONV_TILE_ROWS):
+                        tile_rows=CONV_TILE_ROWS, edge_hist=None):
     """`conv_silu_bwd` in the `ssd_conv_bwd` kernel's decomposition, for
     the tests: each tile of ``tile_rows`` output rows per batch row reads
     only its `conv_tile_rows` (halos included), recomputes g_pre on them and
@@ -805,20 +887,25 @@ def conv_silu_bwd_tiled(g_xc, xBC, conv_w, conv_b, reverse=False,
     of every (batch row, tile), in that order, are added as the kernel's
     second launch adds them (`CONV_SUM_RANGES` contiguous ranges, each in
     order, then the ranges in order). The same function as
-    `conv_silu_bwd`."""
+    `conv_silu_bwd`, ``edge_hist`` and g_edge included: the tile the walk
+    enters the sequence by (the first, or the last when ``reverse``) reads
+    its halo raw rows from the edge rows and writes the edge rows'
+    gradient."""
     G, L, Wc = xBC.shape
     K = conv_w.shape[0]
     h = K - 1
     w = conv_w.float()
     b = None if conv_b is None else conv_b.float()
     g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=xBC.device)
+    g_edge = None
     parts = []
     for r0 in range(0, L, tile_rows):
         r1 = min(L, r0 + tile_rows)
         n = r1 - r0
         (x0, x1), (g0, g1) = conv_tile_rows(r0, r1, K, reverse)
         # ext rows r0 - h .. r1 + h - 1
-        xe = _tile_rows_of(xBC, x0, x1, r0 - h, n + 2 * h)
+        xe = _tile_rows_of(xBC, x0, x1, r0 - h, n + 2 * h, edge_hist,
+                           reverse)
         ge = _tile_rows_of(g_xc, g0, g1, r0 - h, n + 2 * h)
         # g_pre of the n + h rows the tile's transpose reads, from ext row m0
         m0 = 0 if reverse else h
@@ -842,6 +929,8 @@ def conv_silu_bwd_tiled(g_xc, xBC, conv_w, conv_b, reverse=False,
             part[:, k] = (xe[:, ox:ox + n] * own).sum(1)
         part[:, K] = own.sum(1)
         g_xBC[:, r0:r1] = acc.to(xBC.dtype)
+        if edge_hist is not None and (r1 == L if reverse else r0 == 0):
+            g_edge = edge_grad(own, w, reverse)
         parts.append(part)
     parts = torch.stack(parts, 1).reshape(-1, K + 1, Wc)  # (g, tile) order
     per = -(-parts.shape[0] // CONV_SUM_RANGES)
@@ -851,22 +940,26 @@ def conv_silu_bwd_tiled(g_xc, xBC, conv_w, conv_b, reverse=False,
         for t in range(lo + 1, min(lo + per, parts.shape[0])):
             s = s + parts[t]
         total = s if total is None else total + s
-    return g_xBC, total[:K], total[K]
+    out = (g_xBC, total[:K], total[K])
+    return out if edge_hist is None else out + (g_edge,)
 
 
 def ssd_chunked_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
                           carries, g_hN, dims, dt_softplus=False,
-                          reverse=False, chunk_size=64):
+                          reverse=False, chunk_size=64, edge_hist=None):
     """Adjoint of `ssd_chunked_fused` from its saved chunk carries, the
     plain version of the `ssd_fused_bwd` CUDA kernels: `ssd_adjoint_xc` then
     `conv_silu_bwd` (see their docstrings; same arguments).
 
     Returns ``(g_xBC, g_dt, g_A, g_conv_w, g_conv_b, g_D, g_dt_bias,
     g_h0)``, the tuple of the JAX package's
-    `ssd_pallas_batched_fused_bwd_impl` (without its context-parallel edge
-    gradient): g_xBC / g_dt in the dtypes of xBC / dt, the rest fp32."""
+    `ssd_pallas_batched_fused_bwd_impl`: g_xBC / g_dt in the dtypes of xBC /
+    dt, the rest fp32; with ``edge_hist`` (the context-parallel entry) also
+    its context-parallel edge gradient g_edge (G, 8, Wc) fp32, last."""
     g_xc, g_dt, g_A, g_D, g_bias, g_h0 = ssd_adjoint_xc(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries, g_hN, dims,
-        dt_softplus, reverse, chunk_size)
-    g_xBC, g_w, g_b = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
-    return g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0
+        dt_softplus, reverse, chunk_size, edge_hist=edge_hist)
+    g_conv = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse,
+                           edge_hist=edge_hist)
+    return (g_conv[0], g_dt, g_A, g_conv[1], g_conv[2], g_D, g_bias,
+            g_h0) + tuple(g_conv[3:])

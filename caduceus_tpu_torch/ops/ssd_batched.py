@@ -28,11 +28,18 @@ entry `ops/ssd_head.py` runs the same two kernels under its own counters.
   backward = `ssd_fused_bwd`. Differentiable in xBC, dt, A, conv_w,
   conv_b, D, dt_bias and h_init, with a cotangent for hN.
 
+Also `ssd_batched_fused_cp`, the context-parallel entry (the port of
+`ssd_pallas_batched_fused_cp`): the same fused kernels with the neighbour
+shard's boundary raw rows ``edge_hist`` in place of the conv's zero history
+at the sequence edge, and their gradient out of the adjoint.
+
 Launch counters (one per call of a TPU kernel's counterpart on a CUDA
 tensor, however many `__global__` launches it makes): ``launches``
 (`ssd_fused_fwd`), ``unfused_launches`` (`ssd_fwd`), ``bwd_launches``
 (the SSD adjoint of `ssd_fused_bwd`), ``conv_bwd_launches`` (its SiLU + conv
-adjoint) and ``unfused_bwd_launches`` (`ssd_bwd`). A forward call is three
+adjoint) and ``unfused_bwd_launches`` (`ssd_bwd`); the calls of the fused
+kernels with ``edge_hist`` count in ``cp_launches``, ``cp_bwd_launches`` and
+``cp_conv_bwd_launches`` instead. A forward call is three
 launches (the B/C conv and CB per group, the segment pre-pass, the main
 pass; `csrc/ssd_fused_fwd.cu`), an adjoint call four (the same three and
 the fixed-order g_B / g_C head sum; `csrc/ssd_fused_bwd.cu`), and the
@@ -48,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from caduceus_tpu_torch import _build
-from caduceus_tpu_torch.ops.ssd import CONV_TILE_ROWS, carry_dtype
+from caduceus_tpu_torch.ops.ssd import CONV_TILE_ROWS, HIST_ROWS, carry_dtype
 from caduceus_tpu_torch.ops.ssd import conv_silu_bwd as plain_conv_silu_bwd
 from caduceus_tpu_torch.ops.ssd import ssd_adjoint_xc as plain_adjoint_xc
 from caduceus_tpu_torch.ops.ssd import ssd_chunked as plain_chunked
@@ -72,13 +79,16 @@ unfused_launches = 0
 bwd_launches = 0
 conv_bwd_launches = 0
 unfused_bwd_launches = 0
+cp_launches = 0
+cp_bwd_launches = 0
+cp_conv_bwd_launches = 0
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "ssd_fused_fwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 13 + [_I] * 11 + [_P],
+    "ssd_fused_fwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 14 + [_I] * 11 + [_P],
     "ssd_fwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 10 + [_I] * 9 + [_P],
-    "ssd_fused_bwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 19 + [_I] * 11 + [_P],
-    "ssd_conv_bwd": [_I, _P, _LL, _LL] + [_P] * 6 + [_I] * 5 + [_P],
+    "ssd_fused_bwd": [_I] + [_P, _LL, _LL] * 2 + [_P] * 20 + [_I] * 11 + [_P],
+    "ssd_conv_bwd": [_I, _P, _LL, _LL] + [_P] * 8 + [_I] * 5 + [_P],
     "ssd_bwd": [_I] + [_P, _LL, _LL] * 4 + [_P] * 17 + [_I] * 9 + [_P],
 }
 _LIBRARY = {"ssd_fused_fwd": "ssd_fused_fwd", "ssd_fwd": "ssd_fused_fwd",
@@ -216,6 +226,21 @@ def _head_args(first, dt, A, D, dt_bias, dims, chunk_size, name):
             _small(dt_bias, (H,), "dt_bias", dev))
 
 
+def _edge(edge_hist, xBC):
+    """The context-parallel edge rows as the kernels read them: (G, 8, Wc)
+    in xBC's dtype, contiguous, on xBC's device; None stays None."""
+    if edge_hist is None:
+        return None
+    G, _, Wc = xBC.shape
+    if tuple(edge_hist.shape) != (G, HIST_ROWS, Wc):
+        raise ValueError(f"edge_hist shape {tuple(edge_hist.shape)}, "
+                         f"expected {(G, HIST_ROWS, Wc)}")
+    if edge_hist.device != xBC.device:
+        raise ValueError(f"edge_hist is on {edge_hist.device}, xBC on "
+                         f"{xBC.device}")
+    return edge_hist.detach().to(xBC.dtype).contiguous()
+
+
 def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
     """Check what the fused kernels take; returns (K, fp32 copies of the
     parameters (A, D, dt_bias, conv_w, conv_b))."""
@@ -230,17 +255,21 @@ def _kernel_args(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size):
 
 def fused_fwd_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
                    reverse, chunk_size, h_init, save_carries: bool,
-                   parts: int = ALL_FWD, ws: Optional[dict] = None):
+                   parts: int = ALL_FWD, ws: Optional[dict] = None,
+                   edge_hist: Optional[torch.Tensor] = None):
     """One call of the forward kernels on CUDA tensors, not counted: (y, hN,
     carries, ws). ``parts`` picks the sub-launches (`PART_PREP`,
     `PART_STATE`, `PART_MAIN`); ``ws`` (`fwd_workspace`) may be kept from a
-    call to the next, so that the sub-launches can run one at a time."""
+    call to the next, so that the sub-launches can run one at a time.
+    ``edge_hist`` (G, 8, Wc): the context-parallel entry's neighbour rows,
+    which the conv reads past the sequence edge in place of zeros."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     dev = xBC.device
     K, (A_, D_, bias_, w_, b_) = _kernel_args(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, chunk_size)
     h0 = _small(h_init, (G, H, N, P), "h_init", dev)
+    edge = _edge(edge_hist, xBC)
     nc = -(-L // chunk_size)
     if ws is None:
         ws = fwd_workspace(G, L, dims, xBC.dtype, dev, True,
@@ -256,7 +285,7 @@ def fused_fwd_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
             xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
             dt.data_ptr(), dt.stride(0), dt.stride(1),
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_), _ptr(h0),
-            y.data_ptr(), hN.data_ptr(), _ptr(carries),
+            _ptr(edge), y.data_ptr(), hN.data_ptr(), _ptr(carries),
             _ptr(ws["bc"]), _ptr(ws["cb"]), _ptr(ws["seg"]),
             _ptr(ws["seg_a"]),
             G, L, H, P, NG, N, K, ws["S"], int(dt_softplus), int(reverse),
@@ -266,16 +295,21 @@ def fused_fwd_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
 
 
 def ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
-                  reverse, chunk_size, h_init, save_carries: bool):
+                  reverse, chunk_size, h_init, save_carries: bool,
+                  edge_hist: Optional[torch.Tensor] = None):
     """One call of the forward kernels on CUDA tensors (TPU kernel #1;
-    `fused_fwd_call`), counted in ``launches``: (y, hN, carries), carries =
+    `fused_fwd_call`), counted in ``launches``, or with ``edge_hist`` (the
+    context-parallel entry) in ``cp_launches``: (y, hN, carries), carries =
     the state entering every chunk, (G, nc, H, N, P) in `carry_dtype`, when
     ``save_carries`` (else None)."""
     y, hN, carries, _ = fused_fwd_call(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus, reverse,
-        chunk_size, h_init, save_carries)
-    global launches
-    launches += 1
+        chunk_size, h_init, save_carries, edge_hist=edge_hist)
+    global launches, cp_launches
+    if edge_hist is None:
+        launches += 1
+    else:
+        cp_launches += 1
     return y, hN, carries
 
 
@@ -529,10 +563,12 @@ def ssd_batched(x, dt, A, B_mat, C, D=None, dt_bias=None,
 
 def adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
                     g_hN, dims, dt_softplus, reverse, chunk_size,
-                    parts: int = ALL_BWD, ws: Optional[dict] = None):
+                    parts: int = ALL_BWD, ws: Optional[dict] = None,
+                    edge_hist: Optional[torch.Tensor] = None):
     """One call of the fused SSD adjoint's kernels on CUDA tensors, not
-    counted: ``((g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0), ws)``; ``parts``
-    and ``ws`` (`bwd_workspace`) as `fused_fwd_call`'s, with `PART_SUM`."""
+    counted: ``((g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0), ws)``; ``parts``,
+    ``ws`` (`bwd_workspace`) and ``edge_hist`` as `fused_fwd_call`'s, with
+    `PART_SUM`."""
     H, P, NG, N = dims
     G, L, Wc = xBC.shape
     dev = xBC.device
@@ -548,6 +584,7 @@ def adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
     g_y = g_y.contiguous()
     carries = carries.contiguous()
     ghN = _small(g_hN, (G, H, N, P), "g_hN", dev)
+    edge = _edge(edge_hist, xBC)
     if ws is None:
         ws = bwd_workspace(G, L, dims, xBC.dtype, dev, True,
                            n_segments(G, H, nc, dev))
@@ -561,7 +598,7 @@ def adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
             xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
             dt.data_ptr(), dt.stride(0), dt.stride(1),
             _ptr(A_), _ptr(D_), _ptr(bias_), _ptr(w_), _ptr(b_),
-            g_y.data_ptr(), carries.data_ptr(), _ptr(ghN),
+            g_y.data_ptr(), carries.data_ptr(), _ptr(ghN), _ptr(edge),
             g_xc.data_ptr(), g_dt.data_ptr(), g_h0.data_ptr(),
             g_heads.data_ptr(), _ptr(ws["bc"]), _ptr(ws["cb"]),
             _ptr(ws["seg"]), _ptr(ws["seg_a"]), _ptr(ws["shares"]),
@@ -579,13 +616,14 @@ def ssd_adjoint_xc(
     g_y: torch.Tensor, carries: torch.Tensor, g_hN: Optional[torch.Tensor],
     dims: Tuple[int, int, int, int], dt_softplus: bool = False,
     reverse: bool = False, chunk_size: Optional[int] = None,
+    edge_hist: Optional[torch.Tensor] = None,
 ):
     """The SSD part of the backward, `ops/ssd.py ssd_adjoint_xc` semantics:
     ``(g_xc, g_dt, g_A, g_D, g_dt_bias, g_h0)``. On a CPU tensor that plain
     version; on a CUDA tensor one call of the adjoint's kernels
-    (`adjoint_xc_call`), counted in ``bwd_launches``, or it raises. ``g_y``
-    is cast to xBC's dtype, as the JAX package's `_fused_chained_bwd`
-    does."""
+    (`adjoint_xc_call`), counted in ``bwd_launches`` (with ``edge_hist``:
+    ``cp_bwd_launches``), or it raises. ``g_y`` is cast to xBC's dtype, as
+    the JAX package's `_fused_chained_bwd` does."""
     H, P, NG, N = (int(v) for v in dims)
     dims = (H, P, NG, N)
     G, L, Wc = xBC.shape
@@ -598,26 +636,33 @@ def ssd_adjoint_xc(
     if not on_card(xBC, "ssd_adjoint_xc"):
         return plain_adjoint_xc(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
                                 carries, g_hN, dims, dt_softplus, reverse,
-                                chunk_size)
+                                chunk_size, edge_hist=edge_hist)
     out, _ = adjoint_xc_call(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
                              carries, g_hN, dims, dt_softplus, reverse,
-                             chunk_size)
-    global bwd_launches
-    bwd_launches += 1
+                             chunk_size, edge_hist=edge_hist)
+    global bwd_launches, cp_bwd_launches
+    if edge_hist is None:
+        bwd_launches += 1
+    else:
+        cp_bwd_launches += 1
     return out
 
 
 def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
                   conv_w: torch.Tensor, conv_b: Optional[torch.Tensor],
-                  reverse: bool = False):
+                  reverse: bool = False,
+                  edge_hist: Optional[torch.Tensor] = None):
     """SiLU and depthwise-conv adjoints, `ops/ssd.py conv_silu_bwd`
-    semantics: ``(g_xBC, g_conv_w, g_conv_b)``. On a CPU tensor that plain
-    version; on a CUDA tensor one call of `ssd_conv_bwd` (the streaming
-    conv-adjoint kernel over 1,024-row tiles and the fixed-order sum of its
-    per-tile g_conv_w / g_conv_b partials), counted in
-    ``conv_bwd_launches``, or raises."""
+    semantics: ``(g_xBC, g_conv_w, g_conv_b)``, and with ``edge_hist`` the
+    rows past the sequence edge that the conv read, their gradient g_edge
+    (G, 8, Wc) fp32 last. On a CPU tensor that plain version; on a CUDA
+    tensor one call of `ssd_conv_bwd` (the streaming conv-adjoint kernel
+    over 1,024-row tiles and the fixed-order sum of its per-tile g_conv_w /
+    g_conv_b partials), counted in ``conv_bwd_launches`` (with
+    ``edge_hist``: ``cp_conv_bwd_launches``), or raises."""
     if xBC.device.type == "cpu":
-        return plain_conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
+        return plain_conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse,
+                                   edge_hist=edge_hist)
     if xBC.device.type != "cuda":
         raise ValueError(f"conv_silu_bwd: unsupported device {xBC.device}")
     G, L, Wc = xBC.shape
@@ -632,6 +677,9 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
     K = _conv_width(conv_w)
     w_ = _small(conv_w, (K, Wc), "conv_w", dev)
     b_ = _small(conv_b, (Wc,), "conv_b", dev)
+    edge = _edge(edge_hist, xBC)
+    g_edge = (None if edge is None else
+              torch.empty(G, HIST_ROWS, Wc, dtype=torch.float32, device=dev))
     g_xBC = torch.empty(G, L, Wc, dtype=xBC.dtype, device=dev)
     g_conv = torch.empty(K + 1, Wc, dtype=torch.float32, device=dev)
     # each conv-adjoint tile's g_conv_w / g_conv_b sums, per (g, row tile),
@@ -641,28 +689,35 @@ def conv_silu_bwd(g_xc: torch.Tensor, xBC: torch.Tensor,
     with torch.cuda.device(dev):
         err = _fn("ssd_conv_bwd")(
             _DTYPES[xBC.dtype], xBC.data_ptr(), xBC.stride(0), xBC.stride(1),
-            w_.data_ptr(), _ptr(b_), g_xc.data_ptr(), g_xBC.data_ptr(),
-            g_conv.data_ptr(), g_part.data_ptr(), G, L, Wc, K, int(reverse),
+            w_.data_ptr(), _ptr(b_), g_xc.data_ptr(), _ptr(edge),
+            g_xBC.data_ptr(), g_conv.data_ptr(), g_part.data_ptr(),
+            _ptr(g_edge), G, L, Wc, K, int(reverse),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "ssd_conv_bwd", G, L, (Wc, K), xBC.dtype)
-    global conv_bwd_launches
-    conv_bwd_launches += 1
-    return g_xBC, g_conv[:K], g_conv[K]
+    global conv_bwd_launches, cp_conv_bwd_launches
+    if edge is None:
+        conv_bwd_launches += 1
+        return g_xBC, g_conv[:K], g_conv[K]
+    cp_conv_bwd_launches += 1
+    return g_xBC, g_conv[:K], g_conv[K], g_edge
 
 
 def ssd_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries,
                   g_hN, dims, dt_softplus=False, reverse=False,
-                  chunk_size=None):
+                  chunk_size=None, edge_hist=None):
     """Adjoint of the fused forward from its carries: `ssd_adjoint_xc` then
     `conv_silu_bwd` (the two kernels on a CUDA tensor, their plain versions
     on a CPU tensor). Returns the tuple of `ops/ssd.py
     ssd_chunked_fused_bwd`: ``(g_xBC, g_dt, g_A, g_conv_w, g_conv_b, g_D,
-    g_dt_bias, g_h0)``."""
+    g_dt_bias, g_h0)``, and with ``edge_hist`` g_edge (G, 8, Wc) fp32
+    last."""
     g_xc, g_dt, g_A, g_D, g_bias, g_h0 = ssd_adjoint_xc(
         xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y, carries, g_hN, dims,
-        dt_softplus, reverse, chunk_size)
-    g_xBC, g_w, g_b = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse)
-    return g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0
+        dt_softplus, reverse, chunk_size, edge_hist=edge_hist)
+    g_conv = conv_silu_bwd(g_xc, xBC, conv_w, conv_b, reverse,
+                           edge_hist=edge_hist)
+    return (g_conv[0], g_dt, g_A, g_conv[1], g_conv[2], g_D, g_bias,
+            g_h0) + tuple(g_conv[3:])
 
 
 class _SSDFusedFn(torch.autograd.Function):
@@ -751,3 +806,127 @@ def ssd_batched_fused(
                                  dims, dt_softplus, reverse, chunk_size,
                                  h_init, save_carries=False)
     return (y, hN) if return_final_state else y
+
+
+def cp_chunk_rows(L: int, chunk_size: int, seg_chunks: int) -> int:
+    """The rows a context-parallel shard's length must be a multiple of:
+    chunk x chunks per segment, by the rule of the JAX package's fused
+    kernels (`ssd_pallas_batched_fused_fwd_impl` and `_sharded_ssd`'s
+    `fused_cp_ok`: a chunk of at most L rows, rounded up to 8, and at most
+    as many chunks per segment as the shard has)."""
+    T = max(HIST_ROWS, -(-min(chunk_size, L) // 8) * 8)
+    return T * max(1, min(seg_chunks, -(-L // T)))
+
+
+def fused_cp_ok(L: int, chunk_size: int, seg_chunks: int) -> bool:
+    """Whether a shard of L rows takes the context-parallel fused entry: at
+    least 8 rows (the neighbour's edge rows) and no tail padding."""
+    return L >= HIST_ROWS and L % cp_chunk_rows(L, chunk_size, seg_chunks) == 0
+
+
+class _SSDFusedCPFn(torch.autograd.Function):
+    """The counterpart of `ssd_pallas_batched_fused_cp`'s custom_vjp:
+    forward = `ssd_fused_fwd` with carries and the edge rows, backward =
+    `ssd_fused_bwd` with them, which also returns the edge rows' gradient
+    (and g_h0: the two-pass context-parallel scan feeds pass 1's hN to
+    pass 2's h_init)."""
+
+    @staticmethod
+    def forward(ctx, xBC, dt, A, conv_w, conv_b, D, dt_bias, h_init,
+                edge_hist, dims, dt_softplus, reverse, chunk_size):
+        y, hN, carries = ssd_fused_fwd(
+            xBC, dt, A, conv_w, conv_b, D, dt_bias, dims, dt_softplus,
+            reverse, chunk_size, h_init, save_carries=True,
+            edge_hist=edge_hist)
+        ctx.save_for_backward(xBC, dt, A, conv_w, conv_b, D, dt_bias,
+                              edge_hist, carries)
+        ctx.cfg = (dims, dt_softplus, reverse, chunk_size)
+        return y, hN
+
+    @staticmethod
+    def backward(ctx, g_y, g_hN):
+        (xBC, dt, A, conv_w, conv_b, D, dt_bias, edge_hist,
+         carries) = ctx.saved_tensors
+        dims, dt_softplus, reverse, chunk_size = ctx.cfg
+        g = ssd_fused_bwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, g_y,
+                          carries, g_hN, dims, dt_softplus, reverse,
+                          chunk_size, edge_hist=edge_hist)
+        g_xBC, g_dt, g_A, g_w, g_b, g_D, g_bias, g_h0, g_edge = g
+        return (g_xBC, g_dt.to(dt.dtype), _like(g_A, A), _like(g_w, conv_w),
+                _like(g_b, conv_b), _like(g_D, D), _like(g_bias, dt_bias),
+                g_h0, g_edge.to(edge_hist.dtype), None, None, None, None)
+
+
+def ssd_batched_fused_cp(
+    xBC: torch.Tensor,                      # (G, L, H·P + 2·NG·N) pre-conv
+    dt: torch.Tensor,                       # (G, L, H) raw
+    A: torch.Tensor,                        # (H,)
+    conv_w: torch.Tensor,                   # (K, Wc)
+    conv_b: Optional[torch.Tensor],         # (Wc,)
+    D: Optional[torch.Tensor],              # (H,)
+    dt_bias: Optional[torch.Tensor],        # (H,)
+    h_init: torch.Tensor,                   # (G, H, N, P) fp32
+    edge_hist: torch.Tensor,                # (G, 8, Wc)
+    dims: Tuple[int, int, int, int] = None,  # (H, P, NG, N)
+    dt_softplus: bool = True,
+    reverse: bool = False,
+    chunk_size: Optional[int] = None,
+    seg_chunks: int = 8,
+    cp_chunk_size: int = 128,
+):
+    """The fused-conv chained SSD of one context-parallel shard, the
+    counterpart of `ssd_pallas_batched_fused_cp`: returns (y (G, L, H, P)
+    in xBC's dtype, hN (G, H, N, P) fp32).
+
+    `ssd_batched_fused` from ``h_init``, except that the depthwise conv
+    reads the neighbour shard's boundary raw rows ``edge_hist`` past the
+    sequence edge in place of zeros: the rows before the shard (the last
+    K-1 of the 8 are read), or after it when ``reverse`` (the first K-1).
+    An all-zero ``edge_hist`` is the sequence start. Differentiable in
+    every input, ``edge_hist`` and ``h_init`` included: the edge rows'
+    gradient is the conv transpose's spill past the edge. Like the JAX
+    entry it takes a shard of at least 8 rows whose length is a multiple of
+    the JAX kernels' chunk x chunks per segment (`cp_chunk_rows` of
+    ``cp_chunk_size`` and ``seg_chunks``, the config's `ssd_chunk_size` and
+    `ssd_seg_chunks`): no tail padding. The port's kernels chunk by their
+    own ``chunk_size`` (default `KERNEL_CHUNK`). On a
+    CPU tensor it runs the plain version, `ops/ssd.py ssd_chunked_fused`
+    with the edge rows, which autograd differentiates; on a CUDA tensor
+    `ssd_fused_fwd` and, under grad, `ssd_fused_bwd` with ``edge_hist``
+    (counted in ``cp_launches``, ``cp_bwd_launches`` and
+    ``cp_conv_bwd_launches``), or it raises."""
+    if dims is None:
+        raise ValueError("dims=(H, P, NG, N) is required")
+    H, P, NG, N = (int(v) for v in dims)
+    dims = (H, P, NG, N)
+    if xBC.dim() != 3 or xBC.shape[2] != H * P + 2 * NG * N:
+        raise ValueError(f"xBC shape {tuple(xBC.shape)} does not match "
+                         f"dims {dims}")
+    G, L, Wc = xBC.shape
+    if tuple(dt.shape) != (G, L, H):
+        raise ValueError(f"dt shape {tuple(dt.shape)}, expected {(G, L, H)}")
+    if chunk_size is None:
+        chunk_size = KERNEL_CHUNK.get(xBC.dtype, 64)
+    if not fused_cp_ok(L, cp_chunk_size, seg_chunks):
+        raise ValueError(
+            f"a context-parallel shard of {L} rows: it needs at least "
+            f"{HIST_ROWS} rows and a multiple of "
+            f"{cp_chunk_rows(L, cp_chunk_size, seg_chunks)} (no tail "
+            "padding between the data and the neighbour's edge rows)")
+    if tuple(edge_hist.shape) != (G, HIST_ROWS, Wc):
+        raise ValueError(f"edge_hist shape {tuple(edge_hist.shape)}, "
+                         f"expected {(G, HIST_ROWS, Wc)}")
+    if not on_card(xBC, "ssd_batched_fused_cp"):
+        return ssd_chunked_fused(
+            xBC, dt, A, conv_w, conv_b, D, dt_bias, dims=dims,
+            dt_softplus=dt_softplus, reverse=reverse, chunk_size=chunk_size,
+            h_init=h_init, return_final_state=True, edge_hist=edge_hist)
+    inputs = (xBC, dt, A, conv_w, conv_b, D, dt_bias, h_init, edge_hist)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _SSDFusedCPFn.apply(*inputs, dims, dt_softplus, reverse,
+                                   chunk_size)
+    y, hN, _ = ssd_fused_fwd(xBC, dt, A, conv_w, conv_b, D, dt_bias, dims,
+                             dt_softplus, reverse, chunk_size, h_init,
+                             save_carries=False, edge_hist=edge_hist)
+    return y, hN

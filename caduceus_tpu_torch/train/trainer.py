@@ -14,9 +14,20 @@ is the mean of the micro-batches' gradients; its loss and accuracy are the
 means of theirs, ``loss_sum`` and ``count`` their sums, and ``grad_norm``
 the global norm of the mean gradient before clipping.
 
-The `Trainer` runs one device. Not ported yet: dropout (the Hyena family,
-ROADMAP.md queue 1 item 7) and the mesh, tensor- and context-parallel
-arguments (queue 1 item 8); they raise `NotImplementedError`.
+With a ``mesh`` (`parallel/mesh.py`) the step runs data parallelism, and
+with ``context_parallel`` context parallelism, over `torch.distributed`
+(the JAX Trainer's mesh, `caduceus_tpu/train/trainer.py:277-310`): every
+rank builds the same global batch from the same seed and keeps its part
+(`shard_batch`: its rows of each micro-batch, and under CP its sequence
+columns), the loss and the metrics are global token means (sums and
+counts all-reduced over every rank), and the gradients are all-reduced
+over every rank before clipping, so every rank holds the same parameters,
+optimizer state and EMA. Every rank initializes the same parameters from
+the same seed; `Trainer.init_state` all-gathers a checksum of them and
+raises if any rank differs. Rank 0 alone logs and writes checkpoints.
+
+Not ported yet: dropout (the Hyena family, ROADMAP.md queue 1 item 7) and
+tensor parallelism (queue 1 item 8); they raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from caduceus_tpu_torch.parallel.comm import all_gather, all_reduce_
+from caduceus_tpu_torch.parallel.mesh import shard_batch
 from caduceus_tpu_torch.train.metrics import (
     NumTokens,
     Perplexity,
@@ -62,16 +75,60 @@ def init_ema(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
+def _correct(logits, tgt, ignore_index):
+    """The count of positions whose argmax is the target (ignored ones
+    left out)."""
+    pred = logits.argmax(dim=-1)
+    return ((pred == tgt) & (tgt != ignore_index)).sum()
+
+
+def _global_loss(logits, tgt, ignore_index, world):
+    """Under a mesh: (the loss this rank backpropagates, the global mean
+    loss, accuracy, loss_sum and count). The local sum over the global
+    count, so that the ranks' gradients add up to the gradient of the
+    global token mean; the metrics are the all-reduced sums."""
+    _, aux = cross_entropy_loss(logits, tgt, ignore_index=ignore_index)
+    sums = torch.stack([aux["loss_sum"].detach().float(),
+                        aux["count"].float(),
+                        _correct(logits.detach(), tgt, ignore_index).float()])
+    all_reduce_(sums, world)
+    count = torch.clamp(sums[1], min=1)
+    return (aux["loss_sum"] / count, sums[0] / count, sums[2] / count,
+            sums[0], sums[1].round().long())
+
+
+def all_reduce_grads(params, world) -> None:
+    """Sum every parameter's gradient over the ranks, in one flat
+    all-reduce (a fixed order: the bits are the same on every rank)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads or world.size == 1:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    all_reduce_(flat, world)
+    off = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[off:off + n].view_as(g))
+        off += n
+
+
 def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
-                    ema_decay: float = 0.0) -> Callable:
+                    ema_decay: float = 0.0, mesh=None) -> Callable:
     """The train step: ``step(state, batch) -> (state, metrics)``, metrics
-    as 0-d tensors on the model's device (no host sync inside)."""
+    as 0-d tensors on the model's device (no host sync inside but the
+    collectives). With a ``mesh`` the batch is this rank's part
+    (`parallel/mesh.py shard_batch`), and loss, metrics and gradients are
+    global (module docstring)."""
+    world = None if mesh is None else mesh.world_axis()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
         params = [p for p in model.parameters() if p.requires_grad]
         ids, tgt = batch["input_ids"], batch["targets"]
         lw = batch.get("loss_weights")
+        if world is not None and lw is not None:
+            raise NotImplementedError("loss_weights under a mesh: their "
+                                      "normalization is per batch")
         if ids.shape[0] % accum_steps:
             raise ValueError(f"batch of {ids.shape[0]} rows does not split "
                              f"into {accum_steps} micro-batches")
@@ -82,6 +139,16 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
         for i in range(accum_steps):
             rows = slice(i * nb, (i + 1) * nb)
             logits = model(ids[rows])
+            if world is not None:
+                loss, mean, acc, loss_sum, count = _global_loss(
+                    logits, tgt[rows], ignore_index, world)
+                loss.backward()
+                losses.append(mean)
+                accs.append(acc)
+                loss_sums.append(loss_sum)
+                counts.append(count)
+                del logits, loss
+                continue
             loss, aux = cross_entropy_loss(
                 logits, tgt[rows], ignore_index=ignore_index,
                 loss_weights=None if lw is None else lw[rows])
@@ -92,6 +159,8 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
             loss_sums.append(aux["loss_sum"].detach())
             counts.append(aux["count"])
             del logits, loss
+        if world is not None:
+            all_reduce_grads(params, world)
         if accum_steps > 1:
             for p in params:
                 if p.grad is not None:
@@ -117,7 +186,7 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
 
 
 def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
-                   per_token: bool = False) -> Callable:
+                   per_token: bool = False, mesh=None) -> Callable:
     """The eval step ``eval_step(params, batch) -> metrics`` with the
     reference HG38Task metric family (`src/tasks/tasks.py:244-332`):
     ``loss_sum`` / ``count`` for the streaming ppl, ``acc``, ``loss``;
@@ -125,9 +194,19 @@ def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
     per-position NLL and count summed over the batch. ``params`` (a
     {state_dict key: tensor} dict, e.g. the EMA) replaces the module's own
     parameters for the call; None uses them. Metrics are tensors on the
-    model's device (no host sync inside)."""
+    model's device (no host sync inside). With a ``mesh`` the batch is this
+    rank's part and every metric is global (sums all-reduced over every
+    rank; ``loss`` and ``acc`` their token means); under context
+    parallelism neither ``last_k`` nor ``per_token`` is ported."""
+    world = None if mesh is None else mesh.world_axis()
+    if (mesh is not None and mesh.shape["model"] > 1
+            and (last_k > 0 or per_token)):
+        raise NotImplementedError("last_k / per_token eval metrics under "
+                                  "context parallelism")
 
     def eval_step(params, batch):
+        if world is not None:
+            return _global_eval(params, batch)
         ids, tgt = batch["input_ids"], batch["targets"]
         with torch.inference_mode():
             logits = (model(ids) if params is None else
@@ -149,6 +228,36 @@ def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
                 aux["pos_nll_sum"] = nll.reshape(-1, nll.shape[-1]).sum(0)
                 aux["pos_count"] = mask.reshape(-1, mask.shape[-1]).sum(0)
         return aux
+
+    def _global_eval(params, batch):
+        ids, tgt = batch["input_ids"], batch["targets"]
+        with torch.inference_mode():
+            logits = (model(ids) if params is None else
+                      torch.func.functional_call(model, params, (ids,)))
+            _, aux = cross_entropy_loss(logits, tgt,
+                                        ignore_index=ignore_index)
+            vals = [aux["loss_sum"].float(), aux["count"].float(),
+                    _correct(logits, tgt, ignore_index).float()]
+            if last_k > 0:
+                _, lk = cross_entropy_loss(
+                    logits[..., -last_k:, :], tgt[..., -last_k:],
+                    ignore_index=ignore_index)
+                vals += [lk["loss_sum"].float(), lk["count"].float()]
+            sums = all_reduce_(torch.stack(vals), world)
+            count = torch.clamp(sums[1], min=1)
+            out = {"loss_sum": sums[0], "count": sums[1],
+                   "acc": sums[2] / count, "loss": sums[0] / count}
+            if last_k > 0:
+                out["last_k_loss_sum"], out["last_k_count"] = sums[3], sums[4]
+            if per_token:
+                nll, mask = per_token_ppl(logits, tgt,
+                                          ignore_index=ignore_index)
+                pos = torch.stack([nll.reshape(-1, nll.shape[-1]).sum(0),
+                                   mask.reshape(-1, mask.shape[-1]).sum(0)
+                                   .float()])
+                all_reduce_(pos, world)
+                out["pos_nll_sum"], out["pos_count"] = pos[0], pos[1]
+        return out
 
     return eval_step
 
@@ -218,6 +327,22 @@ def prefetch_to_device(loader, device: torch.device, size: int = 2):
             raise RuntimeError("the prefetch thread did not stop")
 
 
+class _Sharded:
+    """A loader whose batches are cut to this rank's part by ``shard``; its
+    state is the wrapped loader's (the global batches' position)."""
+
+    def __init__(self, loader, shard):
+        self.loader, self.shard = loader, shard
+
+    def __iter__(self):
+        for b in self.loader:
+            yield self.shard(b)
+
+    def state_dict(self):
+        return (self.loader.state_dict()
+                if hasattr(self.loader, "state_dict") else None)
+
+
 def _sync_stream(loader, device):
     for b in loader:
         st = loader.state_dict() if hasattr(loader, "state_dict") else None
@@ -268,22 +393,41 @@ class Trainer:
             raise NotImplementedError(
                 "dropout (the Hyena family) is not ported yet: ROADMAP.md "
                 "queue 1 item 7")
-        if mesh is not None or tensor_parallel or context_parallel:
+        if tensor_parallel:
             raise NotImplementedError(
-                "meshes, tensor and context parallelism are not ported yet: "
-                "ROADMAP.md queue 1 item 8")
+                "tensor parallelism is not ported yet: ROADMAP.md queue 1 "
+                "item 8 (TP)")
+        if context_parallel:
+            from caduceus_tpu_torch.parallel.mesh import set_global_mesh
+
+            if mesh is None or mesh.shape["model"] < 2:
+                raise ValueError("context parallelism needs a mesh with a "
+                                 "model axis of 2 or more")
+            if getattr(model.cfg, "context_parallel_axis", None) != "model":
+                raise ValueError("context parallelism needs the model "
+                                 "config's context_parallel_axis = 'model'")
+            set_global_mesh(mesh)
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        self.context_parallel = context_parallel
+        self.is_main = mesh is None or mesh.is_main
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.device = next(model.parameters()).device
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's "
+                             f"device is {mesh.device}")
         self.ignore_index = ignore_index
-        self.log_fn = log_fn or (lambda m: print(json.dumps(m)))
+        if log_fn is None:
+            log_fn = ((lambda m: print(json.dumps(m))) if self.is_main
+                      else (lambda m: None))
+        self.log_fn = log_fn
         self.ppl = Perplexity()
         self.num_tokens = NumTokens()
         self._eval_step = make_eval_step(
             model, ignore_index, last_k=cfg.eval_last_k,
-            per_token=cfg.eval_per_token)
+            per_token=cfg.eval_per_token, mesh=mesh)
         self._train_step = None
         self._consumed_loader_state = None
         self._warned_eval_reset = False
@@ -305,14 +449,44 @@ class Trainer:
         ema = init_ema(self.model) if cfg.ema_decay > 0 else None
         self.state = TrainState(self.model, opt, 0, ema)
         self._train_step = make_train_step(
-            self.ignore_index, cfg.accum_steps, ema_decay=cfg.ema_decay)
+            self.ignore_index, cfg.accum_steps, ema_decay=cfg.ema_decay,
+            mesh=self.mesh)
+        if self.mesh is not None:
+            self.check_same_params()
         return self.state
 
+    def check_same_params(self) -> torch.Tensor:
+        """All-gather a checksum of the parameters (per tensor: the float64
+        sums of p and of p times its flat index) and raise unless every
+        rank holds the same; returns the gathered checksums."""
+        sums = []
+        for p in self.model.parameters():
+            v = p.detach().reshape(-1).double()
+            idx = torch.arange(1, v.numel() + 1, device=v.device,
+                               dtype=torch.float64)
+            sums += [v.sum(), (v * idx).sum()]
+        got = all_gather(torch.stack(sums), self.mesh.world_axis())
+        if not bool((got == got[0]).all()):
+            bad = [r for r in range(got.shape[0])
+                   if not bool((got[r] == got[0]).all())]
+            raise RuntimeError(f"ranks {bad} initialized other parameters "
+                               "than rank 0 (the same seed must give the "
+                               "same init)")
+        return got
+
+    def _shard(self, batch):
+        """This rank's part of a host batch (all of it without a mesh)."""
+        if self.mesh is None:
+            return batch
+        return shard_batch(self.mesh, batch, cp=self.context_parallel,
+                           accum_steps=self.cfg.accum_steps)
+
     def _stream(self):
+        loader = (self.train_loader if self.mesh is None
+                  else _Sharded(self.train_loader, self._shard))
         if self.cfg.prefetch > 0:
-            return prefetch_to_device(self.train_loader, self.device,
-                                      self.cfg.prefetch)
-        return _sync_stream(self.train_loader, self.device)
+            return prefetch_to_device(loader, self.device, self.cfg.prefetch)
+        return _sync_stream(loader, self.device)
 
     # -- loop --------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None) -> Dict[str, float]:
@@ -343,7 +517,9 @@ class Trainer:
                     if prof is not None and step == 13:
                         self._stop_profile(prof)
                         prof = None
-                    tokens_since_log += batch["input_ids"].numel()
+                    # every rank's targets are its own tokens
+                    tokens_since_log += batch["targets"].numel() * (
+                        1 if self.mesh is None else self.mesh.world)
                     if step % self.cfg.log_every == 0:
                         m = {k: float(v) for k, v in m.items()}
                         self.ppl.update(m["loss_sum"], m["count"])
@@ -437,7 +613,9 @@ class Trainer:
         for i, batch in enumerate(self.eval_loader):
             if i >= max_batches:
                 break
-            m = self._eval_step(params, to_device(batch, self.device))
+            m = self._eval_step(params, to_device(
+                shard_batch(self.mesh, batch, cp=self.context_parallel)
+                if self.mesh is not None else batch, self.device))
             m = {k: (v.cpu().numpy() if v.dim() else float(v))
                  for k, v in m.items()}
             ppl.update(m["loss_sum"], m["count"])
@@ -470,9 +648,13 @@ class Trainer:
         return out
 
     # -- checkpoint --------------------------------------------------------
-    def save_checkpoint(self, path: Optional[str] = None) -> str:
+    def save_checkpoint(self, path: Optional[str] = None) -> Optional[str]:
+        """Write a checkpoint (rank 0 only; every rank holds the same
+        state); returns its path, None on the other ranks."""
         from caduceus_tpu_torch.train.checkpoint import save_checkpoint
 
+        if not self.is_main:
+            return None
         path = path or os.path.join(self.cfg.run_dir, "checkpoints")
         # the state captured when the last batch was consumed (the loader
         # itself has run ahead by the prefetched batches)

@@ -4,7 +4,10 @@ the unfused `ssd_fwd` and `ssd_fused_bwd` (its SiLU + conv adjoint
 `selective_scan_fwd`, `bidir_scan_fwd` and `selective_scan_bwd`, against
 their plain versions; the autograd Functions against finite differences; a
 v1 model backward through the scan kernels; the prefill of both causal
-families, card against CPU; and the wrappers' refusals. Imports no JAX, so
+families, card against CPU; the context-parallel entry of the fused
+kernels (`ssd_batched_fused_cp`: edge_hist in, g_edge out) against its
+plain version, against the unsplit kernel and across two runs; and the
+wrappers' refusals. Imports no JAX, so
 it runs on the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1123,3 +1126,207 @@ def test_finetune_one_repeats_bit_for_bit_on_the_card(card, tmp_path,
     assert b1.keys() == b2.keys()
     for k in b1:
         assert torch.equal(b1[k], b2[k]), k
+
+
+# --- the context-parallel entry of #1 / #3a / #3b (`ssd_batched_fused_cp`):
+# edge_hist in, its gradient g_edge out
+
+CP_GRADS = GRAD_NAMES + ("g_edge",)
+CP_SHAPES = {"small": dict(L_loc=256, H=4, P=32, NG=2, N=32),
+             "cp": dict(L_loc=131072, H=8, P=64, NG=1, N=128)}
+# (shape, reverse): outputs known to miss the rule at these inputs,
+# ROADMAP.md queue 3 item 11: at the CP shape, forward, one element of
+# g_xBC's C columns (row 39305, column 644: |plain| 0.83, |err| 0.148, atol
+# needed 0.062517 > 0.0625 x mean|ref|), with edge_hist, with an all-zero
+# one and without it alike: a cancelling sum of the heads' g_C shares and
+# the conv transpose, 39,000 rows from the edge. Its float64 value is
+# 0.7401: the kernel (0.6797) is nearer than the plain version (0.8281).
+# Each must still miss (the test flags a stale entry), the entry without
+# edge_hist too, and the kernel must stay the nearer.
+CP_KNOWN_MISSES = {("cp", False): ("g_xBC",)}
+
+
+def _cp_inputs(dtype, shape, n_shards=2, seed=0):
+    """A sequence of n_shards shards of the shape's length, G=2, with
+    h_init, the cotangents and one shard's random edge rows."""
+    c = CP_SHAPES[shape]
+    H, P, NG, N = c["H"], c["P"], c["NG"], c["N"]
+    G, L = 2, c["L_loc"] * n_shards
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    Wc = H * P + 2 * NG * N
+    return dict(
+        xBC=rnd(G, L, Wc).to(dtype), dt=(rnd(G, L, H) * 0.5).to(dtype),
+        A=-torch.exp(rnd(H, sc=0.5)), conv_w=rnd(4, Wc, sc=0.5),
+        conv_b=rnd(Wc, sc=0.1), D=rnd(H), dt_bias=rnd(H, sc=0.1),
+        h_init=rnd(G, H, N, P), g_y=rnd(G, L, H, P).to(dtype),
+        g_hN=rnd(G, H, N, P), edge=rnd(G, 8, Wc).to(dtype),
+        dims=(H, P, NG, N), n=n_shards)
+
+
+def _cp_shard_pair(inp, reverse, edge):
+    """Shard 0 through the CP entry's kernels and its plain version, with
+    ``edge``: (kernel outputs, plain outputs): y, hN, carries and the nine
+    gradients (g_edge last)."""
+    n_loc = inp["xBC"].shape[1] // inp["n"]
+    T = ssd_batched.KERNEL_CHUNK[inp["xBC"].dtype]
+    a = (inp["xBC"][:, :n_loc], inp["dt"][:, :n_loc], inp["A"],
+         inp["conv_w"], inp["conv_b"], inp["D"], inp["dt_bias"])
+    gy = inp["g_y"][:, :n_loc]
+    fk = ssd_batched.ssd_fused_fwd(*a, inp["dims"], True, reverse, T,
+                                   inp["h_init"], True, edge_hist=edge)
+    bk = ssd_batched.ssd_fused_bwd(*a, gy, fk[2], inp["g_hN"], inp["dims"],
+                                   True, reverse, T, edge_hist=edge)
+    fp = ssd_chunked_fused(*a, dims=inp["dims"], dt_softplus=True,
+                           reverse=reverse, chunk_size=T,
+                           h_init=inp["h_init"], return_carries=True,
+                           edge_hist=edge)
+    bp = ssd_chunked_fused_bwd(*a, gy, fp[2], inp["g_hN"], inp["dims"], True,
+                               reverse, T, edge_hist=edge)
+    return tuple(fk) + tuple(bk), tuple(fp) + tuple(bp)
+
+
+def _exact_g_xBC_C(inp, g, r, c):
+    """g_xBC[g, r, c] of shard 0 (forward scan, with inp's edge rows) for a
+    C column c, evaluated in float64 with no rounding between operations
+    at the same bf16 inputs: C feeds only y_t = C_t . S_t + D x_t, so its
+    gradient is sum_h g_y[t, h] . S_t[h]; the states S_t come from a
+    float64 recurrence over rows 0 .. r + K - 1, the SiLU' and the conv
+    transpose then give the element."""
+    H, P, NG, N = inp["dims"]
+    n_loc = inp["xBC"].shape[1] // inp["n"]
+    K = inp["conv_w"].shape[0]
+    t1 = r + K                          # rows r .. r + K - 1 feed the element
+    assert NG == 1 and c >= H * P + N and t1 <= n_loc
+    d = lambda t: t.double()
+    w, b = d(inp["conv_w"]), d(inp["conv_b"])
+    ext = torch.cat([d(inp["edge"][g, 8 - (K - 1):]),
+                     d(inp["xBC"][g, :t1])])           # rows -(K-1) .. t1-1
+    pre = sum(w[k] * ext[k:k + t1] for k in range(K)) + b
+    xc = pre * torch.sigmoid(pre)
+    x = xc[:, :H * P].reshape(t1, H, P)
+    B = xc[:, H * P:H * P + N]
+    dt = torch.nn.functional.softplus(d(inp["dt"][g, :t1]) + d(inp["dt_bias"]))
+    decay = torch.exp(dt * d(inp["A"]))
+    S = d(inp["h_init"][g])
+    g_C = torch.zeros(K, N, dtype=torch.float64, device=S.device)
+    gy = d(inp["g_y"][g])
+    for t in range(t1):
+        S = (decay[t][:, None, None] * S
+             + dt[t][:, None, None] * B[t][None, :, None] * x[t][:, None, :])
+        if t >= r:
+            g_C[t - r] = torch.einsum("hp,hnp->n", gy[t], S)
+    j = c - (H * P + N)
+    z = pre[r:r + K, c]
+    sg = torch.sigmoid(z)
+    g_pre = g_C[:, j] * sg * (1 + z * (1 - sg))
+    # forward conv: x row r feeds pre[r + (K-1) - k] through tap k
+    return float(sum(w[k, c] * g_pre[K - 1 - k] for k in range(K)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ("small", torch.float32), ("small", torch.bfloat16),
+    ("cp", torch.bfloat16)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cp_entry_matches_plain(card, shape, dtype, reverse):
+    """One shard through the CP entry with random edge rows against its
+    plain version with them: y, hN, the carries and all nine gradients,
+    g_edge included; with all-zero edge rows, the entry without edge_hist
+    bit for bit (forward and backward)."""
+    inp = _cp_inputs(dtype, shape)
+    got, want = _cp_shard_pair(inp, reverse, inp["edge"])
+    names = ("y", "hN", "carries") + CP_GRADS
+    miss = CP_KNOWN_MISSES.get((shape, reverse), ())
+    stats = {}
+    for name, k, p in zip(names, got, want):
+        stats[name] = compare(k, p, TOL[dtype])
+        assert stats[name]["ok"] != (name in miss), (name, stats[name])
+    zero, _ = _cp_shard_pair(inp, reverse, torch.zeros_like(inp["edge"]))
+    before = (ssd_batched.launches, ssd_batched.bwd_launches)
+    no_edge, no_edge_plain = _cp_shard_pair(inp, reverse, None)
+    assert (ssd_batched.launches, ssd_batched.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, b in zip(names, zero, no_edge):
+        assert torch.equal(a, b), name
+    for name in miss:   # the entry without edge_hist misses it too
+        i = names.index(name)
+        assert not compare(no_edge[i], no_edge_plain[i], TOL[dtype])["ok"]
+    if ("cp", False) == (shape, reverse):
+        # the g_xBC element of the known miss against its float64 value
+        k, p = got[3], want[3]
+        excess = ((k.float() - p.float()).abs()
+                  - TOL[dtype].rtol * p.float().abs())
+        g, r, c = torch.unravel_index(excess.argmax(), k.shape)
+        g, r, c = int(g), int(r), int(c)
+        exact = _exact_g_xBC_C(inp, g, r, c)
+        kv, pv = float(k[g, r, c]), float(p[g, r, c])
+        print(f"g_xBC[{g}, {r}, {c}]: kernel {kv!r}, plain {pv!r}, float64 "
+              f"{exact!r}")
+        # the kernel is the nearer of the two to the exact value
+        assert abs(kv - exact) <= abs(pv - exact), (kv, pv, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ("small", torch.float32), ("small", torch.bfloat16),
+    ("cp", torch.bfloat16)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cp_shards_match_the_whole_sequence(card, shape, dtype, reverse):
+    """The sequence cut into shards, each through `ssd_batched_fused_cp`
+    with its neighbour's rows as edge_hist and the previous shard's hN as
+    h_init (under autograd), against one `ssd_batched_fused` call: y, hN
+    and the gradients of xBC, conv_w and h_init."""
+    n = 4 if shape == "small" else 2
+    inp = _cp_inputs(dtype, shape, n_shards=n, seed=1)
+    out = []
+    for split in (True, False):
+        xBC = inp["xBC"].clone().requires_grad_(True)
+        cw = inp["conv_w"].clone().requires_grad_(True)
+        h0 = inp["h_init"].clone().requires_grad_(True)
+        kw = dict(dims=inp["dims"], dt_softplus=True, reverse=reverse)
+        if split:
+            n_loc = xBC.shape[1] // n
+            ys, h = [None] * n, h0
+            before = ssd_batched.cp_launches
+            for s in (range(n - 1, -1, -1) if reverse else range(n)):
+                sl = slice(s * n_loc, (s + 1) * n_loc)
+                nb = s + 1 if reverse else s - 1
+                if 0 <= nb < n:
+                    rows = xBC[:, nb * n_loc:(nb + 1) * n_loc]
+                    edge = rows[:, :8] if reverse else rows[:, -8:]
+                else:
+                    edge = torch.zeros_like(inp["edge"])
+                ys[s], h = ssd_batched.ssd_batched_fused_cp(
+                    xBC[:, sl], inp["dt"][:, sl], inp["A"], cw,
+                    inp["conv_b"], inp["D"], inp["dt_bias"], h, edge, **kw)
+            assert ssd_batched.cp_launches == before + n
+            y = torch.cat(ys, 1)
+        else:
+            y, h = ssd_batched.ssd_batched_fused(
+                xBC, inp["dt"], inp["A"], cw, conv_b=inp["conv_b"],
+                D=inp["D"], dt_bias=inp["dt_bias"], h_init=h0,
+                return_final_state=True, **kw)
+        loss = ((y.float() * inp["g_y"].float()).sum()
+                + (h * inp["g_hN"]).sum())
+        out.append((y.detach(), h.detach())
+                   + torch.autograd.grad(loss, (xBC, cw, h0)))
+    for name, k, p in zip(("y", "hN", "g_xBC", "g_conv_w", "g_h0"), *out):
+        stats = compare(k, p, TOL[dtype])
+        assert stats["ok"], (name, stats)
+
+
+@pytest.mark.cuda
+def test_cp_entry_repeats_bit_for_bit(card):
+    """The CP entry's forward and adjoint twice at the CP shape (G=2,
+    L_loc=131072, bf16, both directions): every output, g_edge included,
+    bit for bit the same (its spill is written by one tile, no atomics)."""
+    inp = _cp_inputs(torch.bfloat16, "cp", seed=2)
+    for reverse in (False, True):
+        first, _ = _cp_shard_pair(inp, reverse, inp["edge"])
+        first = [t.clone() for t in first]
+        again, _ = _cp_shard_pair(inp, reverse, inp["edge"])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "hN", "carries") + CP_GRADS, first,
+                              again):
+            assert torch.equal(a, b), (reverse, name)
