@@ -22,9 +22,18 @@ caduceus_tpu_torch.cli pretrain ...``): the ranks form a (data, model) mesh
 (`parallel/mesh.py`), ``--mesh-model M`` ranks along the model axis, and
 ``--context-parallel`` shards the sequence over it. ``--dist-backend``
 picks the `torch.distributed` backend (nccl by default; gloo runs several
-ranks on one card, or on the CPU with ``--device cpu``). Not ported yet:
-``--tensor-parallel`` and ``--model hyena`` (and the downstream ``--model
-hyena`` / ``cnn``).
+ranks on one card, or on the CPU with ``--device cpu``).
+
+``pretrain --model hyena --ntp`` trains the HyenaDNA LM
+(`models/hyena.py`) with embedding dropout and the filter lr groups
+(`train/optim.py hyena_lr_overrides`), its MHA layers at
+``--attn-layer-idx`` (comma-separated, as the JAX CLI takes them) with
+``--num-heads`` heads, and ``--hyena-checkpoint`` recomputing each block's
+mixer and MLP in the backward; it writes the JAX CLI's Hyena
+``model_config.json`` (``model_type``, ``objective``, ``lr`` and the model
+fields), which ``eval`` and ``finetune`` read. The Hyena family takes no
+``--context-parallel`` (the FFT long conv has no sequence-sharded path),
+as in the JAX CLI. Not ported yet: ``--tensor-parallel``.
 """
 
 from __future__ import annotations
@@ -247,27 +256,34 @@ def cmd_pretrain(argv):
                    choices=["caduceus", "mamba", "hyena"],
                    help="caduceus (BiMamba / RCPS, MLM or NTP); mamba = "
                         "unidirectional NTP (`dna_embedding.py:99-153`); "
-                        "hyena is not ported yet")
+                        "hyena = HyenaDNA-style NTP LM with dropout and "
+                        "filter lr groups (`models/hyena.py`)")
     p.add_argument("--attn-layer-idx",
                    type=lambda s: tuple(int(x) for x in s.split(",") if x),
-                   default=(), help="--model hyena only (not ported yet)")
+                   default=(),
+                   help="comma-separated layer indices that use MHA instead "
+                        "of the Hyena mixer (--model hyena only)")
     p.add_argument("--num-heads", type=int, default=8,
-                   help="--model hyena only (not ported yet)")
+                   help="MHA heads on hybrid attention layers")
     p.add_argument("--hyena-checkpoint", action="store_true",
-                   help="--model hyena only (not ported yet)")
+                   help="recompute the mixer and MLP branches of each block "
+                        "in the backward (--model hyena only)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     _add_parallel_args(p)
     _add_common_model_args(p)
     p.set_defaults(**preset)
     args = p.parse_args(argv)
-    if args.model == "hyena" or args.attn_layer_idx or args.hyena_checkpoint:
-        p.error("--model hyena (and its --attn-layer-idx / "
-                "--hyena-checkpoint) is not ported yet (ROADMAP.md queue 1 "
-                "item 7)")
-    if args.model == "mamba" and not args.ntp:
-        p.error("--model mamba is causal: pretrain with --ntp")
+    if args.model in ("mamba", "hyena") and not args.ntp:
+        p.error(f"--model {args.model} is causal: pretrain with --ntp")
+    if (args.attn_layer_idx or args.hyena_checkpoint) and args.model != "hyena":
+        p.error("--attn-layer-idx/--hyena-checkpoint require --model hyena")
+    if any(i < 0 or i >= args.n_layer for i in args.attn_layer_idx):
+        p.error(f"--attn-layer-idx entries must be in [0, {args.n_layer})")
     _check_parallel(p, args)
+    if args.model == "hyena" and args.context_parallel:
+        p.error("--context-parallel is not supported by --model hyena "
+                "(the FFT long conv has no sequence-sharded path)")
 
     import torch
 
@@ -294,24 +310,44 @@ def cmd_pretrain(argv):
         use_native=args.use_native_loader,
     )
     os.makedirs(args.run_dir, exist_ok=True)
-    cfg = _build_model_config(args, dm.tokenizer)
-    if args.model == "mamba":
-        # unidirectional causal Mamba LM (`dna_embedding.py:99-153`)
-        cfg.rcps = False
-        cfg.bidirectional = False
-    # the objective, so that `eval` rebuilds the right task; the parallel
-    # axes are launch choices, not part of the model
-    meta = cfg.to_dict()
-    meta["objective"] = "ntp" if args.ntp else "mlm"
-    meta["tensor_parallel_axis"] = None
-    meta["context_parallel_axis"] = None
+    gen = torch.Generator().manual_seed(args.seed)
+    lr_overrides = None
+    if args.model == "hyena":
+        from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+        from caduceus_tpu_torch.train.optim import hyena_lr_overrides
+
+        hy = dict(d_model=args.d_model, n_layer=args.n_layer,
+                  vocab_size=dm.tokenizer.vocab_size, l_max=args.max_length,
+                  attn_layer_idx=tuple(args.attn_layer_idx),
+                  num_heads=args.num_heads,
+                  checkpoint_mixer=args.hyena_checkpoint,
+                  checkpoint_mlp=args.hyena_checkpoint, dtype=args.dtype)
+        # "lr": eval and fine-tuning rebuild the filter lr groups against
+        # the run's base lr
+        meta = {"model_type": "hyena", "objective": "ntp", "lr": args.lr,
+                **hy}
+        model = HyenaLMHeadModel(device=dev, generator=gen, **hy)
+        # `configs/model/hyena.yaml:22-24`: the filter MLP at the base lr
+        # and wd 0, z and the decay rates frozen; embedding dropout on
+        lr_overrides = hyena_lr_overrides(args.lr)
+    else:
+        cfg = _build_model_config(args, dm.tokenizer)
+        if args.model == "mamba":
+            # unidirectional causal Mamba LM (`dna_embedding.py:99-153`)
+            cfg.rcps = False
+            cfg.bidirectional = False
+        # the objective, so that `eval` rebuilds the right task; the
+        # parallel axes are launch choices, not part of the model
+        meta = cfg.to_dict()
+        meta["objective"] = "ntp" if args.ntp else "mlm"
+        meta["tensor_parallel_axis"] = None
+        meta["context_parallel_axis"] = None
+        if args.context_parallel:
+            cfg.context_parallel_axis = "model"
+        model = CaduceusForMaskedLM(cfg, device=dev, generator=gen)
     if main:
         with open(os.path.join(args.run_dir, "model_config.json"), "w") as f:
             json.dump(meta, f, indent=2)
-    if args.context_parallel:
-        cfg.context_parallel_axis = "model"
-    model = CaduceusForMaskedLM(
-        cfg, device=dev, generator=torch.Generator().manual_seed(args.seed))
     tcfg = TrainerConfig(
         max_steps=args.max_steps,
         run_dir=args.run_dir,
@@ -324,6 +360,7 @@ def cmd_pretrain(argv):
         gradient_clip=args.gradient_clip,
         accum_steps=args.accum_steps,
         ema_decay=args.ema_decay,
+        dropout=args.model == "hyena",
         prefetch=args.prefetch,
         profile_dir=args.profile_dir,
         log_every=args.log_every,
@@ -337,7 +374,7 @@ def cmd_pretrain(argv):
     try:
         trainer = Trainer(model, tcfg, train_loader, dm.eval_loader("valid"),
                           mesh=mesh, ignore_index=dm.tokenizer.pad_token_id,
-                          log_fn=log_fn,
+                          log_fn=log_fn, lr_overrides=lr_overrides,
                           context_parallel=args.context_parallel)
         trainer.init_state()
         log_fn(param_count(model))
@@ -369,25 +406,36 @@ def cmd_eval(argv):
     _add_parallel_args(p)
     args = p.parse_args(argv)
     _check_parallel(p, args)
-    with open(os.path.join(args.run_dir, "model_config.json")) as f:
-        raw = json.load(f)
-    if raw.get("model_type") == "hyena":
-        p.error("hyena run dirs are not ported yet (ROADMAP.md queue 1 "
-                "item 7)")
+    from caduceus_tpu_torch.params import (
+        load_hyena_run_dir,
+        load_run_dir,
+        run_config,
+    )
+
+    raw = run_config(args.run_dir)
+    hyena = raw.get("model_type") == "hyena"
+    if hyena and (args.tensor_parallel or args.context_parallel):
+        p.error("--tensor-parallel/--context-parallel eval is only "
+                "supported for the caduceus/mamba families")
 
     from caduceus_tpu_torch import resolve_device
     from caduceus_tpu_torch.data.hg38 import HG38DataModule
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
-    from caduceus_tpu_torch.params import load_run_dir
     from caduceus_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     mesh = _maybe_mesh(p, args)
     dev = resolve_device(args.device) if mesh is None else mesh.device
-    cfg, params = load_run_dir(args.run_dir)
-    if args.context_parallel:
-        cfg.context_parallel_axis = "model"
-    model = CaduceusForMaskedLM(cfg, device=dev,
-                                tie_word_embeddings="lm_head" not in params)
+    if hyena:
+        from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+
+        kw, params = load_hyena_run_dir(args.run_dir)
+        model = HyenaLMHeadModel(device=dev, **kw)
+    else:
+        cfg, params = load_run_dir(args.run_dir)
+        if args.context_parallel:
+            cfg.context_parallel_axis = "model"
+        model = CaduceusForMaskedLM(
+            cfg, device=dev, tie_word_embeddings="lm_head" not in params)
     model.load_state_dict(params)
     # the objective recorded at pretrain time (older runs: MLM)
     mlm = raw.get("objective", "mlm") == "mlm"

@@ -2,12 +2,18 @@
 
 Port of `caduceus_tpu/finetune.py`:
 
-- `_make_classifier` (`:98-140`): the pretrained backbone
+- `_make_classifier` (`:24-140`): the pretrained backbone
   (`models/caduceus.py CaduceusBackbone`) under a `SequenceDecoder` head
   (`models/heads.py`), optionally fed by an input encoder
   (`models/encoders.py`). RCPS stacks the two strands' hidden states in
   their canonical orientation (`h[0]`, `h[1]`), conjoined (B, L, 2) ids run
-  the backbone once per strand, plain (B, L) ids once;
+  the backbone once per strand, plain (B, L) ids once. ``model_kind
+  "hyena"``: `HyenaDNAClassifier` (`:59-96`), the `models/hyena.py
+  HyenaLMBackbone` of a Hyena run (its config is the run's dict of model
+  fields) under the same decoder, trained with its dropout on; ``"cnn"``:
+  `CNNClassifier` (`:42-57`), the from-scratch `models/cnn.py
+  GenomicsBenchmarkCNN`, BatchNorm on batch statistics in training and on
+  its running ones in eval;
 - `finetune_one` (`:143-328`): the per-problem-type loss, the freeze path
   (the backbone's gradients zeroed while AdamW still runs over them, so its
   decayed weights still shrink), AdamW (betas 0.9 / 0.999) on a cosine
@@ -21,12 +27,13 @@ Port of `caduceus_tpu/finetune.py`:
   cross-seed export chosen on the val metric.
 
 Differences from the JAX module: the pretrained weights are read through
-`params.py load_run_dir` (raw weights, not the EMA), which takes a
+`params.py load_run_dir` / `load_hyena_run_dir` (raw weights, not the EMA), which takes a
 ``params.npz`` export, the port's checkpoints or a JAX Orbax run, and
 raises on a run dir that holds none (the JAX module starts from scratch);
-``--model hyena`` / ``cnn`` and hyena run dirs are refused (ROADMAP.md
-queue 1 item 7); the classification metrics are the port's numpy ones
-(`train/metrics.py`), so nothing here needs scikit-learn.
+the Hyena classifier's dropout masks are the port's own (`models/hyena.py
+dropout`, keyed by the seed and the step); the classification metrics are
+the port's numpy ones (`train/metrics.py`), so nothing here needs
+scikit-learn.
 """
 
 from __future__ import annotations
@@ -44,8 +51,6 @@ import torch.nn.functional as F
 from caduceus_tpu_torch import resolve_device
 
 _IDENTITY = ("id", "stop", "identity")
-_NOT_PORTED = ("--model hyena / cnn and hyena run dirs are not ported yet "
-               "(ROADMAP.md queue 1 item 7)")
 
 
 class DNAClassifier(nn.Module):
@@ -100,13 +105,85 @@ class DNAClassifier(nn.Module):
         return self.decoder(x, lengths).float()
 
 
+class HyenaDNAClassifier(nn.Module):
+    """`HyenaLMBackbone` (``cfg``: the Hyena run's dict of model fields) +
+    `SequenceDecoder`; ``forward(ids, lengths, dropout_key)`` returns fp32
+    scores. Plain (B, L) ids, or conjoined (B, L, 2) strands run through
+    the backbone once each. State_dict keys: ``backbone.*``,
+    ``decoder.output_transform.*``."""
+
+    def __init__(self, cfg: dict, num_labels: int, pooling: str,
+                 use_lengths: bool, padding_side: str, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        from caduceus_tpu_torch.models.heads import SequenceDecoder
+        from caduceus_tpu_torch.models.hyena import HyenaLMBackbone
+
+        super().__init__()
+        dev = resolve_device(device)
+        g = generator if generator is not None else torch.Generator()
+        self.use_lengths = use_lengths
+        self.backbone = HyenaLMBackbone(generator=g, **cfg)
+        self.decoder = SequenceDecoder(cfg["d_model"], num_labels,
+                                       mode=pooling, use_lengths=use_lengths,
+                                       padding_side=padding_side, generator=g)
+        self.to(dev)
+
+    def forward(self, ids: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                dropout_key=None) -> torch.Tensor:
+        if not self.use_lengths:
+            lengths = None
+        if ids.dim() == 3:  # conjoined (B, L, 2) strands
+            kf = None if dropout_key is None else (*dropout_key, 0)
+            kr = None if dropout_key is None else (*dropout_key, 1)
+            h_f, _ = self.backbone(ids[..., 0], kf)
+            h_r, _ = self.backbone(ids[..., 1], kr)
+            x = torch.stack([h_f, h_r], dim=-1)
+        else:
+            x, _ = self.backbone(ids, dropout_key)
+        return self.decoder(x, lengths).float()
+
+
+class CNNClassifier(nn.Module):
+    """The from-scratch `GenomicsBenchmarkCNN` under the name ``cnn``;
+    plain (B, L) ids of length ``seq_len``."""
+
+    def __init__(self, num_labels: int, seq_len: int, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        from caduceus_tpu_torch.models.cnn import GenomicsBenchmarkCNN
+
+        super().__init__()
+        dev = resolve_device(device)
+        self.cnn = GenomicsBenchmarkCNN(num_labels, seq_len,
+                                        generator=generator)
+        self.to(dev)
+
+    def forward(self, ids: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if ids.dim() != 2:
+            raise ValueError("the CNN baseline takes plain (B, L) ids")
+        return self.cnn(ids)
+
+
 def _make_classifier(cfg, num_labels, pooling, use_lengths, padding_side,
                      encoder="id", model_kind="caduceus", device="cuda",
-                     generator=None) -> DNAClassifier:
-    """The fine-tuning model for ``model_kind`` (only "caduceus" is
-    ported)."""
+                     generator=None, seq_len: Optional[int] = None
+                     ) -> nn.Module:
+    """The fine-tuning model for ``model_kind``: "caduceus" (``cfg`` a
+    `CaduceusConfig`), "hyena" (``cfg`` the Hyena run's dict of model
+    fields) or "cnn" (no ``cfg``; ``seq_len`` sets fc1's width)."""
+    if model_kind == "cnn":
+        return CNNClassifier(num_labels, seq_len, device=device,
+                             generator=generator)
+    if model_kind == "hyena":
+        if encoder not in _IDENTITY:
+            raise ValueError("encoders are a caduceus-path feature; hyena "
+                             "embeds its own tokens")
+        return HyenaDNAClassifier(cfg, num_labels, pooling, use_lengths,
+                                  padding_side, device=device,
+                                  generator=generator)
     if model_kind != "caduceus":
-        raise NotImplementedError(f"model_kind={model_kind!r}: {_NOT_PORTED}")
+        raise ValueError(f"model_kind={model_kind!r}")
     return DNAClassifier(cfg, num_labels, pooling, use_lengths, padding_side,
                          encoder=encoder, device=device, generator=generator)
 
@@ -130,18 +207,28 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_finetune_step(model: nn.Module, opt, problem_type: str,
-                       freeze_backbone: bool = False):
+                       freeze_backbone: bool = False,
+                       dropout_seed: Optional[int] = None):
     """One optimizer step on a batch (device tensors): forward, loss,
     backward, then ``opt.step()``; returns the loss. Every parameter gets a
     gradient (zeros where the forward does not reach it, as in JAX), and
     with ``freeze_backbone`` the backbone's are zeroed, so AdamW still
-    runs over them."""
+    runs over them. The model runs in training mode (the CNN's BatchNorm
+    on batch statistics); with ``dropout_seed`` (the Hyena classifier) it
+    is called with the dropout key (dropout_seed, step)."""
     params = list(model.named_parameters())
+    count = [0]
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         for _, p in params:
             p.grad = None
-        logits = model(batch["input_ids"], batch["lengths"])
+        model.train()
+        if dropout_seed is None:
+            logits = model(batch["input_ids"], batch["lengths"])
+        else:
+            logits = model(batch["input_ids"], batch["lengths"],
+                           dropout_key=(dropout_seed, count[0]))
+        count[0] += 1
         loss = classification_loss(logits, batch["labels"], problem_type)
         loss.backward()
         for name, p in params:
@@ -193,10 +280,19 @@ def finetune_one(
     dev = resolve_device(device)
     log = log_fn or (lambda m: print(json.dumps(m)))
     padding_side = getattr(dm.tokenizer, "padding_side", "left")
+    seq_len = None
+    if model_kind == "cnn":
+        if pretrained_params is not None or freeze_backbone:
+            raise ValueError("the CNN baseline trains from scratch (no "
+                             "backbone)")
+        # fc1's width follows the batches' length, as flax infers it
+        seq_len = next(iter(dm.batches("train", seed=seed)))[
+            "input_ids"].shape[1]
     model = _make_classifier(cfg, num_labels, pooling, use_lengths,
                              padding_side, encoder=encoder,
                              model_kind=model_kind, device=dev,
-                             generator=torch.Generator().manual_seed(seed))
+                             generator=torch.Generator().manual_seed(seed),
+                             seq_len=seq_len)
     if pretrained_params is not None:
         model.load_state_dict(load_backbone(pretrained_params,
                                             model.state_dict()))
@@ -207,7 +303,9 @@ def finetune_one(
         model.named_parameters(), lr=lr, weight_decay=weight_decay,
         betas=(0.9, 0.999), warmup_t=max(1, total // 10), t_initial=total,
         lr_min=lr * 0.01, layer_decay=layer_decay)
-    train_step = make_finetune_step(model, opt, problem_type, freeze_backbone)
+    train_step = make_finetune_step(
+        model, opt, problem_type, freeze_backbone,
+        dropout_seed=seed ^ 0x5EED if model_kind == "hyena" else None)
 
     def snapshot():
         return {k: v.detach().to("cpu", copy=True)
@@ -215,6 +313,7 @@ def finetune_one(
 
     @torch.inference_mode()
     def eval_split(split):
+        model.eval()
         scores, labels = [], []
         for batch in dm.batches(split, shuffle=False, drop_last=False):
             b = _to_device(batch, dev)
@@ -279,13 +378,19 @@ def finetune_one(
     return result
 
 
-def _export_finetuned(args, cfg, select, best_export) -> None:
+def _export_finetuned(args, cfg, model_kind, select, best_export) -> None:
     """Write a servable model dir: ``params.npz`` (the best seed's best-val
     weights as flat flax paths) + ``task_config.json`` (what `serve.py`
     needs to rebuild the classifier and encode requests as eval does)."""
     from caduceus_tpu_torch.params import to_jax_params
 
     score, seed, state, num_classes, dm = best_export
+    if model_kind == "caduceus":
+        model_cfg = cfg.to_dict()
+    elif model_kind == "hyena":
+        model_cfg = {**cfg, "attn_layer_idx": list(cfg["attn_layer_idx"])}
+    else:   # the CNN trains from scratch: no backbone config
+        model_cfg = None
     os.makedirs(args.save_dir, exist_ok=True)
     np.savez(os.path.join(args.save_dir, "params.npz"), **to_jax_params(state))
     task_cfg = {
@@ -298,12 +403,12 @@ def _export_finetuned(args, cfg, select, best_export) -> None:
         "add_eos": bool(getattr(dm.train_ds, "add_eos", False)),
         "conjoin": bool(args.conjoin_train or args.conjoin_test),
         "encoder": args.encoder,
-        "model_kind": "caduceus",
+        "model_kind": model_kind,
         "max_length": int(args.max_length),
         "seed": int(seed),
         "select_metric": select,
         "val_score": float(score),
-        "model_cfg": cfg.to_dict(),
+        "model_cfg": model_cfg,
     }
     with open(os.path.join(args.save_dir, "task_config.json"), "w") as f:
         json.dump(task_cfg, f, indent=1)
@@ -352,7 +457,9 @@ def main(argv=None):
     p.add_argument("--metric", default="all")
     p.add_argument("--model", default="caduceus",
                    choices=["caduceus", "hyena", "cnn"],
-                   help="caduceus; hyena and cnn are not ported yet")
+                   help="cnn = the from-scratch GenomicsBenchmarkCNN "
+                        "baseline; hyena = the HyenaDNA backbone, selected "
+                        "by itself when --pretrained-run-dir is a Hyena run")
     p.add_argument("--d-model", type=int, default=128)
     p.add_argument("--n-layer", type=int, default=4)
     p.add_argument("--no-rcps", action="store_true")
@@ -382,11 +489,10 @@ def main(argv=None):
         NUCLEOTIDE_TRANSFORMER_TASKS,
         ClassificationDataModule,
     )
-    from caduceus_tpu_torch.params import load_run_dir
+    from caduceus_tpu_torch.models.hyena import hyena_kwargs
+    from caduceus_tpu_torch.params import load_hyena_run_dir, load_run_dir
     from caduceus_tpu_torch.tokenization import CharacterTokenizer
 
-    if args.model != "caduceus":
-        p.error(_NOT_PORTED)
     tok = CharacterTokenizer()
     cfg_path = args.config_path or (
         os.path.join(args.pretrained_run_dir, "model_config.json")
@@ -395,9 +501,26 @@ def main(argv=None):
     if cfg_path and os.path.exists(cfg_path):
         with open(cfg_path) as f:
             raw_cfg = json.load(f)
+    model_kind = args.model
+    if model_kind == "cnn" and args.pretrained_run_dir:
+        p.error("--model cnn trains from scratch; it takes no "
+                "--pretrained-run-dir")
     if raw_cfg is not None and raw_cfg.get("model_type") == "hyena":
-        p.error(_NOT_PORTED)
-    if raw_cfg is not None:
+        # the run dir decides the backbone family
+        model_kind = "hyena"
+        cfg = hyena_kwargs(raw_cfg)
+    elif model_kind == "hyena":
+        if args.pretrained_run_dir:
+            p.error("--model hyena with a pretrained run dir that is not a "
+                    "Hyena run (its model_config.json has no \"model_type\": "
+                    "\"hyena\")")
+        # a from-scratch HyenaDNA backbone
+        cfg = hyena_kwargs(dict(d_model=args.d_model, n_layer=args.n_layer,
+                                vocab_size=tok.vocab_size,
+                                l_max=args.max_length))
+    elif model_kind == "cnn":
+        cfg = None
+    elif raw_cfg is not None:
         cfg = CaduceusConfig.load(cfg_path)
         cfg.complement_map = tok.complement_map
     else:
@@ -405,19 +528,26 @@ def main(argv=None):
             d_model=args.d_model, n_layer=args.n_layer,
             vocab_size=tok.vocab_size, ssm_cfg=SSMConfig(),
             rcps=not args.no_rcps, complement_map=tok.complement_map)
-    if (args.conjoin_train or args.conjoin_test) and cfg.rcps:
-        p.error("--conjoin-train/--conjoin-test require a non-rcps model "
-                "(pass --no-rcps, or point at a non-rcps pretrained "
-                "config); an RCPS backbone is already RC-equivariant and "
-                "takes plain (B, L) inputs")
+    if model_kind != "caduceus" and args.encoder not in _IDENTITY:
+        p.error(f"--encoder is a caduceus-path feature (--model "
+                f"{model_kind} embeds its own tokens)")
+    if args.conjoin_train or args.conjoin_test:
+        if model_kind == "cnn":
+            p.error("--conjoin-train/--conjoin-test are not supported by "
+                    "--model cnn (it takes plain (B, L) ids)")
+        if model_kind == "caduceus" and cfg.rcps:
+            p.error("--conjoin-train/--conjoin-test require a non-rcps "
+                    "model (pass --no-rcps, or point at a non-rcps "
+                    "pretrained config); an RCPS backbone is already "
+                    "RC-equivariant and takes plain (B, L) inputs")
 
     dev = resolve_device(args.device)
     pretrained_params = None
     if args.pretrained_run_dir:
         # the raw weights, as the JAX module grafts TrainState.params; a run
         # dir without parameters raises (FileNotFoundError)
-        _, pretrained_params = load_run_dir(args.pretrained_run_dir,
-                                            prefer_ema=False)
+        load = load_hyena_run_dir if model_kind == "hyena" else load_run_dir
+        _, pretrained_params = load(args.pretrained_run_dir, prefer_ema=False)
 
     # the task's headline metric for best-val selection
     if args.problem_type != "single_label_classification":
@@ -450,8 +580,8 @@ def main(argv=None):
             problem_type=args.problem_type,
             freeze_backbone=args.freeze_backbone,
             use_lengths=args.use_lengths, layer_decay=args.layer_decay,
-            encoder=args.encoder, return_state=bool(args.save_dir),
-            device=dev,
+            encoder=args.encoder, model_kind=model_kind,
+            return_state=bool(args.save_dir), device=dev,
         )
         if args.save_dir:
             r, state = r
@@ -467,7 +597,7 @@ def main(argv=None):
         print(json.dumps(r))
 
     if args.save_dir and best_export is not None:
-        _export_finetuned(args, cfg, select, best_export)
+        _export_finetuned(args, cfg, model_kind, select, best_export)
     summary = {
         "task": args.task,
         "seeds": args.seeds,

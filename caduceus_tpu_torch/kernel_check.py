@@ -11,6 +11,16 @@ The elementwise limit scales with each value, plus a floor set by the
 typical value (mean|p|), not by the largest: the outputs are heavy-tailed,
 and a limit set by the largest value would let a wrong tile of typical
 values pass.
+
+``rows=True`` takes that typical value per row where the row's is the
+larger: the floor of an element is atol times the larger of mean|p| over
+its row (the last dimension) and over the whole tensor. For attention,
+whose rows differ in size by the number of keys each averages (at L =
+65,536 a causal row's output shrinks as 1/sqrt(its keys)): one mean over
+all rows is set by the long rows and would hold the short ones, whose
+rounding moves them by their own size, to a floor 30x smaller than that;
+a row whose value cancels to ~0 (dq of the first causal row) keeps the
+tensor's floor.
 """
 
 from __future__ import annotations
@@ -49,30 +59,41 @@ TOL = {
 _CHUNK = 1 << 26   # elements per pass: bounds the fp32 temporaries
 
 
-def compare(kernel: torch.Tensor, plain: torch.Tensor, tol: Tol) -> dict:
+def compare(kernel: torch.Tensor, plain: torch.Tensor, tol: Tol,
+            rows: bool = False) -> dict:
     """Errors of ``kernel`` against ``plain`` and whether they pass ``tol``.
 
-    ``atol_needed`` is the smallest ``atol`` (in units of mean|plain|) the
-    elementwise limit would need at this ``rtol``."""
+    ``atol_needed`` is the smallest ``atol`` (in units of mean|plain|, per
+    row with ``rows``) the elementwise limit would need at this ``rtol``."""
     if kernel.shape != plain.shape:
         raise ValueError(f"shapes {tuple(kernel.shape)} != {tuple(plain.shape)}")
+    width = plain.shape[-1] if rows and plain.dim() else 1
     k, p = kernel.reshape(-1), plain.reshape(-1)
+    step = _CHUNK - _CHUNK % width
+    n = max(k.numel(), 1)
+    floor = (sum(p[i:i + step].float().abs().double().sum().item()
+                 for i in range(0, k.numel(), step)) / n if rows else 0.0)
     sq_d = sq_p = sum_p = 0.0
     max_d = max_p = 0.0
     excess = -math.inf
-    for i in range(0, k.numel(), _CHUNK):
-        pc = p[i:i + _CHUNK].float()
-        d = (k[i:i + _CHUNK].float() - pc).abs()
+    for i in range(0, k.numel(), step):
+        pc = p[i:i + step].float()
+        d = (k[i:i + step].float() - pc).abs()
         pa = pc.abs()
         sq_d += d.double().square().sum().item()
         sq_p += pa.double().square().sum().item()
         sum_p += pa.double().sum().item()
         max_d = max(max_d, d.max().item())
         max_p = max(max_p, pa.max().item())
-        excess = max(excess, (d - tol.rtol * pa).max().item())
-    mean_p = sum_p / max(k.numel(), 1)
+        over = d - tol.rtol * pa
+        if rows:
+            unit = pa.reshape(-1, width).mean(-1, keepdim=True)
+            over = over.reshape(-1, width) / unit.clamp(min=max(floor,
+                                                                1e-30))
+        excess = max(excess, over.max().item())
+    mean_p = sum_p / n
     rel_l2 = math.sqrt(sq_d) / max(math.sqrt(sq_p), 1e-30)
-    atol_needed = max(excess, 0.0) / max(mean_p, 1e-30)
+    atol_needed = max(excess, 0.0) / (1.0 if rows else max(mean_p, 1e-30))
     return {"max_abs_err": max_d, "max_abs_ref": max_p,
             "mean_abs_ref": mean_p, "rel_l2": rel_l2,
             "atol_needed": atol_needed,

@@ -9,9 +9,16 @@ sep="/"))``. The port's modules carry the flax names, so the mapping is:
 
 - ``layers_<i>`` → ``layers.<i>``, ``/`` → ``.``;
 - a Dense ``kernel`` (in, out) → ``weight`` (out, in): TRANSPOSED, the
-  `nn.Linear` layout `models/mamba.py FrameDense` uses;
+  `nn.Linear` layout `models/mamba.py FrameDense` uses; a kernel of
+  another rank (the CNN's conv kernels, (K, in, out)) keeps its layout;
 - everything else (embedding, lm_head, norm weights, conv_w (K, Wc),
   conv_b, dt_bias, A_log, D) keeps its name and layout.
+
+The Hyena family's paths (``backbone/mixer_<i>/filter_fn/mlp_0/kernel``,
+``backbone/ln1_<i>/scale``, ...) map the same way onto
+`models/hyena.py`'s modules, which carry the flax names; a CNN's running
+BatchNorm statistics (flax's ``batch_stats`` collection) are buffers of
+the port's module under the same paths (``cnn/bn_0/mean``).
 
 `from_jax_params` consumes every key exactly once and raises on missing
 keys, leftover keys and shape mismatches; `to_jax_params` goes the other
@@ -20,6 +27,7 @@ way (`flax_path` inverts `torch_key`).
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Dict, Optional, Tuple
@@ -66,8 +74,8 @@ def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     for key, t in tensors.items():
         path = flax_path(key)
         a = t.detach().float().cpu().numpy()
-        out[path] = np.ascontiguousarray(a.T if path.endswith("/kernel")
-                                         else a)
+        out[path] = np.ascontiguousarray(
+            a.T if path.endswith("/kernel") and a.ndim == 2 else a)
     return out
 
 
@@ -98,7 +106,9 @@ def from_jax_params(flat: Dict[str, np.ndarray], cfg: CaduceusConfig,
     ``score/kernel``) maps onto the module's keys the same way."""
     pending = {}
     for path, arr in flat.items():
-        path = path[len("params/"):] if path.startswith("params/") else path
+        for coll in ("params/", "batch_stats/"):
+            if path.startswith(coll):
+                path = path[len(coll):]
         key = torch_key(path)
         if key in pending:
             raise KeyError(f"two flax paths map to {key!r}")
@@ -114,7 +124,7 @@ def from_jax_params(flat: Dict[str, np.ndarray], cfg: CaduceusConfig,
     for key, (shape, dtype) in want.items():
         path, arr = pending.pop(key)
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        if path.endswith("/kernel"):
+        if path.endswith("/kernel") and t.dim() == 2:
             t = t.t()
         if tuple(t.shape) != shape:
             raise ValueError(f"{path}: shape {tuple(t.shape)} maps to {key} "
@@ -132,10 +142,9 @@ def load_npz_params(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_run_dir(run_dir: str, prefer_ema: bool = True
-                 ) -> Tuple[CaduceusConfig, Dict[str, torch.Tensor]]:
-    """(config, state_dict) of a run dir holding ``model_config.json`` and
-    parameters, read from the first of:
+def read_run_params(run_dir: str, prefer_ema: bool = True
+                    ) -> Dict[str, np.ndarray]:
+    """The flat flax parameters of a run dir, read from the first of:
 
     1. a ``params.npz`` export (flat flax paths, this module's contract);
     2. the port's latest checkpoint, ``checkpoints/<step>/`` written by
@@ -145,24 +154,65 @@ def load_run_dir(run_dir: str, prefer_ema: bool = True
        pretrain`), read with `tensorstore` (`train/checkpoint.py
        load_run_params`; EMA preferred the same way).
 
-    Raises if none is there; never returns fresh weights. The LM head is
-    untied when the parameters hold ``lm_head`` (pass
-    ``tie_word_embeddings="lm_head" not in state_dict`` to the model)."""
+    Raises if none is there; never returns fresh weights."""
     from caduceus_tpu_torch.train import checkpoint
 
-    cfg = CaduceusConfig.load(os.path.join(run_dir, "model_config.json"))
     npz = os.path.join(run_dir, "params.npz")
     ckpts = os.path.join(run_dir, "checkpoints")
     if os.path.exists(npz):
-        flat = load_npz_params(npz)
-    elif checkpoint.latest_step(ckpts) is not None:
-        flat, _ = checkpoint.read_latest_params(run_dir, prefer_ema)
-    elif checkpoint.jax_latest_step(ckpts) is not None:
-        flat, _ = checkpoint.load_run_params(run_dir, prefer_ema)
-    else:
-        raise FileNotFoundError(
-            f"{run_dir} holds no parameters: expected a params.npz export, "
-            "the port's checkpoints/<step>/ (meta.json) or a JAX run's "
-            "Orbax checkpoints/<step>/ (_CHECKPOINT_METADATA)")
+        return load_npz_params(npz)
+    if checkpoint.latest_step(ckpts) is not None:
+        return checkpoint.read_latest_params(run_dir, prefer_ema)[0]
+    if checkpoint.jax_latest_step(ckpts) is not None:
+        return checkpoint.load_run_params(run_dir, prefer_ema)[0]
+    raise FileNotFoundError(
+        f"{run_dir} holds no parameters: expected a params.npz export, "
+        "the port's checkpoints/<step>/ (meta.json) or a JAX run's "
+        "Orbax checkpoints/<step>/ (_CHECKPOINT_METADATA)")
+
+
+def run_config(run_dir: str) -> dict:
+    """The run dir's ``model_config.json``; ``"model_type": "hyena"`` marks
+    a Hyena run (what `cli.py pretrain --model hyena` writes)."""
+    with open(os.path.join(run_dir, "model_config.json")) as f:
+        return json.load(f)
+
+
+def load_run_dir(run_dir: str, prefer_ema: bool = True
+                 ) -> Tuple[CaduceusConfig, Dict[str, torch.Tensor]]:
+    """(config, state_dict) of a Caduceus run dir holding
+    ``model_config.json`` and parameters (`read_run_params`). The LM head is
+    untied when the parameters hold ``lm_head`` (pass
+    ``tie_word_embeddings="lm_head" not in state_dict`` to the model).
+
+    Raises for a Hyena run (`load_hyena_run_dir` reads it): as in the JAX
+    package, generation, the server's /embed-/logits and VEP take only the
+    Caduceus families."""
+    raw = run_config(run_dir)
+    if raw.get("model_type") == "hyena":
+        raise NotImplementedError(
+            f"{run_dir} is a Hyena run dir: the Hyena family runs pretrain, "
+            "eval and finetune (and /classify of a fine-tuned export), as "
+            "in the JAX package")
+    flat = read_run_params(run_dir, prefer_ema)
+    cfg = CaduceusConfig.from_dict(raw)
     untied = "lm_head" in flat or "params/lm_head" in flat
     return cfg, from_jax_params(flat, cfg, tie_word_embeddings=not untied)
+
+
+def load_hyena_run_dir(run_dir: str, prefer_ema: bool = True
+                       ) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """(the model's keyword arguments, `models/hyena.py hyena_kwargs`;
+    the state_dict of `HyenaLMHeadModel`) of a Hyena run dir."""
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel, hyena_kwargs
+
+    raw = run_config(run_dir)
+    if raw.get("model_type") != "hyena":
+        raise ValueError(f"{run_dir} is not a Hyena run dir (its "
+                         "model_config.json has no \"model_type\": "
+                         "\"hyena\")")
+    kw = hyena_kwargs(raw)
+    flat = read_run_params(run_dir, prefer_ema)
+    with torch.device("meta"):
+        shape = HyenaLMHeadModel(device="meta", **kw)
+    return kw, from_jax_params(flat, None, model=shape)

@@ -31,7 +31,8 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
   the `NotImplementedError`, as the JAX server does.
 
 - **Classification.** A model dir holding ``task_config.json`` (`finetune
-  --save-dir`, the port's or the JAX package's) serves /classify only: each
+  --save-dir`, the port's or the JAX package's; a Caduceus, Hyena or CNN
+  classifier, by its ``model_kind``) serves /classify only: each
   sequence is encoded as the fine-tuning's eval encodes it (the task's
   padding side and ``add_eos``, the rc strand stacked when conjoined) at
   the task's fixed length, and the batch is padded to a power of two with
@@ -62,6 +63,7 @@ import torch
 
 from caduceus_tpu_torch import resolve_device
 from caduceus_tpu_torch.config import CaduceusConfig
+from caduceus_tpu_torch.models.hyena import hyena_kwargs
 from caduceus_tpu_torch.models.caduceus import (
     CaduceusForMaskedLM,
     canonical_to_reference,
@@ -117,7 +119,8 @@ class InferenceService:
                 cfg, task_cfg["num_classes"], task_cfg["pooling"],
                 task_cfg["use_lengths"], task_cfg.get("padding_side", "left"),
                 encoder=task_cfg.get("encoder", "id"),
-                model_kind=task_cfg["model_kind"], device=self.device)
+                model_kind=task_cfg["model_kind"], device=self.device,
+                seq_len=task_cfg["max_length"])
         else:
             self.model = CaduceusForMaskedLM(
                 cfg, device=self.device,
@@ -128,12 +131,20 @@ class InferenceService:
             # build the kernels of the config's family now, so that no
             # request pays the nvcc compile: for v2 the two SSD libraries,
             # which hold every ``use_kernel`` route's kernels (the fused
-            # ones, and the unfused ones of the prefill and of "pallas")
-            if cfg.ssm_cfg.version == 1:
+            # ones, and the unfused ones of the prefill and of "pallas");
+            # for a Hyena classifier the attention kernels (the CNN has
+            # none)
+            kind = "caduceus" if task_cfg is None else task_cfg["model_kind"]
+            if kind == "hyena":
+                from caduceus_tpu_torch.ops.attention import build
+            elif kind == "cnn":
+                build = None
+            elif cfg.ssm_cfg.version == 1:
                 from caduceus_tpu_torch.ops.scan import build
             else:
                 from caduceus_tpu_torch.ops.ssd_batched import build
-            build()
+            if build is not None:
+                build()
         if task_cfg is not None:
             # encode as the fine-tuning's eval does: the task's padding
             # side, its fixed length
@@ -174,14 +185,20 @@ class InferenceService:
 
         with open(task_path) as f:
             tc = json.load(f)
-        if tc["model_kind"] != "caduceus":
-            raise NotImplementedError(
-                f"model_kind {tc['model_kind']!r}: hyena and cnn exports are "
-                "not ported yet (ROADMAP.md queue 1 item 7)")
-        cfg = CaduceusConfig.from_dict(tc["model_cfg"])
+        kind = tc["model_kind"]
+        if kind == "caduceus":
+            cfg = CaduceusConfig.from_dict(tc["model_cfg"])
+        elif kind == "hyena":
+            cfg = hyena_kwargs(tc["model_cfg"])
+        else:   # the from-scratch CNN
+            cfg = None
         npz = os.path.join(run_dir, "params.npz")
         if os.path.exists(npz):
             flat = load_npz_params(npz)
+        elif kind == "cnn":
+            raise NotImplementedError(
+                "a CNN export without params.npz: its BatchNorm statistics "
+                "(the JAX export's batch_stats) are not read from Orbax")
         else:
             flat = read_orbax_arrays(os.path.join(run_dir, "params"),
                                      "params")
@@ -189,7 +206,8 @@ class InferenceService:
             shape = _make_classifier(
                 cfg, tc["num_classes"], tc["pooling"], tc["use_lengths"],
                 tc.get("padding_side", "left"),
-                encoder=tc.get("encoder", "id"), device="meta")
+                encoder=tc.get("encoder", "id"), model_kind=kind,
+                device="meta", seq_len=tc["max_length"])
         params = from_jax_params(flat, cfg, model=shape)
         kw.setdefault("max_length", tc["max_length"])
         return cls(cfg, params, task_cfg=tc, **kw)

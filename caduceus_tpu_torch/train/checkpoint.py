@@ -119,8 +119,7 @@ def save_checkpoint(path: str, state, loader_state: Optional[dict] = None
 
 
 def _load_into(model, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return from_jax_params(flat, model.cfg,
-                           tie_word_embeddings=model.lm_head is None)
+    return from_jax_params(flat, None, model=model)
 
 
 def restore_checkpoint(path: str, state) -> Optional[dict]:

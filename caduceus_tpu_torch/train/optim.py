@@ -17,8 +17,17 @@ Port of `caduceus_tpu/train/optim.py`:
   (`:289-301`), the fine-tuning's layer-wise lr decay: the JAX chain scales
   AdamW's whole update, weight decay included, by a per-leaf factor
   (`scale_updates_by_tree`, `:159`); here each factor is a parameter group
-  whose lr is the scheduled lr times the factor, which is the same update.
-  Not ported yet: ``lr_overrides`` and ``wd_mask_fn`` (Hyena).
+  whose lr is the scheduled lr times the factor, which is the same update;
+- `lr_multiplier_tree` (`:69`), `lr_override_membership` (`:90`),
+  `hyena_lr_overrides` (`:143`) and ``make_optimizer(lr_overrides=)``
+  (`:305-332`): the reference's per-parameter ``_optim`` groups (the Hyena
+  filter MLP with weight decay 0, the positional features and the decay
+  rates frozen). Each override group's factor (its lr over the base lr) scales
+  the scheduled lr of its torch group and its members take weight decay 0,
+  which is the JAX chain's scaled post-AdamW update; a factor of 0
+  freezes (the update is 0, the moments still run, as in optax).
+  Not ported: ``wd_mask_fn`` (the JAX parity tests' executed-semantics
+  mask).
 """
 
 from __future__ import annotations
@@ -82,6 +91,46 @@ def layer_decay_multipliers(named_params: Iterable[Tuple[str, torch.Tensor]],
     max_id = max((i for i in ids.values() if i is not None), default=0) + 1
     return {name: decay ** (max_id - (max_id if i is None else i))
             for name, i in ids.items()}
+
+
+def _names(name: str):
+    return flax_path(name).split("/")
+
+
+def lr_multiplier_tree(named_params: Iterable[Tuple[str, torch.Tensor]],
+                       base_lr: float, overrides) -> Dict[str, float]:
+    """{state_dict key: lr factor}: ``overrides`` is a sequence of (match,
+    lr), first match wins; ``match`` is a callable(names) -> bool over the
+    components of the flax path; the factor is lr / ``base_lr`` (1 where
+    nothing matches)."""
+    out = {}
+    for name, _ in named_params:
+        names = _names(name)
+        out[name] = 1.0
+        for match, lr in overrides:
+            if match(names):
+                out[name] = float(lr) / float(base_lr) if base_lr else 0.0
+                break
+    return out
+
+
+def lr_override_membership(named_params: Iterable[Tuple[str, torch.Tensor]],
+                           overrides) -> Dict[str, bool]:
+    """{state_dict key: True where any override group matched} (these take
+    weight decay 0, as the reference's registered groups do)."""
+    return {name: any(m(_names(name)) for m, _ in overrides)
+            for name, _ in named_params}
+
+
+def hyena_lr_overrides(base_lr: float):
+    """The reference Hyena groups (`configs/model/hyena.yaml:22-24`): the
+    implicit-filter MLP at the base lr with wd 0, the positional features z
+    and the modulation deltas at lr 0 (frozen)."""
+    return [
+        (lambda names: "filter_fn" in names and "pos_emb_z" in names, 0.0),
+        (lambda names: "filter_fn" in names and "deltas" in names, 0.0),
+        (lambda names: "filter_fn" in names, base_lr),
+    ]
 
 
 def _warm(step, lr, warmup_t, warmup_lr_init):
@@ -229,11 +278,14 @@ def make_optimizer(
     gradient_clip: Optional[float] = 1.0,
     schedule_name: str = "cosine_warmup_timm",
     layer_decay: Optional[float] = None,
+    lr_overrides=None,
 ):
     """AdamW + the schedule ``schedule_name`` + clipping over
     ``named_params`` (e.g. ``model.named_parameters()``), with layer-wise lr
     decay when ``layer_decay`` is set (the decayed groups keep their
-    weight decay); returns (optimizer, schedule)."""
+    weight decay) and the per-parameter groups of ``lr_overrides`` (see
+    `lr_multiplier_tree`; their members take weight decay 0); returns
+    (optimizer, schedule)."""
     if schedule_name in ("cosine_warmup", "cosine_warmup_timm"):
         schedule = cosine_warmup_schedule(lr, warmup_t, t_initial, lr_min,
                                           warmup_lr_init)
@@ -250,8 +302,15 @@ def make_optimizer(
         raise KeyError(f"unknown schedule: {schedule_name} "
                        f"(have {list(SCHEDULE_REGISTRY)})")
     named = list(named_params)
-    factors = (None if layer_decay is None
-               else layer_decay_multipliers(named, layer_decay))
+    factors = None
+    mask = weight_decay_mask(named)
+    if lr_overrides:
+        factors = lr_multiplier_tree(named, lr, lr_overrides)
+        member = lr_override_membership(named, lr_overrides)
+        mask = {n: m and not member[n] for n, m in mask.items()}
+    if layer_decay is not None:
+        ld = layer_decay_multipliers(named, layer_decay)
+        factors = {n: (1.0 if factors is None else factors[n]) * ld[n]
+                   for n in ld}
     return Optimizer(named, schedule, weight_decay, betas, 1e-8,
-                     gradient_clip, weight_decay_mask(named),
-                     factors), schedule
+                     gradient_clip, mask, factors), schedule

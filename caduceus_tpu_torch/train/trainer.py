@@ -26,8 +26,14 @@ optimizer state and EMA. Every rank initializes the same parameters from
 the same seed; `Trainer.init_state` all-gathers a checksum of them and
 raises if any rank differs. Rank 0 alone logs and writes checkpoints.
 
-Not ported yet: dropout (the Hyena family, ROADMAP.md queue 1 item 7) and
-tensor parallelism (queue 1 item 8); they raise `NotImplementedError`.
+Dropout (``TrainerConfig.dropout``, the Hyena family; JAX
+`make_train_step(dropout=, dropout_seed=)`): the model is called with
+``dropout_key=(seed, step, micro-batch, rank)``, from which each dropout
+site seeds its own generator (`models/hyena.py dropout`), so a resumed run
+draws the masks the killed one drew. ``Trainer(lr_overrides=)`` passes
+per-parameter lr groups to the optimizer (`train/optim.py
+hyena_lr_overrides`). Not ported yet: tensor parallelism (ROADMAP.md
+queue 1 item 8); it raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -113,13 +119,16 @@ def all_reduce_grads(params, world) -> None:
 
 
 def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
-                    ema_decay: float = 0.0, mesh=None) -> Callable:
+                    ema_decay: float = 0.0, mesh=None, dropout: bool = False,
+                    dropout_seed: int = 0) -> Callable:
     """The train step: ``step(state, batch) -> (state, metrics)``, metrics
     as 0-d tensors on the model's device (no host sync inside but the
     collectives). With a ``mesh`` the batch is this rank's part
     (`parallel/mesh.py shard_batch`), and loss, metrics and gradients are
-    global (module docstring)."""
+    global (module docstring). With ``dropout`` the model is called with a
+    ``dropout_key`` of (dropout_seed, step, micro-batch, rank)."""
     world = None if mesh is None else mesh.world_axis()
+    rank = 0 if mesh is None else mesh.rank
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
@@ -138,7 +147,9 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
         losses, accs, loss_sums, counts = [], [], [], []
         for i in range(accum_steps):
             rows = slice(i * nb, (i + 1) * nb)
-            logits = model(ids[rows])
+            logits = (model(ids[rows], dropout_key=(dropout_seed, state.step,
+                                                    i, rank))
+                      if dropout else model(ids[rows]))
             if world is not None:
                 loss, mean, acc, loss_sum, count = _global_loss(
                     logits, tgt[rows], ignore_index, world)
@@ -362,7 +373,7 @@ class TrainerConfig:
     accum_steps: int = 1
     prefetch: int = 2  # batches built ahead by the host thread (0: none)
     ema_decay: float = 0.0  # 0 disables EMA tracking
-    dropout: bool = False  # models with dropout layers: not ported yet
+    dropout: bool = False  # models with dropout layers (the Hyena family)
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 10-13
     run_dir: str = "./outputs/run"
     seed: int = 2222
@@ -381,18 +392,16 @@ class Trainer:
     resumable checkpoints that carry the data loader's position (the
     reference's fault-tolerant resume contract, SURVEY.md §5.3/§5.4).
 
-    ``model`` is a `CaduceusForMaskedLM` on the device the loop runs on;
-    its current parameters are the initial state."""
+    ``model`` is a `CaduceusForMaskedLM` or a `HyenaLMHeadModel` on the
+    device the loop runs on; its current parameters are the initial
+    state."""
 
     def __init__(self, model: nn.Module, cfg: TrainerConfig, train_loader,
                  eval_loader=None, mesh=None, ignore_index: int = 4,
                  log_fn: Optional[Callable[[Dict], None]] = None,
+                 lr_overrides=None,
                  tensor_parallel: bool = False,
                  context_parallel: bool = False):
-        if cfg.dropout:
-            raise NotImplementedError(
-                "dropout (the Hyena family) is not ported yet: ROADMAP.md "
-                "queue 1 item 7")
         if tensor_parallel:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet: ROADMAP.md queue 1 "
@@ -419,6 +428,7 @@ class Trainer:
             raise ValueError(f"the model is on {self.device}, the mesh's "
                              f"device is {mesh.device}")
         self.ignore_index = ignore_index
+        self.lr_overrides = lr_overrides
         if log_fn is None:
             log_fn = ((lambda m: print(json.dumps(m))) if self.is_main
                       else (lambda m: None))
@@ -445,12 +455,12 @@ class Trainer:
             weight_decay=cfg.weight_decay, betas=cfg.betas,
             warmup_t=warmup_t, t_initial=cfg.max_steps - warmup_t,
             lr_min=cfg.lr_min, warmup_lr_init=cfg.warmup_lr_init,
-            gradient_clip=cfg.gradient_clip)
+            gradient_clip=cfg.gradient_clip, lr_overrides=self.lr_overrides)
         ema = init_ema(self.model) if cfg.ema_decay > 0 else None
         self.state = TrainState(self.model, opt, 0, ema)
         self._train_step = make_train_step(
             self.ignore_index, cfg.accum_steps, ema_decay=cfg.ema_decay,
-            mesh=self.mesh)
+            mesh=self.mesh, dropout=cfg.dropout, dropout_seed=cfg.seed)
         if self.mesh is not None:
             self.check_same_params()
         return self.state

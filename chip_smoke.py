@@ -9,15 +9,16 @@ toolkit (nvcc). It imports nothing of JAX or of `caduceus_tpu`. Phases, in
 order (any failure exits non-zero; nothing is caught and passed over):
 
 1. build the kernels from `caduceus_tpu_torch/csrc` (nvcc, sm_90a; one
-   nvcc per source, side by side): `ssd_fused_fwd.cu` (entry points
+   nvcc per source, side by side; `attention_fwd.cu` and
+   `attention_bwd.cu` with them): `ssd_fused_fwd.cu` (entry points
    `ssd_fused_fwd` and `ssd_fwd`: prep, segment pre-pass and main pass)
    and `ssd_fused_bwd.cu` (`ssd_fused_bwd` / `ssd_bwd`: prep, pre-pass,
    main pass, head-order g_B / g_C sum; `ssd_conv_bwd`: the streaming
    SiLU + conv adjoint and its fixed-order weight sum), the two scan
-   sources and five planted-fault variants (three of the scan kernels, two
-   of the conv adjoint); print build times, every compiled kernel's
-   registers, spills and static shared memory, and each SSD sub-launch's
-   dynamic shared memory;
+   sources and six planted-fault variants (three of the scan kernels, two
+   of the conv adjoint, one of the attention forward); print build times,
+   every compiled kernel's registers, spills and static shared memory, and
+   each SSD sub-launch's and attention kernel's dynamic shared memory;
 2. hold the forward kernel (y, hN and the chunk carries) against its
    plain PyTorch version (`ops/ssd.py ssd_chunked_fused`) on the card:
    small shapes (fp32 and bf16, both directions, nonzero h_init, L not a
@@ -203,7 +204,29 @@ and, downstream of run A of each family (the same temporary directory):
    once, the first variant equal to a direct forward bit for bit; the SVM
    eval where scikit-learn imports (whether it does is printed); then v1
    run A;
-39. [cp_kernels] the context-parallel entry of #1 / #3a / #3b
+39. [attn_kernels] the flash-attention kernels of the hybrid Hyena layers
+   (`attn_fwd`, `attn_bwd_dkv`, `attn_bwd_dq`; TPU kernel #11) against
+   their plain versions (`ops/attention.py attention_fwd_plain` /
+   `attention_bwd_plain`) by the kernel rule with a per-row floor: L 251
+   (ragged) and 256, causal and not, fp32 and bf16, head widths 32 and
+   64, each run twice for its bits; the planted fault (the second key
+   tile skipped, the ATTN_DROP build), which must fail; the path shape
+   (G=2, L=65,536, H=8, hd=32, bf16, causal) against the chunked plain
+   version and across two runs, and the planted fault there, which must
+   fail too; each kernel timed there beside its bound (the larger of
+   bytes, FLOPs and exps), its plain version and one SDPA call
+   (yardstick);
+40. [hyena_vs_cpu] the hybrid Hyena LM (d_model 256, 2 layers, MHA at 1,
+   fp32, L=2048) on the card against the CPU: logits and gradients;
+41. [hyena_pretrain] `cli.py pretrain --model hyena --ntp` at
+   configs/hg38_hyena.yaml's width (8 layers, MHA at 1 and 5), L=65,536,
+   4 sequences in 2 micro-batches, 3 steps, `--hyena-checkpoint`, the
+   attention launches counted; a run SIGKILLed after its step-2
+   checkpoint and resumed equals it bit for bit; `cli.py eval`;
+42. [hyena_finetune] `cli.py finetune` from that run (the preset
+   human_nontata_promoters, L=251) and `--model cnn`, /classify of both
+   exports equal to a direct forward bit for bit;
+43. [cp_kernels] the context-parallel entry of #1 / #3a / #3b
    (`ssd_batched_fused_cp`: edge_hist in, its gradient g_edge out): a
    sequence cut into 2 and 4 shards (each given the neighbour's raw rows
    as edge_hist and the previous shard's hN as h_init) against the unsplit
@@ -215,22 +238,23 @@ and, downstream of run A of each family (the same temporary directory):
    both directions; the adjoint with h_init and a final-state cotangent
    and g_y = 0 (pass 1 of the two-pass scan) at the CP shape; #1 / #3a /
    #3b timed there with and without edge_hist, beside their bounds;
-40. [cp_train] `python -m torch.distributed.run --nproc_per_node 2
+44. [cp_train] `python -m torch.distributed.run --nproc_per_node 2
    chip_smoke.py --rank-job JOB`: two ranks on this card (gloo), the
    sequence of 262,144 rows sharded over them: the first step of v2 at 2
    layers fp32, v2 `hg38_mlm_v2` at 16 layers and v1 `hg38_mlm` at 4
    layers (bf16) held against one rank's step on the same weights and
    batch; `cli.py pretrain --mesh-model 2 --context-parallel` of each bf16
    model for 2 steps, the CP kernels' launches counted on each rank;
-41. [cp_eval] `cli.py eval --mesh-model 2 --context-parallel` of the v2 run
+45. [cp_eval] `cli.py eval --mesh-model 2 --context-parallel` of the v2 run
    against `cli.py eval` on one rank;
-42. [dp_train] two ranks, data parallelism over a global batch of 2 x
+46. [dp_train] two ranks, data parallelism over a global batch of 2 x
    131,072: the first step at 2 layers fp32 and 16 layers bf16 against one
    rank's (loss and updated parameters), `cli.py pretrain` for 2 steps and
    a resume from its step-1 checkpoint that replays step 2 bit for bit.
 
-``--only cp`` runs the build and phases 39-42 alone (for work on them); the
-ranks of phases 40-42 run this script with ``--rank-job``.
+``--only cp`` runs the build and phases 43-46 alone, ``--only hyena`` the
+build and phases 39-42 (for work on them); the ranks of phases 44-46 run
+this script with ``--rank-job``.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -242,6 +266,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -342,7 +367,9 @@ _KERNEL_NAMES = ("ssd_prep_kernel", "ssd_fwd_state_kernel", "ssd_fwd_kernel",
                  "ssd_bwd_state_kernel", "ssd_fused_bwd_kernel",
                  "ssd_share_sum_kernel", "ssd_conv_bwd_kernel",
                  "ssd_conv_wsum_kernel", "selective_scan_fwd_kernel",
-                 "selective_scan_bwd_kernel", "bc_share_sum_kernel")
+                 "selective_scan_bwd_kernel", "bc_share_sum_kernel",
+                 "attn_fwd_kernel", "attn_bwd_dkv_kernel",
+                 "attn_bwd_dq_kernel", "attn_delta_kernel")
 
 
 def _instantiation(mangled: str) -> str:
@@ -360,7 +387,9 @@ def _instantiation(mangled: str) -> str:
         args.append("fp32")
     ints = re.findall(r"Li(\d+)E", tail)
     if ints:
-        args.append(f"{'K' if name.startswith('ssd') else 'N'}={ints[0]}")
+        var = ("K" if name.startswith("ssd") else
+               "hd" if name.startswith("attn") else "N")
+        args.append(f"{var}={ints[0]}")
     if name == "selective_scan_fwd_kernel" and len(ints) > 1:
         args.append(f"{ints[1]} warps")
     if "Lb1E" in tail:
@@ -375,11 +404,15 @@ DROP_SHARE = ("SCAN_DROP=2",)   # one cluster's g_B share left out
 # the conv adjoint's (`csrc/ssd_fused_bwd.cu` CONV_DROP): a row tile's halo
 CONV_DROP_AFTER = ("CONV_DROP=1",)   # the g_pre rows past each tile zero
 CONV_DROP_BEFORE = ("CONV_DROP=2",)  # the raw rows before each tile zero
+# the attention forward's (`csrc/attention_fwd.cu` ATTN_DROP): the second
+# key tile skipped
+ATTN_DROP = ("ATTN_DROP=1",)
 FAULT_BUILDS = (("selective_scan_fwd", DROP_RUN),
                 ("selective_scan_bwd", DROP_RUN),
                 ("selective_scan_bwd", DROP_SHARE),
                 ("ssd_fused_bwd", CONV_DROP_AFTER),
-                ("ssd_fused_bwd", CONV_DROP_BEFORE))
+                ("ssd_fused_bwd", CONV_DROP_BEFORE),
+                ("attention_fwd", ATTN_DROP))
 
 
 def _variant(module, defines):
@@ -397,8 +430,9 @@ def scan_fault(defines):
 
 
 def phase_build():
-    """nvcc of the four sources and of the five planted-fault variants
-    (three of the scan kernels, two of the conv adjoint) side by side; then
+    """nvcc of the six sources and of the six planted-fault variants
+    (three of the scan kernels, two of the conv adjoint, one of the
+    attention forward) side by side; then
     every compiled kernel's registers, static shared memory and spills
     (`-Xptxas -v`), and the dynamic shared memory each SSD sub-launch asks
     for at the main geometry (P=64, N=128) and K = 4 and 0."""
@@ -408,7 +442,7 @@ def phase_build():
     from caduceus_tpu_torch import _build
 
     names = ("ssd_fused_fwd", "ssd_fused_bwd", "selective_scan_fwd",
-             "selective_scan_bwd")
+             "selective_scan_bwd", "attention_fwd", "attention_bwd")
     builds = [(n, ()) for n in names] + list(FAULT_BUILDS)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -429,6 +463,20 @@ def phase_build():
                     if "registers" in ln or "spill" in ln]
             out["ptxas"][kernel] = used
             log(f"[build]   {kernel}: {'; '.join(used)}")
+        if name.startswith("attention"):
+            lib = ctypes.CDLL(path)
+            for entry, which in ((("attn_fwd", None),) if name.endswith(
+                    "fwd") else (("attn_bwd_dkv", 0), ("attn_bwd_dq", 1))):
+                fn = (lib.attn_fwd_smem if which is None
+                      else lib.attn_bwd_smem)
+                fn.restype = ctypes.c_longlong
+                args = (() if which is None else (which,))
+                sizes = {f"{dn} hd={hd}": fn(*args, dt, hd)
+                         for dt, dn in ((1, "bf16"), (0, "fp32"))
+                         for hd in (32, 128)}
+                out["dynamic_smem"][entry] = sizes
+                log(f"[build]   {entry} dynamic shared memory per block: "
+                    + ", ".join(f"{k} {v:,} B" for k, v in sizes.items()))
         if name.startswith("ssd"):
             fn = getattr(ctypes.CDLL(path), f"{name}_smem")
             fn.restype = ctypes.c_longlong
@@ -4509,6 +4557,506 @@ def phase_dp_train(work, fasta, bed):
     return out
 
 
+# -- the Hyena family: flash-attention kernels, pretrain, fine-tune -------
+
+ATTN_NAMES = ("o", "lse", "dq", "dk", "dv")
+# the path shape: one micro-batch of `cli.py pretrain --model hyena` at
+# configs/hg38_hyena.yaml's width (d_model 256, 8 heads of 32)
+ATTN_G, ATTN_L, ATTN_H, ATTN_HD = 2, 65536, 8, 32
+HY_L, HY_BATCH, HY_ACCUM, HY_STEPS = 65536, 4, 2, 3
+HY_LAYERS, HY_ATTN = 8, (1, 5)
+# exps of the MUFU: 16 a clock per SM (H100 SXM: 132 SMs, 1.98 GHz boost)
+EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def _attn_inputs(dtype, B, L, H, hd, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(B, L, H, hd, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def _attn_pair(q, k, v, do, causal):
+    """(kernel outputs, plain outputs) in `ATTN_NAMES` order: the forward
+    kernel against `attention_fwd_plain`, the adjoint kernels (from the
+    kernel's own O and lse) against `attention_bwd_plain`."""
+    from caduceus_tpu_torch.ops import attention as A
+
+    sc = q.shape[-1] ** -0.5
+    o, lse = A.attention_fwd(q, k, v, causal, sc)
+    got = (o, lse, *A.attention_bwd(q, k, v, o, lse, do, causal, sc))
+    po, plse = A.attention_fwd_plain(q, k, v, causal, sc)
+    plain = (po, plse, *A.attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                              sc))
+    torch.cuda.synchronize()
+    return got, plain
+
+
+def _attn_hold(label, got, plain, expect_ok=True):
+    """Each output against the plain one by the rule of kernel_check.py,
+    the floor per row (`compare(rows=True)`); lse by the fp32 tolerance."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare, describe
+
+    out = {}
+    for name, a, b in zip(ATTN_NAMES, got, plain):
+        tol = TOL[torch.float32] if name == "lse" else TOL[a.dtype]
+        st = compare(a, b, tol, rows=True)
+        out[name] = st
+        if expect_ok:
+            check(st["ok"], f"[attn_kernels] {label} {name}: {describe(st)}")
+    return out
+
+
+def _attn_work(G, L, H, hd, causal=True):
+    """Scores, FLOPs and bytes of the three kernels' functions at (G, L, H,
+    hd) in bf16: scores = G H L (L + 1) / 2 when causal; FLOPs: 4 hd a
+    score in the forward (QK^T, PV), 8 in dK / dV (S, dP recomputed, P^T
+    dO, dS^T Q), 6 in dQ (S, dP, dS K); one exp a score in each; bytes:
+    each input read once, each output written once (bf16 rows, fp32 lse
+    and D)."""
+    scores = G * H * (L * (L + 1) // 2 if causal else L * L)
+    t, r = G * L * H * hd * 2, G * H * L * 4
+    return {"attn_fwd": (scores, 4 * hd * scores, 3 * t + t + r),
+            "attn_bwd_dkv": (scores, 8 * hd * scores, 5 * t + r + 2 * t + r),
+            "attn_bwd_dq": (scores, 6 * hd * scores, 4 * t + 2 * r + t)}
+
+
+def phase_attn_kernels():
+    """[attn_kernels] `attn_fwd`, `attn_bwd_dkv` and `attn_bwd_dq` against
+    their plain versions: small shapes (L 251 ragged and 256 aligned,
+    causal and not, fp32 and bf16, head widths 32 and 64) and the path
+    shape (G=2, L=65536, H=8, hd=32, bf16, causal) against the chunked
+    plain version; the bits of two runs; the planted fault (the second key
+    tile skipped, the ATTN_DROP build) must fail, at a small shape and at
+    the path shape; then each kernel timed at the path shape beside its
+    bound (the larger of bytes, FLOPs and exps), its plain version and one
+    SDPA call (a yardstick: `scaled_dot_product_attention`
+    forward, and the backward of one such call, which the port never
+    calls)."""
+    import torch.nn.functional as F
+
+    from caduceus_tpu_torch.kernel_check import TOL, compare, describe
+    from caduceus_tpu_torch.ops import attention as A
+
+    out = {"small": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for L, hd in ((251, 32), (256, 64)):
+                label = (f"B=2 L={L} H=3 hd={hd} "
+                         f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} "
+                         f"{'causal' if causal else 'full'}")
+                ins = _attn_inputs(dtype, 2, L, 3, hd, seed=L + hd)
+                got, plain = _attn_pair(*ins, causal)
+                st = _attn_hold(label, got, plain)
+                again, _ = _attn_pair(*ins, causal)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"[attn_kernels] {label}: two runs differ")
+                out["small"][label] = {n: st[n]["rel_l2"] for n in st}
+                log(f"[attn_kernels] {label}: pass, bits repeat (rel_l2 "
+                    + ", ".join(f"{n} {st[n]['rel_l2']:.1e}" for n in st)
+                    + ")")
+    # the planted fault: the second key tile of every query tile skipped
+    ins = _attn_inputs(torch.bfloat16, 1, 512, 2, 32, seed=5)
+    with _variant(A, ATTN_DROP):
+        got, plain = _attn_pair(*ins, True)
+    st = _attn_hold("planted fault", got, plain, expect_ok=False)
+    check(not st["o"]["ok"], "[attn_kernels] the skipped key tile passed: "
+          + describe(st["o"]))
+    out["planted_fault"] = {"o": describe(st["o"])}
+    log(f"[attn_kernels] planted fault (key tile 1 skipped) fails as it "
+        f"must: o {describe(st['o'])}")
+
+    G, L, H, hd = ATTN_G, ATTN_L, ATTN_H, ATTN_HD
+    label = f"G={G} L={L} H={H} hd={hd} bf16 causal"
+    q, k, v, do = _attn_inputs(torch.bfloat16, G, L, H, hd, seed=7)
+    t0 = time.perf_counter()
+    got, plain = _attn_pair(q, k, v, do, True)
+    pair_s = time.perf_counter() - t0
+    st = _attn_hold(label, got, plain)
+    sc = hd ** -0.5
+    # the planted fault at the path shape, by the same per-row rule
+    with _variant(A, ATTN_DROP):
+        fo, _ = A.attention_fwd(q, k, v, True, sc)
+    fst = compare(fo, plain[0], TOL[fo.dtype], rows=True)
+    check(not fst["ok"], f"[attn_kernels] {label}: the skipped key tile "
+          "passed: " + describe(fst))
+    out["planted_fault_path"] = {"o": {k2: fst[k2] for k2 in (
+        "rel_l2", "max_abs_err", "atol_needed")}}
+    log(f"[attn_kernels] {label}: planted fault fails as it must: o "
+        f"{describe(fst)}")
+    del plain, fo
+    o, lse = A.attention_fwd(q, k, v, True, sc)
+    dk, dv, D = A.attention_bwd_dkv(q, k, v, o, lse, do, True, sc)
+    dq = A.attention_bwd_dq(q, k, v, o, lse, do, D, True, sc)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, (o, lse, dq, dk, dv))),
+          f"[attn_kernels] {label}: two runs differ")
+    out["path"] = {n: {k2: st[n][k2] for k2 in (
+        "rel_l2", "max_abs_err", "max_abs_ref", "atol_needed")} for n in st}
+    log(f"[attn_kernels] {label}: pass against the chunked plain version "
+        f"({pair_s:.1f} s for both sides), bits repeat: "
+        + "; ".join(f"{n} {describe(st[n])}" for n in st))
+    del got
+
+    # times at the path shape: kernel and plain in turns, SDPA beside them
+    work = _attn_work(G, L, H, hd)
+    calls = {
+        "attn_fwd": (lambda: A.attention_fwd(q, k, v, True, sc),
+                     lambda: A.attention_fwd_plain(q, k, v, True, sc)),
+        "attn_bwd_dkv": (
+            lambda: A.attention_bwd_dkv(q, k, v, o, lse, do, True, sc),
+            lambda: A.attention_bwd_plain(q, k, v, o, lse, do, True, sc)),
+        "attn_bwd_dq": (
+            lambda: A.attention_bwd_dq(q, k, v, o, lse, do, D, True, sc),
+            lambda: A.attention_bwd_plain(q, k, v, o, lse, do, True, sc))}
+    # SDPA in its own layout (B, H, L, hd), the copies made beforehand
+    qs, ks, vs, gy = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    with torch.no_grad():
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sdpa_fwd = _time_cuda(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 3)
+    qs, ks, vs = (t.requires_grad_(True) for t in (qs, ks, vs))
+    y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    torch.autograd.grad(y, (qs, ks, vs), gy, retain_graph=True)
+    sdpa_bwd = _time_cuda(lambda: torch.autograd.grad(
+        y, (qs, ks, vs), gy, retain_graph=True), 3)
+    del y, qs, ks, vs, gy
+    out["timing"] = {}
+    for name, (kfn, pfn) in calls.items():
+        kfn()
+        torch.cuda.synchronize()
+        t = _timed(kfn, pfn)
+        scores, flops, nbytes = work[name]
+        t.update(_bound(nbytes, flops))
+        t["scores"] = scores
+        t["exps"] = scores
+        t["exp_ms"] = scores / EXP_PER_S * 1e3
+        t["bound_term"] = "bytes" if t["bound_by"] == "bytes" else "flops"
+        if t["exp_ms"] > t["bound_ms"]:
+            # one exp a score on the MUFU: the larger operations floor
+            t.update(bound_ms=t["exp_ms"], bound_by="operations",
+                     bound_term="exps")
+        t["library_ms"] = sdpa_fwd if name == "attn_fwd" else None
+        if name != "attn_fwd":
+            t["sdpa_backward_ms"] = sdpa_bwd
+            t["plain_is"] = "attention_bwd_plain (dq, dk and dv together)"
+        t["check"] = {n: out["path"][n] for n in (
+            ("o", "lse") if name == "attn_fwd" else
+            ("dk", "dv") if name == "attn_bwd_dkv" else ("dq",))}
+        t["max_abs_err"] = max(c["max_abs_err"] for c in t["check"].values())
+        out["timing"][name] = t
+        log(f"[attn_kernels] {name} {label}: {t['ms']:.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in t['kernel_ms_runs'])}), bound "
+            f"{t['bound_ms']:.3f} ms (by {t['bound_term']}: {flops / 1e12:.2f} "
+            f"TFLOP, {nbytes / 1e9:.3f} GB, exps {scores:.3e} = "
+            f"{t['exp_ms']:.3f} ms at 16 a clock per SM); plain "
+            f"{t['plain_ms']:.1f} ms; SDPA "
+            + (f"forward {sdpa_fwd:.3f} ms" if name == "attn_fwd" else
+               f"backward {sdpa_bwd:.3f} ms (dq, dk, dv together)"))
+    del q, k, v, do, o, lse, dk, dv, dq, D
+    torch.cuda.empty_cache()
+    return out
+
+
+def _attn_counts():
+    from caduceus_tpu_torch.ops import attention as A
+
+    return {"attn_fwd": A.fwd_launches, "attn_bwd_dkv": A.bwd_dkv_launches,
+            "attn_bwd_dq": A.bwd_dq_launches}
+
+
+def _attn_zero():
+    from caduceus_tpu_torch.ops import attention as A
+
+    A.fwd_launches = A.bwd_dkv_launches = A.bwd_dq_launches = 0
+
+
+def phase_hyena_vs_cpu():
+    """[hyena_vs_cpu] the hybrid Hyena LM at full width (d_model 256, 8
+    heads of 32), 2 layers (MHA at layer 1), fp32, L=2048, 2 sequences:
+    logits and every parameter gradient on the card (the attention kernels,
+    cuFFT) against the same model on the CPU (the plain attention, the
+    CPU's FFT), from the same weights and batch."""
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+
+    kw = dict(d_model=256, n_layer=2, vocab_size=12, l_max=2048,
+              attn_layer_idx=(1,), num_heads=8)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 12, (2, 2048)))
+    cot = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 2048, 12)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = HyenaLMHeadModel(device=dev,
+                                 generator=torch.Generator().manual_seed(3),
+                                 **kw)
+        _attn_zero()
+        logits = model(ids.to(dev))
+        logits.backward(cot.to(dev))
+        res[dev] = (logits.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+        if dev == "cuda":
+            counts = _attn_counts()
+    check(counts == {"attn_fwd": 1, "attn_bwd_dkv": 1, "attn_bwd_dq": 1},
+          f"[hyena_vs_cpu] attention launches {counts}")
+    (lc, gc_), (lg, gg) = res["cpu"], res["cuda"]
+    err = ((lg - lc).norm() / lc.norm()).item()
+    check(err <= MODEL_TOL, f"[hyena_vs_cpu] logits {err:.2e} > {MODEL_TOL}")
+    worst = max(((gg[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                .item() for n, g in gc_.items())
+    check(worst <= TRAIN_TOL["grad"],
+          f"[hyena_vs_cpu] a gradient is {worst:.2e} of its max off")
+    log(f"[hyena_vs_cpu] 2-layer hybrid, d_model 256, L=2048, fp32: logits "
+        f"{err:.2e} (normalized), worst gradient {worst:.2e} of its max; "
+        f"attention launches {counts}")
+    return {"logits_rel_l2": err, "worst_grad": worst, "launches": counts}
+
+
+def _hyena_argv(fasta, bed, run_dir, steps=HY_STEPS):
+    return ["pretrain", "--model", "hyena", "--ntp", "--fasta", fasta,
+            "--bed", bed, "--run-dir", run_dir, "--d-model", "256",
+            "--n-layer", str(HY_LAYERS), "--dtype", "bfloat16",
+            "--attn-layer-idx", ",".join(map(str, HY_ATTN)),
+            "--num-heads", "8", "--hyena-checkpoint", "--lr", "6e-4",
+            "--weight-decay", "0.1", "--max-length", str(HY_L),
+            "--batch-size", str(HY_BATCH), "--accum-steps", str(HY_ACCUM),
+            "--max-steps", str(steps), "--checkpoint-every", "2",
+            "--log-every", "1", "--eval-every", "1000"]
+
+
+def phase_hyena_pretrain(workdir, fasta, bed):
+    """[hyena_pretrain] `cli.py pretrain --model hyena --ntp` at
+    configs/hg38_hyena.yaml's width (d_model 256, 8 layers, MHA at layers
+    1 and 5 with 8 heads, bf16, lr 6e-4, wd 0.1), L = l_max = 65,536, 4
+    sequences in 2 micro-batches, 3 steps, ``--hyena-checkpoint``,
+    embedding dropout on: run A in this process (the attention kernels'
+    launches counted: per micro-batch and MHA layer two forwards, the
+    recompute's and the first, and one of each adjoint kernel); run B in
+    a subprocess SIGKILLed after its step-2 checkpoint and resumed: B's
+    steps equal A's and the final parameters too, bit for bit; then
+    `cli.py eval` of run A. Reports the step time, tokens/s and peak
+    memory."""
+    from caduceus_tpu_torch import cli
+    from caduceus_tpu_torch.train import checkpoint
+
+    run_a = os.path.join(workdir, "hyena_a")
+    run_b = os.path.join(workdir, "hyena_b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _attn_zero()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        cli.main(_hyena_argv(fasta, bed, run_a))
+    a_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _attn_counts()
+    mb = HY_STEPS * HY_ACCUM
+    want = {"attn_fwd": 2 * mb * len(HY_ATTN),
+            "attn_bwd_dkv": mb * len(HY_ATTN),
+            "attn_bwd_dq": mb * len(HY_ATTN)}
+    check(counts == want, f"[hyena_pretrain] launches {counts} != {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_b = os.path.join(workdir, "hyena_b.log")
+    argv_b = _hyena_argv(fasta, bed, run_b)
+    ck_b = os.path.join(run_b, "checkpoints")
+    t0 = time.perf_counter()
+    rc = _run_cli(argv_b, log_b,
+                  kill_when=os.path.join(ck_b, "2", "meta.json"))
+    b1_s = time.perf_counter() - t0
+    check(rc == -9, f"hyena run B was not killed (exit {rc}):\n"
+          f"{_tail(log_b)}")
+    check(checkpoint.latest_step(ck_b) == 2,
+          f"hyena run B killed at step {checkpoint.latest_step(ck_b)}")
+    t0 = time.perf_counter()
+    rc = _run_cli(argv_b + ["--resume"], log_b)
+    b2_s = time.perf_counter() - t0
+    check(rc == 0, f"resumed hyena run B failed ({rc}):\n{_tail(log_b)}")
+    steps_a, _ = _records(run_a)
+    steps_b, _ = _records(run_b)
+    check(sorted(steps_a) == sorted(steps_b) == list(range(1, HY_STEPS + 1)),
+          f"hyena logged steps A {sorted(steps_a)}, B {sorted(steps_b)}")
+    for s in steps_a:
+        for key in ("loss", "acc", "grad_norm", "lr"):
+            check(steps_a[s][key] == steps_b[s][key],
+                  f"hyena step {s} {key}: A {steps_a[s][key]!r} != B "
+                  f"{steps_b[s][key]!r}")
+        check(math.isfinite(steps_a[s]["loss"]), f"hyena step {s}: loss")
+    last = str(HY_STEPS)
+    za = np.load(os.path.join(run_a, "checkpoints", last, "params.npz"))
+    zb = np.load(os.path.join(run_b, "checkpoints", last, "params.npz"))
+    for key in za.files:
+        check(np.array_equal(za[key], zb[key]), f"hyena {key}: A != B")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval", "--fasta", fasta, "--bed", bed, "--run-dir", run_a,
+                  "--max-length", str(HY_L), "--batch-size", "2",
+                  "--max-batches", "1"])
+    eval_s = time.perf_counter() - t0
+    ev = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(math.isfinite(ev["test/loss"]), f"hyena eval {ev}")
+    tokens = HY_BATCH * HY_L
+    step_s = {s: tokens / r["tokens_per_sec"] for s, r in steps_a.items()}
+    loop_s = float(np.mean([step_s[s] for s in step_s if s > 1]))
+    per_step = {k2: v // HY_STEPS for k2, v in counts.items()}
+    log(f"[hyena_pretrain] {HY_LAYERS} layers, d_model 256, MHA at "
+        f"{HY_ATTN}, L={HY_L}, {HY_BATCH} sequences in {HY_ACCUM} "
+        f"micro-batches, bf16, --hyena-checkpoint: run A {a_s:.1f} s for "
+        f"{HY_STEPS} steps, seconds per step "
+        f"{', '.join(f'{step_s[s]:.3f}' for s in sorted(step_s))} (steps "
+        f"2+: {loop_s:.3f} s, {tokens / loop_s:,.0f} tokens/s), peak "
+        f"{peak:.2f} GiB; launches per step {per_step}; run B killed after "
+        f"its step-2 checkpoint ({b1_s:.1f} s) and resumed ({b2_s:.1f} s): "
+        f"its steps and final parameters equal A's bit for bit; eval "
+        f"{eval_s:.1f} s: {ev}")
+    return {"run_a": run_a, "step_s": step_s, "loop_step_s": loop_s,
+            "tokens_per_s": tokens / loop_s, "peak_gib": peak,
+            "launches": counts, "launches_per_step": per_step,
+            "run_a_s": a_s, "run_b_killed_s": b1_s, "run_b_resumed_s": b2_s,
+            "eval": ev, "eval_s": eval_s,
+            "steps": {s: {k2: r[k2] for k2 in ("loss", "acc", "grad_norm",
+                                                "lr")}
+                      for s, r in steps_a.items()}}
+
+
+def _classify_export(save_dir):
+    """/classify of a fine-tuned export over HTTP: 8 sequences equal a
+    direct forward of the exported classifier bit for bit; the latency of
+    one sequence (median of 5)."""
+    from caduceus_tpu_torch.finetune import _make_classifier
+    from caduceus_tpu_torch.params import from_jax_params, load_npz_params
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    svc = InferenceService.from_run_dir(save_dir, device="cuda", max_batch=8)
+    svc.warmup()
+    server = InferenceServer(svc, port=0).start()
+    rng = np.random.default_rng(13)
+    seqs = ["".join(rng.choice(list("ACGT"), int(n)))
+            for n in rng.integers(200, 260, 8)]
+    try:
+        served = _post(server.port, "/classify", {"sequences": seqs})
+        one = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            _post(server.port, "/classify", {"sequences": [seqs[i]]})
+            one.append(time.perf_counter() - t0)
+    finally:
+        server.stop()
+    tc = svc.task_cfg
+    model = _make_classifier(svc.cfg, tc["num_classes"], tc["pooling"],
+                             tc["use_lengths"], tc["padding_side"],
+                             model_kind=tc["model_kind"], device="cuda",
+                             seq_len=tc["max_length"])
+    model.load_state_dict(from_jax_params(load_npz_params(
+        os.path.join(save_dir, "params.npz")), None, model=model))
+    model.eval()
+    ids = np.stack([svc.tok.encode_padded(s, tc["max_length"],
+                                          add_sep=tc["add_eos"])
+                    for s in seqs]).astype(np.int64)
+    lengths = torch.tensor([min(len(s), tc["max_length"]) for s in seqs])
+    with torch.inference_mode():
+        scores = model(torch.from_numpy(ids).cuda(),
+                       lengths.cuda()).cpu().numpy()
+    for r, sc in zip(served["classify"], scores):
+        e = np.exp(sc - sc.max())
+        check(r["probs"] == (e / e.sum()).tolist()
+              and r["label"] == int(np.argmax(sc)),
+              f"/classify {r} != direct forward {sc}")
+    del model, svc
+    torch.cuda.empty_cache()
+    return {"model_kind": tc["model_kind"],
+            "latency_1_s": float(np.median(one)), "latency_1_runs": one}
+
+
+def phase_hyena_finetune(work, data_dir, run_a):
+    """[hyena_finetune] `cli.py finetune` with the human_nontata_promoters
+    preset (L=251, batch 128) from the Hyena run A (the family taken from
+    its model_config.json; 1 epoch, seed 1; the MHA kernels launched) and
+    ``--model cnn`` from scratch (1 epoch), each exported and served:
+    /classify of both exports equals a direct forward bit for bit."""
+    from caduceus_tpu_torch import cli
+
+    out = {}
+    for kind, extra in (("hyena", ["--pretrained-run-dir", run_a]),
+                        ("cnn", ["--model", "cnn"])):
+        save = os.path.join(work, f"finetuned_{kind}")
+        argv = ["finetune", "--preset", FT_PRESET, "--data-dir", data_dir,
+                "--epochs", "1", "--seeds", "1", "--save-dir", save, *extra]
+        _attn_zero()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        counts = _attn_counts()
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        epochs = [r for r in lines if "epoch" in r]
+        check(len(epochs) == 1 and all(math.isfinite(r["loss"])
+                                       for r in epochs),
+              f"[hyena_finetune] {kind}: {epochs}")
+        if kind == "hyena":
+            check(counts["attn_fwd"] > 0 and counts["attn_bwd_dkv"] > 0
+                  and counts["attn_bwd_dq"] > 0,
+                  f"[hyena_finetune] attention launches {counts}")
+        cls = _classify_export(save)
+        out[kind] = {"cli_s": cli_s, "launches": counts,
+                     "epochs": epochs, "summary": lines[-1],
+                     "classify": cls}
+        log(f"[hyena_finetune] {kind}: cli.py finetune ({FT_TASK} preset, "
+            f"1 epoch) {cli_s:.1f} s, attention launches {counts}, "
+            f"{epochs[0]}; /classify of the export equals a direct forward "
+            f"bit for bit, one sequence {cls['latency_1_s'] * 1e3:.1f} ms")
+    return out
+
+
+def _hyena_phases(report, work, fasta, bed):
+    """The Hyena phases (the kernels are built)."""
+    from caduceus_tpu_torch.data.synthetic import (
+        make_structured_classification_suite)
+
+    t0 = time.perf_counter()
+    report["attn_kernels"] = phase_attn_kernels()
+    report["hyena_vs_cpu"] = phase_hyena_vs_cpu()
+    report["hyena_pretrain"] = phase_hyena_pretrain(work, fasta, bed)
+    data_dir = os.path.join(work, "tasks")
+    if not os.path.isdir(data_dir):
+        make_structured_classification_suite(
+            data_dir, fasta, tasks={FT_TASK: (2, FT_L)}, n_train=FT_TRAIN,
+            n_test=FT_TEST)
+    report["hyena_finetune"] = phase_hyena_finetune(
+        work, data_dir, report["hyena_pretrain"].pop("run_a"))
+    report["hyena_phase_s"] = time.perf_counter() - t0
+
+
+def _hyena_kernel_entries(report, entry):
+    """The kernels line's rows of the three attention kernels: timed at the
+    path shape, launched in `cli.py pretrain --model hyena`."""
+    at = report["attn_kernels"]["timing"]
+    hp = report["hyena_pretrain"]
+    rows = []
+    for name, src in (("attn_fwd", "attention_fwd.cu"),
+                      ("attn_bwd_dkv", "attention_bwd.cu"),
+                      ("attn_bwd_dq", "attention_bwd.cu")):
+        t = at[name]
+        extra = {k: t[k] for k in ("exps", "exp_ms", "bound_term",
+                                   "sdpa_backward_ms", "plain_is") if k in t}
+        row = entry(name, f"caduceus_tpu_torch/csrc/{src}", t,
+                    hp["launches"][name], t["max_abs_err"],
+                    shape=f"G={ATTN_G} L={ATTN_L} H={ATTN_H} hd={ATTN_HD} "
+                    "bf16 causal",
+                    launches_path=f"cli.py pretrain --model hyena, "
+                    f"{HY_LAYERS} layers, MHA at {list(HY_ATTN)}, "
+                    f"L={HY_L}, {HY_STEPS} steps of {HY_ACCUM} "
+                    "micro-batches, --hyena-checkpoint",
+                    launches_per_step=hp["launches_per_step"][name],
+                    **extra)
+        row["library_ms"] = t["library_ms"]
+        rows.append(row)
+    return rows
+
+
 def _imports_here(*names):
     out = {}
     for n in names:
@@ -4563,7 +5111,10 @@ def main() -> int:
 
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-job":
         return rank_job(sys.argv[2])
-    only_cp = sys.argv[1:] == ["--only", "cp"]
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
+    if only not in (None, "cp", "hyena") or len(sys.argv) > 3:
+        print("usage: chip_smoke.py [--only cp|hyena]", file=sys.stderr)
+        return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4577,15 +5128,16 @@ def main() -> int:
         f"x{torch.cuda.device_count()}; nvidia-smi: {card}")
     report = {"build": phase_build()}
     phases = time.perf_counter()
-    if only_cp:
-        # the parallel phases alone, for work on them
+    if only is not None:
+        # the parallel or the Hyena phases alone, for work on them
         from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
 
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as work:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{only}_") as work:
             fasta, bed = make_synthetic_genome(
                 os.path.join(work, "genome"), n_chromosomes=GENOME_CONTIGS,
                 chrom_len=GENOME_CONTIG_LEN, window=GENOME_WINDOW)
-            _cp_phases(report, work, fasta, bed)
+            (_cp_phases if only == "cp" else _hyena_phases)(
+                report, work, fasta, bed)
         log("[report] " + json.dumps(report))
         return 0
     report["ssd_checks"], report["planted_faults"] = phase_kernel_checks()
@@ -4688,6 +5240,8 @@ def main() -> int:
         report["v1_vep"] = phase_vep(work, fasta, v1_run_a, "hg38_mlm",
                                      report["imports"]["sklearn"])
         report["downstream_phase_s"] = time.perf_counter() - t_down
+        # the Hyena family: the attention kernels, pretrain, fine-tune
+        _hyena_phases(report, work, fasta, bed)
         # data and context parallelism: two ranks on this card
         _cp_phases(report, work, fasta, bed)
     pre, bare = report["pretrain"], report["pretrain_bare"]
@@ -4745,7 +5299,14 @@ def main() -> int:
         "bidir_scan_bwd": "caduceus_tpu/ops/scan_pallas_bidir.py:210",
         "ssd_fused_cp": "caduceus_tpu/ops/ssd_pallas_batched.py:1214",
         "ssd_fused_bwd_kernel_cp": "caduceus_tpu/ops/ssd_pallas_batched.py:1256",
-        "ssd_conv_bwd_kernel_cp": "caduceus_tpu/ops/ssd_pallas_batched.py:1256"}
+        "ssd_conv_bwd_kernel_cp": "caduceus_tpu/ops/ssd_pallas_batched.py:1256",
+        # the Pallas TPU flash attention that ships with JAX, called from
+        # caduceus_tpu/ops/attention.py:70-77
+        "attn_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "attn_bwd_dkv":
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "attn_bwd_dq":
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"}
 
     def entry(name, source, t, launches, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -4884,7 +5445,8 @@ def main() -> int:
               "layers", two_launch_ms=nt["bidir_bwd"]["two_launch_ms"],
               extra_bytes=nt["bidir_bwd"]["extra_bytes"],
               exps=nt["bidir_bwd"]["exps"]),
-    ] + _cp_kernel_entries(report, entry)}
+    ] + _cp_kernel_entries(report, entry)
+        + _hyena_kernel_entries(report, entry)}
     report.update(kernels)
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start

@@ -1330,3 +1330,105 @@ def test_cp_entry_repeats_bit_for_bit(card):
         for name, a, b in zip(("y", "hN", "carries") + CP_GRADS, first,
                               again):
             assert torch.equal(a, b), (reverse, name)
+
+
+# --- the flash-attention kernels of the hybrid Hyena layers ------------
+
+ATTN_NAMES = ("o", "lse", "dq", "dk", "dv")
+
+
+def _attn_case(dtype, B, L, H, hd, causal, seed):
+    """The three attention kernels and their plain versions on the same
+    card tensors: {name: (kernel, plain)}, and the kernels' outputs of a
+    second run."""
+    from caduceus_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, L, H, hd, generator=g,
+                               device="cuda").to(dtype) for _ in range(4))
+    sc = hd ** -0.5
+
+    def kernels():
+        o, lse = attention.attention_fwd(q, k, v, causal, sc)
+        return (o, lse, *attention.attention_bwd(q, k, v, o, lse, do, causal,
+                                                 sc))
+
+    got = kernels()
+    po, plse = attention.attention_fwd_plain(q, k, v, causal, sc)
+    plain = (po, plse, *attention.attention_bwd_plain(
+        q, k, v, got[0], got[1], do, causal, sc))
+    torch.cuda.synchronize()
+    return dict(zip(ATTN_NAMES, zip(got, plain))), kernels()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("L,hd", [(251, 32), (256, 64), (100, 16),
+                                  (130, 128)])
+def test_attention_kernels_match_plain(card, dtype, causal, L, hd):
+    """`attn_fwd`, `attn_bwd_dkv` and `attn_bwd_dq` against the plain
+    versions (O and lse; dq, dk, dv from the kernel's own O and lse), at
+    ragged and aligned L, by the rule of `kernel_check.py` with the floor
+    taken per row (`compare(rows=True)`); the launch counters move by one
+    each; a second run repeats every output bit for bit."""
+    from caduceus_tpu_torch.ops import attention
+
+    before = (attention.fwd_launches, attention.bwd_dkv_launches,
+              attention.bwd_dq_launches)
+    pairs, again = _attn_case(dtype, 2, L, 3, hd, causal, seed=L + hd)
+    assert (attention.fwd_launches, attention.bwd_dkv_launches,
+            attention.bwd_dq_launches) == tuple(b + 2 for b in before)
+    for name, (k, p) in pairs.items():
+        tol = TOL[torch.float32] if name == "lse" else TOL[dtype]
+        stats = compare(k, p, tol, rows=True)
+        assert stats["ok"], (name, stats)
+    for name, a, b in zip(ATTN_NAMES, (k for k, _ in pairs.values()), again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_step_through_the_kernels(card, dtype):
+    """A 1-layer `MHA` forward and backward on the card (`_AttentionFn`:
+    the three kernels) against autograd of the same layer over the plain
+    attention on the card: output and every gradient by the kernels'
+    rule; the kernels launched once each."""
+    from caduceus_tpu_torch.models.hyena import MHA
+    from caduceus_tpu_torch.ops import attention
+
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    layer = MHA(64, 4, dtype=name,
+                generator=torch.Generator().manual_seed(3)).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 200, 64, generator=g, device="cuda")
+    cot = torch.randn(2, 200, 64, generator=g, device="cuda").to(dtype)
+
+    def step():
+        for p in layer.parameters():
+            p.grad = None
+        xi = x.clone().requires_grad_(True)
+        out = layer(xi)
+        out.backward(cot)
+        return [out.detach(), xi.grad] + [p.grad for p in layer.parameters()]
+
+    before = attention.fwd_launches, attention.bwd_dq_launches
+    got = step()
+    assert (attention.fwd_launches, attention.bwd_dq_launches) == (
+        before[0] + 1, before[1] + 1)
+
+    def plain_fn(q, k, v, causal=True, sm_scale=None, use_kernel="auto"):
+        o, _ = attention.attention_fwd_plain(q, k, v, causal,
+                                             q.shape[-1] ** -0.5)
+        return o
+
+    import caduceus_tpu_torch.models.hyena as hy
+    real = hy.mha_attention
+    hy.mha_attention = plain_fn
+    try:
+        want = step()
+    finally:
+        hy.mha_attention = real
+    for i, (a, b) in enumerate(zip(got, want)):
+        stats = compare(a, b, TOL[dtype], rows=a.dim() > 1)
+        assert stats["ok"], (i, stats)

@@ -6,8 +6,10 @@ of `finetune.py` (forward and gradients, every problem type's loss), one
 layer-wise lr decay and the weight-decay mask on the classifier tree, the
 numpy classification metrics against scikit-learn, the classification
 data (batches bit for bit) and the synthetic suite, the export and
-/classify (the port's and the JAX package's exports), and the
-RC-invariance of the RCPS classifiers. Both sides get the same weights
+/classify (the port's and the JAX package's exports), the
+RC-invariance of the RCPS classifiers, and the Hyena and CNN classifiers
+(`finetune_one` against JAX's, `cli.py finetune` and /classify of their
+exports). Both sides get the same weights
 through the bridge (`params.py`) and the same inputs from a seeded numpy
 generator; the JAX side runs ``use_kernel="xla"``. The backbones are 2
 layers, d_model 32, at the odd length 41 (one ragged chunk of the SSD,
@@ -543,6 +545,126 @@ def test_frozen_backbone_still_decays(trajectories):
     assert np.abs(pbest[k]).sum() < np.abs(jbest[k]).sum() * 1.0001
 
 
+# --- the Hyena and CNN classifiers ---------------------------------------
+
+L_CNN = 64      # the CNN's three conv + pool stages need 57 positions or more
+HYENA = dict(d_model=32, n_layer=2, vocab_size=12, l_max=L,
+             attn_layer_idx=(1,), num_heads=2, embed_dropout=0.0)
+
+
+def _all_variables(tree):
+    """Flat params and batch statistics of a flax variables tree."""
+    out = {}
+    for coll in tree.values():
+        out.update({k: np.asarray(v) for k, v in
+                    tu.flatten_dict(coll, sep="/").items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def kind_trajectories(task_dir):
+    """{kind: (JAX logs, result, best variables, port logs, result, best
+    state_dict)} of `finetune_one` for ``model_kind`` "hyena" (a JAX
+    Hyena LM's backbone grafted, dropout off: its bits cannot match) and
+    "cnn" (from scratch, at length 64), 2 epochs, both from the JAX init."""
+    from caduceus_tpu.models.hyena import HyenaLMHeadModel as JaxHyenaLM
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+
+    seed, out = 4, {}
+    for kind, length in (("hyena", L), ("cnn", L_CNN)):
+        jcfg = dict(HYENA) if kind == "hyena" else None
+        dm_kw = dict(max_length=length, batch_size=16,
+                     train_val_split_seed=seed, seed=seed)
+        jdm = JaxDM(task_dir, TASK, **dm_kw)
+        pdm = ClassificationDataModule(task_dir, TASK, **dm_kw)
+        common = dict(epochs=2, seed=seed, metric="all", pooling="mean",
+                      model_kind=kind)
+        jmodel = jax_finetune._make_classifier(jcfg, 2, "mean", False,
+                                               "left", model_kind=kind)
+        example = next(jdm.batches("train", seed=seed))
+        init = jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
+                                    jnp.asarray(example["input_ids"]),
+                                    jnp.asarray(example["lengths"]))
+        jax_pre = port_pre = None
+        if kind == "hyena":
+            lm = JaxHyenaLM(**{k: v for k, v in HYENA.items()})
+            lm_init = jax.jit(lm.init)(jax.random.PRNGKey(9),
+                                       np.zeros((1, 8), np.int32))
+            jax_pre = {"params": {"backbone": lm_init["params"]["backbone"]}}
+            shape = HyenaLMHeadModel(device="cpu", **HYENA)
+            port_pre = from_jax_params(flatten(jax_pre), None, model=shape)
+        jlogs = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_finetune, "_make_classifier",
+                       lambda *a, **k: _Initialised(jmodel, init))
+            jres, (jbest, jextra) = jax_finetune.finetune_one(
+                jcfg, jdm, 2, pretrained_params=jax_pre, log_fn=jlogs.append,
+                return_state=True, **common)
+        make = finetune._make_classifier
+
+        def from_jax_init(*a, **k):
+            model = make(*a, **k)
+            model.load_state_dict(from_jax_params(_all_variables(init), None,
+                                                  model=model))
+            return model
+
+        plogs = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(finetune, "_make_classifier", from_jax_init)
+            pres, pbest = finetune.finetune_one(
+                jcfg, pdm, 2, pretrained_params=port_pre,
+                log_fn=plogs.append, return_state=True, device="cpu",
+                **common)
+        out[kind] = (jlogs, jres, _all_variables({**jbest, **jextra}),
+                     plogs, pres, to_jax_params(pbest))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["hyena", "cnn"])
+def test_finetune_one_hyena_and_cnn_match_jax(kind_trajectories, kind):
+    """`finetune_one` of the Hyena classifier (a pretrained backbone
+    grafted; its MHA layer at the ragged length 41) and of the CNN (its
+    BatchNorm on batch statistics in training, running ones in eval)
+    against JAX's, from the same init: the logged training loss within
+    1e-4, the best-val parameters (and the CNN's running statistics)
+    within 1e-4 of each one's largest element; for Hyena also the val
+    and test metrics within 1e-4.
+
+    Four of the CNN's parameters have a gradient of 0 in exact
+    arithmetic: each conv bias feeds a BatchNorm, which subtracts its
+    batch mean, and bn_1's bias reaches bn_2 as a per-channel constant
+    (max-pool and conv_2 carry a constant as a constant). Their gradients
+    are rounding noise of either sign in both programs, and AdamW moves
+    each by up to lr a step on that sign (here ~1.5e-4 apart after 6
+    steps), so they are held to 2·lr·steps; through the running
+    statistics that noise moves the
+    eval scores by ~5e-4, enough to reorder near-equal scores of the 5
+    val sequences, so the CNN's val / test metrics are not compared."""
+    jlogs, jres, jbest, plogs, pres, pbest = kind_trajectories[kind]
+    assert len(plogs) == len(jlogs) == 3
+    for got, want in zip(plogs, jlogs):
+        assert got.keys() == want.keys()
+        for k in want:
+            if kind == "hyena" or k == "loss":
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                           atol=1e-6, err_msg=f"{kind} {k}")
+    assert pres.keys() == jres.keys()
+    if kind == "hyena":
+        for k in jres:
+            np.testing.assert_allclose(pres[k], jres[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{kind} {k}")
+        assert_tree_close(pbest, jbest, 1e-4, kind)
+        return
+    biases = [k for k in jbest if k.endswith("/bias") and (
+        k.startswith("cnn/conv_") or k == "cnn/bn_1/bias")]
+    steps = 6   # 3 steps of 16 an epoch (48 train sequences), 2 epochs
+    for k in biases:
+        np.testing.assert_allclose(pbest.pop(k), jbest.pop(k), rtol=0,
+                                   atol=2 * 1e-3 * steps, err_msg=k)
+    assert_tree_close(pbest, jbest, 1e-4, kind)
+    assert not np.allclose(pbest["cnn/bn_0/var"], 1.0)
+
+
 # --- metrics -----------------------------------------------------------
 
 METRIC_CASES = [
@@ -752,6 +874,71 @@ def test_cli_finetune_exports_and_serves_classify(task_dir, tmp_path):
     for refused in (["--model", "cnn"], ["--model", "hyena"]):
         with pytest.raises(SystemExit):
             cli_main(argv + refused)
+
+
+def _classify_direct(save, seqs, length):
+    """/classify of an export through the server and a direct forward of
+    the exported classifier on the same encoded batch."""
+    svc = InferenceService.from_run_dir(str(save), device="cpu", max_batch=4)
+    tc = svc.task_cfg
+    server = InferenceServer(svc, port=0).start()
+    try:
+        got = _post(server.port, "/classify", {"sequences": seqs})["classify"]
+    finally:
+        server.stop()
+    cfg = (None if tc["model_kind"] == "cnn" else
+           dict(tc["model_cfg"], attn_layer_idx=tuple(
+               tc["model_cfg"]["attn_layer_idx"])))
+    model = finetune._make_classifier(cfg, 2, tc["pooling"], False, "left",
+                                      model_kind=tc["model_kind"],
+                                      device="cpu", seq_len=length)
+    flat = dict(np.load(save / "params.npz"))
+    model.load_state_dict(from_jax_params(flat, None, model=model))
+    model.eval()
+    ids = np.stack([svc.tok.encode_padded(x, length, add_sep=False)
+                    for x in seqs])
+    with torch.inference_mode():
+        direct = model(torch.from_numpy(ids.astype(np.int64))).numpy()
+    return tc, got, direct
+
+
+def test_cli_finetune_hyena_and_cnn_export_and_classify(task_dir, tmp_path):
+    """`cli.py finetune` from a Hyena pretraining run dir (the backbone
+    family taken from its model_config.json) and ``--model cnn`` from
+    scratch, each with ``--save-dir``; /classify of each export equals a
+    direct forward of the exported classifier (the CNN in eval mode: its
+    running statistics, which the export carries)."""
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+
+    run = tmp_path / "hyena_run"
+    run.mkdir()
+    kw = {k: v for k, v in HYENA.items() if k != "embed_dropout"}
+    with open(run / "model_config.json", "w") as f:
+        json.dump({"model_type": "hyena", "objective": "ntp", "lr": 6e-4,
+                   **kw, "attn_layer_idx": [1]}, f)
+    pre = HyenaLMHeadModel(device="cpu",
+                           generator=torch.Generator().manual_seed(5), **kw)
+    np.savez(run / "params.npz", **to_jax_params(pre.state_dict()))
+    base = ["finetune", "--data-dir", task_dir, "--task", TASK,
+            "--batch-size", "16", "--epochs", "1", "--seeds", "1",
+            "--device", "cpu"]
+    for name, extra, length in (
+            ("hyena", ["--pretrained-run-dir", str(run)], L),
+            ("cnn", ["--model", "cnn"], L_CNN)):
+        save = tmp_path / f"export_{name}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(base + extra + ["--max-length", str(length),
+                                     "--save-dir", str(save)])
+        tc, got, direct = _classify_direct(save, CLASSIFY_SEQS, length)
+        assert tc["model_kind"] == name and tc["max_length"] == length
+        assert (tc["model_cfg"] is None) == (name == "cnn")
+        for r, sc in zip(got, direct, strict=True):
+            e = np.exp(sc - sc.max())
+            np.testing.assert_allclose(r["probs"], e / e.sum(), rtol=0,
+                                       atol=1e-6)
+            assert r["label"] == int(np.argmax(sc))
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+        cli_main(base + ["--model", "cnn", "--pretrained-run-dir", str(run)])
 
 
 def test_jax_export_served_by_port(tmp_path):

@@ -342,8 +342,9 @@ def test_cli_pretrain_eval_serve_on_cpu(case, tmp_path):
     model_config.json, metrics.jsonl and two checkpoints; ``--resume``
     continues from the last; ``eval`` scores it and the server loads its
     EMA weights from the checkpoint alone. ``--model mamba --ntp`` trains
-    a causal model that ``generate`` reads back. What is not ported, and a
-    missing card, are refused."""
+    a causal model that ``generate`` reads back. What is not ported or
+    not allowed (``--model hyena`` without ``--ntp``), and a missing card,
+    are refused."""
     run = str(tmp_path / "run")
     common = ["--fasta", case["fa"], "--bed", case["bed"], "--device", "cpu",
               "--max-length", str(L), "--batch-size", str(BATCH),
@@ -390,7 +391,7 @@ def test_cli_pretrain_eval_serve_on_cpu(case, tmp_path):
     cfg, _ = load_run_dir(causal)
     assert not cfg.rcps and not cfg.bidirectional
 
-    for bad in (["--model", "hyena", "--ntp"], ["--mesh-model", "2"],
+    for bad in (["--model", "hyena"], ["--mesh-model", "2"],
                 ["--context-parallel"]):
         with pytest.raises(SystemExit), contextlib.redirect_stderr(
                 io.StringIO()):
@@ -528,8 +529,6 @@ def test_metrics_and_logging_match_jax(case, tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(case):
     model = case["pt"].model
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(model, TrainerConfig(dropout=True), None)
     # tensor parallelism is still refused; context parallelism needs a
     # mesh with a model axis (tests/test_torch_parallel.py runs both)
     with pytest.raises(NotImplementedError, match="item 8"):
