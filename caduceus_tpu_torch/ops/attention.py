@@ -164,14 +164,15 @@ def attention_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
 def _operand(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A (B, L, H, hd) operand as the kernels take it: of ``like``'s shape,
     dtype and device, head dimension contiguous and every row 16-byte
-    aligned (a copy when it is not)."""
+    aligned, no stride 0 (the bf16 kernels' TMA maps need both; a copy
+    when it is not so)."""
     if (t.device, t.dtype, t.shape) != (like.device, like.dtype, like.shape):
         raise ValueError(f"attention operands differ: {tuple(t.shape)} "
                          f"{t.dtype} on {t.device}, expected "
                          f"{tuple(like.shape)} {like.dtype} on {like.device}")
     es = t.element_size()
     if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s * es % 16 for s in t.stride()[:3])):
+            or any(s * es % 16 or s == 0 for s in t.stride()[:3])):
         t = t.contiguous()
     return t
 

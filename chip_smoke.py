@@ -208,14 +208,16 @@ and, downstream of run A of each family (the same temporary directory):
    (`attn_fwd`, `attn_bwd_dkv`, `attn_bwd_dq`; TPU kernel #11) against
    their plain versions (`ops/attention.py attention_fwd_plain` /
    `attention_bwd_plain`) by the kernel rule with a per-row floor: L 251
-   (ragged) and 256, causal and not, fp32 and bf16, head widths 32 and
-   64, each run twice for its bits; the planted fault (the second key
-   tile skipped, the ATTN_DROP build), which must fail; the path shape
-   (G=2, L=65,536, H=8, hd=32, bf16, causal) against the chunked plain
-   version and across two runs, and the planted fault there, which must
-   fail too; each kernel timed there beside its bound (the larger of
-   bytes, FLOPs and exps), its plain version and one SDPA call
-   (yardstick);
+   (ragged), 256 and 1000 (ragged, several tiles each way), causal and
+   not, fp32 and bf16, head widths 32 and 64, q, k, v also as strided
+   views of one packed tensor, each run twice for its bits; the planted
+   fault (the second key tile skipped, the ATTN_DROP build), which must
+   fail; the path shape (G=2, L=65,536, H=8, hd=32, bf16, causal) against
+   the chunked plain version and across two runs, and the planted fault
+   there, which must fail too; each kernel timed there beside its bound
+   (the larger of bytes, FLOPs and exps), its plain version and one SDPA
+   call (yardstick), and the forward and the adjoint pair held against
+   one SDPA call each;
 40. [hyena_vs_cpu] the hybrid Hyena LM (d_model 256, 2 layers, MHA at 1,
    fp32, L=2048) on the card against the CPU: logits and gradients;
 41. [hyena_pretrain] `cli.py pretrain --model hyena --ntp` at
@@ -369,7 +371,9 @@ _KERNEL_NAMES = ("ssd_prep_kernel", "ssd_fwd_state_kernel", "ssd_fwd_kernel",
                  "ssd_conv_wsum_kernel", "selective_scan_fwd_kernel",
                  "selective_scan_bwd_kernel", "bc_share_sum_kernel",
                  "attn_fwd_kernel", "attn_bwd_dkv_kernel",
-                 "attn_bwd_dq_kernel", "attn_delta_kernel")
+                 "attn_bwd_dq_kernel", "attn_delta_kernel",
+                 "attn_fwd_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel",
+                 "attn_bwd_dq_wgmma_kernel")
 
 
 def _instantiation(mangled: str) -> str:
@@ -381,7 +385,7 @@ def _instantiation(mangled: str) -> str:
     name = next((k for k in _KERNEL_NAMES if k in mangled), mangled)
     tail = mangled.split(name, 1)[-1]
     args = []
-    if "bfloat16" in tail:
+    if "bfloat16" in tail or "wgmma" in name:
         args.append("bf16")
     elif re.match(r"I(Li\d+E)?f", tail):
         args.append("fp32")
@@ -4569,8 +4573,16 @@ HY_LAYERS, HY_ATTN = 8, (1, 5)
 EXP_PER_S = 16 * 132 * 1.98e9
 
 
-def _attn_inputs(dtype, B, L, H, hd, seed):
+def _attn_inputs(dtype, B, L, H, hd, seed, packed=False):
+    """q, k, v, dO (B, L, H, hd) on the card; with ``packed`` q, k and v
+    are strided views of one (B, L, 3 H hd) tensor, as `MHA.forward` splits
+    its Wqkv output."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        w = torch.randn(B, L, 3 * H * hd, generator=g, device="cuda").to(dtype)
+        qkv = [t.view(B, L, H, hd) for t in w.split(H * hd, dim=-1)]
+        return qkv + [torch.randn(B, L, H, hd, generator=g,
+                                  device="cuda").to(dtype)]
     return [torch.randn(B, L, H, hd, generator=g, device="cuda").to(dtype)
             for _ in range(4)]
 
@@ -4622,8 +4634,10 @@ def _attn_work(G, L, H, hd, causal=True):
 
 def phase_attn_kernels():
     """[attn_kernels] `attn_fwd`, `attn_bwd_dkv` and `attn_bwd_dq` against
-    their plain versions: small shapes (L 251 ragged and 256 aligned,
-    causal and not, fp32 and bf16, head widths 32 and 64) and the path
+    their plain versions: small shapes (L 251 ragged and 256 aligned, L 1000
+    ragged over several 128- and 64-row tiles each way, causal and not,
+    fp32 and bf16, head widths 32 and 64, and q, k, v as strided views of
+    one packed tensor as `MHA` passes them) and the path
     shape (G=2, L=65536, H=8, hd=32, bf16, causal) against the chunked
     plain version; the bits of two runs; the planted fault (the second key
     tile skipped, the ATTN_DROP build) must fail, at a small shape and at
@@ -4640,11 +4654,18 @@ def phase_attn_kernels():
     out = {"small": {}}
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for L, hd in ((251, 32), (256, 64)):
+            for L, hd, packed in ((251, 32, False), (256, 64, False),
+                                  (1000, 32, False), (1000, 64, False),
+                                  (1000, 32, True)):
                 label = (f"B=2 L={L} H=3 hd={hd} "
                          f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} "
-                         f"{'causal' if causal else 'full'}")
-                ins = _attn_inputs(dtype, 2, L, 3, hd, seed=L + hd)
+                         f"{'causal' if causal else 'full'}"
+                         f"{' packed q/k/v views' if packed else ''}")
+                ins = _attn_inputs(dtype, 2, L, 3, hd, seed=L + hd,
+                                   packed=packed)
+                if packed:
+                    check(not ins[0].is_contiguous() and ins[1].stride(1)
+                          == 9 * hd, f"[attn_kernels] {label}: not views")
                 got, plain = _attn_pair(*ins, causal)
                 st = _attn_hold(label, got, plain)
                 again, _ = _attn_pair(*ins, causal)
@@ -4752,6 +4773,20 @@ def phase_attn_kernels():
             f"{t['plain_ms']:.1f} ms; SDPA "
             + (f"forward {sdpa_fwd:.3f} ms" if name == "attn_fwd" else
                f"backward {sdpa_bwd:.3f} ms (dq, dk, dv together)"))
+    # the redesign's targets: the forward against one SDPA forward and
+    # twice its exp bound, the adjoint pair against one SDPA backward
+    tm = out["timing"]
+    pair = tm["attn_bwd_dkv"]["ms"] + tm["attn_bwd_dq"]["ms"]
+    out["targets"] = {
+        "fwd_over_sdpa_fwd": tm["attn_fwd"]["ms"] / sdpa_fwd,
+        "fwd_over_exp_bound": tm["attn_fwd"]["ms"] / tm["attn_fwd"]["exp_ms"],
+        "pair_ms": pair, "pair_over_sdpa_bwd": pair / sdpa_bwd}
+    log(f"[attn_kernels] targets: attn_fwd {tm['attn_fwd']['ms']:.3f} ms = "
+        f"{out['targets']['fwd_over_sdpa_fwd']:.3f} x SDPA forward, "
+        f"{out['targets']['fwd_over_exp_bound']:.3f} x its exp bound "
+        f"(target <= 1 and <= 2); dK/dV + dQ {pair:.3f} ms = "
+        f"{out['targets']['pair_over_sdpa_bwd']:.3f} x SDPA backward "
+        "(target <= 1)")
     del q, k, v, do, o, lse, dk, dv, dq, D
     torch.cuda.empty_cache()
     return out

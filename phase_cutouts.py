@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a chunk's time goes in the port's kernels, on the card.
 
-    python3 phase_cutouts.py [--set ssd|scan|scan-prefill|scan-pr6]
-                             [--tree DIR] [--only TEXT]
+    python3 phase_cutouts.py [--set ssd|scan|scan-prefill|scan-pr6|conv|
+                                    attn|attn-pr12] [--tree DIR] [--only TEXT]
 
 from the root of a checkout on a machine with a CUDA card and nvcc. It
 writes copies of kernel sources into `build/cutouts/`, each with one phase
@@ -33,7 +33,18 @@ Sets (ssd and scan by default; `--set` repeats, and takes conv too):
 - scan-pr6: the same two calls on the scan kernels as they were before their
   redesign (a thread per (channel, n), 64-row chunks walked serially);
   give the root of a checkout of that version with ``--tree``: its package,
-  sources and `chip_smoke.py` are the ones imported and cut.
+  sources and `chip_smoke.py` are the ones imported and cut;
+- attn: the bf16 flash-attention kernels (#11: `attn_fwd`, `attn_bwd_dkv`,
+  `attn_bwd_dq`, the `wgmma` design) at the Hyena path's shape, G=2,
+  L=65536, H=8, hd=32, causal, with one phase cut out each (the exps, each
+  product, the ring's loads, the masks) and settings changed (ring slots,
+  blocks an SM);
+- attn-pr12: the same three calls on the attention kernels before their
+  Hopper redesign (commit 40651ec: 4-warp `mma.sync` blocks, P and dS
+  through shared memory): give the root of an export of that version with
+  ``--tree``; its sources (header inlined) are built and launched through
+  this checkout's wrappers, whose C interface is the same, so ``--set attn
+  --set attn-pr12 --only base`` times both designs in turns in one process.
 """
 
 from __future__ import annotations
@@ -374,9 +385,117 @@ def conv_variants(csrc):
     return v
 
 
+ATT_FWD = ("attn_fwd_wgmma_kernel(const Args a,", "template <int HD>\nconstexpr size_t wgmma_smem")
+ATT_DKV = ("attn_bwd_dkv_wgmma_kernel(const Args a,", "// Shared memory of the dQ kernel")
+ATT_DQ = ("attn_bwd_dq_wgmma_kernel(const Args a,", "template <int HD>\nconstexpr size_t wgmma_smem")
+# the exps replaced by an FMA-pipe stand-in of the same data flow
+NO_EXP = ("fast_exp2(fmaf(", "(1.f + 0.f * fmaf(")
+# the ring's TMA loads after the prologue cut: the tiles stay stale, only
+# the prologue's are waited for
+RING_LOAD = ("if (threadIdx.x == 0 && kt + STAGES - 1 < n_kt) load(kt + STAGES - 1);", "")
+RING_WAIT = ("bar_wait(bar(slot), (kt / STAGES) & 1);",
+             "if (kt < STAGES - 1) bar_wait(bar(slot), (kt / STAGES) & 1);")
+
+
+def attn_variants(csrc):
+    """The bf16 attention kernels, one phase cut or one setting changed
+    each: "attn fwd" (`attn_fwd`), "attn dkv" (`attn_bwd_dkv`: the D
+    prologue and the dK / dV kernel) and "attn dq" (`attn_bwd_dq`)."""
+    fwd = open(os.path.join(csrc, "attention_fwd.cu")).read()
+    bwd = open(os.path.join(csrc, "attention_bwd.cu")).read()
+    common = open(os.path.join(csrc, "attention_common.cuh")).read()
+    inline = lambda src, hdr: src.replace('#include "attention_common.cuh"', hdr, 1)
+    F, K, Q = "attn-fwd", "attn-dkv", "attn-dq"
+    v = {"attn fwd base": (F, fwd), "attn dkv base": (K, bwd),
+         "attn dq base": (Q, bwd)}
+    v["attn fwd exps -> FMA"] = (F, _cut(fwd, ATT_FWD, *NO_EXP))
+    v["attn fwd no S = Q K^T product"] = (F, _cut(
+        fwd, ATT_FWD, "scores<HD>(s, q_s, k_tile(slot));", "zero(s);"))
+    v["attn fwd no O += P V product"] = (F, _cut(
+        fwd, ATT_FWD, "accumulate<HD>(o, pa, k_tile(slot) + Lay::TILE);",
+        "o[0][0] += __uint_as_float(pa[0][0] ^ pa[3][3]);"))
+    v["attn fwd no ring loads (stale tiles)"] = (F, _cuts(fwd, ATT_FWD, (
+        ("const bool refill = threadIdx.x == 0 && kt + STAGES - 1 < n_kt;",
+         "const bool refill = false;"), RING_WAIT)))
+    v["attn fwd no masks"] = (F, _cut(
+        fwd, ATT_FWD, "if ((a.causal && kt == last) || k0 + BN > L) {", "if (false) {"))
+    v["attn fwd 2 blocks an SM"] = (F, fwd.replace(
+        "__launch_bounds__(hop::THREADS, HD <= 32 ? 3 :",
+        "__launch_bounds__(hop::THREADS, HD <= 32 ? 2 :", 1))
+    v["attn fwd 1 block an SM"] = (F, fwd.replace(
+        "constexpr size_t smem = wgmma_smem<HD>();",
+        "constexpr size_t smem = 120 * 1024;", 1))
+    for n in (2, 4):
+        hdr = common.replace("constexpr int STAGES = 3;", f"constexpr int STAGES = {n};", 1)
+        for key, lib, src in (("fwd", F, fwd), ("dkv", K, bwd), ("dq", Q, bwd)):
+            v[f"attn {key} {n} ring slots"] = (lib, inline(src, hdr))
+    v["attn dkv exps -> FMA"] = (K, _cut(bwd, ATT_DKV, *NO_EXP))
+    v["attn dkv no S^T, dP^T products"] = (K, _cuts(bwd, ATT_DKV, (
+        ("scores<HD>(s, k_s, q_s);", "zero(s);"),
+        ("scores<HD>(dp, v_s, o_s);", "zero(dp);"))))
+    v["attn dkv no dV, dK products"] = (K, _cuts(bwd, ATT_DKV, (
+        ("accumulate<HD>(dv, pa, o_s);",
+         "dv[0][0] += __uint_as_float(pa[0][0] ^ pa[3][3]);"),
+        ("accumulate<HD>(dk, da, q_s);",
+         "dk[0][0] += __uint_as_float(da[0][0] ^ da[3][3]);"))))
+    v["attn dkv no ring loads (stale tiles)"] = (K, _cuts(bwd, ATT_DKV, (
+        ("if (threadIdx.x < BN && qt + STAGES - 1 < n_qt) load(qt + STAGES - 1);", ""),
+        ("bar_wait(bar(slot), (i / STAGES) & 1);",
+         "if (i < STAGES - 1) bar_wait(bar(slot), (i / STAGES) & 1);"))))
+    v["attn dkv no masks"] = (K, _cut(
+        bwd, ATT_DKV, "if (a.causal && qt == mine) {", "if (false) {"))
+    v["attn dkv no D prologue"] = (K, bwd.replace(
+        "    e = launch_delta<bf16, HD>(a, st);",
+        "    e = a.B < 0 ? launch_delta<bf16, HD>(a, st) : cudaSuccess;", 1))
+    v["attn dq exps -> FMA"] = (Q, _cut(bwd, ATT_DQ, *NO_EXP))
+    v["attn dq no S, dP products"] = (Q, _cuts(bwd, ATT_DQ, (
+        ("scores<HD>(s, q_s, k_s);", "zero(s);"),
+        ("scores<HD>(dp, o_s, k_s + Lay::TILE);", "zero(dp);"))))
+    v["attn dq no dQ product"] = (Q, _cut(
+        bwd, ATT_DQ, "accumulate<HD>(dq, da, k_s);",
+        "dq[0][0] += __uint_as_float(da[0][0] ^ da[3][3]);"))
+    v["attn dq no ring loads (stale tiles)"] = (Q, _cuts(bwd, ATT_DQ, (RING_LOAD, RING_WAIT)))
+    v["attn dq no masks"] = (Q, _cut(
+        bwd, ATT_DQ, "if (a.causal && kt == last) {", "if (false) {"))
+    return v
+
+
+def attn_pr12_variants(csrc):
+    """The attention kernels before their redesign, from the ``--tree``
+    export, the header inlined: "pr12 fwd base", "pr12 dkv base", "pr12 dq
+    base"."""
+    fwd = open(os.path.join(csrc, "attention_fwd.cu")).read()
+    bwd = open(os.path.join(csrc, "attention_bwd.cu")).read()
+    hdr = open(os.path.join(csrc, "attention_common.cuh")).read()
+    inline = lambda src: src.replace('#include "attention_common.cuh"', hdr, 1)
+    return {"pr12 fwd base": ("attn-fwd", inline(fwd)),
+            "pr12 dkv base": ("attn-dkv", inline(bwd)),
+            "pr12 dq base": ("attn-dq", inline(bwd))}
+
+
+def attn_calls(cs):
+    """{library: (module, call)}: the three attention entries at the Hyena
+    path's shape, G=2, L=65536, H=8, hd=32, bf16, causal (`chip_smoke.py
+    ATTN_*`), O, lse and D from the shipped kernels."""
+    from caduceus_tpu_torch.ops import attention as A
+
+    G, L, H, hd = cs.ATTN_G, cs.ATTN_L, cs.ATTN_H, cs.ATTN_HD
+    q, k, v, do = cs._attn_inputs(torch.bfloat16, G, L, H, hd, seed=7)
+    sc = hd ** -0.5
+    o, lse = A.attention_fwd(q, k, v, True, sc)
+    _, _, D = A.attention_bwd_dkv(q, k, v, o, lse, do, True, sc)
+    return {"attn-fwd": (A, lambda: A.attention_fwd(q, k, v, True, sc)),
+            "attn-dkv": (A, lambda: A.attention_bwd_dkv(
+                q, k, v, o, lse, do, True, sc)),
+            "attn-dq": (A, lambda: A.attention_bwd_dq(
+                q, k, v, o, lse, do, D, True, sc))}
+
+
 SETS = {"ssd": ssd_variants, "scan": scan_variants,
         "scan-pr6": scan_pr6_variants, "scan-prefill": prefill_variants}
 SETS["conv"] = conv_variants
+SETS["attn"] = attn_variants
+SETS["attn-pr12"] = attn_pr12_variants
 
 
 def build(v, csrc):
@@ -489,14 +608,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("phase_cutouts: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.tree))
+    sets = args.set or ["ssd", "scan"]
+    tree = os.path.abspath(args.tree)
+    # attn-pr12 takes only the sources of --tree: its wrappers are this
+    # checkout's
+    if "attn-pr12" not in sets:
+        sys.path.insert(0, tree)
     cs = importlib.import_module("chip_smoke")
     from caduceus_tpu_torch import _build
 
-    sets = args.set or ["ssd", "scan"]
     v = {}
     for s in sets:
-        v.update(SETS[s](_build.SRC_DIR))
+        v.update(SETS[s](os.path.join(tree, "caduceus_tpu_torch", "csrc")
+                         if s == "attn-pr12" else _build.SRC_DIR))
     v = {k: x for k, x in v.items() if args.only in k or k.endswith(" base")}
     libs = build(v, _build.SRC_DIR)
     calls = {}
@@ -508,6 +632,8 @@ def main() -> int:
         calls.update(prefill_calls(cs))
     if "conv" in sets:
         calls.update(conv_calls(cs))
+    if "attn" in sets or "attn-pr12" in sets:
+        calls.update(attn_calls(cs))
 
     def timed(name):
         lib, _, *patch = v[name]
@@ -517,7 +643,9 @@ def main() -> int:
 
         def fn(entry):
             f = getattr(libs[name], entry)
-            f.argtypes, f.restype = mod._ARGTYPES[entry], ctypes.c_int
+            argt = mod._ARGTYPES
+            f.argtypes = argt if isinstance(argt, list) else argt[entry]
+            f.restype = ctypes.c_int
             return f
         for k, val in patch.items():
             setattr(mod, k, val)
@@ -537,7 +665,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"[cutouts] {', '.join(sets)} at G=4 L=131072 bf16 (scan-prefill: "
-          f"G=1 fp32), {smi}")
+          f"G=1 fp32; attn: G=2 L=65536 H=8 hd=32 causal), {smi}")
     for n in names:
         base = runs[next(b for b in names if b.endswith(" base")
                          and b.split()[:-1] == n.split()[:len(b.split()) - 1])]

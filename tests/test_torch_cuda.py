@@ -1337,15 +1337,22 @@ def test_cp_entry_repeats_bit_for_bit(card):
 ATTN_NAMES = ("o", "lse", "dq", "dk", "dv")
 
 
-def _attn_case(dtype, B, L, H, hd, causal, seed):
+def _attn_case(dtype, B, L, H, hd, causal, seed, packed=False):
     """The three attention kernels and their plain versions on the same
     card tensors: {name: (kernel, plain)}, and the kernels' outputs of a
-    second run."""
+    second run. With ``packed`` q, k and v are strided views of one
+    (B, L, 3 H hd) tensor, as `MHA.forward` splits its Wqkv output."""
     from caduceus_tpu_torch.ops import attention
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(B, L, H, hd, generator=g,
-                               device="cuda").to(dtype) for _ in range(4))
+    if packed:
+        w = torch.randn(B, L, 3 * H * hd, generator=g, device="cuda").to(dtype)
+        q, k, v = (t.view(B, L, H, hd) for t in w.split(H * hd, dim=-1))
+        assert not q.is_contiguous() and k.stride(1) == 3 * H * hd
+        do = torch.randn(B, L, H, hd, generator=g, device="cuda").to(dtype)
+    else:
+        q, k, v, do = (torch.randn(B, L, H, hd, generator=g,
+                                   device="cuda").to(dtype) for _ in range(4))
     sc = hd ** -0.5
 
     def kernels():
@@ -1364,19 +1371,29 @@ def _attn_case(dtype, B, L, H, hd, causal, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("L,hd", [(251, 32), (256, 64), (100, 16),
-                                  (130, 128)])
-def test_attention_kernels_match_plain(card, dtype, causal, L, hd):
+@pytest.mark.parametrize("L,hd,packed", [
+    pytest.param(251, 32, False, id="251-32"),
+    pytest.param(256, 64, False, id="256-64"),
+    pytest.param(100, 16, False, id="100-16"),
+    pytest.param(130, 128, False, id="130-128"),
+    pytest.param(1000, 32, False, id="1000-32"),
+    pytest.param(1000, 64, False, id="1000-64"),
+    pytest.param(1000, 32, True, id="1000-32-packed"),
+    pytest.param(251, 64, True, id="251-64-packed")])
+def test_attention_kernels_match_plain(card, dtype, causal, L, hd, packed):
     """`attn_fwd`, `attn_bwd_dkv` and `attn_bwd_dq` against the plain
     versions (O and lse; dq, dk, dv from the kernel's own O and lse), at
-    ragged and aligned L, by the rule of `kernel_check.py` with the floor
-    taken per row (`compare(rows=True)`); the launch counters move by one
-    each; a second run repeats every output bit for bit."""
+    ragged and aligned L (L=1000: several 128- and 64-row tiles each way),
+    q, k, v also as strided views of one packed tensor, by the rule of
+    `kernel_check.py` with the floor taken per row (`compare(rows=True)`);
+    the launch counters move by one each; a second run repeats every
+    output bit for bit."""
     from caduceus_tpu_torch.ops import attention
 
     before = (attention.fwd_launches, attention.bwd_dkv_launches,
               attention.bwd_dq_launches)
-    pairs, again = _attn_case(dtype, 2, L, 3, hd, causal, seed=L + hd)
+    pairs, again = _attn_case(dtype, 2, L, 3, hd, causal, seed=L + hd,
+                              packed=packed)
     assert (attention.fwd_launches, attention.bwd_dkv_launches,
             attention.bwd_dq_launches) == tuple(b + 2 for b in before)
     for name, (k, p) in pairs.items():
