@@ -246,10 +246,29 @@ __device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-// Waits for the phase of parity `parity`. The wait is bounded (far above
-// any tile's arrival), so a load that never lands gives wrong values, not
-// a hung card.
+// Waits for the phase of parity `parity`, spinning until it completes, as
+// CUTLASS's ClusterBarrier::wait does: a tile whose load never lands hangs
+// the block rather than letting it compute on what the slot held before
+// (a bounded wait that fell through returned wrong values and no error).
+// The loop is in the PTX, so a warp leaves it together and meets the
+// warpgroup instructions after it converged.
+//
+// Probe builds (-D defines; chip_smoke.py [attn_kernels],
+// attn_wait_probe.py), never the shipped library:
+// - ATTN_POLLS: the same wait as a counted C loop; lane 0 of every warp
+//   raises the largest poll count one wait took into attn_poll_stats[0]
+//   and adds its waits and polls to [1] and [2] (`attn_polls` reads and
+//   clears them);
+// - ATTN_WAIT_TRAP=1: the wait these kernels first had, bounded at 2^24 polls and
+//   then `__trap()`; =2: the same with a `__syncwarp()` before it returns
+//   from a wait that completed;
+// - ATTN_LOST (attention_fwd.cu, with ATTN_WAIT_TRAP only): key tile 1's
+//   loads are announced on its barrier and never issued, a lost load.
+#ifdef ATTN_POLLS
+__device__ unsigned long long attn_poll_stats[3];
+#endif
 __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+#if defined(ATTN_WAIT_TRAP)
   for (uint32_t n = 0; n < (1u << 24); ++n) {
     uint32_t done;
     asm volatile(
@@ -258,8 +277,40 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (done) return;
+    if (done) {
+#if ATTN_WAIT_TRAP == 2
+      __syncwarp();
+#endif
+      return;
+    }
   }
+  __trap();
+#elif defined(ATTN_POLLS)
+  uint32_t done = 0;
+  unsigned long long n = 0;
+  while (!done) {
+    ++n;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&attn_poll_stats[0], n);
+    atomicAdd(&attn_poll_stats[1], 1ull);
+    atomicAdd(&attn_poll_stats[2], n);
+  }
+#else
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+#endif
 }
 
 // -- TMA: (B, L, H, hd) views through 4-d maps (hd, H, L, B) with boxes of
@@ -452,3 +503,15 @@ inline bool tile_map(CUtensorMap* m, const View& v, int B, int L, int H, int hd,
 }  // namespace hop
 
 }  // namespace attn
+
+#ifdef ATTN_POLLS
+// The probe build's counters (see `bar_wait`): out[0] the largest poll
+// count of one wait, out[1] the waits, out[2] the polls, by lane 0 of
+// each warp since the last call; cleared. Returns a cudaError_t.
+extern "C" int attn_polls(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, attn::hop::attn_poll_stats, 3 * sizeof(unsigned long long));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[3] = {0, 0, 0};
+  return (int)cudaMemcpyToSymbol(attn::hop::attn_poll_stats, zero, sizeof(zero));
+}
+#endif

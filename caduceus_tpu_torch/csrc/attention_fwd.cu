@@ -47,6 +47,10 @@
 
 #include "attention_common.cuh"
 
+#if defined(ATTN_LOST) && !defined(ATTN_WAIT_TRAP)
+#error "ATTN_LOST hangs the shipped (unbounded) wait: build it with ATTN_WAIT_TRAP"
+#endif
+
 using namespace attn;
 
 namespace {
@@ -205,6 +209,9 @@ __global__ void __launch_bounds__(hop::THREADS, HD <= 32 ? 3 : hop::blocks_per_s
   auto load = [&](int kt) {
     const int slot = kt % STAGES;
     bar_expect(bar(slot), 2 * Lay::TILE);
+#ifdef ATTN_LOST
+    if (kt == 1) return;  // the probe's lost load (attention_common.cuh)
+#endif
     load_rows<HD, BN>(k_tile(slot), &mk, bar(slot), b, h, kt * BN);
     load_rows<HD, BN>(k_tile(slot) + Lay::TILE, &mv, bar(slot), b, h, kt * BN);
   };

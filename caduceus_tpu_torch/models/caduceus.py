@@ -82,6 +82,13 @@ def canonical_to_reference(hidden: torch.Tensor, axis=None) -> torch.Tensor:
     return torch.cat([hidden[0], rc_hidden(hidden[1], axis)], dim=-1)
 
 
+def reference_to_canonical(hidden: torch.Tensor) -> torch.Tensor:
+    """(B, L, 2d) reference convention → (2, B, L, d) canonical (the
+    inverse of `canonical_to_reference`)."""
+    d = hidden.shape[-1] // 2
+    return torch.stack([hidden[..., :d], rc_hidden(hidden[..., d:])])
+
+
 def _complement(c: CaduceusConfig) -> torch.Tensor:
     cm = c.padded_complement_map()
     if cm is None:

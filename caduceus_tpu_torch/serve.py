@@ -178,10 +178,13 @@ class InferenceService:
                         **kw) -> "InferenceService":
         """A `finetune --save-dir` export: ``task_config.json`` and the
         classifier's parameters as ``params.npz`` (the port's export) or an
-        Orbax ``params/`` directory (the JAX package's)."""
+        Orbax ``params/`` directory (the JAX package's: its ``params``
+        root, and for the CNN its BatchNorm ``batch_stats`` root beside
+        it, `caduceus_tpu/finetune.py:331-339`)."""
         from caduceus_tpu_torch.finetune import _make_classifier
         from caduceus_tpu_torch.params import from_jax_params, load_npz_params
-        from caduceus_tpu_torch.train.checkpoint import read_orbax_arrays
+        from caduceus_tpu_torch.train.checkpoint import (
+            orbax_tree_paths, read_orbax_arrays)
 
         with open(task_path) as f:
             tc = json.load(f)
@@ -195,13 +198,13 @@ class InferenceService:
         npz = os.path.join(run_dir, "params.npz")
         if os.path.exists(npz):
             flat = load_npz_params(npz)
-        elif kind == "cnn":
-            raise NotImplementedError(
-                "a CNN export without params.npz: its BatchNorm statistics "
-                "(the JAX export's batch_stats) are not read from Orbax")
         else:
-            flat = read_orbax_arrays(os.path.join(run_dir, "params"),
-                                     "params")
+            orbax = os.path.join(run_dir, "params")
+            roots = {k[0] for k in orbax_tree_paths(orbax)}
+            flat = {}
+            for root in ("params", "batch_stats"):
+                if root in roots:
+                    flat.update(read_orbax_arrays(orbax, root))
         with torch.device("meta"):
             shape = _make_classifier(
                 cfg, tc["num_classes"], tc["pooling"], tc["use_lengths"],

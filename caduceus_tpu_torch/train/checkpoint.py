@@ -24,8 +24,11 @@ of zarr arrays under ``<step>/state``) with `tensorstore` alone, which is
 not JAX; it takes the latest complete step and prefers the EMA weights,
 with no template (`caduceus_tpu/train/checkpoint.py:142`);
 `read_orbax_arrays` is its reader, which also opens a JAX `finetune
---save-dir` export. `load_backbone` grafts pretrained backbone weights into
-a fine-tuning model (`:179`).
+--save-dir` export. `restore_jax_checkpoint` resumes such a run: the
+weights, the step, the EMA, the loader state and the optimizer state, whose
+optax chain (`caduceus_tpu/train/optim.py:322-337`) maps onto the port's
+`Optimizer` (`jax_adamw_state`). `load_backbone` grafts pretrained
+backbone weights into a fine-tuning model (`:179`).
 """
 
 from __future__ import annotations
@@ -122,6 +125,27 @@ def _load_into(model, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return from_jax_params(flat, None, model=model)
 
 
+def _restore_ema(state, src: Optional[Dict[str, torch.Tensor]]) -> None:
+    """EMA follows the caller, as in the JAX package (`:110-140`): a state
+    with EMA takes ``src`` (the checkpoint's), or starts it from the
+    restored parameters when the run kept none; a state without EMA drops
+    the checkpoint's."""
+    if state.ema_params is None:
+        return
+    src = src if src is not None else state.model.state_dict()
+    with torch.no_grad():
+        for n, e in state.ema_params.items():
+            e.copy_(src[n])
+
+
+def _loader_state(path: str, step: int) -> Optional[dict]:
+    lpath = os.path.join(path, f"loader_state_{step}.json")
+    if os.path.exists(lpath):
+        with open(lpath) as f:
+            return json.load(f)
+    return None
+
+
 def restore_checkpoint(path: str, state) -> Optional[dict]:
     """Load the latest step under ``path`` into ``state`` in place: the
     model's parameters, the optimizer, the step and the EMA; returns the
@@ -147,18 +171,11 @@ def restore_checkpoint(path: str, state) -> Optional[dict]:
         os.path.join(d, "optimizer.pt"), map_location="cpu",
         weights_only=True))
     state.step = int(meta["step"])
-    if state.ema_params is not None:
-        ema_path = os.path.join(d, "ema_params.npz")
-        src = (_load_into(model, load_npz_params(ema_path))
-               if os.path.exists(ema_path) else model.state_dict())
-        with torch.no_grad():
-            for n, e in state.ema_params.items():
-                e.copy_(src[n])
-    lpath = os.path.join(path, f"loader_state_{step}.json")
-    if os.path.exists(lpath):
-        with open(lpath) as f:
-            return json.load(f)
-    return None
+    ema_path = os.path.join(d, "ema_params.npz")
+    _restore_ema(state, _load_into(model, load_npz_params(ema_path))
+                 if state.ema_params is not None and os.path.exists(ema_path)
+                 else None)
+    return _loader_state(path, step)
 
 
 def read_latest_params(run_dir: str, prefer_ema: bool = True
@@ -193,8 +210,11 @@ def orbax_tree_paths(state_dir: str) -> List[Tuple[str, ...]]:
             f"{state_dir}: only OCDBT-backed zarr (v2) checkpoints are "
             f"read (use_ocdbt={meta.get('use_ocdbt')}, "
             f"use_zarr3={meta.get('use_zarr3')})")
+    # leaves that hold no array (optax's EmptyState, a None) are listed
+    # with skip_deserialize
     return [tuple(k["key"] for k in v["key_metadata"])
-            for v in meta["tree_metadata"].values()]
+            for v in meta["tree_metadata"].values()
+            if not (v.get("value_metadata") or {}).get("skip_deserialize")]
 
 
 def read_orbax_arrays(state_dir: str, root: str
@@ -243,6 +263,96 @@ def load_run_params(run_dir: str, prefer_ema: bool = True
                           for k in orbax_tree_paths(state_dir)):
         root = "ema_params"
     return read_orbax_arrays(state_dir, root), step
+
+
+def jax_adamw_state(opt_state: Dict[str, np.ndarray]
+                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
+                               int, int]:
+    """(mu, nu, Adam's count, the schedule's count) of the flat
+    ``opt_state`` arrays of a JAX run (`read_orbax_arrays` root
+    ``opt_state``), mu / nu keyed by flat flax paths without the leading
+    ``params/``.
+
+    The chain of `caduceus_tpu/train/optim.py make_optimizer` is
+    [`clip_by_global_norm` (empty state)], `adamw` = (`ScaleByAdamState
+    (count, mu, nu)`, the masked decay's empty state,
+    `ScaleByScheduleState(count)`) and [`scale_updates_by_tree` (empty
+    state)]; the empty states hold no array, so the leaves are found by
+    name: the one prefix over ``mu`` / ``nu`` is Adam's, the other
+    ``count`` the schedule's (Adam's when there is none)."""
+    heads = {k.split("/mu/", 1)[0] for k in opt_state if "/mu/" in k}
+    if len(heads) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in the optimizer "
+                         f"state, found {sorted(heads)}")
+    (head,) = heads
+
+    def tree(name):
+        out = {}
+        for k, v in opt_state.items():
+            if k.startswith(f"{head}/{name}/"):
+                path = k[len(head) + len(name) + 2:]
+                out[path[len("params/"):] if path.startswith("params/")
+                    else path] = v
+        return out
+
+    adam_count = int(opt_state[f"{head}/count"])
+    counts = [int(v) for k, v in opt_state.items()
+              if k.split("/")[-1] == "count" and k != f"{head}/count"]
+    if len(set(counts)) > 1:
+        raise ValueError(f"optimizer state with several counts: {counts}")
+    return tree("mu"), tree("nu"), adam_count, (counts[0] if counts
+                                                else adam_count)
+
+
+def restore_jax_checkpoint(path: str, state) -> Optional[dict]:
+    """Load the latest Orbax step a JAX run wrote under ``path`` (its
+    `TrainState`: params, opt_state, step, ema_params) into the port's
+    ``state`` in place, read with `tensorstore` alone; returns the loader
+    state saved with it (None if there is none).
+
+    AdamW's moments and count go to each parameter's ``exp_avg`` /
+    ``exp_avg_sq`` / ``step`` of `torch.optim.AdamW` (Dense kernels
+    transposed as the weights are), the schedule's count to the
+    `Optimizer`'s; the EMA follows the caller (`_restore_ema`)."""
+    from caduceus_tpu_torch.params import flax_path
+
+    step = jax_latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no Orbax checkpoint under {path}")
+    state_dir = os.path.join(path, str(step), "state")
+    roots = {k[0] for k in orbax_tree_paths(state_dir)}
+    model = state.model
+    model.load_state_dict(_load_into(
+        model, read_orbax_arrays(state_dir, "params")))
+    mu, nu, adam_count, count = jax_adamw_state(
+        read_orbax_arrays(state_dir, "opt_state"))
+    opt = state.optimizer.opt
+    index = {}
+    for group in opt.param_groups:
+        for p in group["params"]:
+            index[id(p)] = len(index)
+    moments = {}
+    for name, p in model.named_parameters():
+        path_ = flax_path(name)
+        m, v = (torch.from_numpy(np.array(t[path_], dtype=np.float32))
+                for t in (mu, nu))
+        if path_.endswith("/kernel") and m.dim() == 2:
+            m, v = m.t(), v.t()
+        if tuple(m.shape) != tuple(p.shape):
+            raise ValueError(f"{path_}: moments of shape {tuple(m.shape)} "
+                             f"for a parameter of shape {tuple(p.shape)}")
+        moments[index[id(p)]] = {
+            "step": torch.tensor(float(adam_count), dtype=torch.float32),
+            "exp_avg": m.contiguous(), "exp_avg_sq": v.contiguous()}
+    sd = opt.state_dict()
+    sd["state"] = moments
+    opt.load_state_dict(sd)
+    state.optimizer.count = count
+    state.step = int(read_orbax_arrays(state_dir, "step")[""])
+    _restore_ema(state, _load_into(model, read_orbax_arrays(
+        state_dir, "ema_params"))
+        if state.ema_params is not None and "ema_params" in roots else None)
+    return _loader_state(path, step)
 
 
 def load_backbone(pretrained: Dict[str, torch.Tensor],

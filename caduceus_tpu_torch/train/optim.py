@@ -25,9 +25,11 @@ Port of `caduceus_tpu/train/optim.py`:
   rates frozen). Each override group's factor (its lr over the base lr) scales
   the scheduled lr of its torch group and its members take weight decay 0,
   which is the JAX chain's scaled post-AdamW update; a factor of 0
-  freezes (the update is 0, the moments still run, as in optax).
-  Not ported: ``wd_mask_fn`` (the JAX parity tests' executed-semantics
-  mask).
+  freezes (the update is 0, the moments still run, as in optax);
+- ``make_optimizer(wd_mask_fn=)`` (`:303-310`): a callable over the named
+  parameters, {state_dict key: decays}, that replaces `weight_decay_mask`
+  (e.g. the reference's executed decay set, which decays RMSNorm
+  weights); the override groups still take weight decay 0.
 """
 
 from __future__ import annotations
@@ -279,13 +281,15 @@ def make_optimizer(
     schedule_name: str = "cosine_warmup_timm",
     layer_decay: Optional[float] = None,
     lr_overrides=None,
+    wd_mask_fn: Optional[Callable] = None,
 ):
     """AdamW + the schedule ``schedule_name`` + clipping over
     ``named_params`` (e.g. ``model.named_parameters()``), with layer-wise lr
     decay when ``layer_decay`` is set (the decayed groups keep their
     weight decay) and the per-parameter groups of ``lr_overrides`` (see
-    `lr_multiplier_tree`; their members take weight decay 0); returns
-    (optimizer, schedule)."""
+    `lr_multiplier_tree`; their members take weight decay 0); the decay
+    mask is ``wd_mask_fn(named_params)`` when given, else
+    `weight_decay_mask`. Returns (optimizer, schedule)."""
     if schedule_name in ("cosine_warmup", "cosine_warmup_timm"):
         schedule = cosine_warmup_schedule(lr, warmup_t, t_initial, lr_min,
                                           warmup_lr_init)
@@ -303,7 +307,7 @@ def make_optimizer(
                        f"(have {list(SCHEDULE_REGISTRY)})")
     named = list(named_params)
     factors = None
-    mask = weight_decay_mask(named)
+    mask = (wd_mask_fn or weight_decay_mask)(named)
     if lr_overrides:
         factors = lr_multiplier_tree(named, lr, lr_overrides)
         member = lr_override_membership(named, lr_overrides)

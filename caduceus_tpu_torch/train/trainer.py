@@ -674,20 +674,22 @@ class Trainer:
         return save_checkpoint(path, self.state, loader_state)
 
     def restore_checkpoint(self, path: Optional[str] = None) -> bool:
-        """Resume from the latest port checkpoint under ``path``; False if
-        there is none. Raises on a JAX run's Orbax checkpoints, whose
-        optimizer state the port does not take."""
+        """Resume from the newest checkpoint under ``path``: the port's
+        ``<step>/`` or a JAX run's Orbax ``<step>/`` (its optimizer state
+        mapped onto AdamW's, `train/checkpoint.py
+        restore_jax_checkpoint`), the port's on a tie; False if there is
+        none."""
         from caduceus_tpu_torch.train import checkpoint
 
         path = path or os.path.join(self.cfg.run_dir, "checkpoints")
-        if checkpoint.latest_step(path) is None:
-            if checkpoint.jax_latest_step(path) is not None:
-                raise NotImplementedError(
-                    f"{path} holds a JAX run's Orbax checkpoints: resuming "
-                    "its optimizer state is not ported (its weights load "
-                    "through params.py load_run_dir)")
+        ours, theirs = (checkpoint.latest_step(path),
+                        checkpoint.jax_latest_step(path))
+        if ours is None and theirs is None:
             return False
-        loader_state = checkpoint.restore_checkpoint(path, self.state)
+        restore = (checkpoint.restore_jax_checkpoint
+                   if ours is None or (theirs is not None and theirs > ours)
+                   else checkpoint.restore_checkpoint)
+        loader_state = restore(path, self.state)
         self._consumed_loader_state = loader_state
         if loader_state is not None and hasattr(self.train_loader,
                                                 "load_state_dict"):

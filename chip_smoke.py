@@ -16,7 +16,8 @@ order (any failure exits non-zero; nothing is caught and passed over):
    main pass, head-order g_B / g_C sum; `ssd_conv_bwd`: the streaming
    SiLU + conv adjoint and its fixed-order weight sum), the two scan
    sources and six planted-fault variants (three of the scan kernels, two
-   of the conv adjoint, one of the attention forward); print build times,
+   of the conv adjoint, one of the attention forward) and the attention
+   kernels' barrier-wait probe (ATTN_POLLS); print build times,
    every compiled kernel's registers, spills and static shared memory, and
    each SSD sub-launch's and attention kernel's dynamic shared memory;
 2. hold the forward kernel (y, hN and the chunk carries) against its
@@ -93,6 +94,18 @@ direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
 12. serve the full-width 16-layer v1 model: /embed and /logits at bucket
    1024 and one 131,072-token /logits, 16 `bidir_scan_fwd` launches per
    dispatch, served logits equal to a direct forward;
+12a. [convert] reference PyTorch checkpoints into the port
+   (`caduceus_tpu_torch/convert.py`), from reference-named state dicts of a
+   seeded torch.Generator: a v1 Caduceus-PS at hg38_mlm's width saved as
+   pytorch_model.bin, read, imported and loaded on the card (its export
+   gives the saved tensors back bit for bit), written as a run dir and
+   served (a 131,072-token bf16 /logits equal to a direct forward bit for
+   bit, 16 #9 launches), 2 layers card vs CPU (as 4); RC equivariance
+   through #9 (the imported model) and #1 (hg38_mlm_v2): fp32 at L=16,384
+   by the fp32 kernel rule, bf16 at L=131,072 within BF16_MODEL_TOL; a
+   mamba-ssm MixerModel (4 layers, unidirectional) through #7 at L=131,072
+   and card vs CPU; a HyenaDNA LM at hg38_hyena's width through `attn_fwd`
+   at L=16,384 and card vs CPU in fp32 (as 40);
 13. the 2-layer v1 train step, card vs CPU (as 6);
 14. one accum-2 step of a 2-layer unidirectional v1 model (`MambaMixer`,
    L=8192), which runs `selective_scan_fwd`;
@@ -214,7 +227,9 @@ and, downstream of run A of each family (the same temporary directory):
    fault (the second key tile skipped, the ATTN_DROP build), which must
    fail; the path shape (G=2, L=65,536, H=8, hd=32, bf16, causal) against
    the chunked plain version and across two runs, and the planted fault
-   there, which must fail too; each kernel timed there beside its bound
+   there, which must fail too; the largest poll count any one barrier
+   wait takes there (the ATTN_POLLS build, whose outputs must equal the
+   shipped kernels'); each kernel timed there beside its bound
    (the larger of bytes, FLOPs and exps), its plain version and one SDPA
    call (yardstick), and the forward and the adjoint pair held against
    one SDPA call each;
@@ -255,8 +270,8 @@ and, downstream of run A of each family (the same temporary directory):
    a resume from its step-1 checkpoint that replays step 2 bit for bit.
 
 ``--only cp`` runs the build and phases 43-46 alone, ``--only hyena`` the
-build and phases 39-42 (for work on them); the ranks of phases 44-46 run
-this script with ``--rank-job``.
+build and phases 39-42, ``--only convert`` the build and 12a (for work on
+them); the ranks of phases 44-46 run this script with ``--rank-job``.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -411,6 +426,10 @@ CONV_DROP_BEFORE = ("CONV_DROP=2",)  # the raw rows before each tile zero
 # the attention forward's (`csrc/attention_fwd.cu` ATTN_DROP): the second
 # key tile skipped
 ATTN_DROP = ("ATTN_DROP=1",)
+# the attention kernels' barrier-wait probe (`csrc/attention_common.cuh`
+# ATTN_POLLS): the waits counted, the largest poll count of one kept
+ATTN_POLLS = ("ATTN_POLLS=1",)
+PROBE_BUILDS = (("attention_fwd", ATTN_POLLS), ("attention_bwd", ATTN_POLLS))
 FAULT_BUILDS = (("selective_scan_fwd", DROP_RUN),
                 ("selective_scan_bwd", DROP_RUN),
                 ("selective_scan_bwd", DROP_SHARE),
@@ -447,7 +466,8 @@ def phase_build():
 
     names = ("ssd_fused_fwd", "ssd_fused_bwd", "selective_scan_fwd",
              "selective_scan_bwd", "attention_fwd", "attention_bwd")
-    builds = [(n, ()) for n in names] + list(FAULT_BUILDS)
+    builds = [(n, ()) for n in names] + list(FAULT_BUILDS) + list(
+        PROBE_BUILDS)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         done = list(pool.map(lambda b: _build.build(*b), builds))
@@ -495,8 +515,10 @@ def phase_build():
                     log(f"[build]   {name} {dname} K={K} dynamic shared "
                         f"memory (P=64, N=128): " + ", ".join(
                             f"{k} {v:,} B" for k, v in sizes.items()))
-    for (name, defines), (path, secs) in zip(FAULT_BUILDS, done[len(names):]):
-        log(f"[build] {name} -D{' -D'.join(defines)} (planted fault): "
+    for (name, defines), (path, secs) in zip(
+            FAULT_BUILDS + PROBE_BUILDS, done[len(names):]):
+        kind = "planted fault" if (name, defines) in FAULT_BUILDS else "probe"
+        log(f"[build] {name} -D{' -D'.join(defines)} ({kind}): "
             f"{secs:.1f} s -> {os.path.relpath(path)}")
     log(f"[build] {len(builds)} libraries in {wall:.1f} s wall")
     return out
@@ -2001,6 +2023,416 @@ def phase_v1_serve():
     return {"requests": requests, "launches": launches,
             "dispatches": dispatches, "peak_mem_bytes": peak,
             "forward_131k_s": fwd_s}
+
+
+# --- migrated weights: reference checkpoints imported (convert.py) -------
+
+def _linear(g, n_out, n_in):
+    """A torch-Linear-like weight (out, in): uniform within 1/sqrt(in)."""
+    return (torch.rand(n_out, n_in, generator=g) * 2 - 1) * n_in ** -0.5
+
+
+def _mamba_ref(g, prefix, d, di, N, R, K, in_proj=None, out_proj=None):
+    """mamba-ssm `Mamba` parameters under ``prefix`` with the reference's
+    init where it matters: A_log = log(1..N), D = 1, dt_proj's bias the
+    inverse softplus of dt log-uniform in [1e-3, 0.1]."""
+    dt = torch.exp(torch.rand(di, generator=g)
+                   * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return {
+        f"{prefix}.in_proj.weight":
+            _linear(g, 2 * di, d) if in_proj is None else in_proj,
+        f"{prefix}.out_proj.weight":
+            _linear(g, d, di) if out_proj is None else out_proj,
+        f"{prefix}.conv1d.weight": _linear(g, di, K)[:, None, :],
+        f"{prefix}.conv1d.bias": _linear(g, di, K)[:, 0],
+        f"{prefix}.x_proj.weight": _linear(g, R + 2 * N, di),
+        f"{prefix}.dt_proj.weight": _linear(g, di, R),
+        f"{prefix}.dt_proj.bias": dt + torch.log(-torch.expm1(-dt)),
+        f"{prefix}.A_log": torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32)).repeat(di, 1),
+        f"{prefix}.D": torch.ones(di)}
+
+
+def reference_caduceus_state(cfg, seed):
+    """A reference-named `CaduceusForMaskedLM` state dict (RCPS, fused
+    add-norm, tied BiMamba: the rev projections alias the fwd ones, the
+    head the embedding) from a seeded `torch.Generator`."""
+    g = torch.Generator().manual_seed(seed)
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_cfg.d_state
+    R, K = cfg.dt_rank, cfg.ssm_cfg.d_conv
+    emb = torch.randn(cfg.padded_vocab_size, d, generator=g) * 0.02
+    sd = {"caduceus.backbone.embeddings.word_embeddings.embedding.weight":
+          emb, "lm_head.lm_head.weight": emb}
+    for i in range(cfg.n_layer):
+        sd[f"caduceus.backbone.layers.{i}.norm.weight"] = \
+            1 + 0.1 * torch.randn(d, generator=g)
+        pre = f"caduceus.backbone.layers.{i}.mixer.submodule"
+        fwd = _mamba_ref(g, f"{pre}.mamba_fwd", d, di, N, R, K)
+        sd.update(fwd)
+        sd.update(_mamba_ref(
+            g, f"{pre}.mamba_rev", d, di, N, R, K,
+            fwd[f"{pre}.mamba_fwd.in_proj.weight"],
+            fwd[f"{pre}.mamba_fwd.out_proj.weight"]))
+    sd["caduceus.backbone.norm_f.weight"] = 1 + 0.1 * torch.randn(d,
+                                                                generator=g)
+    return sd
+
+
+def reference_mamba_state(cfg, seed):
+    """A mamba-ssm `MixerModel` state dict under ``backbone.``."""
+    g = torch.Generator().manual_seed(seed)
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_cfg.d_state
+    sd = {"backbone.embedding.weight":
+          torch.randn(cfg.padded_vocab_size, d, generator=g) * 0.02,
+          "backbone.norm_f.weight": 1 + 0.1 * torch.randn(d, generator=g)}
+    for i in range(cfg.n_layer):
+        sd[f"backbone.layers.{i}.norm.weight"] = \
+            1 + 0.1 * torch.randn(d, generator=g)
+        sd.update(_mamba_ref(g, f"backbone.layers.{i}.mixer", d, di, N,
+                             cfg.dt_rank, cfg.ssm_cfg.d_conv))
+    return sd
+
+
+def reference_hyena_state(kw, seed, order=64, K=3, emb_dim=3, inner=2):
+    """A HyenaDNA `ConvLMHeadModel` state dict (order-2 Hyena operators,
+    MHA at ``attn_layer_idx``, no position embedding): the filter's
+    positional features and decay rates as the reference computes them."""
+    from caduceus_tpu_torch.models.hyena import _pos_features
+
+    g = torch.Generator().manual_seed(seed)
+    d, V, Lmax = kw["d_model"], kw["vocab_size"], kw["l_max"]
+    ln = lambda p: {f"{p}.weight": torch.ones(d), f"{p}.bias": torch.zeros(d)}
+
+    def dense(p, n_out, n_in, bias=True):
+        out = {f"{p}.weight": _linear(g, n_out, n_in)}
+        if bias:
+            out[f"{p}.bias"] = _linear(g, n_out, n_in)[:, 0]
+        return out
+
+    sd = {"backbone.embeddings.word_embeddings.weight":
+          torch.randn(V, d, generator=g) * 0.02, **ln("backbone.ln_f")}
+    z = _pos_features(Lmax, emb_dim)[0]
+    for i in range(kw["n_layer"]):
+        p = f"backbone.layers.{i}"
+        sd.update({**ln(f"{p}.norm1"), **ln(f"{p}.norm2"),
+                   **dense(f"{p}.mlp.fc1", 4 * d, d),
+                   **dense(f"{p}.mlp.fc2", d, 4 * d)})
+        m = f"{p}.mixer"
+        if i in kw["attn_layer_idx"]:
+            sd.update({**dense(f"{m}.Wqkv", 3 * d, d),
+                       **dense(f"{m}.out_proj", d, d)})
+            continue
+        f = f"{m}.filter_fn"
+        sd.update({**dense(f"{m}.in_proj", 3 * d, d),
+                   **dense(f"{m}.out_proj", d, d),
+                   f"{m}.short_filter.weight": _linear(g, 3 * d, K)[:, None],
+                   f"{m}.short_filter.bias": _linear(g, 3 * d, K)[:, 0],
+                   f"{f}.pos_emb.z": z[None].clone(),
+                   f"{f}.implicit_filter.1.freq": torch.ones(1, order),
+                   f"{f}.bias": torch.randn(d, generator=g),
+                   f"{f}.modulation.deltas": torch.linspace(
+                       math.log(1e-2) / 1.5, math.log(1e-2) / 0.3,
+                       d)[None, None],
+                   **dense(f"{f}.implicit_filter.0", order, emb_dim),
+                   **dense(f"{f}.implicit_filter.{2 * (inner + 1)}", d, order,
+                           bias=False)})
+        for j in range(inner):
+            sd.update(dense(f"{f}.implicit_filter.{2 * (j + 1)}", order,
+                            order))
+    return sd
+
+
+def _card_vs_cpu(label, cpu_model, card_model, ids, rule="max"):
+    """fp32 logits of the same weights on the card and on the CPU: "max"
+    is `phase_model_vs_cpu`'s rule (max error within MODEL_TOL of
+    max|logit|), "rel_l2" `phase_hyena_vs_cpu`'s (relative L2 within
+    MODEL_TOL)."""
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu_model(ids)
+        t_cpu = time.perf_counter() - t0
+        got = card_model(ids.cuda()).cpu()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"[convert] {label}: logits {tuple(got.shape)}, finite "
+          f"{bool(torch.isfinite(got).all())}")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    rel_l2 = ((got - ref).norm() / ref.norm()).item()
+    if rule == "max":
+        check(err <= MODEL_TOL * scale, f"[convert] {label}: card vs CPU "
+              f"{err:.3e} > {MODEL_TOL} x {scale:.3e}")
+    else:
+        check(rel_l2 <= MODEL_TOL, f"[convert] {label}: card vs CPU "
+              f"rel_l2 {rel_l2:.2e} > {MODEL_TOL}")
+    log(f"[convert] {label}: card vs CPU, fp32: max err {err:.3e} (max|logit| "
+        f"{scale:.3e}), rel_l2 {rel_l2:.2e} (rule: {rule}, tol {MODEL_TOL}); "
+        f"CPU forward {t_cpu:.1f} s")
+    return {"max_abs_err": err, "max_abs_ref": scale, "rel_l2": rel_l2,
+            "cpu_s": t_cpu}
+
+
+def _rc_hold(label, model, cfg, L, seed, counted):
+    """logits(RC(x)) against logits(x) flipped in L and permuted by the
+    complement map, on the card: fp32 by the fp32 kernel rule of
+    `kernel_check.py`, bf16 within BF16_MODEL_TOL of max|logit|; the
+    launches of the two forwards of ``counted``."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare, describe
+
+    cm = cfg.padded_complement_map()
+    comp = torch.tensor([cm[i] for i in range(cfg.padded_vocab_size)],
+                        device="cuda")
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(7, 11, (1, L), generator=g).cuda()
+    _zero_counts()
+    with torch.inference_mode():
+        fwd = model(ids)
+        rc = model(comp[ids.flip(-1)])
+        torch.cuda.synchronize()
+    launches = _counts()[counted]
+    want = fwd.flip(1)[..., comp]
+    check(bool(torch.isfinite(rc).all()), f"[convert] RC {label}: not finite")
+    if cfg.dtype == "float32":
+        st = compare(rc, want, TOL[torch.float32])
+        check(st["ok"], f"[convert] RC {label}: {describe(st)}")
+        out = {k: st[k] for k in ("rel_l2", "max_abs_err", "atol_needed")}
+        shown = describe(st)
+    else:
+        err = (rc - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= BF16_MODEL_TOL * scale, f"[convert] RC {label}: "
+              f"{err:.3e} > {BF16_MODEL_TOL} x {scale:.3e}")
+        out = {"max_abs_err": err, "max_abs_ref": scale,
+               "rel_l2": ((rc - want).norm() / want.norm()).item()}
+        shown = (f"max err {err:.3e} = {err / scale:.2e} of max|logit| "
+                 f"{scale:.3e} (tol {BF16_MODEL_TOL}), rel_l2 "
+                 f"{out['rel_l2']:.2e}")
+    check(launches == 2 * (cfg.n_layer if counted != "ssd_fused_fwd"
+                           else 2 * cfg.n_layer),
+          f"[convert] RC {label}: {counted} launches {launches}")
+    out[f"{counted}_launches"] = launches
+    log(f"[convert] RC {label} L={L}: logits(RC(x)) = flip_L(logits(x))"
+        f"[..., complement]: {shown}; {counted} launches {launches}")
+    return out
+
+
+def phase_convert():
+    """[convert] released PyTorch checkpoints into the port and onto the
+    card (`caduceus_tpu_torch/convert.py`), from reference-named state
+    dicts made from a seeded torch.Generator (the released files are not
+    in the repository):
+
+    - v1 Caduceus-PS at `configs/hg38_mlm.yaml`'s width (the released
+      131k checkpoint's: d_model 256, 16 layers, d_state 16, RCPS, tied
+      "add" BiMamba), saved as ``pytorch_model.bin``, read back by
+      `load_torch_checkpoint`, imported and loaded on the card: the export
+      of the card model gives the saved tensors back bit for bit; the
+      weights written as a run dir (model_config.json + params.npz) and
+      served give a 131,072-token bf16 /logits equal to a direct forward
+      bit for bit, 16 `bidir_scan_fwd` launches a dispatch; 2 layers in
+      fp32 at L=2048, card against CPU;
+    - RC equivariance through the kernels at full width, for the imported
+      v1 model (#9) and `hg38_mlm_v2` (#1, random weights): fp32 at
+      L=16,384 by the fp32 kernel rule, bf16 at L=131,072 within 5e-2 of
+      max|logit|;
+    - a mamba-ssm `MixerModel` (non-RCPS, unidirectional, 4 layers at
+      d_model 256) through `import_reference_mamba_backbone`: a bf16
+      forward at L=131,072 through `selective_scan_fwd` (#7), fp32 card
+      against CPU at L=2048;
+    - a HyenaDNA `ConvLMHeadModel` at `configs/hg38_hyena.yaml`'s width (8
+      layers, MHA at 1 and 5, 8 heads, 2 inner filter MLPs) through
+      `import_reference_hyena_lm`: a bf16 forward at L=16,384 through
+      `attn_fwd`, and fp32 card against CPU at L=16,384 by
+      `phase_hyena_vs_cpu`'s rule."""
+    from caduceus_tpu_torch import convert
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+    from caduceus_tpu_torch.params import from_jax_params
+    from caduceus_tpu_torch.serve import InferenceServer, InferenceService
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = hg38_mlm_config()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as work:
+        saved = reference_caduceus_state(cfg, seed=14)
+        path = os.path.join(work, "pytorch_model.bin")
+        torch.save(saved, path)
+        t0 = time.perf_counter()
+        loaded = convert.load_torch_checkpoint(path)
+        flat = convert.import_reference_state_dict(loaded, cfg)
+        model = CaduceusForMaskedLM(cfg, device="cuda")
+        model.load_state_dict(from_jax_params(flat, cfg))
+        import_s = time.perf_counter() - t0
+        back = convert.export_reference_state_dict(model.state_dict(), cfg)
+        check(back.keys() == saved.keys(), "[convert] the export's names "
+              f"differ: {sorted(set(back) ^ set(saved))[:6]}")
+        same = [k for k in saved
+                if torch.equal(torch.from_numpy(back[k]), saved[k])]
+        check(len(same) == len(saved), f"[convert] the export differs from "
+              f"the saved tensors in {len(saved) - len(same)} of "
+              f"{len(saved)}")
+        log(f"[convert] v1 hg38_mlm (16 layers, d_model 256): "
+            f"{len(saved)} reference tensors saved, read, imported and "
+            f"loaded on the card in {import_s:.2f} s; the card model's "
+            "export equals them bit for bit")
+        run = os.path.join(work, "imported_v1")
+        os.makedirs(run)
+        cfg.save(os.path.join(run, "model_config.json"))
+        np.savez(os.path.join(run, "params.npz"), **flat)
+        svc = InferenceService.from_run_dir(
+            run, device="cuda", max_batch=1, min_bucket=1024,
+            max_length=131072)
+        seq = "".join(np.random.default_rng(14).choice(list("ACGT"), 131072))
+        server = InferenceServer(svc, port=0).start()
+        try:
+            _zero_counts()
+            d0 = svc.n_dispatches
+            t0 = time.perf_counter()
+            served = _post(server.port, "/logits",
+                           {"sequences": [seq]})["logits"][0]
+            latency = time.perf_counter() - t0
+            counts = _counts()
+            dispatches = svc.n_dispatches - d0
+        finally:
+            server.stop()
+        tok = svc.tok
+        del svc
+        want = dict.fromkeys(counts, 0)
+        want["bidir_scan_fwd"] = cfg.n_layer
+        check(dispatches == 1 and counts == want,
+              f"[convert] /logits: {dispatches} dispatches, launches {counts}")
+        ids = torch.from_numpy(tok.encode(seq).astype(np.int64))[None].cuda()
+        with torch.inference_mode():
+            model(ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = model(ids)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        served = np.asarray(served, np.float32)
+        direct = direct[0].cpu().numpy()
+        check(served.shape == direct.shape == (131072, cfg.padded_vocab_size)
+              and np.array_equal(served, direct),
+              f"[convert] served /logits {served.shape} differ from the "
+              f"direct forward {direct.shape}")
+        check(bool(np.isfinite(direct).all()), "[convert] logits not finite")
+        log(f"[convert] the imported weights as a run dir (model_config.json "
+            f"+ params.npz), served: one 131,072-token /logits "
+            f"{latency:.3f} s over HTTP, equal bit for bit to a direct "
+            f"forward of the imported card model ({fwd_s * 1e3:.1f} ms); "
+            f"bidir_scan_fwd launches {counts['bidir_scan_fwd']} in the "
+            "dispatch")
+        out["v1"] = {"tensors": len(saved), "import_s": import_s,
+                     "logits_131k_s": latency, "forward_131k_s": fwd_s,
+                     "launches_serve": counts["bidir_scan_fwd"]}
+        del served, direct
+
+    # (d) 2 layers, fp32, card against CPU on the same import
+    cfg2 = hg38_mlm_config(n_layer=2, dtype="float32")
+    sd2 = from_jax_params(convert.import_reference_state_dict(loaded, cfg2),
+                          cfg2)
+    cpu = CaduceusForMaskedLM(cfg2, device="cpu")
+    cpu.load_state_dict(sd2)
+    card = CaduceusForMaskedLM(cfg2, device="cuda")
+    card.load_state_dict(sd2)
+    ids = torch.randint(7, 11, (1, 2048),
+                        generator=torch.Generator().manual_seed(15))
+    out["v1"]["vs_cpu"] = _card_vs_cpu("v1 imported, 2 layers, L=2048", cpu,
+                                       card, ids)
+    del cpu, card
+
+    # RC equivariance at full width: the imported v1 model, hg38_mlm_v2
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = CaduceusForMaskedLM(cfg32, device="cuda")
+    m32.load_state_dict(model.state_dict())
+    out["rc"] = {
+        "v1_fp32_L16384": _rc_hold("v1 imported fp32", m32, cfg32, 16384, 16,
+                                   "bidir_scan_fwd"),
+        "v1_bf16_L131072": _rc_hold("v1 imported bf16", model, cfg, 131072,
+                                    17, "bidir_scan_fwd")}
+    del m32, model
+    torch.cuda.empty_cache()
+    v2 = hg38_mlm_v2_config()
+    v2_cpu = CaduceusForMaskedLM(
+        v2, device="cpu", generator=torch.Generator().manual_seed(18))
+    for dtype, L in (("float32", 16384), ("bfloat16", 131072)):
+        c = dataclasses.replace(v2, dtype=dtype)
+        m = CaduceusForMaskedLM(c, device="cuda")
+        m.load_state_dict(v2_cpu.state_dict())
+        tag = "fp32" if dtype == "float32" else "bf16"
+        out["rc"][f"v2_{tag}_L{L}"] = _rc_hold(f"hg38_mlm_v2 {tag}", m, c, L,
+                                              19, "ssd_fused_fwd")
+        del m
+        torch.cuda.empty_cache()
+    del v2_cpu
+
+    # a mamba-ssm MixerModel: non-RCPS, unidirectional, 4 layers
+    cm = hg38_mlm_config(n_layer=4, bidirectional=False)
+    state = reference_mamba_state(cm, seed=20)
+    flat = convert.import_reference_mamba_backbone(state, cm.n_layer)
+    sd = from_jax_params(flat, cm)
+    m = CaduceusForMaskedLM(cm, device="cuda")
+    m.load_state_dict(sd)
+    ids = torch.randint(7, 11, (1, 131072),
+                        generator=torch.Generator().manual_seed(21)).cuda()
+    _zero_counts()
+    with torch.inference_mode():
+        logits = m(ids)
+        torch.cuda.synchronize()
+    launches = _counts()["selective_scan_fwd"]
+    check(tuple(logits.shape) == (1, 131072, cm.padded_vocab_size)
+          and bool(torch.isfinite(logits).all()) and launches == cm.n_layer,
+          f"[convert] mamba backbone: logits {tuple(logits.shape)}, "
+          f"selective_scan_fwd launches {launches}")
+    log(f"[convert] mamba-ssm MixerModel (4 layers, d_model 256, "
+        f"unidirectional) imported: bf16 forward at L=131072 finite, "
+        f"selective_scan_fwd launches {launches}")
+    del m, logits
+    c32 = dataclasses.replace(cm, dtype="float32")
+    cpu = CaduceusForMaskedLM(c32, device="cpu")
+    cpu.load_state_dict(sd)
+    card = CaduceusForMaskedLM(c32, device="cuda")
+    card.load_state_dict(sd)
+    ids = torch.randint(7, 11, (1, 2048),
+                        generator=torch.Generator().manual_seed(22))
+    out["mamba"] = {"launches": launches, "vs_cpu": _card_vs_cpu(
+        "mamba backbone, 4 layers, L=2048", cpu, card, ids)}
+    del cpu, card
+
+    # a HyenaDNA ConvLMHeadModel at hg38_hyena's width
+    kw = dict(d_model=256, n_layer=8, vocab_size=12, l_max=65536,
+              attn_layer_idx=(1, 5), num_heads=8)
+    flat = convert.import_reference_hyena_lm(
+        reference_hyena_state(kw, seed=23), kw["n_layer"],
+        kw["attn_layer_idx"], num_inner_mlps=2)
+    models = {}
+    for dev, dtype in (("cpu", "float32"), ("cuda", "float32"),
+                       ("cuda", "bfloat16")):
+        m = HyenaLMHeadModel(device=dev, dtype=dtype, **kw)
+        m.load_state_dict(from_jax_params(flat, None, model=m))
+        models[(dev, dtype)] = m
+    ids = torch.from_numpy(np.random.default_rng(24).integers(
+        0, 12, (1, 16384)))
+    _attn_zero()
+    with torch.inference_mode():
+        logits = models[("cuda", "bfloat16")](ids.cuda())
+        torch.cuda.synchronize()
+    counts = _attn_counts()
+    check(bool(torch.isfinite(logits).all())
+          and counts == {"attn_fwd": 2, "attn_bwd_dkv": 0, "attn_bwd_dq": 0},
+          f"[convert] Hyena LM bf16: finite "
+          f"{bool(torch.isfinite(logits).all())}, attention launches "
+          f"{counts}")
+    log(f"[convert] HyenaDNA ConvLMHeadModel (8 layers, MHA at 1 and 5) "
+        f"imported: bf16 forward at L=16384 finite, attention launches "
+        f"{counts}")
+    out["hyena"] = {"launches": counts["attn_fwd"], "vs_cpu": _card_vs_cpu(
+        "Hyena LM, 8 layers, L=16384", models[("cpu", "float32")],
+        models[("cuda", "float32")], ids, rule="rel_l2")}
+    del models, logits
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[convert] phase {out['phase_s']:.1f} s")
+    return out
 
 
 def phase_mamba_mixer_step():
@@ -4632,6 +5064,53 @@ def _attn_work(G, L, H, hd, causal=True):
             "attn_bwd_dq": (scores, 6 * hd * scores, 4 * t + 2 * r + t)}
 
 
+def _attn_polls(q, k, v, do, outputs, sc, label):
+    """The three kernels once each at the path shape from the ATTN_POLLS
+    probe build (its barrier wait counted): their outputs equal the shipped
+    kernels' bit for bit, and the largest poll count any one wait took,
+    the waits and the mean polls a wait (lane 0 of each warp), which must
+    stay far from the 2^24 at which the earlier bounded wait gave up."""
+    import ctypes
+
+    from caduceus_tpu_torch import _build
+    from caduceus_tpu_torch.ops import attention as A
+
+    def read(lib):
+        buf = (ctypes.c_ulonglong * 3)()
+        fn = _build.load(lib, ATTN_POLLS).attn_polls
+        fn.argtypes = [ctypes.c_void_p]
+        err = fn(ctypes.cast(buf, ctypes.c_void_p))
+        check(err == 0, f"[attn_kernels] attn_polls: CUDA error {err}")
+        return {"max": buf[0], "waits": buf[1],
+                "mean": buf[2] / max(buf[1], 1)}
+
+    out = {}
+    with _variant(A, ATTN_POLLS):
+        read("attention_fwd"), read("attention_bwd")   # cleared
+        o, lse = A.attention_fwd(q, k, v, True, sc)
+        torch.cuda.synchronize()
+        out["attn_fwd"] = read("attention_fwd")
+        dk, dv, D = A.attention_bwd_dkv(q, k, v, o, lse, do, True, sc)
+        torch.cuda.synchronize()
+        out["attn_bwd_dkv"] = read("attention_bwd")
+        dq = A.attention_bwd_dq(q, k, v, o, lse, do, D, True, sc)
+        torch.cuda.synchronize()
+        out["attn_bwd_dq"] = read("attention_bwd")
+    check(all(torch.equal(a, b) for a, b in zip((o, lse, dq, dk, dv),
+                                                outputs)),
+          f"[attn_kernels] {label}: the poll-counting build's outputs "
+          "differ from the shipped kernels'")
+    for name, st in out.items():
+        check(0 < st["max"] < 1 << 20, f"[attn_kernels] {name}: a barrier "
+              f"wait took {st['max']} polls (2^24 = {1 << 24})")
+    log(f"[attn_kernels] {label}: largest poll count of one barrier wait "
+        + ", ".join(f"{n} {st['max']:,} ({st['waits']:,} waits, "
+                    f"{st['mean']:.2f} polls a wait)" for n, st in out.items())
+        + f"; the earlier bound was 2^24 = {1 << 24:,}; outputs equal the "
+        "shipped kernels' bit for bit")
+    return out
+
+
 def phase_attn_kernels():
     """[attn_kernels] `attn_fwd`, `attn_bwd_dkv` and `attn_bwd_dq` against
     their plain versions: small shapes (L 251 ragged and 256 aligned, L 1000
@@ -4713,6 +5192,7 @@ def phase_attn_kernels():
           f"[attn_kernels] {label}: two runs differ")
     out["path"] = {n: {k2: st[n][k2] for k2 in (
         "rel_l2", "max_abs_err", "max_abs_ref", "atol_needed")} for n in st}
+    out["polls"] = _attn_polls(q, k, v, do, (o, lse, dq, dk, dv), sc, label)
     log(f"[attn_kernels] {label}: pass against the chunked plain version "
         f"({pair_s:.1f} s for both sides), bits repeat: "
         + "; ".join(f"{n} {describe(st[n])}" for n in st))
@@ -5087,6 +5567,11 @@ def _hyena_kernel_entries(report, entry):
                     "micro-batches, --hyena-checkpoint",
                     launches_per_step=hp["launches_per_step"][name],
                     **extra)
+        if name == "attn_fwd" and "convert" in report:
+            row["launches_convert"] = report["convert"]["hyena"]["launches"]
+        if "polls" in report["attn_kernels"]:
+            row["max_polls_of_a_wait"] = \
+                report["attn_kernels"]["polls"][name]["max"]
         row["library_ms"] = t["library_ms"]
         rows.append(row)
     return rows
@@ -5147,8 +5632,9 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-job":
         return rank_job(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if only not in (None, "cp", "hyena") or len(sys.argv) > 3:
-        print("usage: chip_smoke.py [--only cp|hyena]", file=sys.stderr)
+    if only not in (None, "cp", "hyena", "convert") or len(sys.argv) > 3:
+        print("usage: chip_smoke.py [--only cp|hyena|convert]",
+              file=sys.stderr)
         return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5163,6 +5649,10 @@ def main() -> int:
         f"x{torch.cuda.device_count()}; nvidia-smi: {card}")
     report = {"build": phase_build()}
     phases = time.perf_counter()
+    if only == "convert":
+        report["convert"] = phase_convert()
+        log("[report] " + json.dumps(report))
+        return 0
     if only is not None:
         # the parallel or the Hyena phases alone, for work on them
         from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
@@ -5199,6 +5689,7 @@ def main() -> int:
      report["scan_bwd_planted_faults"]) = phase_scan_bwd_checks()
     report["v1_model_vs_cpu"] = phase_model_vs_cpu(hg38_mlm_config)
     report["v1_serve"] = phase_v1_serve()
+    report["convert"] = phase_convert()
     report["v1_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config)
     report["mamba_mixer_step"] = phase_mamba_mixer_step()
     report["v1_train"] = phase_train_full(hg38_mlm_config)
@@ -5380,6 +5871,8 @@ def main() -> int:
               serve_G16={k: f16[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")},
               launches_vep=report["vep"]["launches"]["ssd_fused_fwd"],
+              launches_convert=report["convert"]["rc"]["v2_bf16_L131072"][
+                  "ssd_fused_fwd_launches"],
               **ft("ssd_fused_fwd")),
         entry("ssd_fwd", "caduceus_tpu_torch/csrc/ssd_fused_fwd.cu", ut["G1"],
               report["v2_generate"]["launches"],
@@ -5419,6 +5912,7 @@ def main() -> int:
               shape="G=4 L=131072 bf16, one direction, carries saved",
               launches_path="MambaMixer train step (2 layers, accum 2)",
               launches_generate=report["v1_generate"]["launches"],
+              launches_convert=report["convert"]["mamba"]["launches"],
               exps=st["fwd"]["exps"], exp_ms=st["fwd"]["exp_ms"],
               exps_softplus=st["fwd"]["exps_softplus"],
               G1_fp32={k: st["fwd_G1_fp32"][k] for k in (
@@ -5436,6 +5930,7 @@ def main() -> int:
               launches_pretrain=report["v1_pretrain"]["launches"][
                   "bidir_scan_fwd"],
               launches_vep=report["v1_vep"]["launches"]["bidir_scan_fwd"],
+              launches_convert=report["convert"]["v1"]["launches_serve"],
               **ft("bidir_scan_fwd"),
               exps=st["bidir"]["exps"], exp_ms=st["bidir"]["exp_ms"],
               exps_softplus=st["bidir"]["exps_softplus"]),

@@ -1449,3 +1449,66 @@ def test_mha_step_through_the_kernels(card, dtype):
     for i, (a, b) in enumerate(zip(got, want)):
         stats = compare(a, b, TOL[dtype], rows=a.dim() > 1)
         assert stats["ok"], (i, stats)
+
+
+def _rc_config(version, n_layer, dtype):
+    """`configs/hg38_mlm.yaml` (v1) / `hg38_mlm_v2.yaml` (v2) at full
+    width: RCPS, tied "add" BiMamba."""
+    from caduceus_tpu_torch.config import CaduceusConfig, SSMConfig
+    from caduceus_tpu_torch.tokenization import CaduceusTokenizer
+
+    tok = CaduceusTokenizer()
+    ssm = (SSMConfig(version=1, d_state=16, d_conv=4, expand=2)
+           if version == 1 else
+           SSMConfig(version=2, d_state=128, headdim=64, ngroups=1, d_conv=4,
+                     expand=2, ssd_chunk_size=128, ssd_seg_chunks=8))
+    return CaduceusConfig(
+        d_model=256, n_layer=n_layer, vocab_size=tok.vocab_size, rcps=True,
+        complement_map=tok.complement_map, bidirectional=True,
+        bidirectional_strategy="add", bidirectional_weight_tie=True,
+        rms_norm=True, residual_in_fp32=False, fused_add_norm=True,
+        dtype=dtype, param_dtype="float32", ssm_cfg=ssm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("n_layer,dtype,L", [
+    (2, "float32", 1000), (16, "float32", 16384), (16, "bfloat16", 131072)],
+    ids=["small", "path-fp32", "path-bf16"])
+def test_rc_equivariance_through_the_kernels(card, version, n_layer, dtype,
+                                             L):
+    """logits(RC(x)) equal logits(x) flipped in L and permuted by the
+    complement map, through `bidir_scan_fwd` (#9, v1) or `ssd_fused_fwd`
+    (#1, v2) at full width (random weights): fp32 by the kernels' fp32
+    rule, at 2 layers and L=1000 (a ragged last chunk) and at 16 layers
+    and L=16,384; bf16 at 16 layers and L=131,072 within 5e-2 of
+    max|logit| (chip_smoke.py [convert])."""
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.ops import scan
+
+    cfg = _rc_config(version, n_layer, dtype)
+    model = CaduceusForMaskedLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(31)
+    ).to("cuda")
+    cm = cfg.padded_complement_map()
+    comp = torch.tensor([cm[i] for i in range(cfg.padded_vocab_size)],
+                        device="cuda")
+    ids = torch.randint(7, 11, (1, L),
+                        generator=torch.Generator().manual_seed(L)).cuda()
+    before = scan.bidir_launches, ssd_batched.launches
+    with torch.inference_mode():
+        fwd = model(ids)
+        rc = model(comp[ids.flip(-1)])
+    torch.cuda.synchronize()
+    launched = (scan.bidir_launches - before[0],
+                ssd_batched.launches - before[1])
+    assert launched == ((2 * n_layer, 0) if version == 1
+                        else (0, 4 * n_layer))
+    want = fwd.flip(1)[..., comp]
+    assert bool(torch.isfinite(rc).all())
+    if dtype == "float32":
+        stats = compare(rc, want, TOL[torch.float32])
+        assert stats["ok"], stats
+    else:
+        err = (rc - want).abs().max().item()
+        assert err <= 5e-2 * want.abs().max().item(), err

@@ -545,6 +545,52 @@ def test_frozen_backbone_still_decays(trajectories):
     assert np.abs(pbest[k]).sum() < np.abs(jbest[k]).sum() * 1.0001
 
 
+def test_jax_cnn_export_served_by_port(tmp_path):
+    """A JAX CNN export (its Orbax ``params/`` holds the BatchNorm
+    ``batch_stats`` root beside ``params``, `caduceus_tpu/finetune.py
+    _export_finetuned`) served by the port: /classify gives the JAX
+    server's scores (the JAX model's eval forward, running statistics)
+    within 1e-5. The statistics are moved off their init (mean 0, var 1),
+    so an export read without them would score otherwise."""
+    jmodel = jax_finetune._make_classifier(None, 2, "mean", False, "left",
+                                           model_kind="cnn")
+    ids = np.zeros((2, L_CNN), np.int32)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(3), ids)
+    rng = np.random.default_rng(3)
+    stats = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(rng.uniform(0.5, 1.5, x.shape)
+                              .astype(np.float32)), variables["batch_stats"])
+    args = types.SimpleNamespace(
+        task="toy", pooling="mean", problem_type="single_label_classification",
+        use_lengths=False, conjoin_train=False, conjoin_test=False,
+        encoder="id", max_length=L_CNN, save_dir=str(tmp_path / "cnn_export"))
+    dm = types.SimpleNamespace(
+        tokenizer=types.SimpleNamespace(padding_side="left"),
+        train_ds=types.SimpleNamespace(add_eos=False))
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_finetune._export_finetuned(
+            args, None, "cnn", "accuracy",
+            (0.5, 3, ({"params": variables["params"]},
+                      {"batch_stats": stats}), 2, dm))
+    kw = dict(max_batch=4, linger_ms=30.0)
+    jax_server = JaxServer(JaxService.from_run_dir(args.save_dir, **kw),
+                           port=0).start()
+    port_server = InferenceServer(InferenceService.from_run_dir(
+        args.save_dir, device="cpu", **kw), port=0).start()
+    try:
+        want = _post(jax_server.port, "/classify",
+                     {"sequences": CLASSIFY_SEQS})["classify"]
+        got = _post(port_server.port, "/classify",
+                    {"sequences": CLASSIFY_SEQS})["classify"]
+    finally:
+        jax_server.stop()
+        port_server.stop()
+    for g, w in zip(got, want, strict=True):
+        assert g["label"] == w["label"]
+        np.testing.assert_allclose(g["probs"], w["probs"], rtol=0,
+                                   atol=1e-5)
+
+
 # --- the Hyena and CNN classifiers ---------------------------------------
 
 L_CNN = 64      # the CNN's three conv + pool stages need 57 positions or more

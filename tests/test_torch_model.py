@@ -288,3 +288,132 @@ def test_fused_ssd_conv_weights_per_use_kernel(kernel, monkeypatch):
                    for ww, wb in want)
         if kernel == "xla":  # the fp32 parameters are not bf16 values
             assert not any(torch.equal(w, pw) for pw, _ in params)
+
+
+# --- the RC-equivariance properties of tests/test_rcps_properties.py -----
+
+RC_RTOL, RC_ATOL = 6e-4, 2e-3   # the reference's fp32 tolerances
+
+
+def rc_config(**kw):
+    """`tests/test_rcps_properties.py small_config` for the port."""
+    tok = CaduceusTokenizer()
+    from caduceus_tpu_torch.config import SSMConfig
+
+    defaults = dict(d_model=16, n_layer=2, vocab_size=tok.vocab_size,
+                    ssm_cfg=SSMConfig(d_state=4, d_conv=4, expand=2),
+                    rcps=True, complement_map=tok.complement_map,
+                    rms_norm=True, residual_in_fp32=True, dtype="float32",
+                    param_dtype="float32")
+    defaults.update(kw)
+    return CaduceusConfig(**defaults)
+
+
+def rc_ids(ids, cfg):
+    from caduceus_tpu_torch.models.caduceus import reverse_complement_ids
+
+    cm = cfg.padded_complement_map()
+    comp = torch.tensor([cm[i] for i in range(cfg.padded_vocab_size)])
+    return reverse_complement_ids(ids, comp)
+
+
+def rc_run(model_cls, cfg, seed, B=2, L=32):
+    """(out(x), out(rc(x)), cfg) of a seeded port model on seeded ids."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (B, L), generator=g)
+    model = model_cls(cfg, device="cpu", generator=g)
+    with torch.inference_mode():
+        return model(ids).numpy(), model(rc_ids(ids, cfg)).numpy()
+
+
+def comp_index(cfg):
+    cm = cfg.padded_complement_map()
+    return np.asarray([cm[i] for i in range(cfg.padded_vocab_size)])
+
+
+@pytest.mark.parametrize("n_layer,d_model", [(1, 16), (2, 32)])
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("weight_tie", [True, False])
+def test_rc_backbone_equivariance(n_layer, d_model, bidirectional,
+                                  weight_tie):
+    """hidden(rc(x)) == flip_{L,C}(hidden(x)) (`test_rcps_properties.py:69`)."""
+    cfg = rc_config(n_layer=n_layer, d_model=d_model,
+                    bidirectional=bidirectional,
+                    bidirectional_weight_tie=weight_tie)
+    out, out_rc = rc_run(Caduceus, cfg, 1)
+    np.testing.assert_allclose(out_rc, np.flip(out, axis=(-2, -1)),
+                               rtol=RC_RTOL, atol=RC_ATOL)
+
+
+@pytest.mark.parametrize("strategy", ["add", "ew_multiply"])
+def test_rc_mlm_logits_equivariance(strategy):
+    """logits(rc(x)) == flip_L(logits(x))[..., comp], and the same after
+    the softmax (`test_rcps_properties.py:87`)."""
+    cfg = rc_config(bidirectional_strategy=strategy)
+    logits, logits_rc = rc_run(CaduceusForMaskedLM, cfg, 3)
+    comp = comp_index(cfg)
+    np.testing.assert_allclose(logits_rc, np.flip(logits, axis=1)[..., comp],
+                               rtol=RC_RTOL, atol=RC_ATOL)
+    p, p_rc = (torch.softmax(torch.from_numpy(x), -1).numpy()
+               for x in (logits, logits_rc))
+    np.testing.assert_allclose(p_rc, np.flip(p, axis=1)[..., comp],
+                               rtol=RC_RTOL, atol=RC_ATOL)
+
+
+def test_rc_mlm_equivariance_with_vocab_padding():
+    """Vocab 12 padded to 16, the complement map extended with the
+    identity (`test_rcps_properties.py:105`)."""
+    cfg = rc_config(pad_vocab_size_multiple=16)
+    assert cfg.padded_vocab_size == 16
+    logits, logits_rc = rc_run(CaduceusForMaskedLM, cfg, 5)
+    assert logits.shape[-1] == 16
+    np.testing.assert_allclose(
+        logits_rc, np.flip(logits, axis=1)[..., comp_index(cfg)],
+        rtol=RC_RTOL, atol=RC_ATOL)
+
+
+def test_rc_collapse_invariance():
+    """(h_fwd + flip(h_rc)) / 2 is the same for x and rc(x)
+    (`test_rcps_properties.py:122`)."""
+    from caduceus_tpu_torch.models.caduceus import collapse_strand_mean
+
+    out, out_rc = rc_run(Caduceus, rc_config(), 7)
+    c1, c2 = (collapse_strand_mean(torch.from_numpy(x)).numpy()
+              for x in (out, out_rc))
+    np.testing.assert_allclose(c1, c2, rtol=RC_RTOL, atol=RC_ATOL)
+
+
+def test_rc_embedding_contract():
+    """The complement of the flipped rc ids is the ids: rc is an
+    involution on the tokenizer's map (`test_rcps_properties.py:148`)."""
+    tok = CaduceusTokenizer()
+    ids = torch.tensor([[7, 8, 9, 10, 11, 4]])
+    cfg = rc_config()
+    rc = rc_ids(ids, cfg)
+    assert torch.equal(rc_ids(rc, cfg), ids)
+    assert torch.equal(rc[0], torch.from_numpy(tok.complement_array()[
+        ids[0].flip(0).numpy()]).long())
+
+
+def test_rc_canonical_reference_roundtrip():
+    """`reference_to_canonical` inverts `canonical_to_reference`, and both
+    equal JAX's (`test_rcps_properties.py:159`)."""
+    from caduceus_tpu.models.caduceus import reference_to_canonical as jr2c
+    from caduceus_tpu_torch.models.caduceus import (
+        canonical_to_reference as c2r, reference_to_canonical as r2c)
+
+    x = torch.randn(2, 3, 8, 4, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(r2c(c2r(x)), x)
+    np.testing.assert_array_equal(c2r(x).numpy(), np.asarray(
+        canonical_to_reference(jnp.asarray(x.numpy()))))
+    ref = c2r(x).numpy()
+    np.testing.assert_array_equal(r2c(torch.from_numpy(ref)).numpy(),
+                                  np.asarray(jr2c(jnp.asarray(ref))))
+
+
+def test_rc_non_rcps_not_equivariant():
+    """Without RCPS the property does not hold (a model that is trivially
+    constant would pass the suite) (`test_rcps_properties.py:167`)."""
+    out, out_rc = rc_run(Caduceus, rc_config(rcps=False), 11)
+    assert out.shape == out_rc.shape
+    assert not np.allclose(out_rc, np.flip(out, axis=(-2, -1)), atol=1e-3)

@@ -537,3 +537,180 @@ def test_trainer_refuses_what_is_not_ported(case):
         Trainer(model, TrainerConfig(), None, context_parallel=True)
     with pytest.raises(RuntimeError, match="init_state"):
         Trainer(model, TrainerConfig(), None).fit(1)
+
+
+def _mu_nu(opt_state):
+    """(mu, nu) of a JAX optimizer state as flat flax paths (under the
+    ``params/`` root of the TrainState's params)."""
+    leaves = jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: hasattr(x, "mu") and hasattr(x, "nu"))
+    adam = next(x for x in leaves if hasattr(x, "mu"))
+    return flatten(adam.mu), flatten(adam.nu), int(adam.count)
+
+
+def test_resume_from_a_jax_run(case, tmp_path, monkeypatch):
+    """The JAX Trainer (after 3 steps) saves its Orbax checkpoint and takes
+    step 4; the port's Trainer resumes that run dir (weights, EMA, step,
+    loader position and AdamW's moments and count mapped from optax's
+    chain) and takes step 4 on the same batch: the moments after the
+    restore equal JAX's bit for bit; after the step the parameters agree
+    within 1e-5, exp_avg / exp_avg_sq within 1e-6 of their max, the EMA
+    within 1e-5, step and update count are JAX's, and the logged lr is
+    JAX's (1e-6: the JAX schedule computes in fp32). ``cli.py pretrain
+    --resume`` on the run dir goes on from step 3. The newest of the
+    port's and the Orbax steps is taken; without tensorstore the error
+    names it and the params.npz way round."""
+    jt, jcfg = case["jt"], case["jcfg"]
+    run = tmp_path / "jax_run"
+    _write_jax_run(str(run), jcfg, [])
+    # the JAX step donates its state: fit a copy, keep the fixture's
+    st3 = jax.tree_util.tree_map(jnp.copy, jt.state)
+    saved = (jt.state, jt.log_fn, jt.cfg)
+    consumed = jt._consumed_loader_state
+    jax_records = []
+    try:
+        jt.cfg = dataclasses.replace(jt.cfg, run_dir=str(run))
+        jt.save_checkpoint()
+        mu3, nu3, _ = _mu_nu(jt.state.opt_state)
+        jt.log_fn = jax_records.append
+        jt.train_loader.load_state_dict(consumed)
+        jt.state = st3
+        jt.fit(4)
+        want = jt.state
+    finally:
+        jt.state, jt.log_fn, jt.cfg = saved
+        jt.train_loader.load_state_dict(consumed)
+    assert [r["step"] for r in jax_records if "loss" in r] == [4]
+
+    t, rec = _fit(case, run, eval_every=1000)
+    assert t.restore_checkpoint()
+    assert t.state.step == 3 and t.state.optimizer.count == 3
+    opt = t.state.optimizer.opt
+
+    def moments(name):
+        return {n: opt.state[p][name].numpy()
+                for n, p in t.model.named_parameters()}
+
+    cfg = t.model.cfg
+    mu3, nu3 = from_jax_params(mu3, cfg), from_jax_params(nu3, cfg)
+    for n, p in t.model.named_parameters():
+        assert torch.equal(opt.state[p]["exp_avg"], mu3[n]), n
+        assert torch.equal(opt.state[p]["exp_avg_sq"], nu3[n]), n
+        assert float(opt.state[p]["step"]) == 3.0
+    t.fit(4)
+    assert t.state.step == int(want.step) == 4
+    assert t.state.optimizer.count == 4
+    mu4, nu4, count4 = _mu_nu(want.opt_state)
+    assert count4 == 4
+    for name, ref in (("exp_avg", from_jax_params(mu4, cfg)),
+                      ("exp_avg_sq", from_jax_params(nu4, cfg))):
+        got = moments(name)
+        for n, r in ref.items():
+            r = r.numpy()
+            assert np.abs(got[n] - r).max() <= 1e-6 * np.abs(r).max(), (
+                name, n)
+    params = from_jax_params(flatten(want.params), cfg)
+    ema = from_jax_params(flatten(want.ema_params), cfg)
+    for n, p in t.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), params[n].numpy(),
+                                   rtol=0, atol=1e-5, err_msg=n)
+        np.testing.assert_allclose(t.state.ema_params[n].numpy(),
+                                   ema[n].numpy(), rtol=0, atol=1e-5,
+                                   err_msg=n)
+    (got4,) = [r for r in rec if "loss" in r]
+    (want4,) = [r for r in jax_records if "loss" in r]
+    assert got4["step"] == want4["step"] == 4
+    np.testing.assert_allclose(got4["lr"], want4["lr"], rtol=1e-6)
+    np.testing.assert_allclose(got4["loss"], want4["loss"], rtol=1e-5)
+
+    # the newest of either kind: the port's step 4 over Orbax's 3, then an
+    # Orbax step 6 over it
+    t.save_checkpoint()
+    again, _ = _fit(case, run, eval_every=1000)
+    assert again.restore_checkpoint() and again.state.step == 4
+    jax_save(str(run / "checkpoints"), JaxState(
+        want.params, want.opt_state, jnp.asarray(6, jnp.int32),
+        want.ema_params), None)
+    again, _ = _fit(case, run, eval_every=1000)
+    assert again.restore_checkpoint() and again.state.step == 6
+    assert again.state.optimizer.count == 4
+
+    cli_run, only = tmp_path / "cli_run", tmp_path / "orbax_only"
+    _write_jax_run(str(cli_run), jcfg, [jt.state])
+    _write_jax_run(str(only), jcfg, [jt.state])
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_main(["pretrain", "--fasta", case["fa"], "--bed", case["bed"],
+                  "--device", "cpu", "--max-length", str(L), "--batch-size",
+                  str(BATCH), "--config-path",
+                  str(cli_run / "model_config.json"), "--log-every", "1",
+                  "--eval-every", "1000", "--checkpoint-every", "1000",
+                  "--run-dir", str(cli_run), "--max-steps", "4",
+                  "--accum-steps", "2", "--resume"])
+    with open(cli_run / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    assert [r["step"] for r in logged if "loss" in r] == [4]
+    assert checkpoint.latest_step(str(cli_run / "checkpoints")) == 4
+
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    fresh, _ = _fit(case, only)
+    with pytest.raises(ImportError, match="tensorstore.*params.npz"):
+        fresh.restore_checkpoint()
+
+
+def test_wd_mask_fn_matches_jax(case):
+    """``make_optimizer(wd_mask_fn=)``: the reference's executed decay set
+    (`tests/test_reference_torch_parity.py:398-409`: everything decays but
+    biases, embeddings, A_log and D, so the RMSNorm weights do) written on
+    the named parameters gives JAX's decay set on its tree, and one step
+    (clip, AdamW, wd 0.1, a constant lr) from the same parameters and
+    gradients equals JAX's within 1e-6; the default mask differs."""
+    from caduceus_tpu.train.optim import make_optimizer as jax_make_optimizer
+    from caduceus_tpu_torch.params import flax_path
+    from caduceus_tpu_torch.train.optim import make_optimizer
+
+    exempt = ("bias", "dt_proj_b", "conv_b", "norm_b", "norm_f_b",
+              "embedding", "A_log", "D")
+
+    def jax_mask(tree):
+        def decide(path, leaf):
+            names = [str(getattr(p, "key", getattr(p, "name", p)))
+                     for p in path]
+            return not any(n in exempt for n in names)
+        return jax.tree_util.tree_map_with_path(decide, tree)
+
+    def port_mask(named):
+        return {n: not any(c in exempt for c in flax_path(n).split("/"))
+                for n, _ in named}
+
+    model = port_model(case["jcfg"], case["flat0"])
+    named = list(model.named_parameters())
+    params = {"params": tu.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in case["flat0"].items()}, sep="/")}
+    want_mask = flatten(jax_mask(params))
+    got_mask = {flax_path(n): m for n, m in port_mask(named).items()}
+    assert got_mask == want_mask
+    assert any(m for k, m in got_mask.items() if k.endswith("norm_w"))
+
+    rng = np.random.default_rng(5)
+    grads = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in case["flat0"].items()}
+    kw = dict(lr=1e-2, weight_decay=0.1, betas=(0.9, 0.95),
+              schedule_name="constant", gradient_clip=1.0)
+    tx, _ = jax_make_optimizer(wd_mask_fn=jax_mask, **kw)
+    g_tree = {"params": tu.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in grads.items()}, sep="/")}
+    updates, _ = tx.update(g_tree, tx.init(params), params)
+    want = flatten(jax.tree_util.tree_map(lambda p, u: p + u, params,
+                                          updates))
+
+    for fn, same in ((port_mask, True), (None, False)):
+        m = port_model(case["jcfg"], case["flat0"])
+        opt, _ = make_optimizer(m.named_parameters(), wd_mask_fn=fn, **kw)
+        g_port = from_jax_params(grads, m.cfg)
+        for n, p in m.named_parameters():
+            p.grad = g_port[n].clone()
+        opt.step()
+        got = from_jax_params(want, m.cfg)
+        err = max((p.detach() - got[n]).abs().max().item()
+                  for n, p in m.named_parameters())
+        assert (err <= 1e-6) == same, (fn, err)
