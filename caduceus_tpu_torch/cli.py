@@ -15,12 +15,15 @@ from; ``vep`` (`vep.py`) dumps variant embeddings of a run dir's model and
 scores them with ``--svm``. Every subcommand runs on the card unless
 ``--device cpu`` is given.
 
-``pretrain`` and ``eval`` run data and context parallelism when launched
-as several ranks by `torch.distributed.run` (``python -m
+``pretrain`` and ``eval`` run data, tensor and context parallelism when
+launched as several ranks by `torch.distributed.run` (``python -m
 torch.distributed.run --standalone --nproc_per_node N -m
 caduceus_tpu_torch.cli pretrain ...``): the ranks form a (data, model) mesh
-(`parallel/mesh.py`), ``--mesh-model M`` ranks along the model axis, and
-``--context-parallel`` shards the sequence over it. ``--dist-backend``
+(`parallel/mesh.py`), ``--mesh-model M`` ranks along the model axis;
+``--tensor-parallel`` cuts the model's parameters over it
+(`parallel/sharding.py`; ``pretrain`` of every family, ``eval`` of the
+Caduceus and Mamba ones) and ``--context-parallel`` shards the sequence
+over it, one or the other per run, as the JAX CLI takes them. ``--dist-backend``
 picks the `torch.distributed` backend (nccl by default; gloo runs several
 ranks on one card, or on the CPU with ``--device cpu``).
 
@@ -33,7 +36,7 @@ mixer and MLP in the backward; it writes the JAX CLI's Hyena
 ``model_config.json`` (``model_type``, ``objective``, ``lr`` and the model
 fields), which ``eval`` and ``finetune`` read. The Hyena family takes no
 ``--context-parallel`` (the FFT long conv has no sequence-sharded path),
-as in the JAX CLI. Not ported yet: ``--tensor-parallel``.
+as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -64,11 +67,12 @@ def _add_parallel_args(p: argparse.ArgumentParser):
     # the JAX CLI's multi-device flags (`caduceus_tpu/cli.py:192-216`): the
     # ranks of `torch.distributed.run` form a (data, model) mesh; DP over
     # 'data' is always on; --mesh-model N carves a 'model' axis for
-    # --context-parallel (the sequence sharded over it)
+    # --tensor-parallel (the parameters cut over it) or --context-parallel
+    # (the sequence sharded over it)
     p.add_argument("--mesh-model", type=int, default=1,
                    help="size of the mesh 'model' axis (ranks = data x model)")
     p.add_argument("--tensor-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 8)")
+                   help="shard params + scans over the 'model' axis")
     p.add_argument("--context-parallel", action="store_true",
                    help="shard the sequence axis over the 'model' axis")
     p.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
@@ -77,8 +81,7 @@ def _add_parallel_args(p: argparse.ArgumentParser):
 
 
 def _check_parallel(p, args):
-    """The JAX CLI's checks of the mesh flags (`caduceus_tpu/cli.py:207-216`),
-    then the port's refusal of tensor parallelism."""
+    """The JAX CLI's checks of the mesh flags (`caduceus_tpu/cli.py:207-216`)."""
     if args.tensor_parallel and args.context_parallel:
         p.error("--tensor-parallel and --context-parallel share the single "
                 "'model' mesh axis; pick one per run")
@@ -88,9 +91,6 @@ def _check_parallel(p, args):
         p.error(f"--max-length {args.max_length} not divisible by "
                 f"--mesh-model {args.mesh_model} (context parallelism "
                 f"shards the sequence axis)")
-    if args.tensor_parallel:
-        p.error("--tensor-parallel is not ported yet (ROADMAP.md queue 1 "
-                "item 8: TP)")
 
 
 def _maybe_mesh(p, args):
@@ -112,6 +112,7 @@ def _maybe_mesh(p, args):
                           "world_size": mesh.world,
                           "mesh": {"data": mesh.shape["data"],
                                    "model": mesh.shape["model"]},
+                          "tensor_parallel": args.tensor_parallel,
                           "context_parallel": args.context_parallel,
                           "device": str(mesh.device)}), flush=True)
     return mesh
@@ -342,6 +343,8 @@ def cmd_pretrain(argv):
         meta["objective"] = "ntp" if args.ntp else "mlm"
         meta["tensor_parallel_axis"] = None
         meta["context_parallel_axis"] = None
+        if args.tensor_parallel:
+            cfg.tensor_parallel_axis = "model"
         if args.context_parallel:
             cfg.context_parallel_axis = "model"
         model = CaduceusForMaskedLM(cfg, device=dev, generator=gen)
@@ -375,6 +378,7 @@ def cmd_pretrain(argv):
         trainer = Trainer(model, tcfg, train_loader, dm.eval_loader("valid"),
                           mesh=mesh, ignore_index=dm.tokenizer.pad_token_id,
                           log_fn=log_fn, lr_overrides=lr_overrides,
+                          tensor_parallel=args.tensor_parallel,
                           context_parallel=args.context_parallel)
         trainer.init_state()
         log_fn(param_count(model))
@@ -432,6 +436,8 @@ def cmd_eval(argv):
         model = HyenaLMHeadModel(device=dev, **kw)
     else:
         cfg, params = load_run_dir(args.run_dir)
+        if args.tensor_parallel:
+            cfg.tensor_parallel_axis = "model"
         if args.context_parallel:
             cfg.context_parallel_axis = "model"
         model = CaduceusForMaskedLM(
@@ -443,6 +449,7 @@ def cmd_eval(argv):
                         batch_size=args.batch_size, mlm=mlm)
     trainer = Trainer(model, TrainerConfig(run_dir=args.run_dir), None,
                       dm.eval_loader(args.split), mesh=mesh,
+                      tensor_parallel=args.tensor_parallel,
                       context_parallel=args.context_parallel)
     metrics = trainer.evaluate(max_batches=args.max_batches,
                                prefix=args.split)

@@ -124,11 +124,12 @@ class CaduceusConfig:
     remat: bool = False
     remat_span: int = 1
 
-    # tensor parallelism through the Pallas kernels: name of the mesh axis
-    # d_inner is sharded over. The scan is elementwise in d, so the kernel
-    # runs per-shard under shard_map with zero collectives; the surrounding
-    # projections keep their Megatron specs (`parallel/sharding.py`).
-    # Requires a registered global mesh (like context_parallel_axis).
+    # tensor parallelism: name of the mesh axis the projections, d_inner
+    # channels and heads are cut over (`parallel/sharding.py shard_module_`
+    # cuts the parameters; the mixers call the exchanges of
+    # `parallel/comm.py`, and each rank's scan runs on its slice with no
+    # collective inside). Requires a registered global mesh (like
+    # context_parallel_axis).
     tensor_parallel_axis: Optional[str] = None
 
     # context parallelism (beyond the reference, SURVEY.md §5.7 stretch):

@@ -21,6 +21,20 @@ checkpoint`, which restores the global RNG, not an explicit generator)
 draws the same mask, and a resumed run draws the masks it drew before. The
 bits are not JAX's: keep rate and scaling are (flax `Dropout`: keep with
 probability 1 - p, scale by 1 / (1 - p)).
+
+Tensor parallelism (`parallel/sharding.py shard_module_`, which cuts the
+parameters and sets ``tp_axis_name`` on the operator, MHA and MLP modules;
+the JAX package's Megatron specs through `Trainer(tensor_parallel=True)`):
+each rank runs its d / M channels of the operator (``in_proj``'s
+``order + 1`` blocks column-parallel, the short filter, the long-conv
+filter and its bias, whose MLP runs whole on every rank with its
+parameters entering through `comm.copy_to_axis`, and the FFT conv on its
+channels), its H / M heads of an MHA (``Wqkv`` cut by heads, the
+flash-attention kernels at H / M heads) and its slice of the MLP's hidden
+units (``fc1`` column-, ``fc2`` row-parallel); ``out_proj`` and ``fc2``
+sum the ranks' partial products (`comm.row_parallel_linear`). A dropout
+site inside the operator draws the mask of the whole tensor and keeps its
+channels, so a rank drops what one rank drops.
 """
 
 from __future__ import annotations
@@ -42,6 +56,8 @@ from caduceus_tpu_torch.ops.attention import mha_attention
 from caduceus_tpu_torch.ops.conv import causal_conv1d
 from caduceus_tpu_torch.ops.fft_conv import fft_conv
 from caduceus_tpu_torch.ops.norms import layer_norm
+from caduceus_tpu_torch.parallel.comm import copy_to_axis, row_parallel_linear
+from caduceus_tpu_torch.parallel.mesh import mesh_axis
 
 # the dropout sites of a layer (the last element of a site's key)
 SITE_MIXER, SITE_RESID1, SITE_RESID2 = 0, 1, 2
@@ -57,16 +73,25 @@ def dropout_generator(key: Tuple[int, ...], device) -> torch.Generator:
 
 
 def dropout(x: torch.Tensor, p: float,
-            key: Optional[Tuple[int, ...]]) -> torch.Tensor:
+            key: Optional[Tuple[int, ...]],
+            part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Keep each element with probability 1 - p and scale it by 1 / (1 - p)
     (flax `Dropout`), the mask drawn from `dropout_generator(key)`; x
-    itself when ``key`` is None or p is 0."""
+    itself when ``key`` is None or p is 0. ``part`` = (the whole last
+    dimension, this tensor's first column in it): ``x`` is a slice of the
+    last dimension, and takes its columns of the whole tensor's mask."""
     if key is None or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     g = dropout_generator(key, x.device)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= p
+    if part is None:
+        keep = torch.rand(x.shape, generator=g, device=x.device) >= p
+    else:
+        whole, start = part
+        keep = (torch.rand((*x.shape[:-1], whole), generator=g,
+                           device=x.device)
+                [..., start:start + x.shape[-1]] >= p)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -96,6 +121,20 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+    def row_parallel(self, x: torch.Tensor, dtype: torch.dtype, axis):
+        """The layer with its input features cut over ``axis`` (this rank's
+        weight columns; the bias whole)."""
+        return row_parallel_linear(x, self.weight, self.bias, dtype, axis)
+
+
+def _tp(module):
+    """The tensor-parallel axis of a module (`shard_module_`), or None."""
+    return mesh_axis(module.tp_axis_name, "tp_axis_name")
+
+
+def _out(dense: Dense, x, dtype, tp):
+    return dense(x, dtype) if tp is None else dense.row_parallel(x, dtype, tp)
 
 
 class LayerNorm(nn.Module):
@@ -205,23 +244,36 @@ class HyenaOperator(nn.Module):
                                      filter_order=filter_order, w=filter_w,
                                      modulate=modulate, generator=g)
         self.out_proj = Dense(d, d, True, g)
+        self.tp_axis_name: Optional[str] = None
 
     def forward(self, u: torch.Tensor, key=None) -> torch.Tensor:
         d, order, dt = self.d_model, self.order, self.dtype
+        tp = _tp(self)
         u = u.to(dt)
         lf = min(u.shape[-2], self.l_max)
-        u_proj = self.in_proj(u, dt)
+        u_proj = self.in_proj(u if tp is None else copy_to_axis(u, tp), dt)
         uc = causal_conv1d(u_proj, self.short_filter_w.to(dt),
                            self.short_filter_b.to(dt), activation=None)
-        *xs, v = torch.split(uc[..., :lf, :], d, dim=-1)
-        k_all, bias_all = self.filter_fn(lf)
-        k_all = k_all.reshape(lf, d, order - 1)
-        bias_all = bias_all.reshape(d, order - 1)
+        dl = u_proj.shape[-1] // (order + 1)      # this rank's channels
+        *xs, v = torch.split(uc[..., :lf, :], dl, dim=-1)
+        if tp is None:
+            k_all, bias_all = self.filter_fn(lf)
+        else:
+            # the filter MLP whole on every rank, its parameters' gradients
+            # (partial: each rank uses its channels) summed over the axis
+            params = {n: copy_to_axis(p, tp)
+                      for n, p in self.filter_fn.named_parameters()}
+            k_all, bias_all = torch.func.functional_call(
+                self.filter_fn, params, (lf,))
+        c0 = 0 if tp is None else tp.rank * dl
+        k_all = k_all.reshape(lf, d, order - 1)[:, c0:c0 + dl]
+        bias_all = bias_all.reshape(d, order - 1)[c0:c0 + dl]
+        part = None if tp is None else (d, c0)
         for o, x_i in enumerate(reversed(xs[1:])):
-            v = dropout(v * x_i, self.dropout, _sub(key, SITE_MIXER, o))
+            v = dropout(v * x_i, self.dropout, _sub(key, SITE_MIXER, o), part)
             v = fft_conv(v, k_all[:, :, o].float(), bias_all[:, o]).to(dt)
         y = get_activation(self.activation)(v * xs[0])
-        return self.out_proj(y, dt)
+        return _out(self.out_proj, y, dt, tp)
 
 
 class Mlp(nn.Module):
@@ -234,10 +286,13 @@ class Mlp(nn.Module):
         self.dtype = getattr(torch, dtype)
         self.fc1 = Dense(d_model, expand * d_model, True, g)
         self.fc2 = Dense(expand * d_model, d_model, True, g)
+        self.tp_axis_name: Optional[str] = None
 
     def forward(self, x):
-        h = F.gelu(self.fc1(x, self.dtype), approximate="tanh")
-        return self.fc2(h, self.dtype)
+        tp = _tp(self)
+        h = F.gelu(self.fc1(x if tp is None else copy_to_axis(x, tp),
+                            self.dtype), approximate="tanh")
+        return _out(self.fc2, h, self.dtype, tp)
 
 
 class MHA(nn.Module):
@@ -261,17 +316,22 @@ class MHA(nn.Module):
         self.dtype = getattr(torch, dtype)
         self.Wqkv = Dense(d_model, 3 * d_model, True, g)
         self.out_proj = Dense(d_model, d_model, True, g)
+        self.tp_axis_name: Optional[str] = None
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         B, L, d = x.shape
-        H = self.num_heads
-        q, k, v = self.Wqkv(x, self.dtype).split(d, dim=-1)
-        out = mha_attention(q.reshape(B, L, H, d // H),
-                            k.reshape(B, L, H, d // H),
-                            v.reshape(B, L, H, d // H), causal=self.causal)
-        out = dropout(out.reshape(B, L, d), self.dropout,
-                      _sub(key, SITE_MIXER))
-        return self.out_proj(out, self.dtype)
+        tp = _tp(self)
+        hd = d // self.num_heads
+        qkv = self.Wqkv(x if tp is None else copy_to_axis(x, tp), self.dtype)
+        dl = qkv.shape[-1] // 3                   # this rank's heads
+        q, k, v = qkv.split(dl, dim=-1)
+        H = dl // hd
+        out = mha_attention(q.reshape(B, L, H, hd), k.reshape(B, L, H, hd),
+                            v.reshape(B, L, H, hd), causal=self.causal)
+        out = dropout(out.reshape(B, L, dl), self.dropout,
+                      _sub(key, SITE_MIXER),
+                      None if tp is None else (d, tp.rank * dl))
+        return _out(self.out_proj, out, self.dtype, tp)
 
 
 class HyenaLMBackbone(nn.Module):

@@ -28,9 +28,18 @@ rescale, which the Mamba-2 mixer (`models/mamba2.py`) shares. With
 `_cp_scan` on this rank's sequence shard, as the JAX mixer does
 (`caduceus_tpu/models/mamba.py:338-360`, `:477-482`): the conv with its
 K-1 halo rows, then `parallel/seq_scan.py sequence_parallel_scan` (two
-single-direction chained scans, #7 / #8, in place of the paired #9). Not
-ported yet: the tensor-parallel branch (`tp_axis`, ROADMAP.md queue 1
-item 8).
+single-direction chained scans, #7 / #8, in place of the paired #9).
+
+With ``tensor_parallel_axis`` set (and the parameters cut by
+`parallel/sharding.py shard_module_`) each rank runs its d_inner / M
+channels, the Megatron split of the JAX ``ssm_branch(tp_axis=)`` /
+``run_both`` (`caduceus_tpu/models/mamba.py:192-213`, `:517-533`):
+``in_proj`` column-parallel behind `comm.copy_to_axis`, the conv, ``dt_proj``
+and the scan (#9 / #8, #7 unidirectional) on the rank's channels,
+``x_proj``'s contraction over d_inner through `comm.reduce_from_axis` (the
+whole dt / B / C on every rank, entering the channel-sharded part through
+`copy_to_axis`), the gate, and ``out_proj`` row-parallel
+(`comm.row_parallel_linear`).
 
 Every initializer draws from an explicit `torch.Generator`.
 """
@@ -50,8 +59,13 @@ from caduceus_tpu_torch.ops.scan import (
     bidir_selective_scan,
     selective_scan_chained,
 )
-from caduceus_tpu_torch.parallel.comm import conv_halo
-from caduceus_tpu_torch.parallel.mesh import cp_axis
+from caduceus_tpu_torch.parallel.comm import (
+    conv_halo,
+    copy_to_axis,
+    reduce_from_axis,
+    row_parallel_linear,
+)
+from caduceus_tpu_torch.parallel.mesh import cp_axis, tp_axis
 from caduceus_tpu_torch.parallel.seq_scan import sequence_parallel_scan
 
 
@@ -119,19 +133,30 @@ class FrameDense(nn.Module):
         self.flip_in = flip_in
         self.flip_out = flip_out
 
-    def forward(self, x: torch.Tensor,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        dtype = x.dtype if dtype is None else dtype
-        w = self.weight
+    def _framed(self):
+        w, b = self.weight, self.bias
         if self.flip_in:
             w = w.flip(1)
         if self.flip_out:
             w = w.flip(0)
+            b = None if b is None else b.flip(0)
+        return w, b
+
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dtype = x.dtype if dtype is None else dtype
+        w, b = self._framed()
         y = x.to(dtype) @ w.to(dtype).t()
-        if self.bias is not None:
-            b = self.bias.flip(0) if self.flip_out else self.bias
+        if b is not None:
             y = y + b.to(dtype)
         return y
+
+    def row_parallel(self, x: torch.Tensor, dtype: torch.dtype,
+                     axis) -> torch.Tensor:
+        """The layer with its input features cut over ``axis`` (this rank's
+        weight columns; the bias whole): `comm.row_parallel_linear`."""
+        w, b = self._framed()
+        return row_parallel_linear(x, w, b, dtype, axis)
 
 
 def _param_dtype(c: CaduceusConfig) -> torch.dtype:
@@ -170,7 +195,9 @@ class _DirectionParams(nn.Module):
         """Conv + input-dependent projections of ``x`` (..., L, d_inner):
         (u, delta_raw, B, C) as (G, L, ·); B and C are column slices of the
         x_proj output. ``axis``: the context-parallel axis when ``x`` is a
-        sequence shard (the conv then reads the neighbour's K-1 rows)."""
+        sequence shard (the conv then reads the neighbour's K-1 rows).
+        Under tensor parallelism ``x`` is this rank's channels and x_proj's
+        partial products are summed over the model axis."""
         c = self.cfg
         L, di = x.shape[-2:]
         x3 = x.reshape(-1, L, di)
@@ -182,7 +209,13 @@ class _DirectionParams(nn.Module):
             x3, self.conv_w.to(dtype),
             None if self.conv_b is None else self.conv_b.to(dtype),
             activation="silu", reverse=reverse, halo=halo)
-        dbc = u @ self.x_proj_w.to(dtype)
+        tp = tp_axis(c)
+        if tp is None:
+            dbc = u @ self.x_proj_w.to(dtype)
+        else:
+            dbc = reduce_from_axis(u.float() @ self.x_proj_w.to(dtype).float(),
+                                   tp).to(dtype)
+            dbc = copy_to_axis(dbc, tp)
         R, N = c.dt_rank, c.ssm_cfg.d_state
         dt, B, C = dbc.split([R, N, N], dim=-1)
         delta_raw = dt @ self.dt_proj_w.to(dtype)
@@ -193,11 +226,8 @@ class _DirectionParams(nn.Module):
 
     def forward(self, x: torch.Tensor, reverse: bool) -> torch.Tensor:
         """`ssm_branch`: the ungated scan output (..., L, d_inner) of one
-        direction; under context parallelism `_cp_scan`."""
-        if self.cfg.tensor_parallel_axis:
-            raise NotImplementedError(
-                "tensor_parallel_axis is not ported yet: ROADMAP.md queue 1 "
-                "item 8 (TP)")
+        direction; under context parallelism `_cp_scan`; under tensor
+        parallelism this rank's channels."""
         axis = cp_axis(self.cfg)
         if axis is not None:
             return self._cp_scan(x, reverse, axis)
@@ -228,6 +258,17 @@ def _dense_out(c: CaduceusConfig, conj: bool, generator) -> FrameDense:
                       _residual_rescale(c), _param_dtype(c), flip_out=conj)
 
 
+def _enter(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a column-parallel layer: `copy_to_axis` under tensor
+    parallelism."""
+    return x if tp is None else copy_to_axis(x, tp)
+
+
+def _dense_apply(dense: FrameDense, x: torch.Tensor, dtype, tp):
+    """An output projection: row-parallel under tensor parallelism."""
+    return dense(x, dtype) if tp is None else dense.row_parallel(x, dtype, tp)
+
+
 class MambaMixer(nn.Module):
     """Unidirectional Mamba mixer (reference `Mamba`, mamba-ssm 1.2.0):
     in_proj -> [conv -> SiLU -> selective scan] -> gate -> out_proj. Under
@@ -244,9 +285,10 @@ class MambaMixer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = getattr(torch, self.cfg.dtype)
-        xi, z = self.in_proj(x, dtype).chunk(2, dim=-1)
+        tp = tp_axis(self.cfg)
+        xi, z = self.in_proj(_enter(x, tp), dtype).chunk(2, dim=-1)
         y = self.fwd(xi, reverse=self.conj)
-        return self.out_proj(y * F.silu(z), dtype)
+        return _dense_apply(self.out_proj, y * F.silu(z), dtype, tp)
 
 
 class BiMamba(nn.Module):
@@ -300,19 +342,25 @@ class BiMamba(nn.Module):
         if not c.bidirectional:
             return self.mamba_fwd(x)
         dtype = getattr(torch, c.dtype)
+        tp = tp_axis(c)
+        x_in = _enter(x, tp)
+
+        def out(dense, y):
+            return _dense_apply(dense, y, dtype, tp)
+
         if c.bidirectional_weight_tie:
-            xi, z = self.in_proj(x, dtype).chunk(2, dim=-1)
+            xi, z = self.in_proj(x_in, dtype).chunk(2, dim=-1)
             y_f, y_r = self._run_both(xi, xi)
             gate = F.silu(z)
             if c.bidirectional_strategy == "add":
-                return self.out_proj((y_f + y_r) * gate, dtype)
-            return (self.out_proj(y_f * gate, dtype)
-                    * self.out_proj(y_r * gate, dtype))
-        xi_f, z_f = self.in_proj(x, dtype).chunk(2, dim=-1)
-        xi_r, z_r = self.in_proj_rev(x, dtype).chunk(2, dim=-1)
+                return out(self.out_proj, (y_f + y_r) * gate)
+            return (out(self.out_proj, y_f * gate)
+                    * out(self.out_proj, y_r * gate))
+        xi_f, z_f = self.in_proj(x_in, dtype).chunk(2, dim=-1)
+        xi_r, z_r = self.in_proj_rev(x_in, dtype).chunk(2, dim=-1)
         y_f, y_r = self._run_both(xi_f, xi_r)
-        o_f = self.out_proj(y_f * F.silu(z_f), dtype)
-        o_r = self.out_proj_rev(y_r * F.silu(z_r), dtype)
+        o_f = out(self.out_proj, y_f * F.silu(z_f))
+        o_r = out(self.out_proj_rev, y_r * F.silu(z_r))
         if c.bidirectional_strategy == "add":
             return o_f + o_r
         return o_f * o_r

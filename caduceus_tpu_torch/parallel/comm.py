@@ -18,6 +18,15 @@ all_reduce, which the gloo backend offers for CUDA tensors as well as NCCL
   neighbour (a `halo_shift` of its boundary rows).
 - `all_reduce_`: an in-place sum over the axis, for values outside autograd
   (gradients, metrics).
+- `copy_to_axis` / `reduce_from_axis`: Megatron's two conjugate exchanges
+  of tensor parallelism. `copy_to_axis` is the identity, and all-reduces
+  the gradient: it marks where a value every rank holds whole enters a
+  computation each rank does on its own slice (a column-parallel product,
+  the B / C lanes of a head-sharded scan), whose gradients are partial.
+  `reduce_from_axis` all-reduces the ranks' partial sums (a row-parallel
+  product), and its backward is the identity. Both sum in fp32: a bf16
+  value is reduced as fp32 and rounded once, as one rank's fp32-accumulated
+  product rounds its sum.
 
 Every rank of the axis must call the same exchanges in the same order, in
 the backward too: the functions here keep the graph the same on every rank
@@ -46,6 +55,61 @@ def all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size > 1:
         axis.group.allreduce([t]).wait()
     return t
+
+
+def _sum_fp32(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of ``t`` over the axis, reduced in fp32 and returned in
+    ``t``'s dtype (one rounding)."""
+    out = t.detach().to(torch.float32, memory_format=torch.contiguous_format,
+                        copy=True)
+    return all_reduce_(out, axis).to(t.dtype)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fp32(g, ctx.axis), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return _sum_fp32(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``t`` itself; its gradient summed over the axis."""
+    if axis.size == 1:
+        return t
+    return _CopyToAxis.apply(t, axis)
+
+
+def reduce_from_axis(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of the ranks' ``t`` (fp32 sums of a bf16 ``t`` rounded
+    once); the gradient passes through unchanged."""
+    if axis.size == 1:
+        return t
+    return _ReduceFromAxis.apply(t, axis)
+
+
+def row_parallel_linear(x: torch.Tensor, w: torch.Tensor, b, dtype,
+                        axis: Axis) -> torch.Tensor:
+    """``x @ wᵀ + b`` in ``dtype`` where ``x`` and ``w`` hold this rank's
+    slice of the contraction: the partial products in fp32 (of the
+    ``dtype`` operands), `reduce_from_axis`, one rounding to ``dtype``,
+    then the bias, which every rank holds whole."""
+    part = x.to(dtype).float() @ w.to(dtype).float().t()
+    y = reduce_from_axis(part, axis).to(dtype)
+    return y if b is None else y + b.to(dtype)
 
 
 class _AllGather(torch.autograd.Function):

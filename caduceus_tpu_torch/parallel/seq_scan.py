@@ -2,9 +2,8 @@
 over the ranks of one mesh axis, each rank holding a contiguous shard.
 
 Port of `caduceus_tpu/parallel/seq_scan.py` (`sequence_parallel_scan`,
-`sequence_parallel_ssd`, `sequence_parallel_ssd_fused`, without their
-``head_axis``: tensor parallelism is not ported). The same exact two-pass
-construction:
+`sequence_parallel_ssd`, `sequence_parallel_ssd_fused`). The same exact
+two-pass construction:
 
 1. local pass from a zero state: the shard's final state b_s; the shard's
    total decay is analytic, A_prod_s = exp(A * sum_t dt) (per channel and
@@ -21,6 +20,15 @@ local adjoint receives a final-state cotangent and returns dL/dh_init
 whole. On CUDA tensors the local scans are the kernels (#7 / #8 for v1; #2
 / #4, or #5 / #6 per head, unfused; the context-parallel entry of #1 / #3
 fused), on CPU tensors their plain versions.
+
+Under tensor parallelism composed with CP (JAX: the SSDs' ``head_axis``
+in the same shard_map) the arguments are this rank's heads: the x lanes
+(and their conv taps) of its H / M heads and the B / C lanes of its
+groups, whole or cut with the heads, with ``dims`` and the per-head
+parameters its own. Every step is per head, so the body is the same and
+every exchange names ``axis`` only; the caller passes a B / C lane that
+every rank holds whole through `comm.copy_to_axis`, which sums its
+partial gradients over the heads.
 """
 
 from __future__ import annotations

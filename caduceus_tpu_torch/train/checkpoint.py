@@ -18,6 +18,13 @@ leaves no step directory that `latest_step` would pick. The newest
 `MAX_TO_KEEP` steps are kept, as the JAX package's Orbax manager does
 (`:24-27`).
 
+Under tensor parallelism (`parallel/sharding.py TPPlan`) a step keeps
+the one-rank format: the model ranks gather their parts into the whole
+tensors, rank 0 writes them (``whole=``), and a restore cuts each rank's
+part again (``plan=``), so a run resumes on any model axis, one rank
+included, and `eval`, `serve` and `finetune` read its run dir as a
+one-rank run's.
+
 `load_run_params` reads the parameters of a run dir that the JAX package
 wrote (Orbax `StandardSave` of its `TrainState`: an OCDBT key-value store
 of zarr arrays under ``<step>/state``) with `tensorstore` alone, which is
@@ -80,10 +87,16 @@ def _write_json(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, state, loader_state: Optional[dict] = None
-                    ) -> str:
+def save_checkpoint(path: str, state, loader_state: Optional[dict] = None,
+                    whole: Optional[dict] = None) -> str:
     """Write ``state`` (a `train/trainer.py TrainState`) as step
-    ``state.step`` under ``path``; returns the step's directory."""
+    ``state.step`` under ``path``; returns the step's directory. ``whole``
+    ({"params", "ema", "optimizer"}: the gathered state dicts of a
+    tensor-parallel run) replaces what ``state`` holds."""
+    if whole is None:
+        whole = {"params": state.model.state_dict(),
+                 "ema": state.ema_params,
+                 "optimizer": state.optimizer.state_dict()}
     step = int(state.step)
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, str(step))
@@ -91,15 +104,14 @@ def save_checkpoint(path: str, state, loader_state: Optional[dict] = None
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     np.savez(os.path.join(tmp, "params.npz"),
-             **to_jax_params(state.model.state_dict()))
-    if state.ema_params is not None:
+             **to_jax_params(whole["params"]))
+    if whole["ema"] is not None:
         np.savez(os.path.join(tmp, "ema_params.npz"),
-                 **to_jax_params(state.ema_params))
-    torch.save(state.optimizer.state_dict(),
-               os.path.join(tmp, "optimizer.pt"))
+                 **to_jax_params(whole["ema"]))
+    torch.save(whole["optimizer"], os.path.join(tmp, "optimizer.pt"))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"format": FORMAT, "step": step,
-                   "ema": state.ema_params is not None}, f)
+                   "ema": whole["ema"] is not None}, f)
     if loader_state is not None:
         _write_json(os.path.join(path, f"loader_state_{step}.json"),
                     loader_state)
@@ -121,8 +133,30 @@ def save_checkpoint(path: str, state, loader_state: Optional[dict] = None
     return final
 
 
-def _load_into(model, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def _load_into(model, flat: Dict[str, np.ndarray],
+               plan=None) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``model`` from a whole flat tree: this rank's part
+    of it under a tensor-parallel ``plan``."""
+    if plan is not None:
+        flat = plan.shard_flat(flat)
     return from_jax_params(flat, None, model=model)
+
+
+def map_moments(sd: dict, optimizer, model, fn) -> dict:
+    """A copy of an `Optimizer` state dict ``sd`` (of ``optimizer``'s
+    parameter groups) with ``fn(parameter name, tensor)`` applied to its
+    AdamW moments (the gather or the cut of a tensor-parallel run)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in optimizer.opt.param_groups
+             for p in g["params"]]
+    out = dict(sd)
+    adamw = dict(sd["adamw"])
+    adamw["state"] = {
+        i: {k: (fn(order[i], v) if k in ("exp_avg", "exp_avg_sq") else v)
+            for k, v in st.items()}
+        for i, st in sd["adamw"]["state"].items()}
+    out["adamw"] = adamw
+    return out
 
 
 def _restore_ema(state, src: Optional[Dict[str, torch.Tensor]]) -> None:
@@ -146,10 +180,11 @@ def _loader_state(path: str, step: int) -> Optional[dict]:
     return None
 
 
-def restore_checkpoint(path: str, state) -> Optional[dict]:
+def restore_checkpoint(path: str, state, plan=None) -> Optional[dict]:
     """Load the latest step under ``path`` into ``state`` in place: the
     model's parameters, the optimizer, the step and the EMA; returns the
-    loader state saved with it (None if there is none).
+    loader state saved with it (None if there is none). Under a
+    tensor-parallel ``plan`` each takes this rank's part.
 
     EMA follows the caller, as in the JAX package (`:110-140`): a state
     with EMA takes the checkpoint's, or starts it from the restored
@@ -165,14 +200,16 @@ def restore_checkpoint(path: str, state) -> Optional[dict]:
         raise ValueError(f"{d}: format {meta.get('format')!r}, "
                          f"expected {FORMAT!r}")
     model = state.model
-    model.load_state_dict(
-        _load_into(model, load_npz_params(os.path.join(d, "params.npz"))))
-    state.optimizer.load_state_dict(torch.load(
-        os.path.join(d, "optimizer.pt"), map_location="cpu",
-        weights_only=True))
+    model.load_state_dict(_load_into(
+        model, load_npz_params(os.path.join(d, "params.npz")), plan))
+    opt_sd = torch.load(os.path.join(d, "optimizer.pt"), map_location="cpu",
+                        weights_only=True)
+    if plan is not None:
+        opt_sd = map_moments(opt_sd, state.optimizer, model, plan.part)
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(meta["step"])
     ema_path = os.path.join(d, "ema_params.npz")
-    _restore_ema(state, _load_into(model, load_npz_params(ema_path))
+    _restore_ema(state, _load_into(model, load_npz_params(ema_path), plan)
                  if state.ema_params is not None and os.path.exists(ema_path)
                  else None)
     return _loader_state(path, step)
@@ -304,7 +341,7 @@ def jax_adamw_state(opt_state: Dict[str, np.ndarray]
                                                 else adam_count)
 
 
-def restore_jax_checkpoint(path: str, state) -> Optional[dict]:
+def restore_jax_checkpoint(path: str, state, plan=None) -> Optional[dict]:
     """Load the latest Orbax step a JAX run wrote under ``path`` (its
     `TrainState`: params, opt_state, step, ema_params) into the port's
     ``state`` in place, read with `tensorstore` alone; returns the loader
@@ -313,7 +350,8 @@ def restore_jax_checkpoint(path: str, state) -> Optional[dict]:
     AdamW's moments and count go to each parameter's ``exp_avg`` /
     ``exp_avg_sq`` / ``step`` of `torch.optim.AdamW` (Dense kernels
     transposed as the weights are), the schedule's count to the
-    `Optimizer`'s; the EMA follows the caller (`_restore_ema`)."""
+    `Optimizer`'s; the EMA follows the caller (`_restore_ema`). Under a
+    tensor-parallel ``plan`` each takes this rank's part."""
     from caduceus_tpu_torch.params import flax_path
 
     step = jax_latest_step(path)
@@ -323,9 +361,11 @@ def restore_jax_checkpoint(path: str, state) -> Optional[dict]:
     roots = {k[0] for k in orbax_tree_paths(state_dir)}
     model = state.model
     model.load_state_dict(_load_into(
-        model, read_orbax_arrays(state_dir, "params")))
+        model, read_orbax_arrays(state_dir, "params"), plan))
     mu, nu, adam_count, count = jax_adamw_state(
         read_orbax_arrays(state_dir, "opt_state"))
+    if plan is not None:
+        mu, nu = plan.shard_flat(mu), plan.shard_flat(nu)
     opt = state.optimizer.opt
     index = {}
     for group in opt.param_groups:
@@ -350,7 +390,7 @@ def restore_jax_checkpoint(path: str, state) -> Optional[dict]:
     state.optimizer.count = count
     state.step = int(read_orbax_arrays(state_dir, "step")[""])
     _restore_ema(state, _load_into(model, read_orbax_arrays(
-        state_dir, "ema_params"))
+        state_dir, "ema_params"), plan)
         if state.ema_params is not None and "ema_params" in roots else None)
     return _loader_state(path, step)
 

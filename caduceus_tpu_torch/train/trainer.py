@@ -32,8 +32,24 @@ Dropout (``TrainerConfig.dropout``, the Hyena family; JAX
 site seeds its own generator (`models/hyena.py dropout`), so a resumed run
 draws the masks the killed one drew. ``Trainer(lr_overrides=)`` passes
 per-parameter lr groups to the optimizer (`train/optim.py
-hyena_lr_overrides`). Not ported yet: tensor parallelism (ROADMAP.md
-queue 1 item 8); it raises `NotImplementedError`.
+hyena_lr_overrides`).
+
+``Trainer(tensor_parallel=True)`` (the JAX Trainer's Megatron specs) cuts
+the model's parameters over the mesh's model axis at init
+(`parallel/sharding.py shard_module_`): every rank of a model group takes
+the same rows of the batch, the loss, the metrics and the token counts are
+summed over the data axis only (the model ranks hold the same logits), the
+gradients are all-reduced over the data axis only, and the global-norm
+clip sums the squares of each rank's own elements over the model axis and
+counts every shared element once (`TPPlan.global_sq_norm`). AdamW and the
+EMA run on each rank's part. At init the ranks compare checksums of their
+parts over the data axis and of the shared parameters over the model
+axis; at the first step, of the shared parameters' gradients over the
+model axis (they must come out equal). A checkpoint is the one-rank format
+(the parts gathered, rank 0 writes), and a restore cuts it again, so a
+tensor-parallel run resumes on one rank and the other way round. Tensor
+and context parallelism together are refused, as the JAX CLI refuses the
+pair.
 """
 
 from __future__ import annotations
@@ -118,17 +134,37 @@ def all_reduce_grads(params, world) -> None:
         off += n
 
 
+def _batch_axis(mesh, tp_plan):
+    """The ranks whose batches differ: every rank, or under tensor
+    parallelism the data axis (the model ranks share theirs)."""
+    if mesh is None:
+        return None
+    return mesh.world_axis() if tp_plan is None else mesh.axis("data")
+
+
+def check_shared(tp_plan, named, what: str) -> None:
+    """Raise unless every model rank holds the same shared elements of
+    ``named`` ((name, tensor) pairs), by their float64 checksums."""
+    got = all_gather(tp_plan.shared_checksum(named), tp_plan.axis)
+    if not bool((got == got[0]).all()):
+        raise RuntimeError(f"the model ranks' shared {what} differ")
+
+
 def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
                     ema_decay: float = 0.0, mesh=None, dropout: bool = False,
-                    dropout_seed: int = 0) -> Callable:
+                    dropout_seed: int = 0, tp_plan=None) -> Callable:
     """The train step: ``step(state, batch) -> (state, metrics)``, metrics
     as 0-d tensors on the model's device (no host sync inside but the
     collectives). With a ``mesh`` the batch is this rank's part
     (`parallel/mesh.py shard_batch`), and loss, metrics and gradients are
-    global (module docstring). With ``dropout`` the model is called with a
-    ``dropout_key`` of (dropout_seed, step, micro-batch, rank)."""
-    world = None if mesh is None else mesh.world_axis()
-    rank = 0 if mesh is None else mesh.rank
+    global (module docstring); ``tp_plan`` (`parallel/sharding.py
+    TPPlan`): the model's parameters are cut over the model axis. With
+    ``dropout`` the model is called with a ``dropout_key`` of
+    (dropout_seed, step, micro-batch, rank), the rank's data coordinate
+    under tensor parallelism."""
+    world = _batch_axis(mesh, tp_plan)
+    rank = 0 if mesh is None else (mesh.rank if tp_plan is None
+                                   else mesh.coord("data"))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
@@ -176,7 +212,15 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
-        gnorm = global_norm([p.grad for p in params if p.grad is not None])
+        if tp_plan is None:
+            gnorm = global_norm([p.grad for p in params
+                                 if p.grad is not None])
+        else:
+            named = [(n, p.grad) for n, p in model.named_parameters()
+                     if p.requires_grad and p.grad is not None]
+            if state.step == 0:
+                check_shared(tp_plan, named, "gradients")
+            gnorm = torch.sqrt(tp_plan.global_sq_norm(named))
         state.optimizer.step(gnorm)
         if ema_decay > 0.0:
             with torch.no_grad():
@@ -197,7 +241,8 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
 
 
 def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
-                   per_token: bool = False, mesh=None) -> Callable:
+                   per_token: bool = False, mesh=None,
+                   tp_plan=None) -> Callable:
     """The eval step ``eval_step(params, batch) -> metrics`` with the
     reference HG38Task metric family (`src/tasks/tasks.py:244-332`):
     ``loss_sum`` / ``count`` for the streaming ppl, ``acc``, ``loss``;
@@ -207,10 +252,11 @@ def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
     parameters for the call; None uses them. Metrics are tensors on the
     model's device (no host sync inside). With a ``mesh`` the batch is this
     rank's part and every metric is global (sums all-reduced over every
-    rank; ``loss`` and ``acc`` their token means); under context
-    parallelism neither ``last_k`` nor ``per_token`` is ported."""
-    world = None if mesh is None else mesh.world_axis()
-    if (mesh is not None and mesh.shape["model"] > 1
+    rank; ``loss`` and ``acc`` their token means; under tensor parallelism
+    over the data axis only); under context parallelism neither ``last_k``
+    nor ``per_token`` is ported."""
+    world = _batch_axis(mesh, tp_plan)
+    if (mesh is not None and mesh.shape["model"] > 1 and tp_plan is None
             and (last_k > 0 or per_token)):
         raise NotImplementedError("last_k / per_token eval metrics under "
                                   "context parallelism")
@@ -402,10 +448,21 @@ class Trainer:
                  lr_overrides=None,
                  tensor_parallel: bool = False,
                  context_parallel: bool = False):
+        if tensor_parallel and context_parallel:
+            raise ValueError("tensor and context parallelism share the "
+                             "model axis: pick one per run (as the JAX CLI "
+                             "does)")
+        self.tp_plan = None
         if tensor_parallel:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet: ROADMAP.md queue 1 "
-                "item 8 (TP)")
+            from caduceus_tpu_torch.parallel.mesh import set_global_mesh
+            from caduceus_tpu_torch.parallel.sharding import shard_module_
+
+            if mesh is None or mesh.shape["model"] < 2:
+                raise ValueError("tensor parallelism needs a mesh with a "
+                                 "model axis of 2 or more")
+            set_global_mesh(mesh)
+            self.tp_plan = (getattr(model, "tp_plan", None)
+                            or shard_module_(model, mesh))
         if context_parallel:
             from caduceus_tpu_torch.parallel.mesh import set_global_mesh
 
@@ -437,7 +494,7 @@ class Trainer:
         self.num_tokens = NumTokens()
         self._eval_step = make_eval_step(
             model, ignore_index, last_k=cfg.eval_last_k,
-            per_token=cfg.eval_per_token, mesh=mesh)
+            per_token=cfg.eval_per_token, mesh=mesh, tp_plan=self.tp_plan)
         self._train_step = None
         self._consumed_loader_state = None
         self._warned_eval_reset = False
@@ -460,7 +517,8 @@ class Trainer:
         self.state = TrainState(self.model, opt, 0, ema)
         self._train_step = make_train_step(
             self.ignore_index, cfg.accum_steps, ema_decay=cfg.ema_decay,
-            mesh=self.mesh, dropout=cfg.dropout, dropout_seed=cfg.seed)
+            mesh=self.mesh, dropout=cfg.dropout, dropout_seed=cfg.seed,
+            tp_plan=self.tp_plan)
         if self.mesh is not None:
             self.check_same_params()
         return self.state
@@ -468,14 +526,20 @@ class Trainer:
     def check_same_params(self) -> torch.Tensor:
         """All-gather a checksum of the parameters (per tensor: the float64
         sums of p and of p times its flat index) and raise unless every
-        rank holds the same; returns the gathered checksums."""
+        rank holds the same (under tensor parallelism: every rank of the
+        data axis the same part, every rank of the model axis the same
+        shared elements); returns the gathered checksums."""
         sums = []
         for p in self.model.parameters():
             v = p.detach().reshape(-1).double()
             idx = torch.arange(1, v.numel() + 1, device=v.device,
                                dtype=torch.float64)
             sums += [v.sum(), (v * idx).sum()]
-        got = all_gather(torch.stack(sums), self.mesh.world_axis())
+        if self.tp_plan is not None:
+            check_shared(self.tp_plan, list(self.model.named_parameters()),
+                         "parameters")
+        got = all_gather(torch.stack(sums),
+                         _batch_axis(self.mesh, self.tp_plan))
         if not bool((got == got[0]).all()):
             bad = [r for r in range(got.shape[0])
                    if not bool((got[r] == got[0]).all())]
@@ -527,9 +591,11 @@ class Trainer:
                     if prof is not None and step == 13:
                         self._stop_profile(prof)
                         prof = None
-                    # every rank's targets are its own tokens
+                    # every rank's targets are its own tokens (the model
+                    # ranks' the same under tensor parallelism)
                     tokens_since_log += batch["targets"].numel() * (
-                        1 if self.mesh is None else self.mesh.world)
+                        1 if self.mesh is None else
+                        _batch_axis(self.mesh, self.tp_plan).size)
                     if step % self.cfg.log_every == 0:
                         m = {k: float(v) for k, v in m.items()}
                         self.ppl.update(m["loss_sum"], m["count"])
@@ -660,9 +726,20 @@ class Trainer:
     # -- checkpoint --------------------------------------------------------
     def save_checkpoint(self, path: Optional[str] = None) -> Optional[str]:
         """Write a checkpoint (rank 0 only; every rank holds the same
-        state); returns its path, None on the other ranks."""
-        from caduceus_tpu_torch.train.checkpoint import save_checkpoint
+        state, or under tensor parallelism its part, which every rank
+        gathers first); returns its path, None on the other ranks."""
+        from caduceus_tpu_torch.train.checkpoint import (map_moments,
+                                                         save_checkpoint)
 
+        whole = None
+        if self.tp_plan is not None:
+            plan, st = self.tp_plan, self.state
+            whole = {"params": plan.gather_state(self.model.state_dict()),
+                     "ema": (None if st.ema_params is None
+                             else plan.gather_state(st.ema_params)),
+                     "optimizer": map_moments(st.optimizer.state_dict(),
+                                              st.optimizer, self.model,
+                                              plan.whole)}
         if not self.is_main:
             return None
         path = path or os.path.join(self.cfg.run_dir, "checkpoints")
@@ -671,7 +748,7 @@ class Trainer:
         loader_state = self._consumed_loader_state
         if loader_state is None and hasattr(self.train_loader, "state_dict"):
             loader_state = self.train_loader.state_dict()
-        return save_checkpoint(path, self.state, loader_state)
+        return save_checkpoint(path, self.state, loader_state, whole)
 
     def restore_checkpoint(self, path: Optional[str] = None) -> bool:
         """Resume from the newest checkpoint under ``path``: the port's
@@ -689,7 +766,7 @@ class Trainer:
         restore = (checkpoint.restore_jax_checkpoint
                    if ours is None or (theirs is not None and theirs > ours)
                    else checkpoint.restore_checkpoint)
-        loader_state = restore(path, self.state)
+        loader_state = restore(path, self.state, self.tp_plan)
         self._consumed_loader_state = loader_state
         if loader_state is not None and hasattr(self.train_loader,
                                                 "load_state_dict"):

@@ -15,10 +15,17 @@ Port of `caduceus_tpu/vep.py`:
   windows are cut on the device; only they cross to the host;
 - `combine_embeddings`, and `svm_eval` (`:202-277`), which keeps
   scikit-learn's `SVC` and imports it only when called;
-- `main`: ``cli.py vep``. It runs as rank 0 of 1 (several processes come
-  with ROADMAP.md queue 1 item 8), prints the peak device memory once, on
-  rank 0 (the JAX module prints it on every rank), and with ``--svm``
-  checks that scikit-learn imports before the first forward.
+- `main`: ``cli.py vep``, in one process or in several under
+  `torch.distributed.run` (``python -m torch.distributed.run --standalone
+  --nproc_per_node N -m caduceus_tpu_torch.cli vep ...``): each rank
+  takes ``variants[rank::world_size]`` on ``cuda:{LOCAL_RANK %
+  device_count}`` (`parallel/mesh.py launch_env`, `launch_device`) and
+  writes ``<out>.rank<r>.npz``; the ranks meet at a barrier (a gloo
+  process group) before rank 0 combines the shards, which the JAX module
+  does without one (it can read a shard another rank has not written
+  yet). It prints the peak device memory once, on rank 0 (the JAX module
+  prints it on every rank), and with ``--svm`` checks that scikit-learn
+  imports before the first forward; rank 0 alone scores.
 """
 
 from __future__ import annotations
@@ -307,17 +314,34 @@ def main(argv=None):
                     "import here; dump without --svm and score the .npz "
                     "where it is installed")
 
+    import torch.distributed as dist
+
     from caduceus_tpu_torch.params import load_run_dir
+    from caduceus_tpu_torch.parallel.mesh import launch_device, launch_env
 
     cfg, params = load_run_dir(args.run_dir)
-    rank, world = 0, 1
+    rank, world, local = launch_env()
+    device = args.device
+    owns = world > 1 and not dist.is_initialized()
+    if world > 1:
+        if device == "cuda":
+            device = launch_device(local)
+            torch.cuda.set_device(device)
+        if owns:
+            dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                    world_size=world)
     dump_embeddings(cfg, params, args.fasta, args.variants, args.out,
                     seq_len=args.seq_len, batch_size=args.batch_size,
-                    rank=rank, world_size=world, device=args.device)
-    path = combine_embeddings(args.out, world)
-    print(json.dumps({"embeddings": path}))
-    if args.svm:
-        print(json.dumps(svm_eval(path)))
+                    rank=rank, world_size=world, device=device)
+    if world > 1:
+        dist.barrier()   # every rank's shard is written
+    if rank == 0:
+        path = combine_embeddings(args.out, world)
+        print(json.dumps({"embeddings": path}))
+        if args.svm:
+            print(json.dumps(svm_eval(path)))
+    if owns:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -258,20 +258,41 @@ and, downstream of run A of each family (the same temporary directory):
 44. [cp_train] `python -m torch.distributed.run --nproc_per_node 2
    chip_smoke.py --rank-job JOB`: two ranks on this card (gloo), the
    sequence of 262,144 rows sharded over them: the first step of v2 at 2
-   layers fp32, v2 `hg38_mlm_v2` at 16 layers and v1 `hg38_mlm` at 4
-   layers (bf16) held against one rank's step on the same weights and
-   batch; `cli.py pretrain --mesh-model 2 --context-parallel` of each bf16
+   layers fp32, v2 `hg38_mlm_v2` at 8 layers (16 before the
+   tensor-parallel phases came) and v1 `hg38_mlm` at 4 layers (bf16) held
+   against one rank's step on the same weights and batch; `cli.py
+   pretrain --mesh-model 2 --context-parallel` of each bf16
    model for 2 steps, the CP kernels' launches counted on each rank;
 45. [cp_eval] `cli.py eval --mesh-model 2 --context-parallel` of the v2 run
    against `cli.py eval` on one rank;
 46. [dp_train] two ranks, data parallelism over a global batch of 2 x
-   131,072: the first step at 2 layers fp32 and 16 layers bf16 against one
+   131,072: the first step at 2 layers fp32 and 8 layers bf16 against one
    rank's (loss and updated parameters), `cli.py pretrain` for 2 steps and
-   a resume from its step-1 checkpoint that replays step 2 bit for bit.
+   a resume from its step-1 checkpoint that replays step 2 bit for bit;
+47. [tp_kernels] the kernels of the tensor-parallel paths at one rank's
+   shapes (model axis 2): #9, #7, #8 at 256 channels, #2 / #4 and #5 / #6
+   at 4 heads (G=4, L=131072), the CP entry of #1 / #3a / #3b at 4 heads
+   (G=2, L_loc=131072) and #11 at 4 heads (G=2, L=65536), each against
+   its plain version and timed beside its bound;
+48. [tp_train] two ranks, the model cut over them: the first step of v2
+   (2 layers fp32, 16 layers bf16), v1 (4 layers) and the Hyena LM (8
+   layers, L=65536, dropout off) against one rank's, every model rank's
+   shared gradients equal; `cli.py pretrain --mesh-model 2
+   --tensor-parallel` of v2 for 2 steps, its resume from checkpoint 1 bit
+   for bit, and `cli.py eval` on two ranks against one;
+49. [cp_tp] four ranks, data 1 x model 2 x seq 2: v2 with its heads over
+   'model' and its sequence over 'seq', forward and the gradients of
+   sum(logits^2) against one rank's model (4 layers bf16 at L=262144 and
+   2 layers fp32 through the fused route, 2 layers fp32 through the
+   unfused composed route);
+50. [vep_ranks] `cli.py vep` of [vep]'s run dir over two processes, every
+   variant's row against [vep]'s one-process row.
 
 ``--only cp`` runs the build and phases 43-46 alone, ``--only hyena`` the
-build and phases 39-42, ``--only convert`` the build and 12a (for work on
-them); the ranks of phases 44-46 run this script with ``--rank-job``.
+build and phases 39-42, ``--only convert`` the build and 12a, ``--only
+tp`` the build, phases 47-50 and the [vep] run they compare with (for work
+on them); the ranks of phases 44-46 and 48-50 run this script with
+``--rank-job``.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -4280,6 +4301,10 @@ CP_G, CP_L_LOC = 2, 131072          # the CP shape: one sequence, both strands
 CP_L = 2 * CP_L_LOC                 # the sequence two ranks share
 DP_L = 131072                       # [dp_train]: a global batch of 2 at 131k
 CP_LOSS_TOL = 2e-3                  # bf16 full depth: loss, relative
+# the v2 depth of [cp_train] / [dp_train]: 8 of hg38_mlm_v2's 16, so that
+# the whole script with the tensor-parallel phases stays near 1,000 s of
+# its 1,200 (PERF.md §5 has the seconds at 16)
+CP_V2_LAYERS = 8
 CP_PARAM_SETTLED = {"float32": 1e-3, "bfloat16": 5e-2}  # share of max|g|
 CP_PARAM_TOL = {"float32": 1e-6, "bfloat16": 1e-5}      # x (1 + |p|)
 CP_NAMES = BWD_NAMES + ("g_edge",)
@@ -4443,15 +4468,16 @@ def phase_cp_kernels():
     return out
 
 
-def _cp_timing():
+def _cp_timing(H=8):
     """#1 (carries saved), #3a and #3b at the CP shape (G=2, L=131072,
-    bf16, forward direction) with and without edge_hist, each beside its
-    bound (the edge rows and g_edge added to the traffic) and its plain
-    version with the edge rows."""
+    bf16, forward direction; H heads: the model's 8, or one rank's 4 under
+    tensor parallelism) with and without edge_hist, each beside its bound
+    (the edge rows and g_edge added to the traffic) and its plain version
+    with the edge rows."""
     from caduceus_tpu_torch.ops import ssd as plain
     from caduceus_tpu_torch.ops import ssd_batched as sb
 
-    H, P, NG, N, K = 8, 64, 1, 128, 4
+    P, NG, N, K = 64, 1, 128, 4
     inp = ssd_inputs(CP_G, CP_L_LOC, H, P, NG, N, K, torch.bfloat16, 11)
     T = sb.KERNEL_CHUNK[torch.bfloat16]
     Wc = inp["xBC"].shape[2]
@@ -4495,6 +4521,8 @@ def _cp_timing():
                                         inp["conv_b"], False,
                                         edge_hist=edge))}
     for name, (kernel, plain_fn) in calls.items():
+        kernel(edge)     # warm up: a first call once took 110 ms of 14
+        torch.cuda.synchronize()
         t = _timed(lambda: kernel(edge), plain_fn)
         # without edge_hist, between two more runs with it
         t["without_edge_ms_runs"] = [_time_cuda(lambda: kernel(None), 3)
@@ -4504,7 +4532,7 @@ def _cp_timing():
         t["without_edge_ms"] = float(np.mean(t["without_edge_ms_runs"]))
         t.update(b_cp[name])
         out[name] = t
-        log(f"[cp] time {name} at G={CP_G} L={CP_L_LOC} bf16: "
+        log(f"[cp] time {name} at G={CP_G} L={CP_L_LOC} H={H} bf16: "
             f"{t['ms']:.3f} ms with edge_hist, {t['without_edge_ms']:.3f} ms "
             f"without; bound {t['bound_ms']:.3f} ms ({t['bound_by']}); "
             f"plain {t['plain_ms']:.1f} ms")
@@ -4532,56 +4560,144 @@ def _cp_timing():
 
 # -- the ranks: chip_smoke.py --rank-job FILE under torch.distributed.run ----
 
-def _rank_step(task):
-    """One train step of a seeded model on this rank's part of the first
-    global batch (`Trainer`'s step with the mesh): the loss, this rank's
-    logits (a forward without grad first), the clipped gradient and the
-    updated parameters, written for the parent to hold against one rank."""
+def _task_model(task, device, parallel=True):
+    """The task's seeded model on ``device``: a Caduceus config (with the
+    task's parallel axes when ``parallel``) or a Hyena model's keyword
+    arguments (``family`` "hyena")."""
     from caduceus_tpu_torch.config import CaduceusConfig
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.models.hyena import HyenaLMHeadModel
+
+    gen = torch.Generator().manual_seed(task["seed"])
+    if task.get("family") == "hyena":
+        with open(task["config"]) as f:
+            kw = json.load(f)
+        return HyenaLMHeadModel(device=device, generator=gen, **kw)
+    cfg = CaduceusConfig.load(task["config"])
+    if parallel and task["cp"]:
+        cfg.context_parallel_axis = ("seq" if task.get("seq", 1) > 1
+                                     else "model")
+    if parallel and task.get("tp"):
+        cfg.tensor_parallel_axis = "model"
+    return CaduceusForMaskedLM(cfg, device=device, generator=gen)
+
+
+def _all_counts():
+    return {**_counts(), **_attn_counts()}
+
+
+def _zero_all():
+    _zero_counts()
+    _attn_zero()
+
+
+def _rank_step(task):
+    """One train step of a seeded model on this rank's part of the first
+    global batch (`Trainer`'s step with the mesh; under tensor parallelism
+    the model cut by `shard_module_`, its gradient and parameters gathered
+    whole): the loss, this rank's logits (a forward without grad first),
+    the clipped gradient and the updated parameters, written for the
+    parent to hold against one rank. Under tensor parallelism the step
+    also checks that every model rank's shared gradients are equal
+    (`trainer.check_shared`, at step 0; it raises otherwise)."""
     from caduceus_tpu_torch.parallel.mesh import (make_mesh, set_global_mesh,
                                                   shard_batch)
+    from caduceus_tpu_torch.parallel.sharding import shard_module_
     from caduceus_tpu_torch.train.optim import make_optimizer
     from caduceus_tpu_torch.train.trainer import (TrainState, make_train_step,
                                                   to_device)
 
     mesh = make_mesh(model=task["mesh_model"], backend="gloo")
-    cfg = CaduceusConfig.load(task["config"])
-    if task["cp"]:
-        cfg.context_parallel_axis = "model"
+    model = _task_model(task, mesh.device)
+    plan = None
+    if task["cp"] or task.get("tp"):
         set_global_mesh(mesh)
-    model = CaduceusForMaskedLM(
-        cfg, device=mesh.device,
-        generator=torch.Generator().manual_seed(task["seed"]))
+    if task.get("tp"):
+        plan = shard_module_(model, mesh)
     batch = _first_batch(task)
     dev_b = to_device(shard_batch(mesh, batch, cp=task["cp"]), mesh.device)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         logits = model(dev_b["input_ids"]).cpu()
     opt, _ = make_optimizer(model.named_parameters(), **_CP_OPT)
-    step = make_train_step(mesh=mesh)
-    _zero_counts()
+    step = make_train_step(mesh=mesh, tp_plan=plan)
+    _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, m = step(TrainState(model, opt), dev_b)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     res = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-           "step_s": secs, "launches": _counts(),
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+           "step_s": secs, "launches": _all_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "shared_grads_equal": plan is not None}
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    if plan is not None:
+        grads, params = plan.gather_state(grads), plan.gather_state(params)
     r = mesh.rank
     blob = {"logits": logits}
     if r == 0:
-        blob["grads"] = {n: p.grad.detach().cpu()
-                         for n, p in model.named_parameters()}
-        blob["params"] = {n: p.detach().cpu()
-                          for n, p in model.named_parameters()}
+        blob["grads"] = {n: g.cpu() for n, g in grads.items()}
+        blob["params"] = {n: p.cpu() for n, p in params.items()}
     torch.save(blob, os.path.join(task["out"], f"{task['name']}_{r}.pt"))
     set_global_mesh(None)
-    del model, opt, dev_b, logits, blob
+    del model, opt, dev_b, logits, blob, grads, params
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def _rank_grad(task):
+    """[cp_tp] on this rank of a (1, model, seq) grid: the seeded v2 model
+    with tensor_parallel_axis "model" and context_parallel_axis "seq", cut
+    by `shard_module_`, on the whole ids of one sequence (each rank computes
+    the logits of its seq shard, its heads); the gradient of the sum of the
+    squares of the logits (the JAX test's loss), gathered over the model
+    axis and summed over the seq axis; this rank's logits, seconds, peak
+    memory and launches."""
+    from caduceus_tpu_torch.parallel import comm
+    from caduceus_tpu_torch.parallel.mesh import make_mesh, set_global_mesh
+    from caduceus_tpu_torch.parallel.sharding import shard_module_
+
+    mesh = make_mesh(model=task["mesh_model"], seq=task["seq"],
+                     backend="gloo")
+    model = _task_model(task, mesh.device)
+    set_global_mesh(mesh)
+    plan = shard_module_(model, mesh)
+    ids = _grad_ids(task).to(mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model(ids)
+    logits.float().square().sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = {"s": secs, "launches": _all_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "coord": [mesh.coord("model"), mesh.coord("seq")]}
+    grads = plan.gather_state({n: p.grad.detach()
+                               for n, p in model.named_parameters()})
+    for g in grads.values():
+        comm.all_reduce_(g, mesh.axis("seq"))
+    blob = {"logits": logits.detach().cpu()}
+    if mesh.rank == 0:
+        blob["grads"] = {n: g.cpu() for n, g in grads.items()}
+    torch.save(blob, os.path.join(task["out"],
+                                  f"{task['name']}_{mesh.rank}.pt"))
+    set_global_mesh(None)
+    del model, logits, blob, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grad_ids(task):
+    """The seeded ids of a [cp_tp] task: one sequence of L tokens."""
+    rng = np.random.default_rng(task["seed"])
+    return torch.from_numpy(rng.integers(7, 11, (1, task["L"])).astype(
+        np.int64))
 
 
 # warmup_t=0: step 0 runs at the full lr, so the update is not tiny
@@ -4590,11 +4706,12 @@ _CP_OPT = dict(lr=8e-3, warmup_t=0, t_initial=50_000, weight_decay=0.1)
 
 def _first_batch(task):
     """The first global batch of the task's loader (the same on every rank:
-    the same seed), as numpy."""
+    the same seed), as numpy: MLM, or next-token for the Hyena LM."""
     from caduceus_tpu_torch.data.hg38 import HG38DataModule
 
     dm = HG38DataModule(task["bed"], task["fasta"], max_length=task["L"],
-                        batch_size=task["batch"], mlm=True, seed=task["seed"])
+                        batch_size=task["batch"],
+                        mlm=task.get("family") != "hyena", seed=task["seed"])
     loader = dm.train_loader()
     try:
         return next(iter(loader))
@@ -4624,17 +4741,25 @@ def rank_job(path) -> int:
     dist.init_process_group("gloo")
     res = []
     for task in job["tasks"]:
-        if task["kind"] == "step":
-            res.append(_rank_step(task))
+        if task["kind"] in ("step", "grad"):
+            res.append((_rank_step if task["kind"] == "step"
+                        else _rank_grad)(task))
+            continue
+        if task["kind"] == "cut_run":
+            if r == 0:
+                _cut_run(task["src"], task["dst"])
+            dist.barrier()
+            res.append({})
             continue
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
+        _zero_all()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli.main(task["argv"])
         torch.cuda.synchronize()
         res.append({"s": time.perf_counter() - t0, "launches": _counts(),
+                    "attn_launches": _attn_counts(),
                     "peak_bytes": torch.cuda.max_memory_allocated(),
                     "stdout": buf.getvalue()})
         gc.collect()
@@ -4680,16 +4805,11 @@ def _launch_ranks(tasks, out_dir, name, n=2):
 def _reference_step(task):
     """The same step on one rank, no mesh: (loss, logits, grads, params,
     step seconds)."""
-    from caduceus_tpu_torch.config import CaduceusConfig
-    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
     from caduceus_tpu_torch.train.optim import make_optimizer
     from caduceus_tpu_torch.train.trainer import (TrainState, make_train_step,
                                                   to_device)
 
-    cfg = CaduceusConfig.load(task["config"])
-    model = CaduceusForMaskedLM(
-        cfg, device="cuda",
-        generator=torch.Generator().manual_seed(task["seed"]))
+    model = _task_model(task, "cuda", parallel=False)
     b = to_device(_first_batch(task), torch.device("cuda"))
     with torch.no_grad():
         logits = model(b["input_ids"]).cpu()
@@ -4716,15 +4836,26 @@ def _hold_rank_step(task, ranks, idx, out_dir):
     kernel rule and each gradient within `TRAIN_TOL` grad of its max with
     rel_l2 <= 1e-4; in bf16 the loss within `CP_LOSS_TOL` relative and the
     logits within `BF16_MODEL_TOL` of max|logit|; the updated parameters
-    where |g| is settled within `CP_PARAM_TOL` (1 + |p|), elsewhere 2 lr."""
+    where one rank's |g| is settled (above `CP_PARAM_SETTLED` of its
+    largest, and for TP in bf16 above `TRAIN_TOL` adam_floor) within
+    `CP_PARAM_TOL` (1 + |p|), elsewhere 2 lr; and every
+    updated parameter within `TRAIN_TOL` param (1 + |p|) of AdamW's first
+    step computed in fp64 from the ranks' own (gathered, clipped)
+    gradient."""
     from caduceus_tpu_torch.kernel_check import TOL, compare
 
     from caduceus_tpu_torch.config import CaduceusConfig
+    from caduceus_tpu_torch.train.optim import weight_decay_mask
 
     name, dtype = task["name"], task["dtype"]
-    cfg = CaduceusConfig.load(task["config"])
-    want = (_cp_per_step(cfg, cfg.n_layer) if task["cp"]
-            else _per_micro_batch(cfg))
+    if task.get("family") == "hyena":
+        want = _hyena_per_step(task)
+    else:
+        cfg = CaduceusConfig.load(task["config"])
+        want = (_cp_per_step(cfg, cfg.n_layer) if task["cp"]
+                else _tp_per_step(cfg) if task.get("tp")
+                else _per_micro_batch(cfg))
+    want = {**dict.fromkeys(_all_counts(), 0), **want}
     for r, rk in enumerate(ranks):
         check(rk[idx]["launches"] == want, f"{name} rank {r}: launches "
               f"{rk[idx]['launches']} != {want}")
@@ -4734,9 +4865,15 @@ def _hold_rank_step(task, ranks, idx, out_dir):
     got_loss = ranks[0][idx]["loss"]
     check(all(rk[idx]["loss"] == got_loss for rk in ranks),
           f"{name}: the ranks' losses differ")
-    # CP: the ranks' logits are sequence shards; DP: batch rows
-    got_logits = torch.cat([b["logits"] for b in blobs],
-                           1 if task["cp"] else 0)
+    if task.get("tp"):
+        # the model ranks hold the same logits, bit for bit
+        check(all(torch.equal(b["logits"], blobs[0]["logits"])
+                  for b in blobs), f"{name}: the model ranks' logits differ")
+        got_logits = blobs[0]["logits"]
+    else:
+        # CP: the ranks' logits are sequence shards; DP: batch rows
+        got_logits = torch.cat([b["logits"] for b in blobs],
+                               1 if task["cp"] else 0)
     rel = abs(got_loss - loss) / abs(loss)
     res = {"loss": [got_loss, loss], "loss_rel": rel,
            "step_s_2ranks": [rk[idx]["step_s"] for rk in ranks],
@@ -4762,26 +4899,71 @@ def _hold_rank_step(task, ranks, idx, out_dir):
         e = ((got_logits - logits).abs().max() / logits.abs().max()).item()
         check(e <= BF16_MODEL_TOL, f"{name}: logits {e:.2e} of max|logit|")
         res["logits_err"] = e
-    lr = _CP_OPT["lr"]
-    p_err = 0.0
+        # the gradients (read, not held): the worst rel_l2 and the worst
+        # max error in units of its tensor's max|g|
+        worst = {"rel_l2": (0.0, ""), "max": (0.0, "")}
+        for n, g in grads.items():
+            gs = compare(blobs[0]["grads"][n], g, TOL[torch.bfloat16])
+            e = gs["max_abs_err"] / (gs["max_abs_ref"] + 1e-30)
+            for k, v in (("rel_l2", gs["rel_l2"]), ("max", e)):
+                if v > worst[k][0]:
+                    worst[k] = (v, n)
+        res["grad_err"] = worst
+    lr, wd = _CP_OPT["lr"], _CP_OPT["weight_decay"]   # step 0's lr
+    # TP in bf16: a rank's matmuls run at other shapes than one rank's, so
+    # bf16 roundings flip all through the step, and v2's dt_bias gradients,
+    # sums over 262,144 rows that cancel to ~1e-7, differ by 10-30% from
+    # one rank's (PERF.md §6). Within `TRAIN_TOL` adam_floor (100 eps) of 0
+    # Adam's first step lr·g/(|g| + eps) turns on those digits, so there
+    # the bound is 2·lr (the AdamW recomputation below holds every element)
+    floor = (TRAIN_TOL["adam_floor"] if task.get("tp") and dtype == "bfloat16"
+             else 0.0)
+    decay = weight_decay_mask(params.items())
+    p_err = adam_err = 0.0
+    bad = []
     for n, p in params.items():
-        g = grads[n]
+        g, got = grads[n], blobs[0]["params"][n]
         s = g.abs().max().item() + 1e-30
-        settled = g.abs() > CP_PARAM_SETTLED[dtype] * s
-        d = (blobs[0]["params"][n] - p).abs()
         scale = 1 + p0[n].abs().float()
+        # every element: AdamW's first step from the ranks' own gradient,
+        # in fp64: p·(1 - lr·wd) - lr·g / (|g| + eps) (m̂ = g, √v̂ = |g|)
+        gr = blobs[0]["grads"][n].double()
+        ref = p0[n] * (1 - lr * wd * decay[n]) - lr * gr / (gr.abs() + 1e-8)
+        a = ((got.double() - ref).abs() / scale.double()).max().item()
+        check(a <= TRAIN_TOL["param"], f"{name}: the ranks' update of {n} "
+              f"vs AdamW from their own gradient: {a:.2e}·(1+|p|)")
+        adam_err = max(adam_err, a)
+        # against one rank: strict where one rank's gradient is well above
+        # 0; near 0 the sign of g decides Adam's first step, so there 2·lr
+        settled = (g.abs() > CP_PARAM_SETTLED[dtype] * s) & (g.abs() > floor)
+        d = (got - p).abs()
         lim = torch.where(settled, CP_PARAM_TOL[dtype] * scale,
                           torch.full_like(d, 2 * lr))
-        check(bool((d <= lim).all()), f"{name}: updated {n}: max |diff| "
-              f"{d.max().item():.3e}")
+        over = (d > lim).reshape(-1)
+        if bool(over.any()):
+            gk = blobs[0]["grads"][n].reshape(-1)
+            for i in over.nonzero()[:, 0][:8].tolist():
+                bad.append(f"{n}[{i}] |diff| {d.reshape(-1)[i].item():.3e} "
+                           f"limit {lim.reshape(-1)[i].item():.3e} g(one "
+                           f"rank) {g.reshape(-1)[i].item():.4e} g(ranks) "
+                           f"{gk[i].item():.4e} max|g| {s:.3e} p "
+                           f"{p0[n].reshape(-1)[i].item():.4e}")
+            bad.append(f"{n}: {int(over.sum())} of {over.numel()} over")
         p_err = max(p_err, ((d / scale) * settled).max().item())
-    res["param_err"] = p_err
+    check(not bad, f"{name}: updated parameters vs one rank (gradients: "
+          f"{res['grad_err']}):\n  " + "\n  ".join(bad))
+    res["param_err"], res["adam_err"] = p_err, adam_err
     for r in range(len(ranks)):
         os.remove(os.path.join(out_dir, f"{name}_{r}.pt"))
+    if task.get("tp"):
+        res["shared_grads_equal"] = all(rk[idx]["shared_grads_equal"]
+                                        for rk in ranks)
     log(f"[{name}] step on {len(ranks)} ranks vs one rank, same weights and "
         f"batch ({dtype}): loss {got_loss:.6f} vs {loss:.6f} (rel "
         f"{rel:.2e}); logits {res.get('logits_err', res.get('logits', {}).get('rel_l2'))}; "
-        f"updated parameters {p_err:.2e}·(1+|p|) where settled; step "
+        f"gradients {res['grad_err']}; "
+        f"updated parameters {p_err:.2e}·(1+|p|) where settled, "
+        f"{adam_err:.2e}·(1+|p|) from AdamW of the ranks' own gradient; step "
         f"{', '.join(f'{s:.2f}' for s in res['step_s_2ranks'])} s per rank "
         f"(two ranks time-sharing one card) vs {ref_s:.2f} s on one rank; "
         f"peak {', '.join(f'{b / 2**30:.2f}' for b in res['peak_bytes'])} GiB "
@@ -4791,15 +4973,22 @@ def _hold_rank_step(task, ranks, idx, out_dir):
 
 def _cfg_file(work, name, cfg):
     path = os.path.join(work, f"{name}.json")
-    cfg.save(path)
+    if isinstance(cfg, dict):     # a Hyena model's keyword arguments
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+    else:
+        cfg.save(path)
     return path
 
 
-def _step_task(work, name, cfg, fasta, bed, L, batch, cp, mesh_model):
+def _step_task(work, name, cfg, fasta, bed, L, batch, cp, mesh_model,
+               tp=False):
+    hyena = isinstance(cfg, dict)
     return {"kind": "step", "name": name, "config": _cfg_file(work, name, cfg),
-            "dtype": cfg.dtype, "fasta": fasta, "bed": bed, "L": L,
-            "batch": batch, "cp": cp, "mesh_model": mesh_model, "seed": 2222,
-            "out": work}
+            "dtype": cfg["dtype"] if hyena else cfg.dtype, "fasta": fasta,
+            "bed": bed, "L": L, "batch": batch, "cp": cp,
+            "mesh_model": mesh_model, "seed": 2222, "out": work, "tp": tp,
+            "family": "hyena" if hyena else "caduceus"}
 
 
 def _cli_pretrain(cfg_path, fasta, bed, run_dir, L, batch, steps, ckpt,
@@ -4829,12 +5018,37 @@ def _cp_per_step(cfg, n_layer):
     return out
 
 
+def _tp_per_step(cfg):
+    """Launches of one micro-batch's forward + backward on each rank under
+    tensor parallelism (remat span 1): v2 through the unfused kernels on
+    the rank's heads (#2 / #4, or the per-head #5 / #6), two directions a
+    layer; v1 as on one rank, on the rank's channels."""
+    n = cfg.n_layer
+    if cfg.ssm_cfg.version == 2 and _per_head(cfg):
+        return {"ssd_head_fwd": 2 * n * 2, "ssd_head_bwd": 2 * n}
+    if cfg.ssm_cfg.version == 2:
+        return {"ssd_fwd": 2 * n * 2, "ssd_bwd": 2 * n}
+    return {k: v for k, v in _per_micro_batch(cfg).items() if v}
+
+
+def _hyena_per_step(task):
+    """Attention launches of one Hyena micro-batch: per MHA layer one
+    forward (two when the mixer is recomputed in the backward), one dK/dV
+    and one dQ."""
+    with open(task["config"]) as f:
+        kw = json.load(f)
+    a = len(kw["attn_layer_idx"])
+    fwd = 2 if kw.get("checkpoint_mixer") else 1
+    return {"attn_fwd": fwd * a, "attn_bwd_dkv": a, "attn_bwd_dq": a}
+
+
 def phase_cp_train(work, fasta, bed):
     """[cp_train] and [cp_eval]: two ranks on one card (gloo), the sequence
     of L=262,144 sharded over them (--mesh-model 2 --context-parallel).
-    The first step of v2 at 2 layers fp32, v2 `hg38_mlm_v2` at 16 layers
-    and v1 `hg38_mlm` at 4 layers (bf16, full width, one sequence) against
-    one rank's step on the same weights and batch; `cli.py pretrain` of
+    The first step of v2 at 2 layers fp32, v2 `hg38_mlm_v2` at
+    `CP_V2_LAYERS` layers and v1 `hg38_mlm` at 4 layers (bf16, full width,
+    one sequence) against one rank's step on the same weights and batch;
+    `cli.py pretrain` of
     each bf16 model for 2 steps (launches counted on each rank: the CP
     entry's kernels, not the plain versions), and `cli.py eval` of the v2
     run on two ranks against `cli.py eval` on one."""
@@ -4842,7 +5056,7 @@ def phase_cp_train(work, fasta, bed):
 
     from caduceus_tpu_torch import cli
 
-    v2 = hg38_mlm_v2_config(n_layer=16)
+    v2 = hg38_mlm_v2_config(n_layer=CP_V2_LAYERS)
     v1 = hg38_mlm_config(n_layer=4)
     tasks = [
         _step_task(work, "cp_v2_fp32", hg38_mlm_v2_config(2, "float32"),
@@ -4866,7 +5080,8 @@ def phase_cp_train(work, fasta, bed):
     out = {"launcher_s": secs}
     for i in range(3):
         out[tasks[i]["name"]] = _hold_rank_step(tasks[i], ranks, i, work)
-    for i, (cfg, nl, run) in ((3, (v2, 16, run_v2)), (4, (v1, 4, run_v1))):
+    for i, (cfg, nl, run) in ((3, (v2, CP_V2_LAYERS, run_v2)),
+                              (4, (v1, 4, run_v1))):
         name = "v2" if cfg.ssm_cfg.version == 2 else "v1"
         want = {k: v * 2 for k, v in _cp_per_step(cfg, nl).items()}
         for r, rk in enumerate(ranks):
@@ -4903,7 +5118,7 @@ def phase_cp_train(work, fasta, bed):
     rel = abs(ev2["valid/loss"] - ev1["valid/loss"]) / abs(ev1["valid/loss"])
     check(rel <= CP_LOSS_TOL, f"cp_eval loss {ev2} vs one rank {ev1}")
     want = {k: 0 for k in _counts()}
-    want["ssd_fused_cp"] = 2 * 16 * 2
+    want["ssd_fused_cp"] = 2 * CP_V2_LAYERS * 2
     for r, rk in enumerate(ranks):
         check(rk[5]["launches"] == want, f"cp_eval rank {r}: launches "
               f"{rk[5]['launches']} != {want}")
@@ -4920,16 +5135,14 @@ def phase_cp_train(work, fasta, bed):
 def phase_dp_train(work, fasta, bed):
     """[dp_train]: two ranks on one card (gloo), data parallelism over a
     global batch of 2 sequences of 131,072: the first step at 2 layers fp32
-    and at 16 layers bf16 against one rank's step on the same batch (loss
-    and updated parameters); `cli.py pretrain` at 16 layers for 2 steps with
-    a checkpoint each, and, from a copy of that run with only checkpoint 1,
-    ``--resume``: step 2's log record, parameters and optimizer state equal
-    the first run's bit for bit."""
+    and at `CP_V2_LAYERS` layers bf16 against one rank's step on the same
+    batch (loss and updated parameters); `cli.py pretrain` at that depth
+    for 2 steps with a checkpoint each, and, in the same job, from a copy of
+    that run with only checkpoint 1, ``--resume``: step 2's log record,
+    parameters and optimizer state equal the first run's bit for bit."""
     import shutil
 
-    from caduceus_tpu_torch.train import checkpoint
-
-    v2 = hg38_mlm_v2_config(n_layer=16)
+    v2 = hg38_mlm_v2_config(n_layer=CP_V2_LAYERS)
     tasks = [
         _step_task(work, "dp_v2_fp32", hg38_mlm_v2_config(2, "float32"),
                    fasta, bed, DP_L, 2, False, 1),
@@ -4938,6 +5151,7 @@ def phase_dp_train(work, fasta, bed):
     argv = _cli_pretrain(tasks[1]["config"], fasta, bed, run_d, DP_L, 2, 2, 1,
                          1, False)
     tasks.append({"kind": "cli", "argv": argv})
+    tasks += _resume_tasks(run_d, argv)
     ranks, secs = _launch_ranks(tasks, work, "dp_train")
     out = {"launcher_s": secs}
     for i in range(2):
@@ -4946,42 +5160,15 @@ def phase_dp_train(work, fasta, bed):
     for r, rk in enumerate(ranks):
         check(rk[2]["launches"] == want, f"dp_train rank {r}: launches "
               f"{rk[2]['launches']} != {want}")
-    run_r = os.path.join(work, "dp_run_resumed")
-    shutil.copytree(run_d, run_r)
-    shutil.rmtree(os.path.join(run_r, "checkpoints", "2"))
-    with open(os.path.join(run_r, "metrics.jsonl")) as f:
-        keep = [ln for ln in f if json.loads(ln).get("step", 0) < 2]
-    with open(os.path.join(run_r, "metrics.jsonl"), "w") as f:
-        f.writelines(keep)
-    check(checkpoint.latest_step(os.path.join(run_r, "checkpoints")) == 1,
-          "dp_train: the copy does not end at checkpoint 1")
-    argv_r = [run_r if a == run_d else a for a in argv] + ["--resume"]
-    ranks_r, secs_r = _launch_ranks([{"kind": "cli", "argv": argv_r}], work,
-                                    "dp_resume")
-    steps_d, _ = _records(run_d)
-    steps_r, _ = _records(run_r)
-    for k in ("loss", "acc", "grad_norm", "lr"):
-        check(steps_d[2][k] == steps_r[2][k], f"dp_train resume: step 2 "
-              f"{k} {steps_r[2][k]!r} != {steps_d[2][k]!r}")
-    for f in ("params.npz",):
-        za = np.load(os.path.join(run_d, "checkpoints", "2", f))
-        zb = np.load(os.path.join(run_r, "checkpoints", "2", f))
-        for k in za.files:
-            check(np.array_equal(za[k], zb[k]), f"dp_train resume {f} {k}")
-    oa = torch.load(os.path.join(run_d, "checkpoints", "2", "optimizer.pt"))
-    ob = torch.load(os.path.join(run_r, "checkpoints", "2", "optimizer.pt"))
-    check(oa["count"] == ob["count"], "dp_train resume: optimizer count")
-    for sa, sb_ in zip(oa["adamw"]["state"].values(),
-                       ob["adamw"]["state"].values()):
-        for k in sa:
-            check(torch.equal(torch.as_tensor(sa[k]), torch.as_tensor(sb_[k])),
-                  f"dp_train resume: optimizer {k}")
+    steps_d = _hold_resume("dp_train", run_d)
+    secs_r = ranks[0][4]["s"]
     step_s = {s: 2 * DP_L / st["tokens_per_sec"] for s, st in steps_d.items()}
     out["cli"] = {"step_s": step_s, "steps": steps_d,
                   "peak_bytes": [rk[2]["peak_bytes"] for rk in ranks],
                   "launches_per_rank": ranks[0][2]["launches"],
                   "resume_s": secs_r}
-    log(f"[dp_train] cli.py pretrain v2 16 layers, data parallel over 2 "
+    log(f"[dp_train] cli.py pretrain v2 {CP_V2_LAYERS} layers, data "
+        f"parallel over 2 "
         f"ranks (gloo, one card), global batch 2 x {DP_L}: steps "
         f"{', '.join(f'{v:.2f}' for v in step_s.values())} s (two ranks "
         f"time-sharing one card); resumed from checkpoint 1: step 2's record, "
@@ -4989,8 +5176,593 @@ def phase_dp_train(work, fasta, bed):
         f"{', '.join(f'{r[2]['peak_bytes'] / 2**30:.2f}' for r in ranks)} GiB "
         f"per rank")
     shutil.rmtree(run_d, ignore_errors=True)
-    shutil.rmtree(run_r, ignore_errors=True)
+    shutil.rmtree(run_d + "_resumed", ignore_errors=True)
     return out
+
+
+# -- tensor parallelism: the kernels at one rank's shapes, TP and CP x TP on
+# gloo ranks that share this card, VEP over several processes ---------------
+
+TP_M = 2                        # the model axis of [tp_train] and [cp_tp]
+# gloo moves every exchanged activation through host memory (an fp32
+# (G, L, 256) tensor a few times a layer), so the steps keep to one
+# sequence (G = 2 with RCPS) and v2 to 8 layers (PERF.md §5 has the
+# seconds at 16)
+TP_L, TP_BATCH = 131072, 1
+TP_V2_LAYERS = 8
+TP_HY_BATCH = 2                 # the Hyena LM: G = 2 at L = 65,536
+CPTP_L = 2 * CP_L_LOC           # [cp_tp]: one sequence over 2 seq ranks
+# [cp_tp] gradients against one rank's (bf16 at 4 layers: two bf16
+# evaluations of the same sums; fp32: the kernels' order only)
+CPTP_GRAD_TOL = {"float32": {"rel_l2": 1e-4, "max": 1e-4},
+                 "bfloat16": {"rel_l2": 2e-2, "max": 5e-2}}
+
+
+def _tp_time(label, kernel_fn, plain_fn, bound, check_out):
+    t = _timed(kernel_fn, plain_fn)
+    t.update(bound)
+    t["check"] = check_out
+    t["max_abs_err"] = max(c["max_abs_err"] for c in check_out.values())
+    log(f"[tp_kernels] time {label}: {t['ms']:.3f} ms (runs "
+        f"{', '.join(f'{x:.3f}' for x in t['kernel_ms_runs'])}), bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}: {t['bytes'] / 1e9:.3f} "
+        f"GB, {t['flops'] / 1e12:.3f} TFLOP), plain {t['plain_ms']:.1f} ms")
+    return t
+
+
+def phase_tp_kernels():
+    """[tp_kernels] the kernels of the tensor-parallel paths at one rank's
+    shapes (model axis 2: half the channels or heads), forward direction,
+    each held against its plain version by the rule of kernel_check.py and
+    timed beside its bound and its plain version: #9 `bidir_scan_fwd`, #7
+    `selective_scan_fwd` and #8 `selective_scan_bwd` (G=4, L=131072, 256
+    channels, N=16), #2 `ssd_fwd` and #4 `ssd_bwd` (K = 0: G=4, L=131072,
+    H=4, P=64, NG=1, N=128; x, B, C column views of the rank's conv
+    output), the per-head #5 / #6 on the same inputs, the CP entry of #1 /
+    #3a / #3b (G=2, L_loc=131072, H=4: one rank's lanes, edge_hist) and #11
+    (G=2, L=65536, H=4, hd=32, causal, q / k / v views of the rank's
+    packed Wqkv output)."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare
+    from caduceus_tpu_torch.ops import attention as A
+    from caduceus_tpu_torch.ops import scan, ssd_head
+    from caduceus_tpu_torch.ops import selective_scan as plain_scan
+    from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_bwd
+    from caduceus_tpu_torch.ops.ssd_batched import (KERNEL_CHUNK, ssd_bwd,
+                                                    ssd_fwd)
+
+    bf16 = TOL[torch.bfloat16]
+    out = {}
+    G, L = 4, TP_L
+    # v1: one rank's 256 of the 512 channels
+    d, N = 512 // TP_M, 16
+    Ts = scan.KERNEL_CHUNK
+    f = scan_inputs(G, L, d, N, torch.bfloat16, 1501, model_like=True)
+    r = scan_inputs(G, L, d, N, torch.bfloat16, 1502, model_like=True)
+    shape = f"G={G} L={L} d={d} N={N} bf16"
+    k_, p_ = bidir_pair(f, r)
+    chk = hold(f"bidir_scan_fwd {shape}", bf16, k_, p_,
+               ("yf", "cf", "yr", "cr"), tag="tp_kernels")
+    del k_, p_
+    fa, ra = _scan_args(f), _scan_args(r)
+    sb_ = _scan_bounds(G, L, d, N, Ts)
+    out["bidir_scan_fwd"] = _tp_time(
+        f"bidir_scan_fwd {shape}",
+        lambda: scan.bidir_scan_fwd(*fa[:2], *fa[3:5], *ra[:2], *ra[3:5],
+                                    fa[2], ra[2], fa[5], ra[5], fa[6], ra[6],
+                                    save_carries=True),
+        lambda: (plain_scan.selective_scan(*fa, True, False, Ts,
+                                           return_carries=True),
+                 plain_scan.selective_scan(*ra, True, True, Ts,
+                                           return_carries=True)),
+        sb_["bidir_scan_fwd"], chk)
+    k_, p_ = scan_pair(f, False)
+    chk = hold(f"selective_scan_fwd {shape}", bf16, k_, p_, SCAN_FWD_NAMES,
+               tag="tp_kernels")
+    del k_, p_
+    rows, nc = G * L, -(-L // Ts)
+    out["selective_scan_fwd"] = _tp_time(
+        f"selective_scan_fwd {shape}",
+        lambda: scan.selective_scan_fwd(*fa, True, False, Ts, None,
+                                        save_carries=True),
+        lambda: plain_scan.selective_scan(*fa, True, False, Ts,
+                                          return_carries=True),
+        _bound(rows * (2 * d * 2 + 2 * N * 2 + d * 2) + G * nc * d * N * 4,
+               5 * rows * d * N, FP32_FLOP_PER_S), chk)
+    k_, p_ = scan_bwd_pair(f, False)
+    chk = hold(f"selective_scan_bwd {shape}", bf16, k_, p_, SCAN_BWD_NAMES,
+               tag="tp_kernels")
+    del k_, p_
+    _, _, car = scan.selective_scan_fwd(*fa, True, False, Ts, f["h0"],
+                                        save_carries=True)
+    out["selective_scan_bwd"] = _tp_time(
+        f"selective_scan_bwd {shape}",
+        lambda: scan.bwd_call(*fa, f["g_y"], car, f["g_hN"], True, False,
+                              Ts),
+        lambda: plain_scan.selective_scan_bwd(*fa, f["g_y"], car, f["g_hN"],
+                                              True, False, Ts),
+        sb_["selective_scan_bwd"], chk)
+    del f, r, fa, ra, car
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # v2, the unfused SSD on one rank's 4 of the 8 heads
+    H, P, NG, Nd = 8 // TP_M, 64, 1, 128
+    T = KERNEL_CHUNK[torch.bfloat16]
+    shape = f"G={G} L={L} H={H} P={P} NG={NG} N={Nd} bf16"
+    inp = unfused_inputs(G, L, H, P, NG, Nd, torch.bfloat16, 1503, pad=16)
+    k_, p_ = unfused_pair(inp, False)
+    chk = hold(f"ssd_fwd {shape}", bf16, k_, p_, tag="tp_kernels")
+    car = k_[2]
+    del k_, p_
+    a = _unfused_args(inp)
+    nc = -(-L // T)
+    car_bytes = G * nc * H * Nd * P * 2
+    fwd_bound = _bound(
+        rows * (H * P + 2 * NG * Nd + H) * 2 + rows * H * P * 2 + car_bytes
+        + G * H * Nd * P * 4,
+        rows * (2 * T * Nd * NG + 2 * T * P * H + 4 * Nd * P * H))
+    out["ssd_fwd"] = _tp_time(
+        f"ssd_fwd {shape}",
+        lambda: ssd_fwd(*a, True, False, T, None, True),
+        lambda: ssd_chunked(*a, True, False, T, None, return_carries=True),
+        fwd_bound, chk)
+    k_ = ssd_head.ssd_head_fwd(*a, True, False, T, inp["h_init"], True)
+    p_ = ssd_chunked(*a, True, False, T, inp["h_init"], return_carries=True)
+    chk = hold(f"ssd_head_fwd {shape}", bf16, k_, p_, tag="tp_kernels")
+    del k_, p_
+    out["ssd_head_fwd"] = _tp_time(
+        f"ssd_head_fwd {shape}",
+        lambda: ssd_head.ssd_head_fwd(*a, True, False, T, None, True),
+        lambda: ssd_chunked(*a, True, False, T, None, return_carries=True),
+        fwd_bound, chk)
+    k_, p_ = unfused_bwd_pair(inp, False)
+    chk = hold(f"ssd_bwd {shape}", bf16, k_, p_, UNFUSED_BWD_NAMES,
+               tag="tp_kernels")
+    del k_, p_
+    bwd_args = a + [inp["g_y"], car, inp["g_hN"], True, False, T]
+    bwd_bound = _bound(rows * ((H * P + 2 * NG * Nd + H) * 2 + H * P * 2)
+                       + car_bytes + rows * (H * P + H + 2 * NG * Nd) * 2
+                       + G * H * Nd * P * 4,
+                       rows * (6 * T * Nd * NG
+                               + H * (4 * T * P + 12 * Nd * P)))
+    out["ssd_bwd"] = _tp_time(f"ssd_bwd {shape}",
+                              lambda: ssd_bwd(*bwd_args),
+                              lambda: ssd_chunked_bwd(*bwd_args),
+                              bwd_bound, chk)
+    k_ = ssd_head.ssd_head_bwd(*bwd_args)
+    p_ = ssd_chunked_bwd(*bwd_args)
+    chk = hold(f"ssd_head_bwd {shape}", bf16, k_, p_, UNFUSED_BWD_NAMES,
+               tag="tp_kernels")
+    del k_, p_
+    out["ssd_head_bwd"] = _tp_time(f"ssd_head_bwd {shape}",
+                                   lambda: ssd_head.ssd_head_bwd(*bwd_args),
+                                   lambda: ssd_chunked_bwd(*bwd_args),
+                                   bwd_bound, chk)
+    del inp, a, car, bwd_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CP entry on one rank's lanes: 4 heads and the B / C lanes
+    sh = ssd_inputs(CP_G, CP_L_LOC, H, P, NG, Nd, 4, torch.bfloat16, 1504)
+    edge = sh["xBC"][:, :8].flip(1).contiguous()
+    (fk, fp), (bk, bp) = cp_entry_pair(sh, False, edge)
+    et = f"G={CP_G} L={CP_L_LOC} H={H} bf16"
+    out["cp_entry"] = {
+        "fwd": hold(f"CP entry vs plain, {et}", bf16, fk, fp,
+                    tag="tp_kernels"),
+        "bwd": hold(f"CP entry adjoint vs plain, {et}", bf16, bk, bp,
+                    names=CP_NAMES, tag="tp_kernels")}
+    del sh, fk, fp, bk, bp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cp_timing"] = _cp_timing(H=H)
+
+    # #11 at one rank's 4 of the 8 heads, q / k / v views of one packed
+    # (G, L, 3 H hd) tensor
+    Ga, La, Ha, hd = ATTN_G, ATTN_L, ATTN_H // TP_M, ATTN_HD
+    label = f"G={Ga} L={La} H={Ha} hd={hd} bf16 causal"
+    q, k, v, do = _attn_inputs(torch.bfloat16, Ga, La, Ha, hd, seed=1505,
+                               packed=True)
+    got, plain = _attn_pair(q, k, v, do, True)
+    st = _attn_hold(label, got, plain)
+    checks = {n: {k2: st[n][k2] for k2 in ("rel_l2", "max_abs_err",
+                                           "max_abs_ref", "atol_needed")}
+              for n in st}
+    log(f"[tp_kernels] attention {label}: pass against the chunked plain "
+        f"version")
+    del got, plain
+    sc = hd ** -0.5
+    o, lse = A.attention_fwd(q, k, v, True, sc)
+    _, _, D = A.attention_bwd_dkv(q, k, v, o, lse, do, True, sc)
+    out["attn"], _, _ = _attn_timing(q, k, v, do, o, lse, D, label, checks)
+    del q, k, v, do, o, lse, D
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hy_kw():
+    """configs/hg38_hyena.yaml's model (8 layers, MHA at `HY_ATTN` with 8
+    heads), dropout off (no dropout key in the step), each block's mixer
+    and MLP recomputed in the backward."""
+    return dict(d_model=256, n_layer=HY_LAYERS, vocab_size=12, l_max=HY_L,
+                attn_layer_idx=list(HY_ATTN), num_heads=8, dtype="bfloat16",
+                checkpoint_mixer=True, checkpoint_mlp=True)
+
+
+def _resume_tasks(run_d, argv):
+    """Rank-job tasks after ``argv`` (`cli.py pretrain` of ``run_d`` for 2
+    steps, a checkpoint each): a copy of the run cut back to checkpoint 1
+    (rank 0 makes it, every rank waits), then ``argv`` + --resume on it."""
+    run_r = run_d + "_resumed"
+    return [{"kind": "cut_run", "src": run_d, "dst": run_r},
+            {"kind": "cli",
+             "argv": [run_r if a == run_d else a for a in argv]
+             + ["--resume"]}]
+
+
+def _cut_run(src, dst):
+    """A copy of the run dir ``src`` at ``dst`` that ends at checkpoint 1."""
+    import shutil
+
+    from caduceus_tpu_torch.train import checkpoint
+
+    shutil.copytree(src, dst)
+    shutil.rmtree(os.path.join(dst, "checkpoints", "2"))
+    with open(os.path.join(dst, "metrics.jsonl")) as f:
+        keep = [ln for ln in f if json.loads(ln).get("step", 0) < 2]
+    with open(os.path.join(dst, "metrics.jsonl"), "w") as f:
+        f.writelines(keep)
+    check(checkpoint.latest_step(os.path.join(dst, "checkpoints")) == 1,
+          f"{dst}: the copy does not end at checkpoint 1")
+
+
+def _hold_resume(name, run_d):
+    """The run resumed from checkpoint 1 (`_resume_tasks`) against the
+    first: step 2's log record, parameters and optimizer state equal bit
+    for bit; returns the first run's logged steps."""
+    run_r = run_d + "_resumed"
+    steps_d, _ = _records(run_d)
+    steps_r, _ = _records(run_r)
+    for k in ("loss", "acc", "grad_norm", "lr"):
+        check(steps_d[2][k] == steps_r[2][k], f"{name} resume: step 2 "
+              f"{k} {steps_r[2][k]!r} != {steps_d[2][k]!r}")
+    za = np.load(os.path.join(run_d, "checkpoints", "2", "params.npz"))
+    zb = np.load(os.path.join(run_r, "checkpoints", "2", "params.npz"))
+    for k in za.files:
+        check(np.array_equal(za[k], zb[k]), f"{name} resume params {k}")
+    oa = torch.load(os.path.join(run_d, "checkpoints", "2", "optimizer.pt"))
+    ob = torch.load(os.path.join(run_r, "checkpoints", "2", "optimizer.pt"))
+    check(oa["count"] == ob["count"], f"{name} resume: optimizer count")
+    for sa, sb_ in zip(oa["adamw"]["state"].values(),
+                       ob["adamw"]["state"].values()):
+        for k in sa:
+            check(torch.equal(torch.as_tensor(sa[k]), torch.as_tensor(sb_[k])),
+                  f"{name} resume: optimizer {k}")
+    return steps_d
+
+
+def phase_tp_train(work, fasta, bed, vep_run):
+    """[tp_train]: two ranks on one card (gloo), the model cut over them
+    (--mesh-model 2 --tensor-parallel). The first step of v2 at 2 layers
+    fp32, v2 `hg38_mlm_v2` at `TP_V2_LAYERS` layers and v1 `hg38_mlm` at 4
+    layers (bf16; full width, L=131072, one sequence: G=2 with RCPS) and of
+    the Hyena LM at configs/hg38_hyena.yaml's width (8 layers, MHA at 1 and
+    5, L=65536, 2 sequences, dropout off) against one rank's step on the same weights
+    and batch (`_hold_rank_step`; every model rank's shared gradients
+    equal); `cli.py pretrain` of v2 for 2 steps with a checkpoint each, its
+    resume from checkpoint 1 replaying step 2 bit for bit; `cli.py eval` of
+    that run dir on two ranks against one rank; [vep_ranks] (`cli.py vep`
+    of ``vep_run`` = [vep]'s run dir, in the same job). The kernels'
+    launches are counted on each rank."""
+    import shutil
+
+    from caduceus_tpu_torch import cli
+
+    v2 = hg38_mlm_v2_config(n_layer=TP_V2_LAYERS)
+    tasks = [
+        _step_task(work, "tp_v2_fp32", hg38_mlm_v2_config(2, "float32"),
+                   fasta, bed, TP_L, TP_BATCH, False, TP_M, tp=True),
+        _step_task(work, "tp_v2", v2, fasta, bed, TP_L, TP_BATCH, False,
+                   TP_M, tp=True),
+        _step_task(work, "tp_v1", hg38_mlm_config(n_layer=4), fasta, bed,
+                   TP_L, TP_BATCH, False, TP_M, tp=True),
+        _step_task(work, "tp_hyena", _hy_kw(), fasta, bed, HY_L,
+                   TP_HY_BATCH, False, TP_M, tp=True)]
+    run_t = os.path.join(work, "tp_run")
+    argv = _cli_pretrain(tasks[1]["config"], fasta, bed, run_t, TP_L,
+                         TP_BATCH, 2, 1, TP_M, False) + ["--tensor-parallel"]
+    eval_argv = ["eval", "--fasta", fasta, "--bed", bed, "--run-dir", run_t,
+                 "--split", "valid", "--max-length", str(TP_L),
+                 "--batch-size", str(TP_BATCH), "--max-batches", "1"]
+    # 4: pretrain, 5-6: its resume from checkpoint 1, 7: eval, 8: vep
+    tasks += ([{"kind": "cli", "argv": argv}] + _resume_tasks(run_t, argv)
+              + [{"kind": "cli", "argv": eval_argv + [
+                  "--mesh-model", str(TP_M), "--tensor-parallel",
+                  "--dist-backend", "gloo"]},
+                 _vep_ranks_task(work, fasta, vep_run, "hg38_mlm_v2")])
+    ranks, secs = _launch_ranks(tasks, work, "tp_train")
+    out = {"launcher_s": secs,
+           "vep_ranks": _hold_vep_ranks(work, "hg38_mlm_v2",
+                                        [rk[8] for rk in ranks])}
+    for i in range(4):
+        out[tasks[i]["name"]] = _hold_rank_step(tasks[i], ranks, i, work)
+    want = {**dict.fromkeys(_counts(), 0),
+            **{k: v * 2 for k, v in _tp_per_step(v2).items()}}
+    for r, rk in enumerate(ranks):
+        check(rk[4]["launches"] == want, f"tp_train cli rank {r}: launches "
+              f"{rk[4]['launches']} != {want}")
+    with open(os.path.join(run_t, "model_config.json")) as f:
+        check(json.load(f)["tensor_parallel_axis"] is None,
+              "tp_train: model_config.json records a tensor_parallel_axis")
+    steps, _ = _records(run_t)
+    check(sorted(steps) == [1, 2] and all(
+        math.isfinite(s["loss"]) for s in steps.values()),
+        f"tp_train cli: logged steps {steps}")
+    step_s = {s: TP_BATCH * TP_L / st["tokens_per_sec"]
+              for s, st in steps.items()}
+    out["cli"] = {"step_s": step_s, "steps": steps,
+                  "peak_bytes": [rk[4]["peak_bytes"] for rk in ranks],
+                  "launches_per_rank": ranks[0][4]["launches"]}
+    log(f"[tp_train] cli.py pretrain v2 {TP_V2_LAYERS} layers, L={TP_L}, "
+        f"{TP_BATCH} sequences, --mesh-model 2 --tensor-parallel (gloo, one "
+        f"card): steps {', '.join(f'{v:.2f}' for v in step_s.values())} s "
+        f"(two ranks time-sharing one card, not a speedup across cards); "
+        f"peak {', '.join(f'{r[4]['peak_bytes'] / 2**30:.2f}' for r in ranks)}"
+        f" GiB per rank; launches per rank {ranks[0][4]['launches']}")
+    _hold_resume("tp_train", run_t)
+    out["cli"]["resume_s"] = ranks[0][6]["s"]
+    log("[tp_train] resumed from checkpoint 1 on two ranks: step 2's record, "
+        "parameters and optimizer state equal bit for bit")
+    # [tp_train] eval: the run dir on one rank against two
+    ev2 = json.loads(ranks[0][7]["stdout"].strip().splitlines()[-1])
+    buf = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        cli.main(eval_argv)
+    ev1 = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(set(ev2) == set(ev1) and all(math.isfinite(v) for v in ev2.values()),
+          f"tp_train eval: {ev2} vs {ev1}")
+    rel = abs(ev2["valid/loss"] - ev1["valid/loss"]) / abs(ev1["valid/loss"])
+    check(rel <= CP_LOSS_TOL, f"tp_train eval loss {ev2} vs one rank {ev1}")
+    want = {**dict.fromkeys(_counts(), 0), "ssd_fwd": 2 * TP_V2_LAYERS}
+    for r, rk in enumerate(ranks):
+        check(rk[7]["launches"] == want, f"tp_train eval rank {r}: launches "
+              f"{rk[7]['launches']} != {want}")
+    out["eval"] = {"two_ranks": ev2, "one_rank": ev1, "loss_rel": rel,
+                   "s": ranks[0][7]["s"]}
+    log(f"[tp_train] cli.py eval of the run at L={TP_L}, two ranks (tensor "
+        f"parallel) {ev2} vs one rank {ev1} (loss rel {rel:.2e})")
+    shutil.rmtree(run_t, ignore_errors=True)
+    shutil.rmtree(run_t + "_resumed", ignore_errors=True)
+    return out
+
+
+def _hold_grads(label, got, want, dtype):
+    """Each gradient against one rank's: rel_l2 and max |err| / max |ref|
+    within `CPTP_GRAD_TOL`; returns the worst of each."""
+    tol = CPTP_GRAD_TOL[dtype]
+    worst = {"rel_l2": 0.0, "max": 0.0}
+    for n, g in want.items():
+        a, b = got[n].double(), g.double()
+        rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        mx = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        check(rel <= tol["rel_l2"] and mx <= tol["max"],
+              f"{label}: gradient {n}: rel_l2 {rel:.2e}, max {mx:.2e} "
+              f"(tol {tol})")
+        worst = {"rel_l2": max(worst["rel_l2"], rel),
+                 "max": max(worst["max"], mx)}
+    return worst
+
+
+def phase_cp_tp(work):
+    """[cp_tp]: four ranks on one card (gloo), a (data 1, model 2, seq 2)
+    grid: v2 with tensor_parallel_axis "model" (4 heads a rank) and
+    context_parallel_axis "seq". One sequence of `CPTP_L` rows at 4 layers
+    bf16 (L_loc = 131,072: the fused route, the CP entry at H = 4 lanes),
+    then 2 layers fp32 at L = 2 x 2048 (fused) and at L = 2 x 1536 (the
+    unfused composed route: a shard of 1,536 rows is not a multiple of the
+    CP entry's 1,024-row segment); the forward and the parameter gradients
+    of sum(logits^2), gathered, against one rank's unsharded model on the
+    same weights; each rank's launches counted."""
+    cases = [("cptp_v2", hg38_mlm_v2_config(4), CPTP_L, "fused"),
+             ("cptp_v2_fp32", hg38_mlm_v2_config(2, "float32"), 2 * 2048,
+              "fused"),
+             ("cptp_v2_unfused", hg38_mlm_v2_config(2, "float32"), 2 * 1536,
+              "unfused")]
+    tasks = [{"kind": "grad", "name": name, "config": _cfg_file(work, name,
+                                                                cfg),
+              "L": L, "seed": 2222, "out": work, "mesh_model": TP_M,
+              "seq": 2, "cp": True, "tp": True, "route": route}
+             for name, cfg, L, route in cases]
+    ranks, secs = _launch_ranks(tasks, work, "cp_tp", n=TP_M * 2)
+    out = {"launcher_s": secs}
+    for i, (name, cfg, L, route) in enumerate(cases):
+        n = cfg.n_layer
+        want = dict.fromkeys(_all_counts(), 0)
+        if route == "fused":
+            want.update({"ssd_fused_cp": 2 * n * 4,
+                         "ssd_fused_bwd_kernel_cp": 2 * n * 2,
+                         "ssd_conv_bwd_kernel_cp": 2 * n * 2})
+        else:
+            want.update({"ssd_fwd": 2 * n * 4, "ssd_bwd": 2 * n * 2})
+        for r, rk in enumerate(ranks):
+            check(rk[i]["launches"] == want, f"{name} rank {r}: launches "
+                  f"{rk[i]['launches']} != {want}")
+        blobs = [torch.load(os.path.join(work, f"{name}_{r}.pt"))
+                 for r in range(len(ranks))]
+        # rank r = m * 2 + s: the model ranks of a seq shard hold the same
+        # logits; the seq shards are its columns
+        for r in range(len(ranks)):
+            check(torch.equal(blobs[r]["logits"], blobs[r % 2]["logits"]),
+                  f"{name}: model ranks' logits differ")
+        logits = torch.cat([blobs[0]["logits"], blobs[1]["logits"]], 1)
+        model = _task_model(tasks[i], "cuda", parallel=False)
+        ref = model(_grad_ids(tasks[i]).cuda())
+        ref.float().square().sum().backward()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        ref = ref.detach().cpu()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = ((logits - ref).abs().max() / ref.abs().max()).item()
+        lim = BF16_MODEL_TOL if cfg.dtype == "bfloat16" else 1e-5
+        check(e <= lim, f"{name}: logits {e:.2e} of max|logit| > {lim}")
+        worst = _hold_grads(name, blobs[0]["grads"], grads, cfg.dtype)
+        out[name] = {"logits_err": e, "grad_err": worst, "route": route,
+                     "s": [rk[i]["s"] for rk in ranks],
+                     "peak_bytes": [rk[i]["peak_bytes"] for rk in ranks],
+                     "launches": ranks[0][i]["launches"]}
+        for r in range(len(ranks)):
+            os.remove(os.path.join(work, f"{name}_{r}.pt"))
+        log(f"[cp_tp] {name} ({n} layers {cfg.dtype}, L={L}, {route} route, "
+            f"data 1 x model 2 x seq 2 on one card): logits {e:.2e} of "
+            f"max|logit|, gradients worst rel_l2 {worst['rel_l2']:.2e}, max "
+            f"{worst['max']:.2e} of max|g| against one rank; forward + "
+            f"backward {', '.join(f'{x:.2f}' for x in out[name]['s'])} s per "
+            f"rank; peak "
+            f"{', '.join(f'{b / 2**30:.2f}' for b in out[name]['peak_bytes'])}"
+            f" GiB; launches per rank {ranks[0][i]['launches']}")
+    return out
+
+
+def _vep_ranks_task(work, fasta, run_dir, name):
+    """[vep_ranks]' task: `cli.py vep` of [vep]'s run dir and variants, run
+    by the ranks of [tp_train]'s job."""
+    argv = ["vep", "--fasta", fasta, "--variants",
+            os.path.join(work, f"variants_{name}.tsv"), "--run-dir", run_dir,
+            "--out", os.path.join(work, f"vep_ranks_{name}"), "--seq-len",
+            str(VEP_L), "--batch-size", str(VEP_BATCH)]
+    return {"kind": "cli", "argv": argv}
+
+
+def _hold_vep_ranks(work, name, res):
+    """[vep_ranks] `cli.py vep` under `torch.distributed.run
+    --nproc_per_node 2` (gloo, one card; ``res``: each rank's result):
+    each rank dumps variants[rank::2], the ranks meet at a barrier, rank 0
+    combines. Every row of the combined file (rank-major order) against
+    [vep]'s one-rank row of the same variant by the bf16 rule of
+    kernel_check.py, labels and TSS distances equal; the peak-memory line
+    printed once, the combine on rank 0 alone."""
+    from caduceus_tpu_torch.kernel_check import TOL, compare
+
+    variants = os.path.join(work, f"variants_{name}.tsv")
+    one = np.load(os.path.join(work, f"vep_{name}.npz"))
+    two = np.load(os.path.join(work, f"vep_ranks_{name}.npz"))
+    with open(variants) as f:
+        n_rows = sum(1 for ln in f if ln.strip())
+    kept = [i for i in range(n_rows) if i != 3]   # row 3: a wrong ref base
+    order = [kept.index(i) for r in range(2) for i in range(r, n_rows, 2)
+             if i != 3]
+    check(two["features"].shape == one["features"].shape,
+          f"vep_ranks: {two['features'].shape} vs {one['features'].shape}")
+    check(np.array_equal(two["labels"], one["labels"][order])
+          and np.array_equal(two["tss_distance"], one["tss_distance"][order]),
+          "vep_ranks: labels / TSS distances out of order")
+    worst = 0.0
+    for j, i in enumerate(order):
+        st = compare(torch.from_numpy(two["features"][j]),
+                     torch.from_numpy(one["features"][i]),
+                     TOL[torch.bfloat16])
+        check(st["ok"], f"vep_ranks: variant row {i}: {st}")
+        worst = max(worst, st["max_abs_err"])
+    outs = [rk["stdout"] for rk in res]
+    peaks = [sum("vep_peak_hbm_gib" in ln for ln in o.splitlines())
+             for o in outs]
+    check(peaks == [1, 0], f"vep_ranks: peak lines per rank {peaks}")
+    check(any("embeddings" in ln for ln in outs[0].splitlines())
+          and not any("embeddings" in ln for ln in outs[1].splitlines()),
+          "vep_ranks: rank 0 alone combines")
+    out = {"s": [rk["s"] for rk in res], "max_abs_err": worst,
+           "launches": [rk["launches"] for rk in res],
+           "peak_bytes": [rk["peak_bytes"] for rk in res]}
+    log(f"[vep_ranks] cli.py vep over 2 processes (gloo barrier, one card), "
+        f"seq_len {VEP_L}: {len(order)} rows, each within the bf16 rule of "
+        f"the one-rank row of its variant (max |err| {worst:.3e}); "
+        f"{', '.join(f'{x:.1f}' for x in out['s'])} s per rank; launches "
+        f"per rank {[sum(x.values()) for x in out['launches']]}")
+    return out
+
+
+def _vep_run_dir(work):
+    """A `hg38_mlm_v2` run dir (16 layers, seeded random weights) for
+    ``--only tp``'s [vep] and [vep_ranks]."""
+    from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
+    from caduceus_tpu_torch.params import to_jax_params
+
+    run = os.path.join(work, "vep_run")
+    os.makedirs(run, exist_ok=True)
+    cfg = hg38_mlm_v2_config(16)
+    cfg.save(os.path.join(run, "model_config.json"))
+    model = CaduceusForMaskedLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(7))
+    np.savez(os.path.join(run, "params.npz"),
+             **to_jax_params(model.state_dict()))
+    return run
+
+
+def _tp_phases(report, work, fasta, bed, vep_run=None):
+    """The tensor-parallel phases (the kernels are built); [vep_ranks]
+    reads [vep]'s run dir and output, or makes its own (``--only tp``)."""
+    t0 = time.perf_counter()
+    if vep_run is None:
+        vep_run = _vep_run_dir(work)
+        report["vep"] = phase_vep(work, fasta, vep_run, "hg38_mlm_v2", False)
+    report["tp_kernels"] = phase_tp_kernels()
+    report["tp_train"] = phase_tp_train(work, fasta, bed, vep_run)
+    report["vep_ranks"] = report["tp_train"].pop("vep_ranks")
+    report["cp_tp"] = phase_cp_tp(work)
+    report["tp_phase_s"] = time.perf_counter() - t0
+
+
+def _tp_kernel_extras(report):
+    """Per kernel of the kernels line: its time at one rank's shape under
+    tensor parallelism and its launches on each rank of the TP paths."""
+    tk, tt, ct = report["tp_kernels"], report["tp_train"], report["cp_tp"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+
+    def at(t, shape):
+        return {"shape": shape, **{k: t[k] for k in keys if k in t}}
+
+    scan = f"G=4 L={TP_L} d=256 N=16 bf16 (one rank of 2)"
+    ssd = f"G=4 L={TP_L} H=4 P=64 NG=1 N=128 bf16 (one rank of 2)"
+    cp = (f"G={CP_G} L={CP_L_LOC} H=4 bf16 with edge_hist (one rank of a "
+          "data 1 x model 2 x seq 2 grid)")
+    attn = (f"G={ATTN_G} L={ATTN_L} H={ATTN_H // TP_M} hd={ATTN_HD} bf16 "
+            "causal (one rank of 2)")
+    v1, hy = tt["tp_v1"]["launches"][0], tt["tp_hyena"]["launches"][0]
+    cli = tt["cli"]["launches_per_rank"]
+    cp_l = ct["cptp_v2"]["launches"]
+    out = {
+        "bidir_scan_fwd": {"tp": at(tk["bidir_scan_fwd"], scan),
+                           "launches_tp": v1["bidir_scan_fwd"]},
+        "selective_scan_bwd": {"tp": at(tk["selective_scan_bwd"], scan),
+                               "launches_tp": v1["selective_scan_bwd"]},
+        "selective_scan_fwd": {"tp": at(tk["selective_scan_fwd"], scan)},
+        "ssd_fwd": {"tp": at(tk["ssd_fwd"], ssd),
+                    "launches_tp": cli["ssd_fwd"]},
+        "ssd_bwd": {"tp": at(tk["ssd_bwd"], ssd),
+                    "launches_tp": cli["ssd_bwd"]},
+        "ssd_head_fwd": {"tp": at(tk["ssd_head_fwd"], ssd)},
+        "ssd_head_bwd": {"tp": at(tk["ssd_head_bwd"], ssd)}}
+    for name, kname in (("ssd_fused_cp", "ssd_fused_fwd"),
+                        ("ssd_fused_bwd_kernel_cp", "ssd_fused_bwd_kernel"),
+                        ("ssd_conv_bwd_kernel_cp", "ssd_conv_bwd_kernel")):
+        t = tk["cp_timing"][kname]
+        out[name] = {"tp": {**at(t, cp),
+                            "max_abs_err": t["check"]["max_abs_err"]},
+                     "launches_tp": cp_l[name]}
+    for name in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq"):
+        out[name] = {"tp": at(tk["attn"][name], attn),
+                     "launches_tp": hy[name]}
+    paths = {"launches_tp_paths": (
+        "per rank: bidir_scan_fwd / selective_scan_bwd the v1 step "
+        "(4 layers); ssd_fwd / ssd_bwd cli.py pretrain --tensor-parallel v2 "
+        f"({TP_V2_LAYERS} layers, 2 steps); the CP entry the [cp_tp] v2 "
+        "forward + backward (4 layers, L=262144); attention the Hyena step "
+        "(8 layers, MHA at 1 and 5)")}
+    return {k: {**v, **paths} for k, v in out.items()}
 
 
 # -- the Hyena family: flash-attention kernels, pretrain, fine-tune -------
@@ -5125,8 +5897,6 @@ def phase_attn_kernels():
     SDPA call (a yardstick: `scaled_dot_product_attention`
     forward, and the backward of one such call, which the port never
     calls)."""
-    import torch.nn.functional as F
-
     from caduceus_tpu_torch.kernel_check import TOL, compare, describe
     from caduceus_tpu_torch.ops import attention as A
 
@@ -5198,7 +5968,39 @@ def phase_attn_kernels():
         + "; ".join(f"{n} {describe(st[n])}" for n in st))
     del got
 
-    # times at the path shape: kernel and plain in turns, SDPA beside them
+    out["timing"], sdpa_fwd, sdpa_bwd = _attn_timing(
+        q, k, v, do, o, lse, D, label, out["path"])
+    # the redesign's targets: the forward against one SDPA forward and
+    # twice its exp bound, the adjoint pair against one SDPA backward
+    tm = out["timing"]
+    pair = tm["attn_bwd_dkv"]["ms"] + tm["attn_bwd_dq"]["ms"]
+    out["targets"] = {
+        "fwd_over_sdpa_fwd": tm["attn_fwd"]["ms"] / sdpa_fwd,
+        "fwd_over_exp_bound": tm["attn_fwd"]["ms"] / tm["attn_fwd"]["exp_ms"],
+        "pair_ms": pair, "pair_over_sdpa_bwd": pair / sdpa_bwd}
+    log(f"[attn_kernels] targets: attn_fwd {tm['attn_fwd']['ms']:.3f} ms = "
+        f"{out['targets']['fwd_over_sdpa_fwd']:.3f} x SDPA forward, "
+        f"{out['targets']['fwd_over_exp_bound']:.3f} x its exp bound "
+        f"(target <= 1 and <= 2); dK/dV + dQ {pair:.3f} ms = "
+        f"{out['targets']['pair_over_sdpa_bwd']:.3f} x SDPA backward "
+        "(target <= 1)")
+    del q, k, v, do, o, lse, dk, dv, dq, D
+    torch.cuda.empty_cache()
+    return out
+
+
+def _attn_timing(q, k, v, do, o, lse, D, label, checks):
+    """The three attention kernels timed at the shape of q (G, L, H, hd,
+    bf16, causal), each against its plain version in turns, beside its
+    bound (the larger of bytes, FLOPs and exps) and SDPA (a yardstick);
+    ``checks``: each output's `compare` stats there. Returns (the timings,
+    SDPA forward ms, SDPA backward ms)."""
+    import torch.nn.functional as F
+
+    from caduceus_tpu_torch.ops import attention as A
+
+    G, L, H, hd = q.shape
+    sc = hd ** -0.5
     work = _attn_work(G, L, H, hd)
     calls = {
         "attn_fwd": (lambda: A.attention_fwd(q, k, v, True, sc),
@@ -5221,7 +6023,7 @@ def phase_attn_kernels():
     sdpa_bwd = _time_cuda(lambda: torch.autograd.grad(
         y, (qs, ks, vs), gy, retain_graph=True), 3)
     del y, qs, ks, vs, gy
-    out["timing"] = {}
+    timing = {}
     for name, (kfn, pfn) in calls.items():
         kfn()
         torch.cuda.synchronize()
@@ -5240,11 +6042,11 @@ def phase_attn_kernels():
         if name != "attn_fwd":
             t["sdpa_backward_ms"] = sdpa_bwd
             t["plain_is"] = "attention_bwd_plain (dq, dk and dv together)"
-        t["check"] = {n: out["path"][n] for n in (
+        t["check"] = {n: checks[n] for n in (
             ("o", "lse") if name == "attn_fwd" else
             ("dk", "dv") if name == "attn_bwd_dkv" else ("dq",))}
         t["max_abs_err"] = max(c["max_abs_err"] for c in t["check"].values())
-        out["timing"][name] = t
+        timing[name] = t
         log(f"[attn_kernels] {name} {label}: {t['ms']:.3f} ms (runs "
             f"{', '.join(f'{x:.3f}' for x in t['kernel_ms_runs'])}), bound "
             f"{t['bound_ms']:.3f} ms (by {t['bound_term']}: {flops / 1e12:.2f} "
@@ -5253,23 +6055,7 @@ def phase_attn_kernels():
             f"{t['plain_ms']:.1f} ms; SDPA "
             + (f"forward {sdpa_fwd:.3f} ms" if name == "attn_fwd" else
                f"backward {sdpa_bwd:.3f} ms (dq, dk, dv together)"))
-    # the redesign's targets: the forward against one SDPA forward and
-    # twice its exp bound, the adjoint pair against one SDPA backward
-    tm = out["timing"]
-    pair = tm["attn_bwd_dkv"]["ms"] + tm["attn_bwd_dq"]["ms"]
-    out["targets"] = {
-        "fwd_over_sdpa_fwd": tm["attn_fwd"]["ms"] / sdpa_fwd,
-        "fwd_over_exp_bound": tm["attn_fwd"]["ms"] / tm["attn_fwd"]["exp_ms"],
-        "pair_ms": pair, "pair_over_sdpa_bwd": pair / sdpa_bwd}
-    log(f"[attn_kernels] targets: attn_fwd {tm['attn_fwd']['ms']:.3f} ms = "
-        f"{out['targets']['fwd_over_sdpa_fwd']:.3f} x SDPA forward, "
-        f"{out['targets']['fwd_over_exp_bound']:.3f} x its exp bound "
-        f"(target <= 1 and <= 2); dK/dV + dQ {pair:.3f} ms = "
-        f"{out['targets']['pair_over_sdpa_bwd']:.3f} x SDPA backward "
-        "(target <= 1)")
-    del q, k, v, do, o, lse, dk, dv, dq, D
-    torch.cuda.empty_cache()
-    return out
+    return timing, sdpa_fwd, sdpa_bwd
 
 
 def _attn_counts():
@@ -5600,13 +6386,13 @@ def _cp_phases(report, work, fasta, bed):
 def _cp_kernel_entries(report, entry):
     """The kernels line's rows of the CP entry: #1 / #3a / #3b with
     edge_hist at the CP shape, launches per rank of `cli.py pretrain` v2
-    (16 layers, 2 steps) under context parallelism."""
+    (`CP_V2_LAYERS` layers, 2 steps) under context parallelism."""
     ct = report["cp_kernels"]["timing"]
     counts = report["cp_train"]["cli_v2"]["launches_per_rank"]
     shape = (f"G={CP_G} L={CP_L_LOC} bf16 with edge_hist (one rank's shard "
              f"of a {CP_L}-row sequence)")
-    path = ("cli.py pretrain v2 16 layers, L=262144, --mesh-model 2 "
-            "--context-parallel, 2 steps, per rank")
+    path = (f"cli.py pretrain v2 {CP_V2_LAYERS} layers, L=262144, "
+            "--mesh-model 2 --context-parallel, 2 steps, per rank")
     rows = []
     for name, kname, src in (
             ("ssd_fused_cp", "ssd_fused_fwd", "ssd_fused_fwd.cu"),
@@ -5632,8 +6418,9 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-job":
         return rank_job(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if only not in (None, "cp", "hyena", "convert") or len(sys.argv) > 3:
-        print("usage: chip_smoke.py [--only cp|hyena|convert]",
+    if (only not in (None, "cp", "hyena", "convert", "tp")
+            or len(sys.argv) > 3):
+        print("usage: chip_smoke.py [--only cp|hyena|convert|tp]",
               file=sys.stderr)
         return 2
 
@@ -5654,15 +6441,16 @@ def main() -> int:
         log("[report] " + json.dumps(report))
         return 0
     if only is not None:
-        # the parallel or the Hyena phases alone, for work on them
+        # the parallel, the Hyena or the tensor-parallel phases alone, for
+        # work on them
         from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
 
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{only}_") as work:
             fasta, bed = make_synthetic_genome(
                 os.path.join(work, "genome"), n_chromosomes=GENOME_CONTIGS,
                 chrom_len=GENOME_CONTIG_LEN, window=GENOME_WINDOW)
-            (_cp_phases if only == "cp" else _hyena_phases)(
-                report, work, fasta, bed)
+            {"cp": _cp_phases, "hyena": _hyena_phases,
+             "tp": _tp_phases}[only](report, work, fasta, bed)
         log("[report] " + json.dumps(report))
         return 0
     report["ssd_checks"], report["planted_faults"] = phase_kernel_checks()
@@ -5770,6 +6558,9 @@ def main() -> int:
         _hyena_phases(report, work, fasta, bed)
         # data and context parallelism: two ranks on this card
         _cp_phases(report, work, fasta, bed)
+        # tensor parallelism (and CP x TP, VEP over two processes): two
+        # and four ranks on this card
+        _tp_phases(report, work, fasta, bed, vep_run=run_a)
     pre, bare = report["pretrain"], report["pretrain_bare"]
     pre["overhead"] = pre["loop_step_s"] / bare["step_s"] - 1
     log(f"[pretrain] loop step {pre['loop_step_s']:.3f} s against the bare "
@@ -5977,6 +6768,9 @@ def main() -> int:
               exps=nt["bidir_bwd"]["exps"]),
     ] + _cp_kernel_entries(report, entry)
         + _hyena_kernel_entries(report, entry)}
+    extras = _tp_kernel_extras(report)
+    for row in kernels["kernels"]:
+        row.update(extras.get(row["name"], {}))
     report.update(kernels)
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start

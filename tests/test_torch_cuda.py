@@ -6,8 +6,10 @@ their plain versions; the autograd Functions against finite differences; a
 v1 model backward through the scan kernels; the prefill of both causal
 families, card against CPU; the context-parallel entry of the fused
 kernels (`ssd_batched_fused_cp`: edge_hist in, g_edge out) against its
-plain version, against the unsplit kernel and across two runs; and the
-wrappers' refusals. Imports no JAX, so
+plain version, against the unsplit kernel and across two runs; the
+kernels at one rank's shapes under tensor parallelism (the tensor-parallel
+model itself is held on the card by chip_smoke.py [tp_train] and [cp_tp],
+whose ranks are processes); and the wrappers' refusals. Imports no JAX, so
 it runs on the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1133,7 +1135,9 @@ def test_finetune_one_repeats_bit_for_bit_on_the_card(card, tmp_path,
 
 CP_GRADS = GRAD_NAMES + ("g_edge",)
 CP_SHAPES = {"small": dict(L_loc=256, H=4, P=32, NG=2, N=32),
-             "cp": dict(L_loc=131072, H=8, P=64, NG=1, N=128)}
+             "cp": dict(L_loc=131072, H=8, P=64, NG=1, N=128),
+             # one rank's lanes under tensor parallelism over 2
+             "tp": dict(L_loc=131072, H=4, P=64, NG=1, N=128)}
 # (shape, reverse): outputs known to miss the rule at these inputs,
 # ROADMAP.md queue 3 item 11: at the CP shape, forward, one element of
 # g_xBC's C columns (row 39305, column 644: |plain| 0.83, |err| 0.148, atol
@@ -1184,6 +1188,44 @@ def _cp_shard_pair(inp, reverse, edge):
     bp = ssd_chunked_fused_bwd(*a, gy, fp[2], inp["g_hN"], inp["dims"], True,
                                reverse, T, edge_hist=edge)
     return tuple(fk) + tuple(bk), tuple(fp) + tuple(bp)
+
+
+def _exact_g_xBC_B(inp, g, r, c):
+    """g_xBC[g, r, c] of shard 0 (forward scan, with inp's edge rows and
+    its final-state cotangent) for a B column c, in float64 with no
+    rounding between operations at the same bf16 inputs: B_t feeds S_t =
+    a_t S_(t-1) + dt_t B_t x_t^T only, so its gradient is dt_t x_t .
+    lambda_t, where lambda_t = dL/dS_t comes from the adjoint recurrence
+    lambda_t = C_t g_y_t + a_(t+1) lambda_(t+1) from the shard's end (g_hN
+    there) down to row r; then the SiLU' and the conv transpose."""
+    H, P, NG, N = inp["dims"]
+    n_loc = inp["xBC"].shape[1] // inp["n"]
+    K = inp["conv_w"].shape[0]
+    assert NG == 1 and H * P <= c < H * P + N and r + K <= n_loc
+    d = lambda t: t.double()
+    w, b = d(inp["conv_w"]), d(inp["conv_b"])
+    ext = torch.cat([d(inp["edge"][g, 8 - (K - 1):]),
+                     d(inp["xBC"][g, :n_loc])])       # rows -(K-1) .. n_loc-1
+    pre = sum(w[k] * ext[k:k + n_loc] for k in range(K)) + b
+    xc = pre * torch.sigmoid(pre)
+    x = xc[:, :H * P].reshape(n_loc, H, P)
+    C = xc[:, H * P + N:]
+    dt = torch.nn.functional.softplus(d(inp["dt"][g, :n_loc])
+                                      + d(inp["dt_bias"]))
+    decay = torch.exp(dt * d(inp["A"]))
+    gy = d(inp["g_y"][g, :n_loc])
+    lam = d(inp["g_hN"][g])                               # (H, N, P)
+    g_B = torch.zeros(K, N, dtype=torch.float64, device=lam.device)
+    for t in range(n_loc - 1, r - 1, -1):
+        lam = lam + C[t][None, :, None] * gy[t][:, None, :]
+        if t < r + K:
+            g_B[t - r] = torch.einsum("h,hp,hnp->n", dt[t], x[t], lam)
+        lam = decay[t][:, None, None] * lam
+    j = c - H * P
+    z = pre[r:r + K, c]
+    sg = torch.sigmoid(z)
+    g_pre = g_B[:, j] * sg * (1 + z * (1 - sg))
+    return float(sum(w[k, c] * g_pre[K - 1 - k] for k in range(K)))
 
 
 def _exact_g_xBC_C(inp, g, r, c):
@@ -1512,3 +1554,134 @@ def test_rc_equivariance_through_the_kernels(card, version, n_layer, dtype,
     else:
         err = (rc - want).abs().max().item()
         assert err <= 5e-2 * want.abs().max().item(), err
+
+
+# --- tensor parallelism: the kernels at one rank's shapes (a model axis of
+# 2: half the channels or heads); the model's collectives are held on the
+# card by chip_smoke.py [tp_train] and [cp_tp] (processes: threaded ranks
+# share one autograd device thread, so their backwards would wait on each
+# other)
+
+# (kernel, output index): the elements (g, row, column) known to miss the
+# elementwise limit at these inputs, ROADMAP.md queue 3 item 11: the CP
+# entry's g_xBC at one B-column element, a cancelling sum of the heads'
+# g_B shares (kernel 11.75, plain 12.125, float64 11.785: the kernel
+# nearer). The test fails if another element misses or this one no longer
+# does.
+TP_KNOWN_MISSES = {("cp_entry", 3): [(0, 85676, 345)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["scan", "unfused", "cp_entry",
+                                    "attention"])
+def test_kernels_at_the_tensor_parallel_shapes(card, kernel):
+    """Each kernel at one rank's shape of the tensor-parallel paths, bf16,
+    against its plain version by the rule of kernel_check.py, and run
+    twice on the same inputs: every output, gradients included, bit for
+    bit the same. #9 + #8 at G=4, L=131072, 256 of v1's 512 channels; #2 +
+    #4 at 4 of v2's 8 heads (G=4, L=131072); the CP entry of #1 / #3 at 4
+    heads (G=2, L_loc=131072, edge_hist); #11 at 4 of the Hyena MHA's 8
+    heads (G=2, L=65536, hd=32, causal, q / k / v views of one packed
+    tensor). The CP entry's g_xBC may miss the rule only as ROADMAP.md
+    queue 3 item 11 says and `TP_KNOWN_MISSES` registers."""
+    if kernel == "scan":
+        from caduceus_tpu_torch.ops import scan
+        from caduceus_tpu_torch.ops.selective_scan import (selective_scan,
+                                                           selective_scan_bwd)
+
+        G, L, d, N = 4, 131072, 256, 16
+        T = scan.KERNEL_CHUNK
+        f, _, gyf, _ = _scan_inputs(torch.bfloat16, G=G, L=L, d=d, N=N,
+                                    seed=90)
+        r, _, gyr, _ = _scan_inputs(torch.bfloat16, G=G, L=L, d=d, N=N,
+                                    seed=91)
+        pa = (*f[:2], *f[3:5], *r[:2], *r[3:5], f[2], r[2], f[5], r[5],
+              f[6], r[6])
+
+        def run():
+            yf, yr, cf, cr = scan.bidir_scan_fwd(*pa, save_carries=True)
+            return (yf, cf, yr, cr) + scan.selective_scan_bwd_cuda(
+                *f, gyf, cf, None, True, False, T)[:7]
+
+        got = run()
+        pf = selective_scan(*f, True, False, T, return_carries=True)
+        pr = selective_scan(*r, True, True, T, return_carries=True)
+        want = (*pf, *pr) + selective_scan_bwd(*f, gyf, got[1], None, True,
+                                               False, T)[:7]
+    elif kernel == "unfused":
+        from caduceus_tpu_torch.ops.ssd import ssd_chunked, ssd_chunked_bwd
+
+        x, dt, A, B, C, D, bias, h0 = _unfused_inputs(
+            torch.bfloat16, G=4, L=131072, H=4, P=64, NG=1, N=128, seed=92)
+        T = ssd_batched.KERNEL_CHUNK[torch.bfloat16]
+        gy = torch.randn(x.shape, device="cuda").bfloat16()
+        a = (x, dt, A, B, C, D, bias)
+
+        def run():
+            y, hN, car = ssd_batched.ssd_fwd(*a, True, False, T, h0, True)
+            return (y, hN, car) + tuple(ssd_batched.ssd_bwd(
+                *a, gy, car, None, True, False, T))
+
+        got = run()
+        fp = ssd_chunked(*a, True, False, T, h0, return_carries=True)
+        want = tuple(fp) + tuple(ssd_chunked_bwd(*a, gy, got[2], None, True,
+                                                 False, T))
+    elif kernel == "cp_entry":
+        inp = _cp_inputs(torch.bfloat16, "tp", seed=93)
+
+        def run():
+            return _cp_shard_pair(inp, False, inp["edge"])[0]
+
+        got, want = _cp_shard_pair(inp, False, inp["edge"])
+    else:
+        pairs, again = _attn_case(torch.bfloat16, 2, 65536, 4, 32, True,
+                                  seed=94, packed=True)
+        got = tuple(k for k, _ in pairs.values())
+        want = tuple(p for _, p in pairs.values())
+        for name, (k, p) in pairs.items():
+            tol = TOL[torch.float32] if name == "lse" else TOL[torch.bfloat16]
+            stats = compare(k, p, tol, rows=True)
+            assert stats["ok"], (name, stats)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        return
+    for i, (k, p) in enumerate(zip(got, want)):
+        assert k.shape == p.shape and k.dtype == p.dtype, i
+        stats = compare(k, p, TOL[torch.bfloat16])
+        if (kernel, i) in TP_KNOWN_MISSES:
+            _hold_known_misses(inp, k, p, stats,
+                               TP_KNOWN_MISSES[(kernel, i)])
+            continue
+        assert stats["ok"], (kernel, i, stats)
+    first = [t.clone() for t in got]
+    second = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), kernel
+
+
+def _hold_known_misses(inp, k, p, stats, known):
+    """g_xBC of the CP entry against its plain version where some elements
+    are known to miss the elementwise limit: rel_l2 within the rule, the
+    elements over the limit exactly the ``known`` ones (a stale entry
+    fails too), each in the B or C columns with the kernel (``k``) the
+    nearer of the two to its float64 value."""
+    tol = TOL[torch.bfloat16]
+    assert stats["rel_l2"] <= tol.rel_l2, stats
+    pa = p.float().abs()
+    over = ((k.float() - p.float()).abs()
+            - tol.rtol * pa - tol.atol * stats["mean_abs_ref"])
+    misses = sorted(tuple(int(v) for v in e)
+                    for e in (over > 0).nonzero().tolist())
+    print(f"g_xBC: {len(misses)} elements over the limit: {misses[:20]}")
+    H, P, NG, N = inp["dims"]
+    assert len(misses) <= 20 and all(c >= H * P for _, _, c in misses), (
+        "misses in the x columns or more than 20", misses[:20])
+    nearer = []
+    for g, r, c in misses:
+        exact = (_exact_g_xBC_C if c >= H * P + NG * N
+                 else _exact_g_xBC_B)(inp, g, r, c)
+        kv, pv = float(k[g, r, c]), float(p[g, r, c])
+        print(f"g_xBC[{g}, {r}, {c}]: kernel {kv!r}, plain {pv!r}, float64 "
+              f"{exact!r}")
+        nearer.append(abs(kv - exact) <= abs(pv - exact))
+    assert all(nearer), ("the plain version nearer", misses, nearer)
+    assert misses == sorted(known), ("misses", misses, "known", known)

@@ -84,17 +84,18 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def run_ranks(fn, data=1, model=2):
-    """``fn(mesh)`` on every rank of a (data, model) grid, one thread each
-    with the rank's mesh set as the ambient one; the results in rank order.
-    An exception in a rank is raised here."""
+def run_ranks(fn, data=1, model=2, seq=1):
+    """``fn(mesh)`` on every rank of a (data, model[, seq]) grid, one
+    thread each with the rank's mesh set as the ambient one; the results in
+    rank order. An exception in a rank is raised here."""
     store = dist.HashStore()
-    n = data * model
+    n = data * model * seq
     out, err = [None] * n, []
 
     def rank(r):
         try:
-            mesh = Mesh.from_store(store, r, data, model, timeout_s=60)
+            mesh = Mesh.from_store(store, r, data, model, timeout_s=60,
+                                   seq=seq)
             with with_mesh(mesh):
                 out[r] = fn(mesh)
         except BaseException as e:  # noqa: BLE001 (raised below)
@@ -487,8 +488,8 @@ def test_parallel_step_matches_one_rank(grid, one_thread):
 # -- the CLI ------------------------------------------------------------------
 
 def test_cli_parallel_flag_checks(tmp_path):
-    """The JAX CLI's checks (tests/test_train.py:488), and the port's
-    refusal of --tensor-parallel, fail at argparse time."""
+    """The JAX CLI's checks (tests/test_train.py:488) fail at argparse
+    time."""
     from caduceus_tpu_torch.cli import main as cli_main
 
     base = ["--fasta", "x", "--bed", "y", "--device", "cpu"]
@@ -498,8 +499,7 @@ def test_cli_parallel_flag_checks(tmp_path):
                      "--context-parallel"],
                     ["--tensor-parallel"],
                     ["--mesh-model", "3", "--context-parallel",
-                     "--max-length", "64"],
-                    ["--mesh-model", "2", "--tensor-parallel"]):
+                     "--max-length", "64"]):
             with pytest.raises(SystemExit):
                 cli_main([cmd, *base, *extra, *bad])
 

@@ -529,9 +529,14 @@ def test_metrics_and_logging_match_jax(case, tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(case):
     model = case["pt"].model
-    # tensor parallelism is still refused; context parallelism needs a
-    # mesh with a model axis (tests/test_torch_parallel.py runs both)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # tensor and context parallelism together are refused, as the JAX CLI
+    # refuses the pair; either alone needs a mesh with a model axis
+    # (tests/test_torch_parallel.py and test_torch_tensor_parallel.py run
+    # them)
+    with pytest.raises(ValueError, match="tensor and context"):
+        Trainer(model, TrainerConfig(), None, tensor_parallel=True,
+                context_parallel=True)
+    with pytest.raises(ValueError, match="mesh"):
         Trainer(model, TrainerConfig(), None, tensor_parallel=True)
     with pytest.raises(ValueError, match="mesh"):
         Trainer(model, TrainerConfig(), None, context_parallel=True)
