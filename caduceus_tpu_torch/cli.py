@@ -531,6 +531,10 @@ def cmd_serve(argv):
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-length", type=int, default=131072)
     p.add_argument("--min-bucket", type=int, default=128)
+    p.add_argument("--warmup", action="store_true",
+                   help="run every bucket's dispatches once before "
+                        "accepting traffic (no live request pays for a "
+                        "first call)")
     args = p.parse_args(argv)
 
     from caduceus_tpu_torch.serve import InferenceServer, InferenceService
@@ -538,6 +542,8 @@ def cmd_serve(argv):
     svc = InferenceService.from_run_dir(
         args.run_dir, device=args.device, max_batch=args.max_batch,
         max_length=args.max_length, min_bucket=args.min_bucket)
+    if args.warmup:
+        print(json.dumps({"warmed_programs": svc.warmup()}), flush=True)
     server = InferenceServer(svc, args.host, args.port)
     endpoints = (["/classify"] if svc.task_cfg is not None
                  else ["/embed", "/logits", "/generate"])

@@ -153,6 +153,15 @@ class _Embedding(torch.autograd.Function):
         return None, onehot.t() @ g.reshape(-1, g.shape[-1])
 
 
+def _cp_columns(L: int, axis) -> slice:
+    """This context-parallel rank's columns of a sequence of L."""
+    if L % axis.size:
+        raise ValueError(f"sequence of {L} does not split over "
+                         f"{axis.size} context-parallel ranks")
+    n = L // axis.size
+    return slice(axis.rank * n, (axis.rank + 1) * n)
+
+
 def _run_blocks(blocks, h, residual):
     for block in blocks:
         h, residual = block(h, residual)
@@ -198,19 +207,23 @@ class CaduceusBackbone(nn.Module):
     def forward(self, input_ids: torch.Tensor, inputs_embeds=None):
         """``inputs_embeds`` (non-RCPS only): precomputed (B, L, d_model)
         inputs in place of the token embedding, from an input encoder
-        (`models/encoders.py`)."""
+        (`models/encoders.py`). Under context parallelism a rank takes the
+        whole (B, L, d_model) and keeps its columns, as it does with the
+        ids, so the gradient it gives the embeddings is nonzero in its
+        columns only: summed over the ranks (the trainer's all-reduce of an
+        encoder's parameter gradients) it is the unsplit gradient."""
         c = self.cfg
         dtype = getattr(torch, c.dtype)
         axis = cp_axis(c)
-        if axis is not None and inputs_embeds is not None:
-            raise NotImplementedError("inputs_embeds under context "
-                                      "parallelism")
         if inputs_embeds is not None:
             if c.rcps:
                 raise ValueError("inputs_embeds bypasses the token "
                                  "complement map; RCPS needs token ids")
-            S, (B, L) = 1, inputs_embeds.shape[:2]
-            h = inputs_embeds.to(dtype)
+            h = inputs_embeds
+            if axis is not None:
+                h = h[:, _cp_columns(h.shape[1], axis)]
+            S, (B, L) = 1, h.shape[:2]
+            h = h.to(dtype)
         else:
             if c.rcps:
                 ids = torch.stack(
@@ -220,12 +233,7 @@ class CaduceusBackbone(nn.Module):
                 ids = input_ids[None]
             if axis is not None:
                 # this rank's columns of both strands' whole ids
-                L = ids.shape[-1]
-                if L % axis.size:
-                    raise ValueError(f"sequence of {L} does not split over "
-                                     f"{axis.size} context-parallel ranks")
-                n = L // axis.size
-                ids = ids[..., axis.rank * n:(axis.rank + 1) * n]
+                ids = ids[..., _cp_columns(ids.shape[-1], axis)]
             S, B, L = ids.shape
             h = _Embedding.apply(ids.reshape(S * B, L),
                                  self.embedding.to(dtype))

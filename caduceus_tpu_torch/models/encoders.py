@@ -3,7 +3,11 @@
 Port of `caduceus_tpu/models/encoders.py` (`:26-101`) and its factory
 `make_encoder` (`:103`). An encoder's output feeds
 `CaduceusBackbone(inputs_embeds=...)` in place of the backbone's own
-token embedding (non-RCPS models only). Parameter names are the flax ones:
+token embedding (non-RCPS models only). Under context parallelism every
+rank runs the encoder on the whole ids and the backbone keeps the rank's
+columns of its output, so an encoder parameter's gradient on a rank comes
+from that rank's columns only; the trainer's all-reduce of the gradients
+over the ranks gives it its whole gradient. Parameter names are the flax ones:
 ``embedding`` (n_tokens, d_model) and ``proj.{weight,bias}`` (flax
 ``proj/{kernel,bias}``).
 """

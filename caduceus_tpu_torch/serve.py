@@ -24,6 +24,9 @@ its handler) for the Caduceus models, Mamba-1 (v1) and Mamba-2 (v2):
 - **Pad-masked pooling.** /embed mean-pools (in fp32) only real positions;
   RCPS hidden states collapse to the strand mean. The pads do take part in
   the bidirectional scan, as in the JAX server.
+- **Warm-up.** `InferenceService.warmup` (``cli.py serve --warmup``) runs
+  every (bucket, batch) signature's dispatches once before the socket
+  listens, with the JAX server's defaults and count.
 - **Generation.** A /generate request is its own dispatch: the prompt is
   prefilled at its exact length (no bucket), then decoded token by token
   (`inference.py generate`), sampling from a `torch.Generator` seeded by
@@ -215,28 +218,50 @@ class InferenceService:
         kw.setdefault("max_length", tc["max_length"])
         return cls(cfg, params, task_cfg=tc, **kw)
 
-    def warmup(self) -> int:
-        """Run a classifier's dispatch signatures once before live requests
-        (the allocator's first blocks, cuBLAS's handles): its fixed length
-        x each power-of-two batch up to ``max_batch`` (the batch sizes a
-        dispatch pads to). Returns the number of dispatches."""
-        if self.task_cfg is None:
-            raise ValueError("warmup runs a fine-tuned classifier's "
-                             "/classify signatures")
-        batch_sizes, b = [], 1
-        while b < self.max_batch:
-            batch_sizes.append(b)
-            b *= 2
-        batch_sizes.append(self.max_batch)
-        L = self.task_cfg["max_length"]
-        with torch.inference_mode():
+    def warmup(self, buckets=None, batch_sizes=None) -> int:
+        """Run every dispatch signature once before live requests, as the
+        JAX service's ``warmup`` compiles them (`caduceus_tpu/serve.py:
+        206-243`), so that no live request pays for a first call: on the
+        card the kernel libraries built and loaded, cuBLAS's handles and
+        the allocator's blocks of each signature. JAX's defaults: every
+        power-of-two bucket in [min_bucket, max_length] x every
+        power-of-two batch size below ``max_batch``, then ``max_batch`` (the
+        batch sizes a dispatch pads to). An LM runs the /embed and the
+        /logits dispatch of each (bucket, batch), counted 2 as JAX counts
+        its programs; a fine-tuned classifier its fixed length x each batch
+        size (``buckets`` does not apply), counted 1. Returns the count.
+        Nothing is caught: a failure ends the warm-up."""
+        if batch_sizes is None:
+            batch_sizes, b = [], 1
+            while b < self.max_batch:
+                batch_sizes.append(b)
+                b *= 2
+            batch_sizes.append(self.max_batch)
+        n = 0
+        pad = self.tok.pad_token_id
+        if self.task_cfg is not None:
+            L = self.task_cfg["max_length"]
+            with torch.inference_mode():
+                for bs in batch_sizes:
+                    shape = ((bs, L, 2) if self.task_cfg.get("conjoin")
+                             else (bs, L))
+                    self.model(torch.full(shape, pad, device=self.device),
+                               torch.ones(bs, dtype=torch.long,
+                                          device=self.device))
+                    n += 1
+            return n
+        if buckets is None:
+            buckets, b = [], self.min_bucket
+            while b <= self.max_length:
+                buckets.append(b)
+                b *= 2
+        for bucket in buckets:
             for bs in batch_sizes:
-                shape = (bs, L, 2) if self.task_cfg.get("conjoin") else (bs, L)
-                self.model(torch.full(shape, self.tok.pad_token_id,
-                                      device=self.device),
-                           torch.ones(bs, dtype=torch.long,
-                                      device=self.device))
-        return len(batch_sizes)
+                ids = np.full((bs, bucket), pad, np.int64)
+                for kind in ("embed", "logits"):
+                    self._dispatch(kind, ids, [bucket] * bs)
+                    n += 1
+        return n
 
     # --- one padded dispatch ---
 
@@ -246,6 +271,18 @@ class InferenceService:
             h = collapse_strand_mean(canonical_to_reference(h))
         m = mask[..., None].float()
         return (h.float() * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+
+    def _dispatch(self, kind: str, ids: np.ndarray, lens) -> np.ndarray:
+        """One padded /embed or /logits forward of (bs, bucket) ``ids``
+        whose rows hold ``lens`` real tokens: the pooled embeddings or the
+        logits, on the host."""
+        ids_t = torch.from_numpy(ids).to(self.device)
+        with torch.inference_mode():
+            if kind == "embed":
+                mask = (torch.arange(ids.shape[1])[None, :]
+                        < torch.tensor(lens)[:, None]).to(self.device)
+                return self._embed(ids_t, mask).cpu().numpy()
+            return self.model(ids_t).cpu().numpy()
 
     def _run_batch(self, kind: str, batch: List[_Request]):
         try:
@@ -259,18 +296,10 @@ class InferenceService:
                 ids[i, :len(r.payload)] = r.payload
                 lens.append(len(r.payload))
             lens += [0] * (bs - len(batch))
-            ids_t = torch.from_numpy(ids).to(self.device)
-            with torch.inference_mode():
-                if kind == "embed":
-                    mask = (torch.arange(bucket)[None, :]
-                            < torch.tensor(lens)[:, None]).to(self.device)
-                    out = self._embed(ids_t, mask).cpu().numpy()
-                    for i, r in enumerate(batch):
-                        r.finish(result=out[i])
-                else:
-                    out = self.model(ids_t).cpu().numpy()
-                    for i, r in enumerate(batch):
-                        r.finish(result=out[i, :lens[i]])
+            out = self._dispatch(kind, ids, lens)
+            for i, r in enumerate(batch):
+                r.finish(result=out[i] if kind == "embed"
+                         else out[i, :lens[i]])
             self.n_dispatches += 1
             self.n_served += len(batch)
         except Exception as e:  # surface to every waiter in the batch

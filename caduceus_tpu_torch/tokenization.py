@@ -188,3 +188,10 @@ class CharacterTokenizer(CaduceusTokenizer):
             return np.concatenate([pad, ids])
         return np.concatenate([ids, pad])
 
+
+
+def make_mlm_eligible_replacements(tokenizer: CaduceusTokenizer) -> np.ndarray:
+    """Token ids eligible as random replacements during MLM (ACGT only;
+    `caduceus_tpu/tokenization.py:191-194`)."""
+    v = tokenizer.get_vocab()
+    return np.array([v[c] for c in "ACGT"], dtype=np.int32)

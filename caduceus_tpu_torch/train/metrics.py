@@ -3,20 +3,22 @@
 Port of `caduceus_tpu/train/metrics.py`: `cross_entropy_loss` (`:24`) and
 `accuracy` (`:56`), masked cross-entropy in fp32 with ignore_index (the
 reference's PAD = 4), optional per-position `loss_weights` and the
-streaming ``loss_sum`` / ``count`` sums; `last_k_ppl` (`:73`) and
-`per_token_ppl` (`:83`), the reference HG38Task eval metrics; and the
-host-side accumulators `Perplexity` (`:129`) and `NumTokens` (`:172`); the
-classification metrics `mcc`, `f1` and `roc_auc` (`:109-126`), which the
-JAX package takes from scikit-learn, written here in numpy from their
-definitions (the fine-tuning path must not need scikit-learn, which the
-card's machine does not have); tests/test_torch_finetune.py holds them
-against scikit-learn.
+streaming ``loss_sum`` / ``count`` sums; `accuracy_at_k` (`:65`);
+`last_k_ppl` (`:73`) and `per_token_ppl` (`:83`), the reference HG38Task
+eval metrics; `per_class_accuracy` (`:96`); and the host-side accumulators
+`Perplexity` (`:129`) and `NumTokens` (`:172`); the classification metrics
+`mcc`, `f1` and `roc_auc` (`:109-126`), which the JAX package takes from
+scikit-learn, written here in numpy from their definitions (the
+fine-tuning and VEP paths must not need scikit-learn, which the card's
+machine does not have; tests/test_torch_finetune.py holds them against
+scikit-learn); and the registry `output_metric_fns` (`:156-168`) with the
+JAX keys over these.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -61,6 +63,16 @@ def accuracy(logits: torch.Tensor, targets: torch.Tensor,
     return ((pred == tgt) & mask).sum() / torch.clamp(mask.sum(), min=1)
 
 
+def accuracy_at_k(logits: torch.Tensor, targets: torch.Tensor,
+                  k: int = 5) -> torch.Tensor:
+    """The share of positions whose target is among the k largest
+    logits."""
+    V = logits.shape[-1]
+    topk = logits.reshape(-1, V).topk(k, dim=-1).indices
+    tgt = targets.reshape(-1).long()
+    return (topk == tgt[:, None]).any(dim=-1).float().mean()
+
+
 def last_k_ppl(logits: torch.Tensor, targets: torch.Tensor, k: int = 512,
                ignore_index: int = 4):
     """Perplexity over the last k positions of each sequence
@@ -82,6 +94,21 @@ def per_token_ppl(logits: torch.Tensor, targets: torch.Tensor,
     ll = logz - logits.gather(-1, safe[..., None])[..., 0]
     mask = tgt != ignore_index
     return ll * mask, mask
+
+
+def per_class_accuracy(preds: np.ndarray, targets: np.ndarray,
+                       num_classes: int) -> Dict[str, float]:
+    """Accuracy within each class of ``targets`` (NaN for a class with no
+    member), over all the predictions at once (`src/tasks/metrics.py:13-44`
+    CorrectAggregatedMetric)."""
+    preds = np.asarray(preds).ravel()
+    targets = np.asarray(targets).ravel()
+    out = {}
+    for c in range(num_classes):
+        m = targets == c
+        out[f"acc_class_{c}"] = (float((preds[m] == c).mean()) if m.any()
+                                 else float("nan"))
+    return out
 
 
 def _labels_and_index(*arrays):
@@ -119,9 +146,10 @@ def mcc(preds: np.ndarray, targets: np.ndarray) -> float:
 
 def f1(preds: np.ndarray, targets: np.ndarray,
        average: str = "binary") -> float:
-    """F1 = 2·tp / (2·tp + fp + fn): of label 1 (``"binary"``) or the mean
-    over the labels present in either array (``"macro"``); 0 where a
-    label has no true or predicted member."""
+    """F1 = 2·tp / (2·tp + fp + fn): of label 1 (``"binary"``), the mean
+    over the labels present in either array (``"macro"``), or of the
+    counts summed over those labels (``"micro"``); 0 where a label has no
+    true or predicted member."""
     labels, c = _confusion(targets, preds)
     tp = np.diag(c).astype(np.float64)
     denom = c.sum(axis=0) + c.sum(axis=1)  # 2·tp + fp + fn
@@ -134,6 +162,8 @@ def f1(preds: np.ndarray, targets: np.ndarray,
         return float(per[hit[0]]) if len(hit) else 0.0
     if average == "macro":
         return float(per.mean())
+    if average == "micro":
+        return float(2 * tp.sum() / max(denom.sum(), 1))
     raise ValueError(f"average={average!r}")
 
 
@@ -194,3 +224,24 @@ class NumTokens:
 
     def compute(self) -> float:
         return self.count
+
+
+def _acc_ii(logits, targets):
+    return accuracy(logits, targets, ignore_index=4)
+
+
+# the functional metric registry, with the JAX keys
+# (`src/tasks/metrics.py:316-355`)
+output_metric_fns = {
+    "accuracy": accuracy,
+    "accuracy_ignore_index": _acc_ii,
+    "accuracy@5": lambda l, t: accuracy_at_k(l, t, 5),
+    "accuracy@10": lambda l, t: accuracy_at_k(l, t, 10),
+    "last_k_ppl": last_k_ppl,
+    "mcc": mcc,
+    "f1_binary": lambda p, t: f1(p, t, "binary"),
+    "f1_macro": lambda p, t: f1(p, t, "macro"),
+    "f1_micro": lambda p, t: f1(p, t, "micro"),
+    "roc_auc": roc_auc,
+    "per_class_accuracy": per_class_accuracy,
+}

@@ -22,9 +22,15 @@ rank builds the same global batch from the same seed and keeps its part
 columns), the loss and the metrics are global token means (sums and
 counts all-reduced over every rank), and the gradients are all-reduced
 over every rank before clipping, so every rank holds the same parameters,
-optimizer state and EMA. Every rank initializes the same parameters from
-the same seed; `Trainer.init_state` all-gathers a checksum of them and
-raises if any rank differs. Rank 0 alone logs and writes checkpoints.
+optimizer state and EMA. GPN-weighted cross-entropy (``loss_weights``) is
+normalized as JAX normalizes it, over each micro-batch of the global batch:
+a rank backpropagates its weighted NLL sum over the all-reduced sum of the
+weights. Under context parallelism the eval's ``last_k`` sums take each
+rank's overlap with the last k columns, and its ``per_token`` vectors each
+rank's columns in their place. Every rank initializes the same parameters
+from the same seed; `Trainer.init_state` all-gathers a checksum of them
+and raises if any rank differs. Rank 0 alone logs and writes checkpoints
+(and the per-token curve).
 
 Dropout (``TrainerConfig.dropout``, the Hyena family; JAX
 `make_train_step(dropout=, dropout_seed=)`): the model is called with
@@ -104,19 +110,49 @@ def _correct(logits, tgt, ignore_index):
     return ((pred == tgt) & (tgt != ignore_index)).sum()
 
 
-def _global_loss(logits, tgt, ignore_index, world):
-    """Under a mesh: (the loss this rank backpropagates, the global mean
-    loss, accuracy, loss_sum and count). The local sum over the global
-    count, so that the ranks' gradients add up to the gradient of the
-    global token mean; the metrics are the all-reduced sums."""
-    _, aux = cross_entropy_loss(logits, tgt, ignore_index=ignore_index)
-    sums = torch.stack([aux["loss_sum"].detach().float(),
-                        aux["count"].float(),
-                        _correct(logits.detach(), tgt, ignore_index).float()])
-    all_reduce_(sums, world)
-    count = torch.clamp(sums[1], min=1)
-    return (aux["loss_sum"] / count, sums[0] / count, sums[2] / count,
-            sums[0], sums[1].round().long())
+def _local_sums(logits, tgt, ignore_index, lw=None):
+    """This rank's part of a global loss: (the numerator it backpropagates,
+    the values to all-reduce: [numerator, count, correct] and with
+    ``lw`` the sum of the weights). Unweighted, the numerator is the NLL
+    sum; with loss weights the weighted NLL sum, whose denominator is the
+    global sum of the weights (`caduceus_tpu/train/metrics.py:44-48`
+    normalizes them over the micro-batch)."""
+    correct = _correct(logits.detach(), tgt, ignore_index).float()
+    if lw is None:
+        _, aux = cross_entropy_loss(logits, tgt, ignore_index=ignore_index)
+        num = aux["loss_sum"]
+        return num, [num.detach().float(), aux["count"].float(), correct]
+    nll, mask = per_token_ppl(logits, tgt, ignore_index=ignore_index)
+    w = lw.float() * mask
+    num = (nll * w).sum()
+    return num, [num.detach(), mask.sum().float(), correct, w.sum()]
+
+
+def _global_metrics(sums, weighted: bool):
+    """(denominator, loss, accuracy, loss_sum, count) from the all-reduced
+    values of `_local_sums`: the token mean, or the weighted loss with
+    ``loss_sum`` = loss x count, as JAX reports it."""
+    count = sums[1]
+    acc = sums[2] / torch.clamp(count, min=1)
+    if not weighted:
+        den = torch.clamp(count, min=1)
+        return den, sums[0] / den, acc, sums[0], count
+    den = torch.clamp(sums[3], min=1e-8)
+    loss = sums[0] / den
+    return den, loss, acc, loss * count, count
+
+
+def _global_loss(logits, tgt, ignore_index, world, lw=None):
+    """Under a mesh: (the loss this rank backpropagates, the global loss,
+    accuracy, loss_sum and count). The local numerator over the global
+    denominator (the token count, or the sum of the loss weights,
+    all-reduced before the backward: the weights are data and take no
+    gradient), so that the ranks' gradients add up to the gradient of the
+    global loss; the metrics are the all-reduced sums."""
+    num, vals = _local_sums(logits, tgt, ignore_index, lw)
+    sums = all_reduce_(torch.stack(vals), world)
+    den, loss, acc, loss_sum, count = _global_metrics(sums, lw is not None)
+    return num / den, loss, acc, loss_sum, count.round().long()
 
 
 def all_reduce_grads(params, world) -> None:
@@ -171,9 +207,6 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
         params = [p for p in model.parameters() if p.requires_grad]
         ids, tgt = batch["input_ids"], batch["targets"]
         lw = batch.get("loss_weights")
-        if world is not None and lw is not None:
-            raise NotImplementedError("loss_weights under a mesh: their "
-                                      "normalization is per batch")
         if ids.shape[0] % accum_steps:
             raise ValueError(f"batch of {ids.shape[0]} rows does not split "
                              f"into {accum_steps} micro-batches")
@@ -188,7 +221,8 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
                       if dropout else model(ids[rows]))
             if world is not None:
                 loss, mean, acc, loss_sum, count = _global_loss(
-                    logits, tgt[rows], ignore_index, world)
+                    logits, tgt[rows], ignore_index, world,
+                    None if lw is None else lw[rows])
                 loss.backward()
                 losses.append(mean)
                 accs.append(acc)
@@ -245,21 +279,24 @@ def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
                    tp_plan=None) -> Callable:
     """The eval step ``eval_step(params, batch) -> metrics`` with the
     reference HG38Task metric family (`src/tasks/tasks.py:244-332`):
-    ``loss_sum`` / ``count`` for the streaming ppl, ``acc``, ``loss``;
-    with ``last_k`` the last k positions' sums, with ``per_token`` the
-    per-position NLL and count summed over the batch. ``params`` (a
-    {state_dict key: tensor} dict, e.g. the EMA) replaces the module's own
-    parameters for the call; None uses them. Metrics are tensors on the
-    model's device (no host sync inside). With a ``mesh`` the batch is this
-    rank's part and every metric is global (sums all-reduced over every
-    rank; ``loss`` and ``acc`` their token means; under tensor parallelism
-    over the data axis only); under context parallelism neither ``last_k``
-    nor ``per_token`` is ported."""
+    ``loss_sum`` / ``count`` for the streaming ppl, ``acc``, ``loss`` (with
+    ``loss_weights`` in the batch the GPN-weighted loss); with ``last_k``
+    the last k positions' sums, with ``per_token`` the per-position NLL and
+    count summed over the batch. ``params`` (a {state_dict key: tensor}
+    dict, e.g. the EMA) replaces the module's own parameters for the call;
+    None uses them. Metrics are tensors on the model's device (no host sync
+    inside). With a ``mesh`` the batch is this rank's part and every metric
+    is global: sums all-reduced over every rank (under tensor parallelism
+    over the data axis only), ``loss`` and ``acc`` from them. Under context
+    parallelism (a model axis over 2 or more ranks, no ``tp_plan``) rank m
+    of M holds columns [m n, (m + 1) n) of the L = M n: its ``last_k`` sums
+    score its overlap with the last k columns (none, part or all of its
+    own; k >= L is the whole row, as slicing is), and its ``per_token``
+    sums go into their columns of length-L vectors before the all-reduce,
+    so every rank holds the vectors of one device."""
     world = _batch_axis(mesh, tp_plan)
-    if (mesh is not None and mesh.shape["model"] > 1 and tp_plan is None
-            and (last_k > 0 or per_token)):
-        raise NotImplementedError("last_k / per_token eval metrics under "
-                                  "context parallelism")
+    cp = mesh is not None and mesh.shape["model"] > 1 and tp_plan is None
+    m, M = (mesh.coord("model"), mesh.shape["model"]) if cp else (0, 1)
 
     def eval_step(params, batch):
         if world is not None:
@@ -288,30 +325,35 @@ def make_eval_step(model: nn.Module, ignore_index: int = 4, last_k: int = 0,
 
     def _global_eval(params, batch):
         ids, tgt = batch["input_ids"], batch["targets"]
+        lw = batch.get("loss_weights")
+        n = tgt.shape[-1]                 # this rank's columns
         with torch.inference_mode():
             logits = (model(ids) if params is None else
                       torch.func.functional_call(model, params, (ids,)))
-            _, aux = cross_entropy_loss(logits, tgt,
-                                        ignore_index=ignore_index)
-            vals = [aux["loss_sum"].float(), aux["count"].float(),
-                    _correct(logits, tgt, ignore_index).float()]
+            _, vals = _local_sums(logits, tgt, ignore_index, lw)
+            k = len(vals)
             if last_k > 0:
+                # the window [L - last_k, L) in this rank's columns
+                lo = min(max(M * n - last_k - m * n, 0), n)
                 _, lk = cross_entropy_loss(
-                    logits[..., -last_k:, :], tgt[..., -last_k:],
+                    logits[..., lo:, :], tgt[..., lo:],
                     ignore_index=ignore_index)
                 vals += [lk["loss_sum"].float(), lk["count"].float()]
             sums = all_reduce_(torch.stack(vals), world)
-            count = torch.clamp(sums[1], min=1)
-            out = {"loss_sum": sums[0], "count": sums[1],
-                   "acc": sums[2] / count, "loss": sums[0] / count}
+            _, loss, acc, loss_sum, count = _global_metrics(
+                sums[:k], lw is not None)
+            out = {"loss_sum": loss_sum, "count": count, "acc": acc,
+                   "loss": loss}
             if last_k > 0:
-                out["last_k_loss_sum"], out["last_k_count"] = sums[3], sums[4]
+                out["last_k_loss_sum"], out["last_k_count"] = (sums[k],
+                                                               sums[k + 1])
             if per_token:
                 nll, mask = per_token_ppl(logits, tgt,
                                           ignore_index=ignore_index)
-                pos = torch.stack([nll.reshape(-1, nll.shape[-1]).sum(0),
-                                   mask.reshape(-1, mask.shape[-1]).sum(0)
-                                   .float()])
+                pos = torch.zeros(2, M * n, dtype=torch.float32,
+                                  device=logits.device)
+                pos[0, m * n:(m + 1) * n] = nll.reshape(-1, n).sum(0)
+                pos[1, m * n:(m + 1) * n] = mask.reshape(-1, n).sum(0)
                 all_reduce_(pos, world)
                 out["pos_nll_sum"], out["pos_count"] = pos[0], pos[1]
         return out
@@ -715,11 +757,12 @@ class Trainer:
         if self.cfg.eval_last_k > 0:
             out[f"{tag}/last_{self.cfg.eval_last_k}_ppl"] = lk.compute()
         if pos_nll is not None:
-            curve = np.exp(pos_nll / np.maximum(pos_cnt, 1))
-            os.makedirs(self.cfg.run_dir, exist_ok=True)
+            # every rank holds the whole curve; rank 0 writes it
             path = os.path.join(
                 self.cfg.run_dir, f"per_token_ppl_{tag.replace('/', '_')}.npy")
-            np.save(path, curve)
+            if self.is_main:
+                os.makedirs(self.cfg.run_dir, exist_ok=True)
+                np.save(path, np.exp(pos_nll / np.maximum(pos_cnt, 1)))
             out[f"{tag}/per_token_ppl_file"] = path
         return out
 

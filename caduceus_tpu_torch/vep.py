@@ -13,8 +13,10 @@ Port of `caduceus_tpu/vep.py`:
   their states back along L and averages them with the forward ones.
   Records whose reference base does not match the FASTA are skipped. The
   windows are cut on the device; only they cross to the host;
-- `combine_embeddings`, and `svm_eval` (`:202-277`), which keeps
-  scikit-learn's `SVC` and imports it only when called;
+- `combine_embeddings`, and `svm_eval` (`:202-277`), JAX's protocol line
+  for line on `svm.py`'s `StandardScaler` and `SVC` (libsvm's solver in
+  float64 torch, on the card by default) and `train/metrics.py roc_auc`:
+  no scikit-learn, which the card's machine does not have;
 - `main`: ``cli.py vep``, in one process or in several under
   `torch.distributed.run` (``python -m torch.distributed.run --standalone
   --nproc_per_node N -m caduceus_tpu_torch.cli vep ...``): each rank
@@ -24,8 +26,8 @@ Port of `caduceus_tpu/vep.py`:
   process group) before rank 0 combines the shards, which the JAX module
   does without one (it can read a shard another rank has not written
   yet). It prints the peak device memory once, on rank 0 (the JAX module
-  prints it on every rank), and with ``--svm`` checks that scikit-learn
-  imports before the first forward; rank 0 alone scores.
+  prints it on every rank); with ``--svm`` rank 0 alone scores, on its
+  device.
 """
 
 from __future__ import annotations
@@ -226,14 +228,14 @@ def svm_eval(
     seeds=(0, 1, 2, 3, 4),
     train_frac: float = 0.8,
     val_frac: float = 0.25,
+    device="cuda",
 ) -> Dict:
     """SVC + AUROC by TSS-distance bucket. Per seed: C chosen on a
     validation split carved out of the train portion (never on test); the
     bucket AUROCs from that C's test scores; ``per_C`` reports every C's
-    test AUROC. Needs scikit-learn."""
-    from sklearn.metrics import roc_auc_score
-    from sklearn.preprocessing import StandardScaler
-    from sklearn.svm import SVC
+    test AUROC. The scaler and the SVMs run on ``device`` (`svm.py`)."""
+    from caduceus_tpu_torch.svm import SVC, StandardScaler
+    from caduceus_tpu_torch.train.metrics import roc_auc
 
     d = np.load(embeddings_path)
     X, y, tss = d["features"], d["labels"], d["tss_distance"]
@@ -253,28 +255,28 @@ def svm_eval(
             continue
         best_C, best_val = None, -1.0
         test_scores_by_C = {}
+        # the JAX loop fits the same scaler once per C
+        scaler = StandardScaler(device).fit(X[fit])
+        x_fit, x_te, x_va = (scaler.transform(X[fit]), scaler.transform(
+            X[te]), scaler.transform(X[va]))
         for C in Cs:
-            scaler = StandardScaler().fit(X[fit])
-            clf = SVC(C=C, probability=False).fit(
-                scaler.transform(X[fit]), y[fit])
-            test_scores_by_C[C] = clf.decision_function(
-                scaler.transform(X[te]))
-            per_C[C].append(roc_auc_score(y[te], test_scores_by_C[C]))
+            clf = SVC(C=C, device=device).fit(x_fit, y[fit])
+            test_scores_by_C[C] = clf.decision_function(x_te)
+            per_C[C].append(roc_auc(test_scores_by_C[C], y[te]))
             if len(np.unique(y[va])) == 2:
-                val_auc = roc_auc_score(
-                    y[va], clf.decision_function(scaler.transform(X[va])))
+                val_auc = roc_auc(clf.decision_function(x_va), y[va])
                 if val_auc > best_val:
                     best_val, best_C = val_auc, C
         if best_C is None:
             best_C = Cs[0]
         selected_Cs.append(int(best_C))
         scores = test_scores_by_C[best_C]
-        results["overall"].append(roc_auc_score(y[te], scores))
+        results["overall"].append(roc_auc(scores, y[te]))
         for lo, hi in TSS_BUCKETS:
             m = (np.abs(tss[te]) >= lo) & (np.abs(tss[te]) < hi)
             if m.sum() > 1 and len(np.unique(y[te][m])) == 2:
                 results["buckets"][f"{lo}-{hi}"].append(
-                    roc_auc_score(y[te][m], scores[m]))
+                    roc_auc(scores[m], y[te][m]))
     return {
         "auroc_mean": (float(np.mean(results["overall"]))
                        if results["overall"] else None),
@@ -301,18 +303,11 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=131072)
     p.add_argument("--batch-size", type=int, default=2)
     p.add_argument("--svm", action="store_true",
-                   help="run the SVM eval after the dump (needs "
-                        "scikit-learn)")
+                   help="run the SVM eval after the dump, on the same "
+                        "device")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.svm:
-        try:
-            import sklearn  # noqa: F401
-        except ImportError:
-            p.error("--svm needs the scikit-learn package, which does not "
-                    "import here; dump without --svm and score the .npz "
-                    "where it is installed")
 
     import torch.distributed as dist
 
@@ -339,7 +334,7 @@ def main(argv=None):
         path = combine_embeddings(args.out, world)
         print(json.dumps({"embeddings": path}))
         if args.svm:
-            print(json.dumps(svm_eval(path)))
+            print(json.dumps(svm_eval(path, device=device)))
     if owns:
         dist.destroy_process_group()
 

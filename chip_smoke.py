@@ -45,12 +45,15 @@ order (any failure exits non-zero; nothing is caught and passed over):
 4. hold the whole model on the card against the same model on the CPU
    (same weights, full width, 2 layers, L=2048, fp32 logits);
 5. serve the full-width `hg38_mlm_v2` model (16 layers, random weights
-   from a seeded torch.Generator) over HTTP: /embed and /logits at
-   buckets 1024 and 16384 with 1-4 sequences, and one 131,072-token
+   from a seeded torch.Generator) over HTTP, after the warm-up of `cli.py
+   serve --warmup` (every bucket 1024 ... 131072 x batch 1, 2, 4, /embed
+   and /logits: 48 programs, timed, 32 launches each): /embed and /logits
+   at buckets 1024 and 16384 with 1-4 sequences, and one 131,072-token
    /logits; the forward kernel's launch count must be 2 directions x 16
-   layers per dispatch, and the served bf16 logits of a 1024-bucket
-   request must equal a direct forward and agree with the fp32 model on
-   the CPU;
+   layers per dispatch, the first /logits request after the warm-up is
+   timed against the same request again (bit-equal), and the served bf16
+   logits of a 1024-bucket request must equal a direct forward and agree
+   with the fp32 model on the CPU;
 6. one training step (accum 2) of the full-width model at 2 layers,
    L=2048, fp32, on the card and on the CPU from the same weights and
    batch: loss, grad norm, every gradient and every updated parameter
@@ -106,7 +109,7 @@ direction; `bidir_scan_fwd`, two) and `selective_scan_bwd.cu`:
    mamba-ssm MixerModel (4 layers, unidirectional) through #7 at L=131,072
    and card vs CPU; a HyenaDNA LM at hg38_hyena's width through `attn_fwd`
    at L=16,384 and card vs CPU in fp32 (as 40);
-13. the 2-layer v1 train step, card vs CPU (as 6);
+13. the 1-layer v1 train step, card vs CPU (as 6);
 14. one accum-2 step of a 2-layer unidirectional v1 model (`MambaMixer`,
    L=8192), which runs `selective_scan_fwd`;
 15. train the full-width v1 model as 7: 32 `bidir_scan_fwd` and 32
@@ -168,7 +171,7 @@ adjoint `bidir_scan_bwd` (#10):
 27. `bidir_scan_bwd` against the two-launch backward and the plain adjoints,
    small shapes and d=512, N=16, G=4, L=8192; planted faults (the reverse
    set given the forward set's g_y, a 16-channel tile of g_u zeroed);
-28. with CADUCEUS_BIDIR_BWD=1: the 2-layer v1 train step card vs CPU, and
+28. with CADUCEUS_BIDIR_BWD=1: the 1-layer v1 train step card vs CPU, and
    the full-width 16-layer v1 model trained at L=131072 (as 15) with 16
    `bidir_scan_bwd` and no `selective_scan_bwd` launches per micro-batch;
 29. `ssd_head_fwd`, `ssd_bwd` / `ssd_head_bwd` and `bidir_scan_bwd` at the
@@ -182,8 +185,8 @@ hg38 loader, `Trainer`, checkpoints) on a synthetic genome of 2 contigs of
 30. the Python and the native loader (built from `native/dataloader.cc`
    with g++) timed per batch of 4 x 131,072 tokens; whether `tensorstore`
    and `yaml` import here;
-31. the bare 16-layer `make_train_step` at the loop's geometry (as 7);
-32. `hg38_mlm_v2` at 16 layers, L=131072, 4 sequences in 2 micro-batches,
+31. the bare `make_train_step` at the loop's geometry: 7's step;
+32. `hg38_mlm_v2` at 8 layers, L=131072, 4 sequences in 2 micro-batches,
    4 steps, EMA, a checkpoint every 2 steps, an eval at step 4: run A
    through `cli.main` in this process (its launches counted: the loop runs
    the kernels of 7 and the eval's forwards), run B with the native loader
@@ -204,7 +207,7 @@ and, downstream of run A of each family (the same temporary directory):
 36. `cli.py finetune` with the `human_nontata_promoters` preset (L=251,
    batch 128, 2 classes, lr 1e-3, metric all) on a
    `make_structured_classification_suite` task over the synthetic genome
-   (1,024 training sequences), from v2 run A (16 layers): 2 epochs, seeds 1
+   (1,024 training sequences), from v2 run A (8 layers): 2 epochs, seeds 1
    and 2, ``--save-dir``; launches against the config's count, every
    logged loss finite; the step timed (sequences/s, peak memory); one step
    card vs CPU at 2 layers in fp32; `finetune_one` for seed 1 twice, bit for
@@ -212,11 +215,16 @@ and, downstream of run A of each family (the same temporary directory):
 37. the export served (`cli.py serve`'s service): /classify of 8
    sequences equal to a direct forward bit for bit, latency at 1 sequence
    and at 8 concurrent requests;
-38. `cli.py vep` on v2 run A at seq_len 131,072, batch 2, 16 variants and
-   one with a wrong reference base: 16 feature rows, the peak-memory line
-   once, the first variant equal to a direct forward bit for bit; the SVM
-   eval where scikit-learn imports (whether it does is printed); then v1
-   run A;
+38. `cli.py vep --svm` on v2 run A at seq_len 131,072, batch 2, 16
+   variants and one with a wrong reference base: 16 feature rows, the
+   peak-memory line once, the first variant equal to a direct forward bit
+   for bit, the SVM eval on the card (`caduceus_tpu_torch/svm.py`, no
+   scikit-learn) printed last; then v1 run A; then [svm]: the SVM fit at
+   8,192 rows of 512 features (the v2 dump's width) timed twice, its KKT
+   gap, box and equality recomputed in float64 on the card apart from the
+   solver (`torch.cdist`), and at 1,024 rows the card's decision values
+   against the CPU's solve of the same problem, and the card's fit with
+   kernel rows computed on demand (the Gram budget at 0) against both;
 39. [attn_kernels] the flash-attention kernels of the hybrid Hyena layers
    (`attn_fwd`, `attn_bwd_dkv`, `attn_bwd_dq`; TPU kernel #11) against
    their plain versions (`ops/attention.py attention_fwd_plain` /
@@ -262,20 +270,28 @@ and, downstream of run A of each family (the same temporary directory):
    tensor-parallel phases came) and v1 `hg38_mlm` at 4 layers (bf16) held
    against one rank's step on the same weights and batch; `cli.py
    pretrain --mesh-model 2 --context-parallel` of each bf16
-   model for 2 steps, the CP kernels' launches counted on each rank;
+   model for 2 steps, the CP kernels' launches counted on each rank; a
+   step of v2 at 2 layers fp32 with GPN loss weights against one rank's;
+   the non-RCPS v2 backbone (2 layers fp32) given ``inputs_embeds`` on the
+   two ranks against one rank (hidden states, the gradients of sum(h R)
+   for the embeddings and the parameters);
 45. [cp_eval] `cli.py eval --mesh-model 2 --context-parallel` of the v2 run
-   against `cli.py eval` on one rank;
+   against `cli.py eval` on one rank; the eval step on the two ranks with
+   loss weights, per_token and last_k 196,608 (both ranks), 65,536 (the
+   last rank's columns) and 262,145 (the whole row), at 2 layers fp32 and
+   at 8 layers bf16, against the same step on one rank;
 46. [dp_train] two ranks, data parallelism over a global batch of 2 x
-   131,072: the first step at 2 layers fp32 and 8 layers bf16 against one
-   rank's (loss and updated parameters), `cli.py pretrain` for 2 steps and
-   a resume from its step-1 checkpoint that replays step 2 bit for bit;
+   131,072: the first step at 2 layers fp32 (also with loss weights) and 8
+   layers bf16 against one rank's (loss and updated parameters), `cli.py
+   pretrain` for 2 steps and a resume from its step-1 checkpoint that
+   replays step 2 bit for bit;
 47. [tp_kernels] the kernels of the tensor-parallel paths at one rank's
    shapes (model axis 2): #9, #7, #8 at 256 channels, #2 / #4 and #5 / #6
    at 4 heads (G=4, L=131072), the CP entry of #1 / #3a / #3b at 4 heads
    (G=2, L_loc=131072) and #11 at 4 heads (G=2, L=65536), each against
    its plain version and timed beside its bound;
 48. [tp_train] two ranks, the model cut over them: the first step of v2
-   (2 layers fp32, 16 layers bf16), v1 (4 layers) and the Hyena LM (8
+   (2 layers fp32, 4 layers bf16), v1 (4 layers) and the Hyena LM (8
    layers, L=65536, dropout off) against one rank's, every model rank's
    shared gradients equal; `cli.py pretrain --mesh-model 2
    --tensor-parallel` of v2 for 2 steps, its resume from checkpoint 1 bit
@@ -290,9 +306,10 @@ and, downstream of run A of each family (the same temporary directory):
 
 ``--only cp`` runs the build and phases 43-46 alone, ``--only hyena`` the
 build and phases 39-42, ``--only convert`` the build and 12a, ``--only
-tp`` the build, phases 47-50 and the [vep] run they compare with (for work
-on them); the ranks of phases 44-46 and 48-50 run this script with
-``--rank-job``.
+tp`` the build, phases 47-50 and the [vep] run they compare with,
+``--only serve`` the build and phase 5, ``--only svm`` [svm] alone (no
+kernel, no build) (for work on them); the ranks of phases 44-46 and 48-50
+run this script with ``--rank-job``.
 
 Prints every measurement as one `[report]` JSON line, then a `kernels`
 JSON line, the card's name and power limit, and last
@@ -931,6 +948,22 @@ def phase_serve():
     svc = InferenceService(cfg, model.state_dict(), device="cuda",
                            max_batch=4, min_bucket=1024, max_length=131072)
     del model
+    # `cli.py serve --warmup`: every (bucket, batch) signature the server
+    # answers, run once before the socket listens
+    ssd_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_warm = svc.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = ssd_batched.launches
+    n_sig = 8 * 3        # buckets 1024 ... 131072 x batch sizes 1, 2, 4
+    log(f"[serve] warm-up: {n_warm} programs ({n_sig} bucket x batch "
+        f"signatures, /embed and /logits each) in {warm_s:.2f} s, "
+        f"{warm_launches} ssd_fused_fwd launches")
+    check(n_warm == 2 * n_sig, f"warm-up counted {n_warm} != {2 * n_sig}")
+    check(warm_launches == 2 * cfg.n_layer * n_warm,
+          f"warm-up launches {warm_launches} != {2 * cfg.n_layer} x {n_warm}")
     server = InferenceServer(svc, port=0).start()
     rng = np.random.default_rng(7)
 
@@ -970,8 +1003,33 @@ def phase_serve():
         launches = ssd_batched.launches
         dispatches = svc.n_dispatches - d0
         peak = torch.cuda.max_memory_allocated()
+        # the first /embed and /logits requests after the warm-up against
+        # the same requests again, warmed by live ones, and the /logits
+        # dispatch alone (no HTTP, JSON or batching thread)
+        t0 = time.perf_counter()
+        _post(server.port, "/embed", {"sequences": plan[0][1]})
+        embed_again_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = _post(server.port, "/logits", {"sequences": small[0]})[
+            "logits"]
+        again_s = time.perf_counter() - t0
+        check(again == small[1], "the repeated /logits request differs")
+        ids = np.full((2, 1024), svc.tok.pad_token_id, np.int64)
+        for i, q in enumerate(small[0]):
+            ids[i, :len(q)] = svc.tok.encode(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc._dispatch("logits", ids, [len(q) for q in small[0]])
+        dispatch_s = time.perf_counter() - t0
     finally:
         server.stop()
+    first_s = requests[1]["latency_s"]
+    log(f"[serve] first /logits request after the warm-up (bucket 1024, 2 "
+        f"seq) {first_s * 1e3:.1f} ms, the same request again "
+        f"{again_s * 1e3:.1f} ms (ratio {first_s / again_s:.3f}), its "
+        f"dispatch alone {dispatch_s * 1e3:.1f} ms; the first /embed "
+        f"{requests[0]['latency_s'] * 1e3:.1f} ms, again "
+        f"{embed_again_s * 1e3:.1f} ms")
     per = 2 * cfg.n_layer
     log(f"[serve] ssd_fused_fwd launches {launches} over {dispatches} "
         f"dispatches (expect {per} each); peak memory "
@@ -1030,6 +1088,12 @@ def phase_serve():
         f"{fwd_s * 1e3:.1f} ms")
     return {"requests": requests, "launches": launches,
             "dispatches": dispatches, "peak_mem_bytes": peak,
+            "warmup": {"programs": n_warm, "s": warm_s,
+                       "launches": warm_launches,
+                       "first_logits_s": first_s, "again_s": again_s,
+                       "dispatch_s": dispatch_s,
+                       "first_embed_s": requests[0]["latency_s"],
+                       "embed_again_s": embed_again_s},
             "forward_131k_s": fwd_s,
             "bf16_vs_fp32_cpu": {"max_abs_err": float(err),
                                  "max_abs_ref": float(scale),
@@ -1096,16 +1160,17 @@ def _per_micro_batch(cfg):
     return out
 
 
-def phase_train_vs_cpu(config=None):
-    """One step (accum 2) of the full-width model at 2 layers, L=2048, fp32,
-    on the card and on the CPU from the same weights and batch."""
+def phase_train_vs_cpu(config=None, n_layer=2):
+    """One step (accum 2) of the full-width model at ``n_layer`` layers,
+    L=2048, fp32, on the card and on the CPU from the same weights and
+    batch."""
     from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
     from caduceus_tpu_torch.train.optim import (make_optimizer,
                                                 weight_decay_mask)
     from caduceus_tpu_torch.train.trainer import TrainState, make_train_step
 
     config = config or hg38_mlm_v2_config
-    cfg = config(n_layer=2, dtype="float32")
+    cfg = config(n_layer=n_layer, dtype="float32")
     L, accum = 2048, 2
     cpu = CaduceusForMaskedLM(cfg, device="cpu",
                               generator=torch.Generator().manual_seed(4321))
@@ -1179,7 +1244,8 @@ def phase_train_vs_cpu(config=None):
     check(g_err <= TRAIN_TOL["grad"], f"card vs CPU gradient {worst}: "
           f"{g_err:.2e} of its max > {TRAIN_TOL['grad']}")
     most = max(unsettled, key=lambda n: unsettled[n][0] / unsettled[n][1])
-    log(f"[train] {config.__name__[:-7]}: card vs CPU, full width, 2 layers, "
+    log(f"[train] {config.__name__[:-7]}: card vs CPU, full width, "
+        f"{n_layer} layers, "
         f"L=2048, fp32, accum 2: "
         f"loss {m_k['loss']:.6f} vs {m_c['loss']:.6f}, grad_norm "
         f"{m_k['grad_norm']:.6f} vs {m_c['grad_norm']:.6f}; worst gradient "
@@ -3459,6 +3525,10 @@ def phase_new_timing():
 # -- pretraining through the port's own loop (cli.py pretrain) --------------
 
 PRETRAIN_L, PRETRAIN_BATCH, PRETRAIN_ACCUM = 131072, 4, 2
+# 8 of hg38_mlm_v2's 16 layers (the depth of [train], whose step is the
+# bare step the loop is held against); run A is also the model of the
+# downstream phases
+PRETRAIN_LAYERS = 8
 # synthetic hg38 stand-in: 2 contigs of 2^23 bases cut into the production
 # window of 2^20 (train, valid and test rows)
 GENOME_CONTIGS, GENOME_CONTIG_LEN, GENOME_WINDOW = 2, 1 << 23, 1 << 20
@@ -4210,13 +4280,13 @@ def _vep_variants(path, fasta):
     return rows
 
 
-def phase_vep(work, fasta, run_dir, name, sklearn):
-    """`cli.py vep` on a run dir at seq_len 131,072, batch 2, over 16
+def phase_vep(work, fasta, run_dir, name):
+    """`cli.py vep --svm` on a run dir at seq_len 131,072, batch 2, over 16
     variants and one with a wrong reference base: 16 feature rows, the
     launches of 8 forwards, the peak-memory line printed once; the first
     variant's features equal a direct `Caduceus` forward of the same batch,
-    collapsed to the strand mean and window-meaned; with scikit-learn, the
-    SVM eval of the file."""
+    collapsed to the strand mean and window-meaned; the SVM eval of the
+    file on the card, printed last, with finite AUROCs."""
     import io
 
     from caduceus_tpu_torch import cli, vep
@@ -4236,7 +4306,7 @@ def phase_vep(work, fasta, run_dir, name, sklearn):
     with contextlib.redirect_stdout(buf):
         cli.main(["vep", "--fasta", fasta, "--variants", variants,
                   "--run-dir", run_dir, "--out", out_path, "--seq-len",
-                  str(VEP_L), "--batch-size", str(VEP_BATCH)])
+                  str(VEP_L), "--batch-size", str(VEP_BATCH), "--svm"])
     secs = time.perf_counter() - t0
     counts = _counts()
     lines = [json.loads(x) for x in buf.getvalue().splitlines()]
@@ -4279,18 +4349,138 @@ def phase_vep(work, fasta, run_dir, name, sklearn):
           f"direct forward by {err}")
     del model, h
     torch.cuda.empty_cache()
+    svm = lines[-1]
+    check(svm.get("n") == VEP_N and math.isfinite(svm["auroc_mean"])
+          and len(svm["selected_C"]) > 0, f"vep {name}: SVM eval {svm}")
     out = {"cli_s": secs, "variants_per_s": VEP_N / secs,
            "peak_gib": peaks[0]["vep_peak_hbm_gib"], "launches": counts,
-           "direct_max_abs_err": err}
-    if sklearn:
-        out["svm"] = vep.svm_eval(out_path + ".npz")
+           "direct_max_abs_err": err, "svm": svm}
     log(f"[vep] {name}, {cfg.n_layer} layers, seq_len {VEP_L}, batch "
         f"{VEP_BATCH}: {VEP_N} variants (+1 with a wrong reference base, "
-        f"skipped) in {secs:.1f} s of cli.py vep ({VEP_N / secs:.2f} "
-        f"variants/s, model load included), peak {peaks[0]} (one line); "
-        f"launches {counts}; variant 0 equals a direct forward bit for bit"
-        + (f"; SVM {out['svm']}" if sklearn else
-           "; scikit-learn does not import here: no SVM eval"))
+        f"skipped) in {secs:.1f} s of cli.py vep --svm ({VEP_N / secs:.2f} "
+        f"variants/s, model load and the SVM eval included), peak "
+        f"{peaks[0]} (one line); launches {counts}; variant 0 equals a "
+        f"direct forward bit for bit; SVM on the card {svm}")
+    return out
+
+
+SVM_N, SVM_D = 8192, 512     # [svm]: the fit's rows, the dump's width (v2)
+SVM_SMALL = 1024             # the card's solve against the CPU's
+SVM_KKT_SLACK = 1e-9         # the recomputed kernel's rounding
+
+
+def _svm_data(n, d, seed=21):
+    """Two overlapping classes of VEP-like float32 features: the label
+    shifts 16 of the d features by +-0.15."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, n)
+    X = rng.normal(size=(n, d)) + 0.15 * (2 * y[:, None] - 1) * (
+        np.arange(d) < 16)
+    return X.astype(np.float32), y
+
+
+def _kkt_gap(X, y, alpha, gamma, C):
+    """The maximal violating pair's gap of a C-SVC dual point, recomputed
+    in float64 on the card apart from the solver: the kernel through
+    `torch.cdist` of the differences (the solver expands |a|^2 + |b|^2 -
+    2 a.b), G = Q alpha - 1; also the largest box violation and
+    |y' alpha|."""
+    ys = torch.where(torch.as_tensor(y, device=X.device) == 1, 1.0,
+                     -1.0).double()
+    K = torch.exp(-gamma * torch.cdist(
+        X, X, compute_mode="donot_use_mm_for_euclid_dist").square())
+    G = ys * (K @ (alpha * ys)) - 1.0
+    v = -ys * G
+    pos = ys > 0
+    up = torch.where(pos, alpha < C, alpha > 0)
+    low = torch.where(pos, alpha > 0, alpha < C)
+    gap = (v[up].max() - v[low].min()).item()
+    box = max(0.0, -alpha.min().item(), (alpha - C).max().item())
+    return gap, box, abs((alpha * ys).sum().item())
+
+
+def phase_svm():
+    """[svm] VEP's SVM on the card (`caduceus_tpu_torch/svm.py`, no
+    scikit-learn): a fit at `SVM_N` rows of the dump's feature width (C=1,
+    tol 1e-3) timed, then the same fit again (the first pays the process's
+    first cuBLAS call and the graph capture where nothing ran before it),
+    its KKT gap, box and equality recomputed apart from the solver; at
+    `SVM_SMALL` rows the card's decision values against the CPU's solve of
+    the same problem, and the card's fit with kernel rows computed on
+    demand (`GRAM_BUDGET_BYTES` 0, the path of dumps past 16,384 rows)
+    against both (within 2 tol: each stops within tol of the optimum on its
+    own rounding)."""
+    from caduceus_tpu_torch import svm
+    from caduceus_tpu_torch.svm import SVC, StandardScaler
+
+    def timed_fit(X, y):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = SVC(C=1.0, device="cuda").fit(X, y)
+        torch.cuda.synchronize()
+        return clf, time.perf_counter() - t0
+
+    X, y = _svm_data(SVM_N, SVM_D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xs = StandardScaler("cuda").fit(X).transform(X)
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    clf, fit_s = timed_fit(Xs, y)
+    again, fit2_s = timed_fit(Xs, y)
+    alpha_diff = (again.alpha_ - clf.alpha_).abs().max().item()
+    del again
+    gap, box, eq = _kkt_gap(Xs, y, clf.alpha_, clf.gamma_, clf.C)
+    a = clf.alpha_
+    n_free = int(((a > 0) & (a < clf.C)).sum())
+    n_bound = int((a >= clf.C).sum())
+    log(f"[svm] fit at n={SVM_N}, d={SVM_D} (C=1, tol {clf.tol}) on the "
+        f"card: scaler {scale_s:.3f} s; first fit {fit_s:.3f} s, "
+        f"{clf.n_iter_} iterations ({fit_s / clf.n_iter_ * 1e6:.1f} us "
+        f"each); the same fit again {fit2_s:.3f} s "
+        f"({fit2_s / clf.n_iter_ * 1e6:.1f} us each, max |alpha diff| "
+        f"{alpha_diff:.1e}); {n_free} free and {n_bound} bounded SVs; "
+        f"recomputed KKT gap {gap:.3e}, box violation {box:.1e}, |y'a| "
+        f"{eq:.1e}")
+    check(gap <= clf.tol + SVM_KKT_SLACK, f"svm: KKT gap {gap} > tol")
+    check(box == 0.0 and eq <= 1e-9 * SVM_N, f"svm: box {box}, y'a {eq}")
+    small, ys = Xs[:SVM_SMALL].contiguous(), y[:SVM_SMALL]
+    card, card_s = timed_fit(small, ys)
+    budget = svm.GRAM_BUDGET_BYTES
+    svm.GRAM_BUDGET_BYTES = 0
+    try:
+        rows, rows_s = timed_fit(small, ys)
+    finally:
+        svm.GRAM_BUDGET_BYTES = budget
+    cpu = SVC(C=1.0, device="cpu").fit(small.cpu(), ys)
+    pts = Xs[SVM_SMALL:2 * SVM_SMALL]
+    f_card, f_rows = card.decision_function(pts), rows.decision_function(pts)
+    f_cpu = cpu.decision_function(pts.cpu())
+    err = float(np.abs(f_card - f_cpu).max())
+    rows_err = float(np.abs(f_rows - f_card).max())
+    rows_cpu_err = float(np.abs(f_rows - f_cpu).max())
+    log(f"[svm] n={SVM_SMALL}: the card's decision values against the "
+        f"CPU's solve: max |diff| {err:.3e} (tol {2 * card.tol}), max|f| "
+        f"{np.abs(f_cpu).max():.3f}; iterations {card.n_iter_} / "
+        f"{cpu.n_iter_}; card fit {card_s:.3f} s "
+        f"({card_s / card.n_iter_ * 1e6:.1f} us an iteration)")
+    log(f"[svm] n={SVM_SMALL}, kernel rows on demand (Gram budget 0): "
+        f"{rows.n_iter_} iterations, {rows_s:.3f} s "
+        f"({rows_s / rows.n_iter_ * 1e6:.1f} us an iteration); decision "
+        f"values against the card's Gram fit {rows_err:.3e}, against the "
+        f"CPU's {rows_cpu_err:.3e} (tol {2 * card.tol})")
+    check(err <= 2 * card.tol, f"svm: card vs CPU decision values {err}")
+    check(rows_err <= 2 * card.tol and rows_cpu_err <= 2 * card.tol,
+          f"svm: rows on demand vs Gram {rows_err}, vs CPU {rows_cpu_err}")
+    out = {"fit_s": fit_s, "fit_again_s": fit2_s, "scaler_s": scale_s,
+           "n": SVM_N, "d": SVM_D, "iters": clf.n_iter_, "kkt_gap": gap,
+           "free": n_free, "bounded": n_bound, "small_max_abs_err": err,
+           "small_iters": [card.n_iter_, cpu.n_iter_], "small_card_s": card_s,
+           "rows_iters": rows.n_iter_, "rows_s": rows_s,
+           "rows_vs_gram_max_abs_err": rows_err,
+           "rows_vs_cpu_max_abs_err": rows_cpu_err}
+    del clf, Xs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4693,6 +4883,107 @@ def _rank_grad(task):
     return res
 
 
+def _rank_eval(task):
+    """[cp_eval]'s eval step on this rank (model axis 2, context parallel):
+    the seeded model on its columns of the first global batch (with loss
+    weights), `make_eval_step` with per_token and each last_k of the task;
+    every metric (the per-position vectors whole) to
+    ``<out>/<name>_<rank>.pt``; seconds, peak memory, launches."""
+    from caduceus_tpu_torch.parallel.mesh import (make_mesh, set_global_mesh,
+                                                  shard_batch)
+    from caduceus_tpu_torch.train.trainer import make_eval_step, to_device
+
+    mesh = make_mesh(model=task["mesh_model"], backend="gloo")
+    model = _task_model(task, mesh.device)
+    set_global_mesh(mesh)
+    b = to_device(shard_batch(mesh, _first_batch(task), cp=True), mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for k in task["last_ks"]:
+        m = make_eval_step(model, last_k=k, per_token=True, mesh=mesh)(None,
+                                                                       b)
+        out.append({n: v.cpu() for n, v in m.items()})
+    torch.cuda.synchronize()
+    res = {"s": time.perf_counter() - t0, "launches": _all_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    torch.save(out, os.path.join(task["out"],
+                                 f"{task['name']}_{mesh.rank}.pt"))
+    set_global_mesh(None)
+    del model, b, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _embeds_inputs(task):
+    """The seeded (1, L, d_model) embeddings and the cotangent R of the
+    loss sum(h R)."""
+    from caduceus_tpu_torch.config import CaduceusConfig
+
+    d = CaduceusConfig.load(task["config"]).d_model
+    rng = np.random.default_rng(task["seed"] + 2)
+    emb, cot = rng.standard_normal((2, 1, task["L"], d), np.float32)
+    return torch.from_numpy(emb), torch.from_numpy(cot)
+
+
+def _embeds_model(task, device, cp):
+    from caduceus_tpu_torch.config import CaduceusConfig
+    from caduceus_tpu_torch.models.caduceus import Caduceus
+
+    cfg = CaduceusConfig.load(task["config"])
+    if cp:
+        cfg.context_parallel_axis = "model"
+    return Caduceus(cfg, device=device,
+                    generator=torch.Generator().manual_seed(task["seed"]))
+
+
+def _rank_embeds(task):
+    """The CP phase's ``inputs_embeds`` check on this rank: the seeded
+    non-RCPS v2 backbone with context_parallel_axis "model", given the
+    whole embeddings, keeps its columns; its hidden states, the gradient of
+    sum(h R) for the embeddings (zero outside its columns, checked here)
+    and, all-reduced over the ranks as the trainer does, for the
+    parameters."""
+    from caduceus_tpu_torch.parallel import comm
+    from caduceus_tpu_torch.parallel.mesh import make_mesh, set_global_mesh
+
+    mesh = make_mesh(model=task["mesh_model"], backend="gloo")
+    model = _embeds_model(task, mesh.device, cp=True)
+    set_global_mesh(mesh)
+    emb, cot = _embeds_inputs(task)
+    n = task["L"] // mesh.shape["model"]
+    cols = slice(mesh.coord("model") * n, (mesh.coord("model") + 1) * n)
+    e = emb.to(mesh.device).requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h, _ = model.backbone(None, inputs_embeds=e)
+    (h.float() * cot[:, cols].to(mesh.device)).sum().backward()
+    torch.cuda.synchronize()
+    res = {"s": time.perf_counter() - t0, "launches": _all_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "zero_outside": not (bool(e.grad[:, :cols.start].any())
+                                or bool(e.grad[:, cols.stop:].any()))}
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for k, p in model.named_parameters()}
+    for g in grads.values():
+        comm.all_reduce_(g, mesh.world_axis())
+    blob = {"h": h.detach().cpu(), "g_emb": e.grad[:, cols].cpu()}
+    if mesh.rank == 0:
+        blob["grads"] = {k: g.cpu() for k, g in grads.items()}
+    torch.save(blob, os.path.join(task["out"],
+                                  f"{task['name']}_{mesh.rank}.pt"))
+    set_global_mesh(None)
+    del model, e, h, blob, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _grad_ids(task):
     """The seeded ids of a [cp_tp] task: one sequence of L tokens."""
     rng = np.random.default_rng(task["seed"])
@@ -4706,7 +4997,8 @@ _CP_OPT = dict(lr=8e-3, warmup_t=0, t_initial=50_000, weight_decay=0.1)
 
 def _first_batch(task):
     """The first global batch of the task's loader (the same on every rank:
-    the same seed), as numpy: MLM, or next-token for the Hyena LM."""
+    the same seed), as numpy: MLM, or next-token for the Hyena LM; with
+    ``weighted`` also seeded loss weights in [0.1, 2)."""
     from caduceus_tpu_torch.data.hg38 import HG38DataModule
 
     dm = HG38DataModule(task["bed"], task["fasta"], max_length=task["L"],
@@ -4714,17 +5006,24 @@ def _first_batch(task):
                         mlm=task.get("family") != "hyena", seed=task["seed"])
     loader = dm.train_loader()
     try:
-        return next(iter(loader))
+        batch = next(iter(loader))
     finally:
         if hasattr(loader, "close"):
             loader.close()
+    if task.get("weighted"):
+        # GPN-style per-position loss weights, seeded
+        batch["loss_weights"] = np.random.default_rng(task["seed"] + 1).uniform(
+            0.1, 2.0, batch["targets"].shape).astype(np.float32)
+    return batch
 
 
 def rank_job(path) -> int:
     """Run the tasks of a job file on this rank (``RANK`` from the
-    launcher): ``step`` (`_rank_step`) or ``cli`` (`cli.main` with its
-    argv: the user's entry point), each with its launch counts, seconds,
-    peak device memory and stdout; results to ``<out>/rank<r>.json``."""
+    launcher): ``step`` (`_rank_step`), ``grad`` (`_rank_grad`), ``eval``
+    (`_rank_eval`), ``embeds`` (`_rank_embeds`), ``cut_run`` or ``cli``
+    (`cli.main` with its argv: the user's entry point), each with its
+    launch counts, seconds, peak device memory and stdout; results to
+    ``<out>/rank<r>.json``."""
     import io
 
     import torch.distributed as dist
@@ -4741,9 +5040,10 @@ def rank_job(path) -> int:
     dist.init_process_group("gloo")
     res = []
     for task in job["tasks"]:
-        if task["kind"] in ("step", "grad"):
-            res.append((_rank_step if task["kind"] == "step"
-                        else _rank_grad)(task))
+        if task["kind"] in ("step", "grad", "eval", "embeds"):
+            res.append({"step": _rank_step, "grad": _rank_grad,
+                        "eval": _rank_eval,
+                        "embeds": _rank_embeds}[task["kind"]](task))
             continue
         if task["kind"] == "cut_run":
             if r == 0:
@@ -4971,6 +5271,145 @@ def _hold_rank_step(task, ranks, idx, out_dir):
     return res
 
 
+# [cp_eval]'s last_k: spanning both ranks, the last rank's columns only,
+# and past L (the whole row)
+CP_EVAL_LAST_KS = (CP_L - CP_L // 4, CP_L // 4, CP_L + 1)
+# the per-token NLL's bound from the logits' rule: |d NLL| <= 2 max|d logit|
+CP_EVAL_LOGIT_TOL = {"float32": 1e-4, "bfloat16": BF16_MODEL_TOL}
+
+
+def _hold_rank_eval(task, ranks, idx, out_dir):
+    """Hold [cp_eval]'s eval step on the ranks against the same step on one
+    rank (whole batch, no mesh) on the card, for each last_k: every rank
+    the same metrics bit for bit; the weighted loss, loss_sum, acc and the
+    last-k sum within 1e-4 relative in fp32 and `CP_LOSS_TOL` in bf16 (the
+    rank step's loss rule); the counts and the per-position counts equal;
+    the per-position NLL sums within 2 x `CP_EVAL_LOGIT_TOL` x max|logit|
+    (one token's NLL moves at most twice its largest logit's error)."""
+    from caduceus_tpu_torch.config import CaduceusConfig
+    from caduceus_tpu_torch.train.trainer import make_eval_step, to_device
+
+    name, dtype = task["name"], task["dtype"]
+    # per forward: two directions x two passes of the CP scan a layer
+    want_l = {**dict.fromkeys(_all_counts(), 0), "ssd_fused_cp": len(
+        task["last_ks"]) * 4 * CaduceusConfig.load(task["config"]).n_layer}
+    for r, rk in enumerate(ranks):
+        check(rk[idx]["launches"] == want_l, f"{name} rank {r}: launches "
+              f"{rk[idx]['launches']} != {want_l}")
+    model = _task_model(task, "cuda", parallel=False)
+    b = to_device(_first_batch(task), torch.device("cuda"))
+    t0 = time.perf_counter()
+    want = []
+    with torch.inference_mode():
+        for k in task["last_ks"]:
+            m = make_eval_step(model, last_k=k, per_token=True)(None, b)
+            want.append({n: v.cpu() for n, v in m.items()})
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        scale = model(b["input_ids"]).abs().max().item()
+    del model, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = [torch.load(os.path.join(out_dir, f"{name}_{r}.pt"))
+           for r in range(len(ranks))]
+    for r in range(1, len(ranks)):
+        check(all(torch.equal(got[r][i][n], got[0][i][n])
+                  for i in range(len(want)) for n in got[0][i]),
+              f"{name}: rank {r}'s metrics differ from rank 0's")
+    sum_tol = 1e-4 if dtype == "float32" else CP_LOSS_TOL
+    nll_tol = 2 * CP_EVAL_LOGIT_TOL[dtype] * scale
+    res = {"last_ks": list(task["last_ks"]), "max|logit|": scale,
+           "s_2ranks": [rk[idx]["s"] for rk in ranks], "s_1rank": ref_s,
+           "launches": ranks[0][idx]["launches"], "per_k": []}
+    for k, g, w in zip(task["last_ks"], got[0], want):
+        row = {}
+        for n in ("loss", "loss_sum", "acc", "last_k_loss_sum"):
+            rel = abs(float(g[n]) - float(w[n])) / abs(float(w[n]))
+            check(rel <= sum_tol, f"{name} k={k}: {n} {float(g[n])} vs one "
+                  f"rank {float(w[n])} (rel {rel:.2e} > {sum_tol})")
+            row[n] = [float(g[n]), float(w[n]), rel]
+        for n in ("count", "last_k_count"):
+            check(float(g[n]) == float(w[n]), f"{name} k={k}: {n} "
+                  f"{float(g[n])} vs {float(w[n])}")
+        check(torch.equal(g["pos_count"].float(), w["pos_count"].float()),
+              f"{name} k={k}: per-position counts differ")
+        e = (g["pos_nll_sum"] - w["pos_nll_sum"]).abs().max().item()
+        check(e <= nll_tol, f"{name} k={k}: per-position NLL {e:.3e} > "
+              f"{nll_tol:.3e}")
+        row["pos_nll_max_abs_err"] = e
+        row["last_k_count"] = float(w["last_k_count"])
+        res["per_k"].append(row)
+    for r in range(len(ranks)):
+        os.remove(os.path.join(out_dir, f"{name}_{r}.pt"))
+    log(f"[cp_eval] {name} ({dtype}): the eval step on {len(ranks)} CP ranks "
+        f"(loss weights, per_token, last_k {list(task['last_ks'])}) vs one "
+        f"rank on the card: " + "; ".join(
+            f"k={k}: loss rel {r['loss'][2]:.2e}, last-k sum rel "
+            f"{r['last_k_loss_sum'][2]:.2e} over {r['last_k_count']:.0f} "
+            f"tokens, per-position NLL {r['pos_nll_max_abs_err']:.2e} (tol "
+            f"{nll_tol:.2e})" for k, r in zip(task["last_ks"], res["per_k"]))
+        + f"; {res['s_2ranks'][0]:.2f} s on the ranks, {ref_s:.2f} s on one")
+    return res
+
+
+def _hold_rank_embeds(task, ranks, idx, out_dir):
+    """Hold the CP ``inputs_embeds`` check against the unsplit backbone on
+    one rank on the card (fp32): the hidden states by the fp32 kernel rule,
+    the embeddings' gradient (the ranks' columns side by side) and each
+    parameter gradient within rel_l2 1e-4 and `TRAIN_TOL` grad of its
+    largest element (the rank step's fp32 rule); the CP entry's launches."""
+    from caduceus_tpu_torch.config import CaduceusConfig
+    from caduceus_tpu_torch.kernel_check import TOL, compare
+
+    name = task["name"]
+    cfg = CaduceusConfig.load(task["config"])
+    want_l = {**dict.fromkeys(_all_counts(), 0), **_cp_per_step(cfg,
+                                                                cfg.n_layer)}
+    for r, rk in enumerate(ranks):
+        check(rk[idx]["zero_outside"], f"{name} rank {r}: embedding gradient "
+              "outside its columns")
+        check(rk[idx]["launches"] == want_l, f"{name} rank {r}: launches "
+              f"{rk[idx]['launches']} != {want_l}")
+    model = _embeds_model(task, "cuda", cp=False)
+    emb, cot = _embeds_inputs(task)
+    e = emb.cuda().requires_grad_(True)
+    _zero_counts()
+    h, _ = model.backbone(None, inputs_embeds=e)
+    (h.float() * cot.cuda()).sum().backward()
+    ref_h, ref_ge = h.detach().cpu(), e.grad.cpu()
+    ref_g = {k: p.grad.cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    del model, e, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    blobs = [torch.load(os.path.join(out_dir, f"{name}_{r}.pt"))
+             for r in range(len(ranks))]
+    hs = compare(torch.cat([b["h"] for b in blobs], 1), ref_h,
+                 TOL[torch.float32])
+    check(hs["ok"], f"{name}: hidden states {hs}")
+    worst = 0.0
+    pairs = [("embeddings", torch.cat([b["g_emb"] for b in blobs], 1),
+              ref_ge)] + [(k, blobs[0]["grads"][k], g)
+                          for k, g in ref_g.items()]
+    for k, got, want in pairs:
+        gs = compare(got, want, TOL[torch.float32])
+        e = gs["max_abs_err"] / (gs["max_abs_ref"] + 1e-30)
+        check(gs["rel_l2"] <= 1e-4 and e <= TRAIN_TOL["grad"],
+              f"{name}: gradient {k}: {gs}")
+        worst = max(worst, e)
+    for r in range(len(ranks)):
+        os.remove(os.path.join(out_dir, f"{name}_{r}.pt"))
+    res = {"h": hs, "grad_err": worst, "s_2ranks": [rk[idx]["s"]
+                                                     for rk in ranks],
+           "launches": ranks[0][idx]["launches"]}
+    log(f"[cp_train] {name}: the non-RCPS v2 backbone ({cfg.n_layer} layers "
+        f"fp32, L={task['L']}) given inputs_embeds on {len(ranks)} CP ranks "
+        f"vs one rank: hidden states rel_l2 {hs['rel_l2']:.2e}; gradients "
+        f"of sum(h R) (embeddings and parameters) within {worst:.2e} of "
+        f"their max; launches per rank {res['launches']}")
+    return res
+
+
 def _cfg_file(work, name, cfg):
     path = os.path.join(work, f"{name}.json")
     if isinstance(cfg, dict):     # a Hyena model's keyword arguments
@@ -4982,13 +5421,13 @@ def _cfg_file(work, name, cfg):
 
 
 def _step_task(work, name, cfg, fasta, bed, L, batch, cp, mesh_model,
-               tp=False):
+               tp=False, **extra):
     hyena = isinstance(cfg, dict)
     return {"kind": "step", "name": name, "config": _cfg_file(work, name, cfg),
             "dtype": cfg["dtype"] if hyena else cfg.dtype, "fasta": fasta,
             "bed": bed, "L": L, "batch": batch, "cp": cp,
             "mesh_model": mesh_model, "seed": 2222, "out": work, "tp": tp,
-            "family": "hyena" if hyena else "caduceus"}
+            "family": "hyena" if hyena else "caduceus", **extra}
 
 
 def _cli_pretrain(cfg_path, fasta, bed, run_dir, L, batch, steps, ckpt,
@@ -5051,7 +5490,12 @@ def phase_cp_train(work, fasta, bed):
     `cli.py pretrain` of
     each bf16 model for 2 steps (launches counted on each rank: the CP
     entry's kernels, not the plain versions), and `cli.py eval` of the v2
-    run on two ranks against `cli.py eval` on one."""
+    run on two ranks against `cli.py eval` on one. Then the weighted step
+    (2 layers fp32, GPN loss weights), the eval step with loss weights,
+    per_token and each last_k of `CP_EVAL_LAST_KS` (2 layers fp32 and
+    `CP_V2_LAYERS` bf16; `_hold_rank_eval`), and the non-RCPS backbone
+    given ``inputs_embeds`` (`_hold_rank_embeds`), each against one
+    rank."""
     import shutil
 
     from caduceus_tpu_torch import cli
@@ -5076,10 +5520,27 @@ def phase_cp_train(work, fasta, bed):
         {"kind": "cli", "argv": eval_argv + [
             "--mesh-model", "2", "--context-parallel", "--dist-backend",
             "gloo"]}]
+    # a weighted step; the eval step with loss weights, per_token and
+    # last_k (fp32 at 2 layers, bf16 at the phase's depth); inputs_embeds
+    v2_fp32 = hg38_mlm_v2_config(2, "float32")
+    tasks += [
+        _step_task(work, "cp_v2_fp32_weighted", v2_fp32, fasta, bed, CP_L, 1,
+                   True, 2, weighted=True),
+        _step_task(work, "cp_eval_fp32", v2_fp32, fasta, bed, CP_L, 1, True,
+                   2, weighted=True, kind="eval",
+                   last_ks=list(CP_EVAL_LAST_KS)),
+        _step_task(work, "cp_eval_v2", v2, fasta, bed, CP_L, 1, True, 2,
+                   weighted=True, kind="eval", last_ks=list(CP_EVAL_LAST_KS)),
+        _step_task(work, "cp_embeds", dataclasses.replace(v2_fp32,
+                                                          rcps=False),
+                   fasta, bed, CP_L, 1, True, 2, kind="embeds")]
     ranks, secs = _launch_ranks(tasks, work, "cp_train")
     out = {"launcher_s": secs}
-    for i in range(3):
+    for i in (0, 1, 2, 6):
         out[tasks[i]["name"]] = _hold_rank_step(tasks[i], ranks, i, work)
+    for i in (7, 8):
+        out[tasks[i]["name"]] = _hold_rank_eval(tasks[i], ranks, i, work)
+    out["cp_embeds"] = _hold_rank_embeds(tasks[9], ranks, 9, work)
     for i, (cfg, nl, run) in ((3, (v2, CP_V2_LAYERS, run_v2)),
                               (4, (v1, 4, run_v1))):
         name = "v2" if cfg.ssm_cfg.version == 2 else "v1"
@@ -5135,8 +5596,9 @@ def phase_cp_train(work, fasta, bed):
 def phase_dp_train(work, fasta, bed):
     """[dp_train]: two ranks on one card (gloo), data parallelism over a
     global batch of 2 sequences of 131,072: the first step at 2 layers fp32
-    and at `CP_V2_LAYERS` layers bf16 against one rank's step on the same
-    batch (loss and updated parameters); `cli.py pretrain` at that depth
+    (also with GPN loss weights) and at `CP_V2_LAYERS` layers bf16 against
+    one rank's step on the same batch (loss and updated parameters);
+    `cli.py pretrain` at that depth
     for 2 steps with a checkpoint each, and, in the same job, from a copy of
     that run with only checkpoint 1, ``--resume``: step 2's log record,
     parameters and optimizer state equal the first run's bit for bit."""
@@ -5152,9 +5614,13 @@ def phase_dp_train(work, fasta, bed):
                          1, False)
     tasks.append({"kind": "cli", "argv": argv})
     tasks += _resume_tasks(run_d, argv)
+    weighted = len(tasks)
+    tasks.append(_step_task(work, "dp_v2_fp32_weighted",
+                            hg38_mlm_v2_config(2, "float32"), fasta, bed,
+                            DP_L, 2, False, 1, weighted=True))
     ranks, secs = _launch_ranks(tasks, work, "dp_train")
     out = {"launcher_s": secs}
-    for i in range(2):
+    for i in (0, 1, weighted):
         out[tasks[i]["name"]] = _hold_rank_step(tasks[i], ranks, i, work)
     want = {k: v * 2 for k, v in _per_micro_batch(v2).items()}
     for r, rk in enumerate(ranks):
@@ -5186,10 +5652,10 @@ def phase_dp_train(work, fasta, bed):
 TP_M = 2                        # the model axis of [tp_train] and [cp_tp]
 # gloo moves every exchanged activation through host memory (an fp32
 # (G, L, 256) tensor a few times a layer), so the steps keep to one
-# sequence (G = 2 with RCPS) and v2 to 8 layers (PERF.md §5 has the
-# seconds at 16)
+# sequence (G = 2 with RCPS) and v2 to 4 layers (PERF.md §5 has the
+# seconds at 16 and 8)
 TP_L, TP_BATCH = 131072, 1
-TP_V2_LAYERS = 8
+TP_V2_LAYERS = 4
 TP_HY_BATCH = 2                 # the Hyena LM: G = 2 at L = 65,536
 CPTP_L = 2 * CP_L_LOC           # [cp_tp]: one sequence over 2 seq ranks
 # [cp_tp] gradients against one rank's (bf16 at 4 layers: two bf16
@@ -5708,7 +6174,7 @@ def _tp_phases(report, work, fasta, bed, vep_run=None):
     t0 = time.perf_counter()
     if vep_run is None:
         vep_run = _vep_run_dir(work)
-        report["vep"] = phase_vep(work, fasta, vep_run, "hg38_mlm_v2", False)
+        report["vep"] = phase_vep(work, fasta, vep_run, "hg38_mlm_v2")
     report["tp_kernels"] = phase_tp_kernels()
     report["tp_train"] = phase_tp_train(work, fasta, bed, vep_run)
     report["vep_ranks"] = report["tp_train"].pop("vep_ranks")
@@ -6418,9 +6884,9 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-job":
         return rank_job(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if (only not in (None, "cp", "hyena", "convert", "tp")
+    if (only not in (None, "cp", "hyena", "convert", "tp", "serve", "svm")
             or len(sys.argv) > 3):
-        print("usage: chip_smoke.py [--only cp|hyena|convert|tp]",
+        print("usage: chip_smoke.py [--only cp|hyena|convert|tp|serve|svm]",
               file=sys.stderr)
         return 2
 
@@ -6434,10 +6900,14 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}; nvidia-smi: {card}")
+    if only == "svm":      # runs no kernel: no build
+        log("[report] " + json.dumps({"svm": phase_svm()}))
+        return 0
     report = {"build": phase_build()}
     phases = time.perf_counter()
-    if only == "convert":
-        report["convert"] = phase_convert()
+    if only in ("convert", "serve"):
+        report[only] = {"convert": phase_convert,
+                        "serve": phase_serve}[only]()
         log("[report] " + json.dumps(report))
         return 0
     if only is not None:
@@ -6478,7 +6948,9 @@ def main() -> int:
     report["v1_model_vs_cpu"] = phase_model_vs_cpu(hg38_mlm_config)
     report["v1_serve"] = phase_v1_serve()
     report["convert"] = phase_convert()
-    report["v1_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config)
+    # one v1 layer: the CPU's plain scans take ~25 s a layer on an 8-core
+    # host, and this step runs twice (also with CADUCEUS_BIDIR_BWD=1)
+    report["v1_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config, 1)
     report["mamba_mixer_step"] = phase_mamba_mixer_step()
     report["v1_train"] = phase_train_full(hg38_mlm_config)
     report["scan_timing"] = phase_scan_timing()
@@ -6505,7 +6977,8 @@ def main() -> int:
      report["bidir_bwd_planted_faults"]) = phase_bidir_bwd_checks()
     with mock.patch.dict(os.environ, {"CADUCEUS_BIDIR_BWD": "1"}):
         log("[train] v1 with the paired backward (CADUCEUS_BIDIR_BWD=1):")
-        report["paired_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config)
+        report["paired_train_vs_cpu"] = phase_train_vs_cpu(hg38_mlm_config,
+                                                           1)
         report["paired_train"] = phase_train_full(hg38_mlm_config)
     report["new_timing"] = phase_new_timing()
     report["new_phase_s"] = time.perf_counter() - t_new
@@ -6521,10 +6994,11 @@ def main() -> int:
         report["imports"] = _imports_here("tensorstore", "yaml")
         log(f"[pretrain] importable on this machine: {report['imports']}")
         report["loader"] = phase_loader_timing(fasta, bed)
-        log("[pretrain] the bare make_train_step at the loop's geometry:")
-        report["pretrain_bare"] = phase_train_full(n_layer=16)
+        # the bare make_train_step at the loop's geometry is [train]'s
+        report["pretrain_bare"] = report["train"]
         report["pretrain"] = phase_pretrain(work, fasta, bed,
-                                            hg38_mlm_v2_config, 16)
+                                            hg38_mlm_v2_config,
+                                            PRETRAIN_LAYERS)
         run_a = report["pretrain"].pop("run_a")
         report["pretrain_reads"] = phase_pretrain_reads(run_a, fasta, bed)
         report["v1_pretrain"] = phase_pretrain(work, fasta, bed,
@@ -6542,17 +7016,14 @@ def main() -> int:
             n_train=FT_TRAIN, n_test=FT_TEST)
         save = os.path.join(work, "finetuned")
         report["finetune"] = phase_finetune(data_dir, run_a, "hg38_mlm_v2",
-                                            16, 2, (1, 2), save_dir=save)
+                                            PRETRAIN_LAYERS, 2, (1, 2),
+                                            save_dir=save)
         report["v1_finetune"] = phase_finetune(data_dir, v1_run_a, "hg38_mlm",
                                                4, 1, (1,), full=False)
         report["classify"] = phase_classify(save)
-        report["imports"].update(_imports_here("sklearn"))
-        log(f"[vep] scikit-learn imports on this machine: "
-            f"{report['imports']['sklearn']}")
-        report["vep"] = phase_vep(work, fasta, run_a, "hg38_mlm_v2",
-                                  report["imports"]["sklearn"])
-        report["v1_vep"] = phase_vep(work, fasta, v1_run_a, "hg38_mlm",
-                                     report["imports"]["sklearn"])
+        report["vep"] = phase_vep(work, fasta, run_a, "hg38_mlm_v2")
+        report["v1_vep"] = phase_vep(work, fasta, v1_run_a, "hg38_mlm")
+        report["svm"] = phase_svm()
         report["downstream_phase_s"] = time.perf_counter() - t_down
         # the Hyena family: the attention kernels, pretrain, fine-tune
         _hyena_phases(report, work, fasta, bed)
@@ -6564,7 +7035,8 @@ def main() -> int:
     pre, bare = report["pretrain"], report["pretrain_bare"]
     pre["overhead"] = pre["loop_step_s"] / bare["step_s"] - 1
     log(f"[pretrain] loop step {pre['loop_step_s']:.3f} s against the bare "
-        f"step {bare['step_s']:.3f} s at 16 layers: {pre['overhead']:+.1%}")
+        f"step {bare['step_s']:.3f} s at {PRETRAIN_LAYERS} layers: "
+        f"{pre['overhead']:+.1%}")
     report["phase_s"] = time.perf_counter() - phases
     tm, tr = report["timing"], report["train"]
     # share of the training step inside the kernels (derived: per-launch

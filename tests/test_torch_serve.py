@@ -4,9 +4,12 @@ Both serve the same params (a JAX init written as ``params.npz`` +
 ``model_config.json``, read by the port through `params.py`); the same
 requests must give the same /embed and /logits (fp32, 1e-5) and, for a
 causal model of each family, the same greedy /generate text, which the
-port's ``cli.py generate`` prints too. Also: the bridge consumes every flax
-key exactly once, and nothing under `caduceus_tpu_torch/` (nor
-`chip_smoke.py`) imports JAX or the JAX package.
+port's ``cli.py generate`` prints too. The LM warm-up counts the JAX
+service's programs, leaves a request's bits as they are without it, and
+``cli.py serve --warmup`` prints its count before the serving line. Also:
+the bridge consumes every flax key exactly once, and nothing under
+`caduceus_tpu_torch/` (nor `chip_smoke.py`) imports JAX or the JAX
+package.
 """
 
 import ast
@@ -287,3 +290,52 @@ def test_v1_run_dir_serves_the_model_on_cpu(tmp_path):
                                    want[i, :len(s)], rtol=0, atol=1e-6)
     np.testing.assert_allclose(np.asarray(emb[0], np.float32), h[0].numpy(),
                                rtol=0, atol=1e-6)
+
+
+def test_lm_warmup_count_matches_jax(servers):
+    """`warmup` of an LM service counts the JAX service's programs: an
+    /embed and a /logits dispatch per (bucket, batch size), on a one-bucket
+    grid; with the defaults every power-of-two bucket in [min_bucket,
+    max_length] x the batch sizes 1, 2 and max_batch (4)."""
+    jax_server, port_server, _ = servers
+    kw = dict(buckets=[128], batch_sizes=[1, 2])
+    assert port_server.service.warmup(**kw) == jax_server.service.warmup(
+        **kw) == 4
+    assert port_server.service.warmup() == 3 * 3 * 2   # buckets 16, 32, 64
+
+
+def test_request_after_warmup_equals_one_without(servers):
+    """The same /logits and /embed request, to a service without a warm-up
+    and to one after it, gives the same bits."""
+    _, _, run_dir = servers
+    kw = dict(device="cpu", max_batch=4, min_bucket=16, max_length=64,
+              linger_ms=30.0)
+    out = []
+    for warm in (False, True):
+        svc = InferenceService.from_run_dir(run_dir, **kw)
+        if warm:
+            assert svc.warmup(buckets=[32]) == 6
+        server = InferenceServer(svc, port=0).start()
+        try:
+            out.append([_post(server.port, path, {"sequences": SEQS})[path[1:]]
+                        for path in ("/logits", "/embed")])
+        finally:
+            server.stop()
+    assert out[0] == out[1]
+
+
+def test_cli_serve_warmup_prints_its_line(servers, monkeypatch):
+    """``cli.py serve --warmup`` prints ``{"warmed_programs": n}`` before
+    the ``serving`` line (the JAX CLI's order, `caduceus_tpu/cli.py:
+    497-501`)."""
+    _, _, run_dir = servers
+    monkeypatch.setattr(InferenceServer, "serve_forever",
+                        lambda self: self.httpd.server_close())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(["serve", "--run-dir", run_dir, "--device", "cpu",
+                  "--port", "0", "--max-batch", "2", "--min-bucket", "16",
+                  "--max-length", "32", "--warmup"])
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert lines[0] == {"warmed_programs": 2 * 2 * 2}
+    assert "serving" in lines[1] and len(lines) == 2

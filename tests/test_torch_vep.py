@@ -7,8 +7,11 @@ match (skipped by both), some near a contig's ends (clamped windows).
 `dump_embeddings` at seq_len 256 for an RCPS model (strand-mean collapse)
 and a non-RCPS one (reverse-complement forwards averaged in): features
 within 1e-5 of their max, labels and TSS distances equal; `svm_eval` on the
-port's file equals JAX's on JAX's; ``cli.py vep --svm`` on the CPU, and
-``--svm`` without scikit-learn refused before the dump. Both sides get the
+port's file against JAX's on JAX's: ``selected_C`` equal, every AUROC
+equal (1e-9), since each test split here has 4 rows and one pair weighs 1/4
+or more (the port's solver is not libsvm: tests/test_torch_svm.py
+`auroc_tol`); ``cli.py vep --svm`` on the CPU, also
+with scikit-learn blocked. Both sides get the
 same 2-layer, d_model 32 weights through the bridge; the JAX side runs
 ``use_kernel="xla"``.
 """
@@ -35,6 +38,7 @@ from caduceus_tpu_torch.data.fasta import FastaFile
 from caduceus_tpu_torch.data.synthetic import make_synthetic_genome
 from caduceus_tpu_torch.models.caduceus import CaduceusForMaskedLM
 from caduceus_tpu_torch.params import to_jax_params
+from test_torch_svm import _pair_weights, auroc_tol
 
 SEQ_LEN, BATCH = 256, 4
 
@@ -121,17 +125,19 @@ def test_dump_embeddings_matches_jax(genome, tmp_path, rcps):
                                atol=1e-5 * scale)
     jpath = jax_vep.combine_embeddings(str(tmp_path / "jax"), 1)
     ppath = vep.combine_embeddings(str(tmp_path / "port"), 1)
-    want, got = jax_vep.svm_eval(jpath), vep.svm_eval(ppath)
+    want, got = jax_vep.svm_eval(jpath), vep.svm_eval(ppath, device="cpu")
     assert got.keys() == want.keys()
     assert got["selected_C"] == want["selected_C"] and got["n"] == 16
+    w = {k: auroc_tol(v) for k, v in _pair_weights(ppath).items()}
     for k in ("auroc_mean", "auroc_std"):
-        assert got[k] == pytest.approx(want[k], abs=1e-9)
+        assert got[k] == pytest.approx(want[k], abs=w["overall"])
     for k in ("buckets", "per_C"):
         assert got[k].keys() == want[k].keys()
         for b in want[k]:
             assert (got[k][b] is None) == (want[k][b] is None), (k, b)
             if want[k][b] is not None:
-                assert got[k][b] == pytest.approx(want[k][b], abs=1e-9)
+                assert got[k][b] == pytest.approx(
+                    want[k][b], abs=w["overall" if k == "per_C" else b])
 
 
 def test_extract_embeddings_matches_jax():
@@ -144,8 +150,8 @@ def test_extract_embeddings_matches_jax():
 def test_cli_vep_svm_on_cpu(genome, tmp_path, monkeypatch):
     """``cli.py vep --svm --device cpu`` on a run dir (``params.npz``):
     the embeddings equal a direct `dump_embeddings`, the SVM summary is
-    printed last; with scikit-learn blocked, ``--svm`` is refused before
-    any forward and nothing is written."""
+    printed last; with scikit-learn blocked, ``--svm`` scores the same
+    (the port's SVM does not import it)."""
     fa, variants = genome
     _, cfg, params, _ = _model(True, seed=4)
     run = tmp_path / "run"
@@ -171,8 +177,7 @@ def test_cli_vep_svm_on_cpu(genome, tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "sklearn", None)
     blocked = argv[:argv.index("--out") + 1] + [str(tmp_path / "blocked")] + \
         argv[argv.index("--out") + 2:]
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err), pytest.raises(SystemExit):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
         cli_main(blocked)
-    assert "scikit-learn" in err.getvalue()
-    assert not list(tmp_path.glob("blocked*"))
+    assert json.loads(out.getvalue().splitlines()[-1]) == lines[-1]
