@@ -252,7 +252,10 @@ def cmd_pretrain(argv):
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of steps 11-13 here "
-                        "(tensorboard-viewable)")
+                        "(tensorboard-viewable), with the loop's spans "
+                        "caduceus.train.next_batch, .step, .forward, "
+                        ".backward, .optimizer, .log, .eval and .checkpoint "
+                        "beside the kernels")
     p.add_argument("--model", default="caduceus",
                    choices=["caduceus", "mamba", "hyena"],
                    help="caduceus (BiMamba / RCPS, MLM or NTP); mamba = "

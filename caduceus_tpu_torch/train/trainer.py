@@ -87,6 +87,7 @@ from caduceus_tpu_torch.train.optim import (
     global_norm,
     make_optimizer,
 )
+from caduceus_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -216,51 +217,51 @@ def make_train_step(ignore_index: int = 4, accum_steps: int = 1,
         losses, accs, loss_sums, counts = [], [], [], []
         for i in range(accum_steps):
             rows = slice(i * nb, (i + 1) * nb)
-            logits = (model(ids[rows], dropout_key=(dropout_seed, state.step,
-                                                    i, rank))
-                      if dropout else model(ids[rows]))
-            if world is not None:
-                loss, mean, acc, loss_sum, count = _global_loss(
-                    logits, tgt[rows], ignore_index, world,
-                    None if lw is None else lw[rows])
-                loss.backward()
-                losses.append(mean)
-                accs.append(acc)
-                loss_sums.append(loss_sum)
-                counts.append(count)
-                del logits, loss
-                continue
-            loss, aux = cross_entropy_loss(
-                logits, tgt[rows], ignore_index=ignore_index,
-                loss_weights=None if lw is None else lw[rows])
-            loss.backward()   # sums the micro-batches' gradients in .grad
-            losses.append(loss.detach())
-            accs.append(accuracy(logits.detach(), tgt[rows],
-                                 ignore_index=ignore_index))
-            loss_sums.append(aux["loss_sum"].detach())
-            counts.append(aux["count"])
+            with span("train.forward"):
+                logits = (model(ids[rows], dropout_key=(dropout_seed,
+                                                        state.step, i, rank))
+                          if dropout else model(ids[rows]))
+                if world is not None:
+                    loss, mean, acc, loss_sum, count = _global_loss(
+                        logits, tgt[rows], ignore_index, world,
+                        None if lw is None else lw[rows])
+                else:
+                    loss, aux = cross_entropy_loss(
+                        logits, tgt[rows], ignore_index=ignore_index,
+                        loss_weights=None if lw is None else lw[rows])
+                    mean, loss_sum = loss.detach(), aux["loss_sum"].detach()
+                    acc = accuracy(logits.detach(), tgt[rows],
+                                   ignore_index=ignore_index)
+                    count = aux["count"]
+            with span("train.backward"):
+                loss.backward()   # sums the micro-batches' gradients in .grad
+            losses.append(mean)
+            accs.append(acc)
+            loss_sums.append(loss_sum)
+            counts.append(count)
             del logits, loss
-        if world is not None:
-            all_reduce_grads(params, world)
-        if accum_steps > 1:
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        if tp_plan is None:
-            gnorm = global_norm([p.grad for p in params
-                                 if p.grad is not None])
-        else:
-            named = [(n, p.grad) for n, p in model.named_parameters()
-                     if p.requires_grad and p.grad is not None]
-            if state.step == 0:
-                check_shared(tp_plan, named, "gradients")
-            gnorm = torch.sqrt(tp_plan.global_sq_norm(named))
-        state.optimizer.step(gnorm)
-        if ema_decay > 0.0:
-            with torch.no_grad():
-                for n, p in model.named_parameters():
-                    e = state.ema_params[n]
-                    e.copy_(ema_decay * e + (1.0 - ema_decay) * p)
+        with span("train.optimizer"):
+            if world is not None:
+                all_reduce_grads(params, world)
+            if accum_steps > 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            if tp_plan is None:
+                gnorm = global_norm([p.grad for p in params
+                                     if p.grad is not None])
+            else:
+                named = [(n, p.grad) for n, p in model.named_parameters()
+                         if p.requires_grad and p.grad is not None]
+                if state.step == 0:
+                    check_shared(tp_plan, named, "gradients")
+                gnorm = torch.sqrt(tp_plan.global_sq_norm(named))
+            state.optimizer.step(gnorm)
+            if ema_decay > 0.0:
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        e = state.ema_params[n]
+                        e.copy_(ema_decay * e + (1.0 - ema_decay) * p)
         state.step += 1
         metrics = {
             "loss": torch.stack(losses).sum() / accum_steps,
@@ -462,7 +463,9 @@ class TrainerConfig:
     prefetch: int = 2  # batches built ahead by the host thread (0: none)
     ema_decay: float = 0.0  # 0 disables EMA tracking
     dropout: bool = False  # models with dropout layers (the Hyena family)
-    profile_dir: Optional[str] = None  # torch.profiler trace of steps 10-13
+    # torch.profiler trace of steps 11-13 (from state.step 10 to 13), with
+    # the loop's caduceus.* spans (`utils/tracing.py`)
+    profile_dir: Optional[str] = None
     run_dir: str = "./outputs/run"
     seed: int = 2222
     # optimizer
@@ -606,6 +609,14 @@ class Trainer:
 
     # -- loop --------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None) -> Dict[str, float]:
+        """Train up to ``max_steps``. Each step's host phases are spans
+        (`utils/tracing.py`): ``train.next_batch`` (the wait for the next
+        batch), ``train.step`` (with ``train.forward`` and
+        ``train.backward`` per micro-batch and ``train.optimizer`` inside),
+        ``train.log``, ``train.eval``, ``train.checkpoint`` and, as each
+        pass over the loader ends, ``train.close_stream`` (the prefetch
+        thread stopped and joined). A log record's ``input_wait_s`` is the
+        host time in ``train.next_batch`` since the last record."""
         if self.state is None:
             raise RuntimeError("call init_state() (and restore_checkpoint()) "
                                "before fit()")
@@ -615,18 +626,25 @@ class Trainer:
         last_metrics: Dict[str, float] = {}
         last_m = None
         prof = None
-        t0 = time.time()
+        waits: Dict[str, float] = {}
+        t0 = time.perf_counter()
         tokens_since_log = 0
         empty_passes = 0
         while step < max_steps:
             stream = self._stream()
             n_batches = 0
             try:
-                for batch, loader_state in stream:
+                while True:
+                    with span("train.next_batch", waits):
+                        item = next(stream, None)
+                    if item is None:
+                        break
+                    batch, loader_state = item
                     n_batches += 1
                     if self.cfg.profile_dir and step == 10:
                         prof = self._start_profile()
-                    self.state, m = self._train_step(self.state, batch)
+                    with span("train.step"):
+                        self.state, m = self._train_step(self.state, batch)
                     self._consumed_loader_state = loader_state
                     last_m = m
                     step = self.state.step
@@ -639,32 +657,39 @@ class Trainer:
                         1 if self.mesh is None else
                         _batch_axis(self.mesh, self.tp_plan).size)
                     if step % self.cfg.log_every == 0:
-                        m = {k: float(v) for k, v in m.items()}
-                        self.ppl.update(m["loss_sum"], m["count"])
-                        self.num_tokens.update(m["count"])
-                        dt = time.time() - t0
-                        last_metrics = {
-                            "step": step,
-                            "loss": m["loss"],
-                            "acc": m["acc"],
-                            "ppl": self.ppl.compute(),
-                            "grad_norm": m["grad_norm"],
-                            "lr": float(self.schedule(step)),
-                            "tokens_per_sec": tokens_since_log / dt,
-                        }
-                        self.log_fn(last_metrics)
-                        t0 = time.time()
+                        with span("train.log"):
+                            m = {k: float(v) for k, v in m.items()}
+                            self.ppl.update(m["loss_sum"], m["count"])
+                            self.num_tokens.update(m["count"])
+                            dt = time.perf_counter() - t0
+                            last_metrics = {
+                                "step": step,
+                                "loss": m["loss"],
+                                "acc": m["acc"],
+                                "ppl": self.ppl.compute(),
+                                "grad_norm": m["grad_norm"],
+                                "lr": float(self.schedule(step)),
+                                "tokens_per_sec": tokens_since_log / dt,
+                                "input_wait_s": waits.pop(
+                                    "train.next_batch", 0.0),
+                            }
+                            self.log_fn(last_metrics)
+                        t0 = time.perf_counter()
                         tokens_since_log = 0
                     if (self.eval_loader is not None
                             and step % self.cfg.eval_every == 0):
                         # a new dict: the logged step record stays as logged
-                        last_metrics = {**last_metrics, **self.evaluate()}
+                        with span("train.eval"):
+                            last_metrics = {**last_metrics,
+                                            **self.evaluate()}
                     if step % self.cfg.checkpoint_every == 0:
-                        self.save_checkpoint()
+                        with span("train.checkpoint"):
+                            self.save_checkpoint()
                     if step >= max_steps:
                         break
             finally:
-                stream.close()
+                with span("train.close_stream"):
+                    stream.close()
                 if prof is not None:   # ended inside the trace window
                     self._stop_profile(prof)
                     prof = None
@@ -676,10 +701,13 @@ class Trainer:
             if empty_passes == 2:
                 raise RuntimeError("the train loader yields no batch")
         if not last_metrics and last_m is not None:
-            m = {k: float(v) for k, v in last_m.items()}
-            last_metrics = {"step": step, "loss": m["loss"], "acc": m["acc"],
-                            "grad_norm": m["grad_norm"]}
-            self.log_fn(last_metrics)
+            with span("train.log"):
+                m = {k: float(v) for k, v in last_m.items()}
+                last_metrics = {"step": step, "loss": m["loss"],
+                                "acc": m["acc"], "grad_norm": m["grad_norm"],
+                                "input_wait_s": waits.pop("train.next_batch",
+                                                          0.0)}
+                self.log_fn(last_metrics)
         return last_metrics
 
     def _start_profile(self):

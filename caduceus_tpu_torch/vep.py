@@ -26,7 +26,8 @@ Port of `caduceus_tpu/vep.py`:
   process group) before rank 0 combines the shards, which the JAX module
   does without one (it can read a shard another rank has not written
   yet). It prints the peak device memory once, on rank 0 (the JAX module
-  prints it on every rank); with ``--svm`` rank 0 alone scores, on its
+  prints it on every rank), with the host seconds of rank 0's model
+  build, reads and read-outs; with ``--svm`` rank 0 alone scores, on its
   device.
 """
 
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from caduceus_tpu_torch import resolve_device
+from caduceus_tpu_torch.utils.tracing import span
 
 WINDOW_SIZE_BP = 1536
 TSS_BUCKETS = ((0, 30_000), (30_000, 100_000), (100_000, 10**12))
@@ -112,7 +114,14 @@ def dump_embeddings(
     ``<out_path>.rank<rank>.npz`` (features, labels, tss_distance).
 
     ``params`` is a state_dict whose ``backbone.*`` keys the backbone takes
-    (an MLM's, as `params.py load_run_dir` returns, or `Caduceus`'s)."""
+    (an MLM's, as `params.py load_run_dir` returns, or `Caduceus`'s).
+
+    Its host phases are spans (`utils/tracing.py`): ``vep.build`` (the
+    model), ``vep.read`` per variant (its window from the FASTA, the
+    reference-base check, the alt splice, tokenizing), ``vep.forward`` and
+    ``vep.readout`` per batch (the windows' rows to the host, pooling) and
+    ``vep.write``; the summary line on the card gives the host seconds of
+    build, read and readout."""
     from caduceus_tpu_torch.data.fasta import FastaFile
     from caduceus_tpu_torch.models.caduceus import (
         Caduceus,
@@ -126,11 +135,13 @@ def dump_embeddings(
         tok.complement_array(cfg.padded_vocab_size).astype(np.int64)).to(dev)
     fasta = FastaFile(fasta_path)
     variants = read_variants(variants_path)[rank::world_size]
+    spent: Dict[str, float] = {}
 
-    model = Caduceus(cfg, device=dev)
-    model.load_state_dict({k: v for k, v in params.items()
-                           if k.startswith("backbone.")})
-    model.eval()
+    with span("vep.build", spent):
+        model = Caduceus(cfg, device=dev)
+        model.load_state_dict({k: v for k, v in params.items()
+                               if k.startswith("backbone.")})
+        model.eval()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -152,38 +163,41 @@ def dump_embeddings(
     def flush():
         if not buf_ref:
             return
-        ids = torch.from_numpy(
-            np.stack(buf_ref + buf_alt).astype(np.int64)).to(dev)
         idx = np.asarray(buf_idx + buf_idx)
         with torch.inference_mode():
-            h = hidden(ids)
-            # only the rows of the windows cross to the host
-            L = h.shape[1]
-            lo = min(_window(i, L, WINDOW_SIZE_BP)[0] for i in idx)
-            hi = max(_window(i, L, WINDOW_SIZE_BP)[1] for i in idx)
-            win = h[:, lo:hi].cpu().numpy()
-        # within rows [lo, hi) each window clamps to the same bounds as
-        # within the full rows
-        emb = extract_embeddings(win, idx - lo)
-        n = len(buf_ref)
-        for i in range(n):
-            feats.append(np.concatenate([emb[i], emb[n + i]]))
-            labels.append(buf_meta[i][0])
-            tss.append(buf_meta[i][1])
+            with span("vep.forward", spent):
+                ids = torch.from_numpy(
+                    np.stack(buf_ref + buf_alt).astype(np.int64)).to(dev)
+                h = hidden(ids)
+            with span("vep.readout", spent):
+                # only the rows of the windows cross to the host
+                L = h.shape[1]
+                lo = min(_window(i, L, WINDOW_SIZE_BP)[0] for i in idx)
+                hi = max(_window(i, L, WINDOW_SIZE_BP)[1] for i in idx)
+                win = h[:, lo:hi].cpu().numpy()
+                # within rows [lo, hi) each window clamps to the same bounds
+                # as within the full rows
+                emb = extract_embeddings(win, idx - lo)
+                n = len(buf_ref)
+                for i in range(n):
+                    feats.append(np.concatenate([emb[i], emb[n + i]]))
+                    labels.append(buf_meta[i][0])
+                    tss.append(buf_meta[i][1])
         buf_ref.clear()
         buf_alt.clear()
         buf_idx.clear()
         buf_meta.clear()
 
     for v in variants:
-        seq, vidx = variant_window(fasta, v["chrom"], v["pos"], seq_len)
-        if seq[vidx].upper() != v["ref"].upper():
-            continue  # the reference base does not match: skipped
-        alt_seq = seq[:vidx] + v["alt"] + seq[vidx + 1:]
-        buf_ref.append(tok.encode(seq))
-        buf_alt.append(tok.encode(alt_seq))
-        buf_idx.append(vidx)
-        buf_meta.append((v["label"], v["tss_distance"]))
+        with span("vep.read", spent):
+            seq, vidx = variant_window(fasta, v["chrom"], v["pos"], seq_len)
+            if seq[vidx].upper() != v["ref"].upper():
+                continue  # the reference base does not match: skipped
+            alt_seq = seq[:vidx] + v["alt"] + seq[vidx + 1:]
+            buf_ref.append(tok.encode(seq))
+            buf_alt.append(tok.encode(alt_seq))
+            buf_idx.append(vidx)
+            buf_meta.append((v["label"], v["tss_distance"]))
         if len(buf_ref) == batch_size:
             flush()
     flush()
@@ -192,15 +206,20 @@ def dump_embeddings(
     if rank == 0 and dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
         print(json.dumps({"vep_peak_hbm_gib": round(peak / 2**30, 2),
-                          "seq_len": seq_len, "batch_size": batch_size}))
+                          "seq_len": seq_len, "batch_size": batch_size,
+                          "build_s": round(spent["vep.build"], 3),
+                          "read_s": round(spent.get("vep.read", 0.0), 3),
+                          "readout_s": round(spent.get("vep.readout", 0.0),
+                                             3)}))
 
     out_file = f"{out_path}.rank{rank}.npz"
-    np.savez(
-        out_file,
-        features=np.stack(feats) if feats else np.zeros((0, 1)),
-        labels=np.asarray(labels, np.int32),
-        tss_distance=np.asarray(tss, np.int64),
-    )
+    with span("vep.write", spent):
+        np.savez(
+            out_file,
+            features=np.stack(feats) if feats else np.zeros((0, 1)),
+            labels=np.asarray(labels, np.int32),
+            tss_distance=np.asarray(tss, np.int64),
+        )
     return out_file
 
 

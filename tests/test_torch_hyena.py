@@ -376,7 +376,8 @@ def _steps(run):
         recs = [json.loads(line) for line in f]
     # ppl streams over the process's logged steps: a resumed process
     # starts it anew
-    return [{k: v for k, v in r.items() if k not in ("tokens_per_sec", "ppl")}
+    return [{k: v for k, v in r.items()
+             if k not in ("tokens_per_sec", "input_wait_s", "ppl")}
             for r in recs if "loss" in r]
 
 
